@@ -8,23 +8,30 @@ Phases (any failure raises and the script exits non-zero with no
 result line):
 
 1. build   — compile every CUDA kernel of the port with nvcc for sm_90a
-             (all sources at once) and print the card's name and power
-             limit;
+             (one nvcc per source, all started at once) and print the
+             card's name and power limit;
 2. kernels — hold each kernel against its plain PyTorch version on the
-             card, bit for bit (codes, scales, dequantized values) over
-             bits {8, 4, 2}, bf16/fp32 inputs and four shapes; time the
-             kernel, the plain version and the memory bound at the
-             serving shape (16, 131072);
+             card: the chunk codec bit for bit (codes, scales,
+             dequantized values) over bits {8, 4, 2}, bf16/fp32 inputs
+             and four shapes; decode_mqattn in both forms, with and
+             without the mass, over five shapes, three quant shares and
+             two (window, sinks) settings.  Time each kernel, its plain
+             version, its bound and (for decode_mqattn) the library's
+             attention at the shapes serving gives them;
 3. serve   — llama2-7b at full width and depth (random bf16 weights from
-             a seeded torch.Generator) behind LLMService (policy llms,
-             paged pool, decode_batch 1): 4 contexts x 3 rounds of
-             callLLM under a budget of about two contexts' raw KV, so
-             compression, AoT swap-out, LCTRU eviction and disk restores
-             all fire.  The kernel launch counts are zeroed just before
-             and read just after; the run is repeated from the same seed
-             and must give identical tokens and bit plans;
+             a seeded torch.Generator, built once) behind LLMService
+             (policy llms, paged pool, decode_batch 1): 4 contexts x 3
+             rounds of callLLM under a budget of about two contexts' raw
+             KV, so compression, AoT swap-out, LCTRU eviction and disk
+             restores all fire.  Run twice with the bf16 pool and twice
+             with quant_resident=True (8-bit chunks admitted into int8
+             QUANT pages and attended in place by decode_mqattn).  The
+             kernel launch counts are zeroed just before each run and
+             read just after; each rerun from the same seed must give
+             identical tokens and bit plans;
 4. check   — the reduced llama2-7b served teacher-forced on the card
-             agrees with the same port on the CPU (plain PyTorch).
+             agrees with the same port on the CPU (plain PyTorch), over
+             the bf16 page view and over a mixed (quant-resident) view.
 
 The last lines are the kernel record ({"kernels": [...]}), the card's
 ``nvidia-smi`` name and power limit, and {"ok": true, "device": ...}.
@@ -42,6 +49,14 @@ import time
 SEED = 0
 SERVE_SHAPE = (16, 32 * 32 * 128)          # one chunk leaf of llama2-7b
 CHECK_SHAPES = [SERVE_SHAPE, (16, 384), (32, 100), (4, 64)]
+# decode_mqattn cases (B, S, H, KV, hd): llama2-7b's serving shape at
+# batch 1 and 4, a long GQA cache, a ragged tail, a tiny GQA case
+MQ_SHAPES = [(1, 512, 32, 32, 128), (4, 512, 32, 32, 128),
+             (2, 4096, 32, 8, 128), (3, 4100, 4, 4, 16), (1, 16, 4, 2, 16)]
+MQ_TIMED = [(1, 512, 32, 32, 128, 0.5), (1, 4096, 32, 32, 128, 0.5)]
+MQ_OUT_TOL = 2 ** -7                       # x max|out_plain|: two bf16 ulps
+PROFILED_ROUND = 81                        # 4th decode round of the last call
+MQ_MASS_TOL = 1e-6
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12                     # H100 SXM, outside tensor cores
 
@@ -64,7 +79,7 @@ def nvidia_smi_line() -> str:
 def build_phase():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    logs = build.build_all(["chunk_quant"])
+    logs = build.build_all(build.SOURCES)
     log(f"[build] nvcc {' '.join(build.NVCC_FLAGS)}: "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
@@ -96,9 +111,9 @@ def _time_ms(fn, iters=200, warmup=20):
 
 def _device_ms(fn, match=None, iters=50):
     """Device time per call from the profiler's CUDA kernel records: the
-    kernels whose name contains ``match`` (all kernels when None),
-    summed and divided by ``iters``.  None when the profiler records no
-    device time."""
+    kernels whose name contains ``match`` (a string or a tuple of them;
+    all kernels when None), summed and divided by ``iters``.  None when
+    the profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -108,11 +123,42 @@ def _device_ms(fn, match=None, iters=50):
             fn()
         torch.cuda.synchronize()
     total_us = 0.0
+    subs = (match,) if isinstance(match, str) else match
     for ev in prof.key_averages():
-        if match is None or match in ev.key:
+        if subs is None or any(m in ev.key for m in subs):
             total_us += getattr(ev, "device_time_total",
                                 getattr(ev, "cuda_time_total", 0.0))
     return total_us / iters / 1e3 if total_us > 0 else None
+
+
+def _profile_round(fn):
+    """Run ``fn`` once under the profiler (CUDA activity only): its host
+    wall time, the device time of its kernels by category, and the
+    device's idle share of the wall time (profiler overhead included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cats, n_kernels = {}, 0
+    for ev in prof.key_averages():
+        name = ev.key.lower()
+        cat = ("decode_mqattn" if "mqattn" in name or "mass_kernel" in name
+               else "indexing (page gather, scatter)" if "index" in name
+               else "matmul" if any(t in name for t in
+                                    ("gemm", "gemv", "xmma", "cutlass"))
+               else "other")
+        us = getattr(ev, "device_time_total",
+                     getattr(ev, "cuda_time_total", 0.0))
+        cats[cat] = cats.get(cat, 0.0) + us / 1e3
+        n_kernels += ev.count
+    busy = sum(cats.values())
+    return out, {"wall_ms": wall_ms, "device_ms": busy,
+                 "idle_share": 1.0 - busy / wall_ms, "kernels": n_kernels,
+                 "by_category_ms": cats}
 
 
 def _codec_bound_ms(T, F, bits, in_bytes):
@@ -196,6 +242,149 @@ def kernel_phase():
     return max_err, times
 
 
+def _mq_case(B, S, H, KV, hd, quant_share, g, dev, full=False, cs=16):
+    """A mixed cache on the card: bf16 K/V, decode-grid int8 codes and
+    scales, the quant mask on whole 16-token chunks with about the given
+    share, n_valid per row from [1, S] (S in row 0, 1 in the last row of
+    a batch), or S everywhere with ``full``."""
+    import torch
+    from repro_torch.kernels import ref
+    r = lambda *s: torch.randn(s, generator=g, device=dev)   # noqa: E731
+    q, k, v = (r(B, H, hd).bfloat16(), r(B, S, KV, hd).bfloat16(),
+               r(B, S, KV, hd).bfloat16())
+    k_q, k_s = ref.quantize_token_head_ref(r(B, S, KV, hd) * 2)
+    v_q, v_s = ref.quantize_token_head_ref(r(B, S, KV, hd) * 2)
+    chunks = torch.rand((B, -(-S // cs)), generator=g, device=dev) \
+        < quant_share
+    qm = chunks.repeat_interleave(cs, dim=1)[:, :S].contiguous()
+    if full:
+        nv = torch.full((B,), S, dtype=torch.int32, device=dev)
+    else:
+        nv = torch.randint(1, S + 1, (B,), generator=g, device=dev,
+                           dtype=torch.int32)
+        nv[0] = S
+        if B > 1:
+            nv[-1] = 1
+    return [q, k, v, k_q, v_q, k_s, v_s, qm, nv]
+
+
+def _mq_bound_ms(args, want_mass):
+    """Least time for one call: the bytes this call's data needs (each
+    valid key's row once: 2 hd * 2 bytes per kv-head at a bf16 position,
+    2 hd + 8 at a quant position; q, the mask, n_valid, out and mass
+    once) over the HBM rate, or its fp32 operations (~4 H hd per valid
+    key: QK and PV multiply-adds) over the fp32 rate, the larger."""
+    q, k, _, _, _, _, _, qm, nv = args
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    n_q = n_b = 0
+    for b in range(B):
+        n = int(nv[b])
+        nq = int(qm[b, :n].sum())
+        n_q, n_b = n_q + nq, n_b + n - nq
+    nbytes = (n_b * KV * 2 * hd * 2 + n_q * KV * (2 * hd + 8)
+              + 2 * B * H * hd * 2 + B * S + 4 * B
+              + (4 * B * S if want_mass else 0))
+    ops = 4 * H * hd * (n_q + n_b)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def mqattn_phase():
+    """decode_mqattn against its plain version on the card, both forms,
+    with and without the mass; identical reruns; timings."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_mqattn as kmq
+    from repro_torch.kernels import ref
+    from repro_torch.models.common import configure_numerics
+    dev = torch.device("cuda")
+    configure_numerics(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    worst = {"out": 0.0, "out_rel": 0.0, "mass": 0.0}
+    n_cases = 0
+    for B, S, H, KV, hd in MQ_SHAPES:
+        for share in (0.0, 0.5, 1.0):
+            args = _mq_case(B, S, H, KV, hd, share, g, dev)
+            for window, n_sinks in ((0, 0), (256, 4)):
+                for select in (False, True):
+                    o_r, m_r = ref.decode_mqattn_plain(
+                        *args, window, n_sinks, want_mass=True,
+                        select=select)
+                    o_k, m_k = kmq.decode_mqattn(*args, window, n_sinks,
+                                                 want_mass=True,
+                                                 select=select)
+                    o_n = kmq.decode_mqattn(*args, window, n_sinks,
+                                            select=select)
+                    o_2, m_2 = kmq.decode_mqattn(*args, window, n_sinks,
+                                                 want_mass=True,
+                                                 select=select)
+                    torch.cuda.synchronize()
+                    span = float(o_r.float().abs().max())
+                    d_o = float((o_k.float() - o_r.float()).abs().max())
+                    d_m = float((m_k - m_r).abs().max())
+                    case = (f"({B},{S},{H},{KV},{hd}) share {share} window "
+                            f"{window} sinks {n_sinks} "
+                            f"{'select' if select else 'fused'}")
+                    if not (torch.isfinite(o_k.float()).all()
+                            and d_o <= MQ_OUT_TOL * span
+                            and d_m <= MQ_MASS_TOL):
+                        raise AssertionError(
+                            f"decode_mqattn {case}: max |d out| {d_o} "
+                            f"(range {span}), max |d mass| {d_m}")
+                    if not (torch.equal(o_n, o_k) and torch.equal(o_2, o_k)
+                            and torch.equal(m_2, m_k)):
+                        raise AssertionError(
+                            f"decode_mqattn {case}: reruns differ")
+                    worst["out"] = max(worst["out"], d_o)
+                    worst["out_rel"] = max(worst["out_rel"],
+                                           d_o / max(span, 1e-30))
+                    worst["mass"] = max(worst["mass"], d_m)
+                    n_cases += 1
+    log(f"[kernels] decode_mqattn: {n_cases} cases x (with, without mass) "
+        f"within tolerance of the plain version: max |d out| "
+        f"{worst['out']} ({worst['out_rel']} of max|out|, tolerance "
+        f"{MQ_OUT_TOL}), max |d mass| {worst['mass']} (tolerance "
+        f"{MQ_MASS_TOL}); reruns bit-identical")
+
+    times = []
+    for B, S, H, KV, hd, share in MQ_TIMED:
+        args = _mq_case(B, S, H, KV, hd, share, g, dev, full=True)
+        select = S < 4096                    # the form serving runs there
+        fn = lambda: kmq.decode_mqattn(*args, want_mass=True,  # noqa: E731
+                                       select=select)
+        plain = lambda: ref.decode_mqattn_plain(  # noqa: E731
+            *args, want_mass=True, select=select)
+        kb, vb = ref._mixed_kv(*args[1:8])
+        q4 = args[0][:, :, None]                          # (B, H, 1, hd)
+        k4 = kb.transpose(1, 2).contiguous()              # (B, KV, S, hd)
+        v4 = vb.transpose(1, 2).contiguous()
+        lib = lambda: F.scaled_dot_product_attention(     # noqa: E731
+            q4, k4, v4)
+        bound, by = _mq_bound_ms(args, True)
+        row = {"shape": f"({B},{S},{H},{KV},{hd})", "quant_share": share,
+               "form": "select" if select else "fused",
+               "call_ms": _time_ms(fn),
+               "device_ms": _device_ms(fn, ("mqattn_kernel", "mass_kernel")),
+               "plain_call_ms": _time_ms(plain, iters=50),
+               "plain_device_ms": _device_ms(plain),
+               "library_call_ms": _time_ms(lib),
+               "library_device_ms": _device_ms(lib),
+               "bound_ms": bound, "bound_by": by}
+        times.append(row)
+        log(f"[kernels] decode_mqattn {row['shape']} {row['form']} + mass, "
+            f"quant share {share}, n_valid = S: kernel {row['device_ms']} ms"
+            f" on the device, {row['call_ms']:.5f} ms per call; plain "
+            f"{row['plain_device_ms']} ms on the device, "
+            f"{row['plain_call_ms']:.5f} ms per call; "
+            f"scaled_dot_product_attention over the pre-selected bf16 K/V "
+            f"(out only: no dequant, select or mass) "
+            f"{row['library_device_ms']} ms on the device, "
+            f"{row['library_call_ms']:.5f} ms per call; bound "
+            f"{bound:.5f} ms ({by})")
+    return worst, times
+
+
 # --------------------------------------------------------------------- #
 # 3. serve llama2-7b at full width
 # --------------------------------------------------------------------- #
@@ -218,41 +407,52 @@ def _trace(vocab, seed):
     return out
 
 
-def serve_phase(seed, swap_root, label, cfg=None, device="cuda"):
-    """Drive LLMService on ``cfg`` (default: full llama2-7b) on ``device``
-    (the CPU only to rehearse this script at a reduced size)."""
+def build_weights(cfg, seed, device="cuda"):
+    """The model and its random bf16 weights from ``seed``, built once
+    and shared by every serve run."""
+    import torch
+    from repro_torch.models.registry import build_model
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(seed))
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    gib = sum(w.numel() * w.element_size() for w in _leaves(params)) / 2**30
+    log(f"[serve] {cfg.name}: L={cfg.n_layers} d={cfg.d_model} "
+        f"H={cfg.n_heads} hd={cfg.head_dim} vocab={cfg.vocab}, random bf16 "
+        f"weights ({gib:.2f} GiB) in {time.perf_counter() - t0:.1f} s")
+    return model, params
+
+
+def serve_phase(model, params, seed, swap_root, label,
+                quant_resident=False):
+    """Drive LLMService over ``model`` on its device (the CPU only to
+    rehearse this script at a reduced size), with the bf16 pool or with
+    ``quant_resident``."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core import restore
     from repro_torch.core.service import LLMService, LLMSConfig
     from repro_torch.kernels import chunk_quant
-    from repro_torch.models.registry import build_model
+    from repro_torch.kernels import decode_mqattn as kmq
 
-    cfg = cfg or get_config("llama2-7b")
-    on_card = device == "cuda"
+    cfg, device = model.cfg, model.device
+    on_card = device.type == "cuda"
 
     def sync():
         if on_card:
             torch.cuda.synchronize()
-
-    t0 = time.perf_counter()
-    model = build_model(cfg, device=device)
-    params = model.init(torch.Generator(device=device).manual_seed(seed))
-    sync()
-    log(f"[serve:{label}] {cfg.name}: L={cfg.n_layers} d={cfg.d_model} "
-        f"H={cfg.n_heads} hd={cfg.head_dim} vocab={cfg.vocab}, random bf16 "
-        f"weights ({sum(w.numel() * w.element_size() for w in _leaves(params)) / 2**30:.2f} GiB) in "
-        f"{time.perf_counter() - t0:.1f} s")
 
     cs = 16
     raw_chunk = 2 * cfg.n_layers * cs * cfg.n_kv_heads * cfg.head_dim * 2
     budget = 2 * 4 * raw_chunk        # two contexts' raw KV after 1 call
     sc = LLMSConfig(policy="llms", paged_pool=True, decode_batch=1,
                     max_ctx_len=256, chunk_tokens=cs, memory_budget=budget,
+                    quant_resident=quant_resident,
                     swap_dir=tempfile.mkdtemp(dir=swap_root))
     svc = LLMService(model, params, sc, device=device)
-    n_logits = {"checked": 0}
+    n_logits = {"checked": 0, "quant_rounds": 0, "rounds": 0}
+    round_profile = {}
     exe = svc.exe
     extend, decode = exe.paged_extend, exe.paged_decode
 
@@ -266,7 +466,21 @@ def serve_phase(seed, swap_root, label, cfg=None, device="cuda"):
             return out
         return run
 
-    exe.paged_extend, exe.paged_decode = checked(extend), checked(decode)
+    def decode_tally(*a, **k):
+        # (arenas, toks, pos, pt16, pt8, qmask): a round whose page rows
+        # hold a quant chunk, tallied on the host from pool.rows
+        qmask = a[5] if len(a) > 5 else k.get("qmask")
+        if qmask is not None and np.asarray(qmask).any():
+            n_logits["quant_rounds"] += 1
+        n_logits["rounds"] += 1
+        if on_card and n_logits["rounds"] == PROFILED_ROUND:
+            out, round_profile["round"] = _profile_round(
+                lambda: decode(*a, **k))
+            return out
+        return decode(*a, **k)
+
+    exe.paged_extend = checked(extend)
+    exe.paged_decode = checked(decode_tally)
 
     # codec launches per switch-in and per switch-out of each call
     phase = {"in": [0, 0], "out": [0, 0]}
@@ -282,18 +496,29 @@ def serve_phase(seed, swap_root, label, cfg=None, device="cuda"):
                 phase[key][1] += chunk_quant.dequantize.launches - d0
         return run
 
-    res = svc.res
+    res, pool = svc.res, svc.res.pool
     res.switch_in = tally(res.switch_in, "in")
     res.compress_and_swap_out = tally(res.compress_and_swap_out, "out")
+    alloc8 = pool.alloc8
+    quant_pages = {"admitted": 0}
+
+    def counted_alloc8(*a, **k):
+        page = alloc8(*a, **k)
+        quant_pages["admitted"] += 1
+        return page
+
+    pool.alloc8 = counted_alloc8
     restore.reset_io_counters()
     trace = _trace(cfg.vocab, seed)
     records = []
     with svc:
         stubs = [svc.newLLMCtx() for _ in range(4)]
         chunk_quant.reset_launches()
+        kmq.reset_launches()
         t_run = time.perf_counter()
         for i, (c, prompt, max_new) in enumerate(trace):
             read0 = restore.io_counters()["read"]
+            mq0 = kmq.decode_mqattn.launches
             phase["in"][:] = phase["out"][:] = [0, 0]
             t1 = time.perf_counter()
             _, toks = svc.callLLM(stubs[c], prompt, max_new)
@@ -303,19 +528,24 @@ def serve_phase(seed, swap_root, label, cfg=None, device="cuda"):
             ctx = svc.contexts[stubs[c].ctx_id]
             bits = [m.bits for _, m in sorted(ctx.chunks.items())]
             restored = restore.io_counters()["read"] - read0
+            pages8 = pool.stats()["pool_pages8_used"]
+            mq = kmq.decode_mqattn.launches - mq0
             records.append({"ctx": c, "tokens": list(map(int, toks)),
                             "bits": bits, "restored_bytes": restored,
                             "switch_s": rec["switch_s"],
                             "launches_in": list(phase["in"]),
-                            "launches_out": list(phase["out"])})
+                            "launches_out": list(phase["out"]),
+                            "quant_pages": pages8, "mqattn_launches": mq})
             log(f"[serve:{label}] call {i:2d} ctx {c} prompt {len(prompt)} "
                 f"-> {len(toks)} tokens | switch {rec['switch_s'] * 1e3:.3f}"
                 f" ms | restored {restored} B | wall {wall * 1e3:.1f} ms | "
                 f"quantize/dequantize launches: switch-in {phase['in']}, "
-                f"switch-out {phase['out']} | bits {bits}")
+                f"switch-out {phase['out']} | QUANT pages {pages8} | "
+                f"decode_mqattn launches {mq} | bits {bits}")
         run_s = time.perf_counter() - t_run
         launches = {"quantize": chunk_quant.quantize.launches,
-                    "dequantize": chunk_quant.dequantize.launches}
+                    "dequantize": chunk_quant.dequantize.launches,
+                    "decode_mqattn": kmq.decode_mqattn.launches}
         stats = svc.stats()
         widths = {}
         for ctx in svc.contexts.values():
@@ -323,8 +553,14 @@ def serve_phase(seed, swap_root, label, cfg=None, device="cuda"):
                 widths[m.bits] = widths.get(m.bits, 0) + 1
     log(f"[serve:{label}] {len(trace)} calls in {run_s:.2f} s; kernel "
         f"launches {launches}; logits checked finite {n_logits['checked']}"
-        f" times; chunk bit widths stored {dict(sorted(widths.items()))}")
+        f" times; decode rounds with a quant chunk "
+        f"{n_logits['quant_rounds']}; QUANT pages admitted "
+        f"{quant_pages['admitted']}; chunk bit widths stored "
+        f"{dict(sorted(widths.items()))}")
     log(f"[serve:{label}] stats {json.dumps(stats, default=str)}")
+    if round_profile:
+        log(f"[serve:{label}] decode round {PROFILED_ROUND} under the "
+            f"profiler: {json.dumps(round_profile['round'])}")
 
     if on_card and not (launches["quantize"] > 0
                         and launches["dequantize"] > 0):
@@ -335,21 +571,71 @@ def serve_phase(seed, swap_root, label, cfg=None, device="cuda"):
         raise AssertionError("no switch-in restored a chunk from disk")
     if stats["total_calls"] != len(trace):
         raise AssertionError("a call did not complete")
-    del svc, params, model, exe, extend, decode, res
+    if quant_resident:
+        if on_card and launches["decode_mqattn"] == 0:
+            raise AssertionError("decode_mqattn never ran")
+        if n_logits["quant_rounds"] == 0:
+            raise AssertionError("no decode round attended a quant chunk")
+        if quant_pages["admitted"] == 0:
+            raise AssertionError("no QUANT page was admitted")
+    del svc, exe, extend, decode, res, pool, alloc8
     gc.collect()                # the logit check closes over the executor
     if on_card:
         torch.cuda.empty_cache()
     return {"records": records, "launches": launches, "stats": stats,
-            "run_s": run_s, "widths": widths}
+            "run_s": run_s, "widths": widths,
+            "quant_rounds": n_logits["quant_rounds"],
+            "round_profile": round_profile.get("round"),
+            "quant_pages_admitted": quant_pages["admitted"]}
 
 
 # --------------------------------------------------------------------- #
 # 4. reduced model on the card vs the same port on the CPU
 # --------------------------------------------------------------------- #
+def _teacher_forced(model, params, dev, arenas0, mixed):
+    """Extend a prompt into row 0's pages, then four decode rounds fed
+    fixed tokens.  The bf16 view: one row, pages [3, 7].  The mixed
+    view: row 0 holds chunk 0 as an int8 QUANT page and appends 12
+    tokens at [16, 28); the decode rounds run two rows, row 1 with its
+    chunk 1 quant-resident.  -> all logits, stacked, on the CPU."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED)
+    vocab = model.cfg.vocab
+    ar = {k: a.to(dev) for k, a in arenas0.items()}
+    t = lambda a, dt=torch.long: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
+    if mixed:
+        pt16, lo, n, rows = [[0, 7, 0, 0], [4, 0, 5, 0]], 16, 12, 2
+        quant = dict(pt8=t([[2, 0, 0, 0], [0, 3, 0, 0]]),
+                     quant_chunks=t([[True, False, False, False],
+                                     [False, True, False, False]],
+                                    torch.bool))
+        first = {k: v[:1] for k, v in quant.items()}
+    else:
+        pt16, lo, n, rows = [[3, 7, 0, 0]], 0, 20, 1
+        quant = first = {}
+    prompt = rng.integers(1, vocab, n).tolist()
+    pos = t(list(range(lo, lo + n)) + [63] * (32 - n if not mixed else 4))
+    toks = t(prompt + [0] * (len(pos) - n))[None]
+    ar, x, _ = model.extend_paged(params, toks, pos, ar, t(pt16)[:1],
+                                  lo + n, want_density=True, **first)
+    logits = [(x[:, n - 1] @ params["head"]).float().cpu()]
+    starts = [lo + n, 32][:rows]
+    for step in range(4):
+        tok = t(rng.integers(1, vocab, (rows, 1)))
+        ar, lg, _ = model.decode_paged(
+            params, tok, ar, t(pt16), t([p + step for p in starts]),
+            want_density=True, **quant)
+        logits.append(lg.float().cpu())
+    return torch.cat(logits)
+
+
 def check_phase():
     import numpy as np
     import torch
     from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import decode_mqattn as kmq
+    from repro_torch.kernels import ref
     from repro_torch.models.registry import build_model
 
     cfg = reduced(get_config("llama2-7b"))
@@ -360,38 +646,36 @@ def check_phase():
                       if isinstance(v, dict) else v.cuda())
                   for k, v in params_cpu.items()}
     L, KV, hd, cs = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, 16
-    rng = np.random.default_rng(SEED)
-    prompt = rng.integers(1, cfg.vocab, 20)
-    feed = rng.integers(1, cfg.vocab, 4)
-    pt = torch.tensor([[3, 7, 0, 0]])
-    pos = torch.tensor(list(range(20)) + [63] * 12)
-    toks = torch.tensor(list(prompt) + [0] * 12)[None]
-    worst = 0.0
-    outs = []
-    for model, params, dev in ((cpu, params_cpu, "cpu"),
-                               (gpu, params_gpu, "cuda")):
-        ar = {n: torch.zeros((L, 10, cs, KV, hd), dtype=torch.bfloat16,
-                             device=dev) for n in ("k16", "v16")}
-        ar, x, dens = model.extend_paged(params, toks.to(dev), pos.to(dev),
-                                         ar, pt.to(dev), 20,
-                                         want_density=True)
-        logits = [(x[:, 19] @ params["head"]).float().cpu()]
-        for step, tok in enumerate(feed):
-            ar, lg, _ = model.decode_paged(
-                params, torch.tensor([[int(tok)]], device=dev), ar,
-                pt.to(dev), torch.tensor([20 + step], device=dev),
-                want_density=True)
-            logits.append(lg.float().cpu())
-        outs.append(torch.cat(logits))
-    ref_l, card_l = outs
-    span = float(ref_l.abs().max())
-    worst = float((ref_l - card_l).abs().max())
-    if not torch.isfinite(card_l).all() or worst > 0.02 * span + 1e-3:
-        raise AssertionError(f"card logits differ from the CPU plain path: "
-                             f"max |diff| {worst} over range {span}")
-    log(f"[check] reduced llama2-7b, teacher-forced extend + 4 decodes: card"
-        f" vs CPU max |logit diff| {worst:.5f} (range {span:.4f}, "
-        f"tolerance 2% of range: bf16 matmuls round differently)")
+    g = torch.Generator().manual_seed(SEED)
+    shape = (L, 10, cs, KV, hd)
+    views = {"bf16": {n: torch.zeros(shape, dtype=torch.bfloat16)
+                      for n in ("k16", "v16")}}
+    mixed = {}
+    for n in ("k", "v"):
+        mixed[n + "16"] = torch.randn(shape, generator=g).bfloat16()
+        mixed[n + "8"], mixed[n + "8s"] = ref.quantize_token_head_ref(
+            torch.randn(shape, generator=g))
+    views["mixed"] = mixed
+    for view, arenas0 in views.items():
+        kmq.reset_launches()
+        ref_l = _teacher_forced(cpu, params_cpu, "cpu", arenas0,
+                                view == "mixed")
+        card_l = _teacher_forced(gpu, params_gpu, "cuda", arenas0,
+                                 view == "mixed")
+        span = float(ref_l.abs().max())
+        worst = float((ref_l - card_l).abs().max())
+        if not torch.isfinite(card_l).all() or worst > 0.02 * span + 1e-3:
+            raise AssertionError(
+                f"{view} view: card logits differ from the CPU plain path: "
+                f"max |diff| {worst} over range {span}")
+        if view == "mixed" and kmq.decode_mqattn.launches != 4 * L:
+            raise AssertionError(
+                f"mixed view: {kmq.decode_mqattn.launches} decode_mqattn "
+                f"launches, not {4 * L}")
+        log(f"[check] reduced llama2-7b, {view} page view, teacher-forced "
+            f"extend + 4 decode rounds: card vs CPU max |logit diff| "
+            f"{worst:.5f} (range {span:.4f}, tolerance 2% of range: bf16 "
+            f"matmuls round differently)")
 
 
 def _device_or_call(row, prefix):
@@ -420,14 +704,24 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     smi = build_phase()
     max_err, times = kernel_phase()
+    mq_err, mq_times = mqattn_phase()
+    from repro_torch.configs import get_config
+    model, params = build_weights(get_config("llama2-7b"), SEED)
+    runs = {}
     with tempfile.TemporaryDirectory(prefix="llms_chip_smoke_") as root:
-        first = serve_phase(SEED, root, "run1")
-        again = serve_phase(SEED, root, "rerun")
-    for a, b in zip(first["records"], again["records"]):
-        if (a["tokens"], a["bits"]) != (b["tokens"], b["bits"]):
-            raise AssertionError(f"rerun differs: {a} vs {b}")
-    log("[serve] rerun from the same seed: identical tokens and bit plans "
-        f"over {len(first['records'])} calls")
+        for label, quant in (("run1", False), ("rerun", False),
+                             ("quant1", True), ("quant-rerun", True)):
+            runs[label] = serve_phase(model, params, SEED, root, label,
+                                      quant_resident=quant)
+    del model, params
+    torch.cuda.empty_cache()
+    for a_name, b_name in (("run1", "rerun"), ("quant1", "quant-rerun")):
+        for a, b in zip(runs[a_name]["records"], runs[b_name]["records"]):
+            if (a["tokens"], a["bits"]) != (b["tokens"], b["bits"]):
+                raise AssertionError(f"{b_name} differs: {a} vs {b}")
+        log(f"[serve] {b_name} from the same seed: identical tokens and bit "
+            f"plans over {len(runs[a_name]['records'])} calls")
+    first, quant = runs["run1"], runs["quant1"]
     check_phase()
 
     src = "src/repro_torch/csrc/chunk_quant.cu"
@@ -446,13 +740,36 @@ def main() -> int:
             "call_ms": row["call_ms"], "plain_call_ms": row["plain_call_ms"],
             "ms_by_bits": {b: _device_or_call(times[b][name], "")
                            for b in (8, 4, 2)},
+            "launches_quant_resident": quant["launches"][name],
         })
+    row, long_row = mq_times
+    kernels.append({
+        "name": "decode_mqattn", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_mqattn.cu",
+        "replaces": "src/repro/kernels/decode_qattn.py:183",
+        "launches": quant["launches"]["decode_mqattn"],
+        "max_abs_err": mq_err["out"], "max_abs_err_mass": mq_err["mass"],
+        "ms": _device_or_call(row, ""),
+        "plain_ms": _device_or_call(row, "plain_"),
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": _device_or_call(row, "library_"),
+        "library_call": "F.scaled_dot_product_attention over the pre-"
+                        "selected bf16 K/V: out only, no dequant, select "
+                        "or mass",
+        "shape": f"{row['shape']} {row['form']} + mass, half quant, "
+                 "n_valid = S",
+        "call_ms": row["call_ms"], "plain_call_ms": row["plain_call_ms"],
+        "at_4096": {k: long_row[k] for k in (
+            "shape", "form", "device_ms", "call_ms", "plain_device_ms",
+            "plain_call_ms", "library_device_ms", "library_call_ms",
+            "bound_ms", "bound_by")},
+    })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": 1}}), flush=True)      # the one card this run used
     return 0
 
 

@@ -1,14 +1,21 @@
 """Chunked view of a context's KV cache (paper §3.1, Fig. 4).
 
-Mirror of the JAX package's core/chunks.py for the storage codec.  A
-chunk covers ``chunk_tokens`` consecutive tokens ACROSS ALL LAYERS.
-The codec canonicalizes each sequence cache leaf into a (T, F) block —
-T chunk tokens, F = flattened (layers x heads x channels) — the layout
-the chunk codec kernels (kernels/chunk_quant.py) operate on.
+Mirror of the JAX package's core/chunks.py for the paged path.  A chunk
+covers ``chunk_tokens`` consecutive tokens ACROSS ALL LAYERS.  The codec
+canonicalizes each sequence cache leaf into a (T, F) block — T chunk
+tokens, F = flattened (layers x heads x channels) — the layout the chunk
+codec kernels (kernels/chunk_quant.py) operate on.  Two grids:
 
-Payloads stay numpy on the host, as in the reference: a
-``CompressedChunk`` written by either package is byte-identical, and
-the chunk-file format (core/restore.py) reads both.
+  * storage (``CompressedChunk``): per-channel scales, 8/4/2 bits,
+    through the chunk codec kernels;
+  * decode (``QuantResidentChunk``): int8 with one scale per (token,
+    kv-head), the grid quant-resident decode attends in place
+    (``kernels/ref.py::quantize_token_head_ref``, plain PyTorch on the
+    device: the reference computes it in jnp, with no Pallas kernel).
+
+Payloads stay numpy on the host, as in the reference: a payload written
+by either package is byte-identical, and the chunk-file format
+(core/restore.py) reads both.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 
 TOKEN_AXIS = 2                     # (L, B, S, ...) for every seq leaf
 
@@ -39,9 +47,10 @@ class CompressedChunk:
 @dataclass
 class QuantResidentChunk:
     """One chunk's DECODE-GRID payload: leaf -> (codes (T, F) int8,
-    scales (T, F//hd) fp32).  The port does not produce these yet (the
-    quant-resident tier is not ported, ROADMAP.md); the record exists so
-    the shared chunk-file format reads such files."""
+    scales (T, F//hd) fp32), quantized per (token, kv-head) over the
+    trailing head_dim — the grid mixed-cache decode attends in place, so
+    admission is a copy of these bytes into a QUANT page.  The per-leaf
+    head_dim is codes.F // scales.Fs."""
     n_tokens: int
     data: Dict[str, Tuple[np.ndarray, np.ndarray]]
     shapes: Dict[str, Tuple[int, ...]]          # (T, F) block shapes
@@ -109,6 +118,37 @@ class ChunkCodec:
                                             .shape[0]),
                                data=data, shapes=block_shapes(blocks))
 
+    # -- decode-grid (quant-resident) payloads -------------------------- #
+    def quantize_resident_blocks(self, blocks: Dict[str, torch.Tensor],
+                                 head_dims: Dict[str, int]
+                                 ) -> QuantResidentChunk:
+        """(T, F) float blocks -> decode-grid payload (also the re-grid of
+        a dequantized 4/2-bit storage chunk)."""
+        data = {}
+        for name, blk in blocks.items():
+            T, F = blk.shape
+            codes, scale = kref.quantize_token_head_ref(
+                blk.reshape(T, F // head_dims[name], head_dims[name]))
+            data[name] = (codes.reshape(T, F).cpu().numpy(),
+                          scale.cpu().numpy())
+        return QuantResidentChunk(
+            n_tokens=int(next(iter(blocks.values())).shape[0]), data=data,
+            shapes=block_shapes(blocks))
+
+    def dequantize_resident(self, qc: QuantResidentChunk,
+                            dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+        """Decode-grid payload -> (T, F) blocks on the codec's device (the
+        values mixed-cache decode attends at its quant positions)."""
+        out = {}
+        for name, (codes, scale) in qc.data.items():
+            T, F = codes.shape
+            hd = F // scale.shape[1]
+            out[name] = kref.dequantize_token_head_ref(
+                torch.from_numpy(codes).to(self.device).reshape(T, -1, hd),
+                torch.from_numpy(scale).to(self.device), dtype
+            ).reshape(T, F)
+        return out
+
     def decompress(self, cc: CompressedChunk) -> Dict[str, torch.Tensor]:
         """Host payload -> (T, F) bf16 blocks on the codec's device."""
         out = {}
@@ -141,7 +181,8 @@ class ChunkMeta:
     n_covered: int = 0             # context tokens the payload encodes: a
                                    # partial chunk that grew must re-encode
                                    # even if clean (KV is append-only)
-    quant: bool = False            # decode-grid payload (not ported)
+    quant: bool = False            # payload is a decode-grid
+                                   # QuantResidentChunk
 
 
 def chunk_ranges(n_tokens: int, cs: int) -> List[Tuple[int, int]]:

@@ -14,9 +14,13 @@ plan — so the port pads exactly as the reference does.
 The arenas are updated IN PLACE (each entry returns the same dict the
 caller passed) instead of being rebuilt functionally as in JAX.
 
+With ``quant_resident`` the pool also holds int8 QUANT pages (``<leaf>8``
+codes, ``<leaf>8s`` per-(token, kv-head) scales) that decode attends in
+place through the mixed cache.
+
 Not ported yet (ROADMAP.md): the slot engine with its layer-pipelined
-restore (``paged_pool=False``), the quant-resident arenas, and the
-whole-state codec of non-chunked policies.
+restore (``paged_pool=False``) and the whole-state codec of non-chunked
+policies.
 """
 from __future__ import annotations
 
@@ -60,6 +64,11 @@ class ModelExecutor:
         self.codec = ChunkCodec(spec.seq_leaves, self.cs, self.device)
         self.recomputable = spec.recomputable
         self.quant_resident = bool(getattr(cfg, "quant_resident", False))
+        if self.quant_resident and not spec.quant_resident:
+            raise ValueError(
+                f"family {spec.family!r} does not support the quant-"
+                "resident working cache (families opt in via "
+                "KVSpec.quant_resident)")
         self.decode_slots = max(1, int(getattr(cfg, "decode_batch", 1) or 1))
         self.can_batch_decode = spec.batched_decode
         self.tok_buckets = _pow2_buckets(self.cs, self.n_slots)
@@ -91,7 +100,9 @@ class ModelExecutor:
         self.pool_pages16 = max(
             int(getattr(cfg, "pool_pages_16", 0) or 16 * C + 1),
             self.decode_slots * C + 1)
-        self.pool_pages8 = 1
+        self.pool_pages8 = (
+            int(getattr(cfg, "pool_pages_8", 0) or 16 * C + 1)
+            if self.quant_resident else 1)
         self._cw = dict(window=cfg.window, n_sinks=cfg.n_sinks)
 
     @property
@@ -151,10 +162,20 @@ class ModelExecutor:
         reserved scratch page every unowned page-table entry points at;
         its contents are garbage after the first write and never
         attended (the causal/seq-len masks zero those positions)."""
-        return {n + "16": torch.zeros(
-            (self.n_layers, self.pool_pages16, self.cs, *self.leaf_dims[n]),
-            dtype=torch.bfloat16, device=self.device)
-            for n in self.codec.leaves}
+        arenas = {}
+        L, cs, dev = self.n_layers, self.cs, self.device
+        for n in self.codec.leaves:
+            dims = self.leaf_dims[n]
+            arenas[n + "16"] = torch.zeros((L, self.pool_pages16, cs, *dims),
+                                           dtype=torch.bfloat16, device=dev)
+            if self.quant_resident:
+                arenas[n + "8"] = torch.zeros(
+                    (L, self.pool_pages8, cs, *dims), dtype=torch.int8,
+                    device=dev)
+                arenas[n + "8s"] = torch.zeros(
+                    (L, self.pool_pages8, cs, *dims[:-1]),
+                    dtype=torch.float32, device=dev)
+        return arenas
 
     def admit16(self, arenas, page: int, blocks):
         """Chunk-file block layout (cs, L*prod(dims)) -> page layout
@@ -163,6 +184,19 @@ class ModelExecutor:
         for n in self.codec.leaves:
             t = blocks[n].reshape(cs, nl, *self.leaf_dims[n]).movedim(0, 1)
             arenas[n + "16"][:, page] = t.to(arenas[n + "16"].dtype)
+        return arenas
+
+    def admit8(self, arenas, page: int, codes, scales):
+        """Decode-grid payload (codes (cs, F) int8, scales (cs, F // hd)
+        fp32 host arrays) -> QUANT page ``arenas[<leaf>8|8s][:, page]``."""
+        cs, nl, dev = self.cs, self.n_layers, self.device
+        for n in self.codec.leaves:
+            dims = self.leaf_dims[n]
+            c = torch.from_numpy(codes[n]).to(dev).reshape(cs, nl, *dims)
+            arenas[n + "8"][:, page] = c.movedim(0, 1)
+            sc = torch.from_numpy(scales[n]).to(dev).reshape(cs, nl,
+                                                             *dims[:-1])
+            arenas[n + "8s"][:, page] = sc.movedim(0, 1)
         return arenas
 
     def read16(self, arenas, page: int):
@@ -178,23 +212,32 @@ class ModelExecutor:
             arenas[n + "16"][:, page].zero_()
         return arenas
 
-    def paged_extend(self, arenas, prompt: np.ndarray, n0: int, pt16):
+    def _quant_rows(self, pt8, qmask):
+        """The quant-resident page rows as device tensors (None, None
+        outside quant-resident mode)."""
+        if pt8 is None:
+            return dict(pt8=None, quant_chunks=None)
+        return dict(pt8=self._t(pt8), quant_chunks=self._t(qmask, torch.bool))
+
+    def paged_extend(self, arenas, prompt: np.ndarray, n0: int, pt16,
+                     pt8=None, qmask=None):
         """Append ``prompt`` at [n0, n0+M) for the single context whose
-        page-table row is ``pt16[0]``.  Padded positions land on the
-        scratch page 0.  -> (arenas, last-token logits, per-position
-        density mass)."""
+        page-table row is ``pt16[0]`` (and ``pt8[0]`` / ``qmask[0]``
+        under quant_resident).  Padded positions land on the scratch page
+        0.  -> (arenas, last-token logits, per-position density mass)."""
         M = len(prompt)
         pos = np.arange(n0, n0 + M, dtype=np.int32)
         pos_b = self.bucket_pad(pos, self.pad_slot)
         toks_b = self.bucket_pad(np.asarray(prompt, np.int32), 0)
         arenas, hidden, dens = self.model.extend_paged(
             self.params, self._t(toks_b)[None], self._t(pos_b), arenas,
-            self._t(pt16), n0 + M, want_density=True, **self._cw)
+            self._t(pt16), n0 + M, want_density=True,
+            **self._quant_rows(pt8, qmask), **self._cw)
         logits = self.logits(hidden[:, M - 1])[0]
         return arenas, logits, dens[0].cpu().numpy().astype(np.float64)
 
     def paged_decode(self, arenas, toks: Sequence[int], pos: Sequence[int],
-                     pt16):
+                     pt16, pt8=None, qmask=None):
         """One decode round for n contexts over the pool: row i advances
         by ``toks[i]`` at its own position ``pos[i]``, batch-bucketed.
         Pad rows get the all-zero page-table row (scratch page) and are
@@ -206,10 +249,18 @@ class ModelExecutor:
         toks_b[:n, 0] = toks
         pos_b = np.zeros(nb, np.int32)
         pos_b[:n] = pos
-        pt16_b = np.zeros((nb, pt16.shape[1]), np.int32)
+        C = pt16.shape[1]
+        pt16_b = np.zeros((nb, C), np.int32)
         pt16_b[:n] = pt16
+        pt8_b = qmask_b = None
+        if pt8 is not None:
+            pt8_b = np.zeros((nb, C), np.int32)
+            pt8_b[:n] = pt8
+            qmask_b = np.zeros((nb, C), bool)
+            qmask_b[:n] = qmask
         arenas, logits, mass = self.model.decode_paged(
             self.params, self._t(toks_b), arenas, self._t(pt16_b),
-            self._t(pos_b), want_density=True, **self._cw)
+            self._t(pos_b), want_density=True,
+            **self._quant_rows(pt8_b, qmask_b), **self._cw)
         return (arenas, logits[:n].cpu().numpy(),
                 mass[:n].cpu().numpy().astype(np.float64))

@@ -11,11 +11,15 @@ LCTRU order.
 
 The chunk codec runs here: ``_encode_blocks`` quantizes at every
 switch-out of a compressed chunk, ``_payload_blocks`` dequantizes at
-every admission of one.  The page arenas are updated in place.
+every admission of one.  With ``quant_resident`` an 8-bit chunk is
+promoted to a decode-grid payload that admits into a QUANT page and is
+attended in place; 4/2-bit chunks are dequantized through the codec
+kernel and re-gridded to int8 (``qmemo``).  The page arenas are updated
+in place.
 
 Not ported yet (ROADMAP.md): the slot engine's assembly and its
-layer-pipelined restore, the quant-resident tier, and whole-state
-restore for non-chunked policies.
+layer-pipelined restore, and whole-state restore for non-chunked
+policies.
 """
 from __future__ import annotations
 
@@ -41,7 +45,7 @@ from repro_torch.core.executor import ModelExecutor
 from repro_torch.core.faults import (FAULTS, ChunkCorruptError, DiskFullError,
                                      SwapTimeoutError, with_retries)
 from repro_torch.core.lifecycle import LCTRUQueue, MemoryManager
-from repro_torch.core.pagepool import BF16, PagePool
+from repro_torch.core.pagepool import BF16, QUANT, PagePool
 from repro_torch.core.pipeline import PipelineProfile, fit_linear
 from repro_torch.core.restore import read_chunk_file, write_chunk_file
 from repro_torch.core.swap import AsyncSwapper, DiskStore
@@ -110,6 +114,12 @@ class ResidencyEngine:
         self.epoch = 0                      # bumped on any eviction
         # contexts that may hold dirty (unflushed) chunks (§3.4 hook)
         self._dirty_cids: set = set()
+        # A/B control for the quant-resident tier: with the flag set,
+        # admission MATERIALIZES every payload into bf16 pages (the
+        # full-dequant baseline) and pages die at switch-out.  Payload
+        # creation is unaffected, so both legs decode from identical
+        # quantized representations: the token-identity contract.
+        self.force_dequant = False
         # -- fault tolerance (DESIGN.md §6) ---------------------------- #
         # recovery ladder: retry (AsyncSwapper) -> recompute (here) ->
         # degrade (ENOSPC) -> fail.  Flags and counters written from the
@@ -221,13 +231,14 @@ class ResidencyEngine:
         pool.touch(ctx.cid)
         if ctx.n_tokens == 0:
             return None, 0.0
+        quant_mode = exe.quant_resident and not self.force_dequant
 
         # ---- untimed: resident chunks (table read / first admission) -- #
         admitted = 0
         for i, m in sorted(ctx.chunks.items()):
             if m.in_memory:
                 if pool.kind(ctx.cid, i) == 0:
-                    self._admit_chunk(ctx, i)
+                    self._admit_chunk(ctx, i, quant_mode)
                     admitted += 1
                 else:
                     pool.pt_switch_ins += 1
@@ -260,32 +271,56 @@ class ResidencyEngine:
                     # a surviving page (evicted-while-busy chunk) already
                     # holds exactly this payload's values — skip the admit
                     if pool.kind(ctx.cid, i) == 0:
-                        self._admit_chunk(ctx, i)
+                        self._admit_chunk(ctx, i, quant_mode)
                 else:
-                    self._recover_chunk_paged(ctx, i)
+                    self._recover_chunk_paged(ctx, i, quant_mode)
         if (admitted or missing) and exe.device.type == "cuda":
             torch.cuda.synchronize(exe.device)
         return None, time.perf_counter() - t0
 
-    def _admit_chunk(self, ctx: Context, i: int):
-        """Page-fault one in-memory chunk into a bf16 page: bf16-raw
-        payloads convert, packed payloads dequantize (the chunk codec's
-        dequantize kernel on the card)."""
-        blocks = self._payload_blocks(ctx.payload[i])
-        page = self.pool.alloc16(ctx.cid, i)
-        self.pool.arenas = self.exe.admit16(self.pool.arenas, page, blocks)
-        self.pool.page_faults += 1
+    def _admit_chunk(self, ctx: Context, i: int, quant_mode: bool):
+        """Page-fault one in-memory chunk into the pool.  In quant mode a
+        full compressed chunk takes a QUANT page: its decode-grid payload,
+        or the re-grid of a 4/2-bit payload (memoized in ``qmemo``).
+        Everything else — bf16-raw, partial tail chunks, and every chunk
+        outside quant mode — dequantizes into a BF16 page (the chunk
+        codec's dequantize kernel on the card for packed payloads)."""
+        exe, pool, codec = self.exe, self.pool, self.exe.codec
+        m = ctx.chunks[i]
+        cc = ctx.payload[i]
+        if quant_mode and m.bits != 16 and m.n_covered == exe.cs:
+            qc = cc
+            if not isinstance(qc, QuantResidentChunk):
+                qc = ctx.qmemo.get(i)
+                if qc is None:
+                    qc = codec.quantize_resident_blocks(
+                        self._payload_blocks(cc), self._head_dims())
+                    ctx.qmemo[i] = qc
+            page = pool.alloc8(ctx.cid, i)
+            pool.arenas = exe.admit8(
+                pool.arenas, page,
+                {n: qc.data[n][0] for n in codec.leaves},
+                {n: qc.data[n][1] for n in codec.leaves})
+        else:
+            blocks = self._payload_blocks(cc)
+            page = pool.alloc16(ctx.cid, i)
+            pool.arenas = exe.admit16(pool.arenas, page, blocks)
+        pool.page_faults += 1
+
+    def _head_dims(self) -> Dict[str, int]:
+        return {n: self.exe.leaf_dims[n][-1] for n in self.exe.codec.leaves}
 
     def ensure_extend_range(self, ctx: Context, c_lo: int, c_hi: int):
         """Give chunks [c_lo, c_hi] writable bf16 pages ahead of a paged
         prefill-append: fresh tail chunks get zeroed pages; a chunk with
-        a payload but no page is admitted from it."""
+        a payload but no page is admitted from it, and one admitted as a
+        QUANT page is converted back to bf16 (append writes into it)."""
         pool = self.pool
         for ci in range(c_lo, c_hi + 1):
             k = pool.kind(ctx.cid, ci)
             if k == BF16:
                 continue
-            if ci in ctx.payload:
+            if k == QUANT or ci in ctx.payload:
                 blocks = self._payload_blocks(ctx.payload[ci])
                 pool.free_chunk(ctx.cid, ci)
                 page = pool.alloc16(ctx.cid, ci)
@@ -333,15 +368,16 @@ class ResidencyEngine:
         if pool.kind(ctx.cid, i) != 0:
             pool.free_chunk(ctx.cid, i)
         self._alloc_fresh16(ctx.cid, i)
-        pt16, _, _ = pool.rows([ctx.cid])
+        pt16, pt8, qmask = pool.rows([ctx.cid])
         for a, b in self._hole_segments(ctx, lo, lo + covered):
             toks = np.asarray(ctx.tokens[a:b], np.int32)
-            pool.arenas, _, _ = exe.paged_extend(pool.arenas, toks, a, pt16)
+            pool.arenas, _, _ = exe.paged_extend(pool.arenas, toks, a,
+                                                 pt16, pt8, qmask)
         page = int(pool._tables[ctx.cid]["p16"][i])
         return exe.read16(pool.arenas, page)
 
     @requires_serialized
-    def _recover_chunk_paged(self, ctx: Context, i: int):
+    def _recover_chunk_paged(self, ctx: Context, i: int, quant_mode: bool):
         """The disk copy is missing/corrupt/unreadable after retries:
         recompute the chunk from tokens, re-encode it at its assigned
         level, re-admit FROM THE PAYLOAD, and rewrite it unless
@@ -360,10 +396,11 @@ class ResidencyEngine:
             blocks = self.exe.read16(self.pool.arenas, page)
         else:
             blocks = self._recompute_blocks_paged(ctx, i)
-        cc = self._encode_blocks(blocks, m.bits)
+        want_quant = self.exe.quant_resident and m.bits == 8
+        cc = self._encode_blocks(blocks, m.bits, quant=want_quant)
         ctx.payload[i] = cc
         ctx.qmemo.pop(i, None)
-        m.quant = False
+        m.quant = want_quant
         m.nbytes = cc.nbytes
         m.in_memory = True
         self.pool.free_chunk(ctx.cid, i)
@@ -374,7 +411,7 @@ class ResidencyEngine:
             m.dirty, m.on_disk = True, False
             self._dirty_cids.add(ctx.cid)
         self.mem.register((ctx.cid, i), m.nbytes, m.bits)
-        self._admit_chunk(ctx, i)
+        self._admit_chunk(ctx, i, quant_mode)
         with self._flags_lock:
             self.chunks_recovered_recompute += 1
 
@@ -413,19 +450,21 @@ class ResidencyEngine:
     def _payload_blocks(self, cc) -> Dict[str, torch.Tensor]:
         """Payload -> (T, F) bf16 blocks on the device."""
         if isinstance(cc, QuantResidentChunk):
-            raise NotImplementedError(
-                "decode-grid payloads (quant-resident tier) are not ported "
-                "(ROADMAP.md)")
+            return self.exe.codec.dequantize_resident(cc)
         if cc.bits == 16:
             dev = self.exe.device
             return {k: torch.from_numpy(p).to(dev).to(torch.bfloat16)
                     for k, (p, _) in cc.data.items()}
         return self.exe.codec.decompress(cc)
 
-    def _encode_blocks(self, blocks, bits: int) -> CompressedChunk:
-        """(T, F) blocks -> storage payload at ``bits``.  16-bit payloads
-        are fp16 numpy converted bf16 -> fp32 -> fp16, byte-identical to
-        the reference's."""
+    def _encode_blocks(self, blocks, bits: int, quant: bool = False):
+        """(T, F) blocks -> payload: the decode-grid QuantResidentChunk
+        when ``quant``, else the storage codec at ``bits``.  16-bit
+        payloads are fp16 numpy converted bf16 -> fp32 -> fp16,
+        byte-identical to the reference's."""
+        if quant:
+            return self.exe.codec.quantize_resident_blocks(
+                blocks, self._head_dims())
         if bits == 16:
             return CompressedChunk(
                 bits=16, n_tokens=int(next(iter(blocks.values())).shape[0]),
@@ -441,10 +480,12 @@ class ResidencyEngine:
         return self._encode_blocks(
             self.exe.codec.extract(cache, i * cs, (i + 1) * cs), bits)
 
-    def _make_payload_paged(self, ctx: Context, i: int, bits: int):
-        """Encode chunk i from the pool.  A bf16 page is read back; an
-        unadmitted chunk re-encodes from its existing payload (or its
-        disk copy, or — never written at all — the zero block)."""
+    def _make_payload_paged(self, ctx: Context, i: int, bits: int,
+                            quant: bool = False):
+        """Encode chunk i from the pool.  A bf16 page is read back; a
+        QUANT page or an unadmitted chunk re-encodes from its existing
+        payload (the page holds exactly the payload's codes), or its
+        disk copy, or — never written at all — the zero block."""
         exe, pool = self.exe, self.pool
         if pool.kind(ctx.cid, i) == BF16:
             page = int(pool._tables[ctx.cid]["p16"][i])
@@ -467,7 +508,7 @@ class ResidencyEngine:
                          if a != 2]))), dtype=torch.bfloat16,
                     device=exe.device)
                     for n in exe.codec.leaves}
-        return self._encode_blocks(blocks, bits)
+        return self._encode_blocks(blocks, bits, quant)
 
     # ------------------------------------------------------------------ #
     # compress + AoT swap-out (Reclaim is then free)
@@ -496,12 +537,18 @@ class ResidencyEngine:
                 m = ChunkMeta(idx=i)
                 ctx.chunks[i] = m
             want = int(bits[i])
+            # in quant mode an 8-bit chunk is PROMOTED to the decode grid
+            # (admitted once into a QUANT page, attended in place); 4/2-
+            # bit chunks keep the packed storage codec and are re-gridded
+            # behind the kernel
+            want_quant = self.exe.quant_resident and want == 8
             m.density = float(D[i])
             covered = min(ctx.n_tokens - i * cs, cs)
             if (m.dirty or want != m.bits or i not in ctx.payload
-                    or covered != m.n_covered or m.quant):
+                    or covered != m.n_covered or m.quant != want_quant):
                 try:
-                    cc = self._make_payload_paged(ctx, i, want)
+                    cc = self._make_payload_paged(ctx, i, want,
+                                                  quant=want_quant)
                 except (ChunkCorruptError, OSError) as err:
                     # the encode needed an unreadable disk copy: leave the
                     # chunk MISSING; the next switch-in recovers it with
@@ -509,7 +556,7 @@ class ResidencyEngine:
                     self._note_read_failure(err)
                     m.bits, m.n_covered = want, covered
                     m.density = float(D[i])
-                    m.quant = False
+                    m.quant = want_quant
                     m.dirty, m.in_memory, m.on_disk = False, False, False
                     ctx.payload.pop(i, None)
                     ctx.qmemo.pop(i, None)
@@ -522,19 +569,33 @@ class ResidencyEngine:
                 ctx.payload[i] = cc
                 ctx.qmemo.pop(i, None)
                 m.bits, m.nbytes, m.n_covered = want, cc.nbytes, covered
-                m.quant = False
+                m.quant = want_quant
                 m.dirty, m.in_memory, m.on_disk = True, True, False
                 self._dirty_cids.add(ctx.cid)
                 # AoT re-admit: pay the page write NOW, at switch-out, so
                 # the next switch-in is a pure page-table read of exactly
                 # the payload-roundtrip values.  Best-effort: an
                 # exhausted pool leaves the chunk for a later fault.
-                try:
-                    self._admit_chunk(ctx, i)
-                except RuntimeError:
-                    pass
+                if not self.force_dequant:
+                    try:
+                        self._admit_chunk(ctx, i, self.exe.quant_resident)
+                    except RuntimeError:
+                        pass
+            # AoT re-grid: a packed 4/2-bit chunk gets its decode-grid
+            # memo NOW, built from the packed payload (not the page), so
+            # admission sees identical codes before and after an
+            # eviction/restore round trip
+            if (self.exe.quant_resident and not m.quant and m.bits != 16
+                    and i not in ctx.qmemo and i in ctx.payload):
+                ctx.qmemo[i] = self.exe.codec.quantize_resident_blocks(
+                    self._payload_blocks(ctx.payload[i]), self._head_dims())
             self.mem.register((ctx.cid, i), m.nbytes, m.bits)
             m.last_access = time.time()
+
+        # the force_dequant control: pages die with the residency, so
+        # every switch-in pays the full (bf16) re-admission
+        if self.force_dequant:
+            self.pool.free_ctx(ctx.cid)
 
         if cfg.use_aot and cfg.use_disk:
             self.flush_dirty(ctx)

@@ -14,10 +14,12 @@ switches the context in and prefills the prompt, ``decode_step`` /
 the Table-1 shim over that path.
 
 The service runs on the card (``device="cuda"``) unless the caller
-asks for the CPU.  Refused at construction, each with a pointer to
-``ROADMAP.md``: ``paged_pool=False`` (the slot engine), the
-non-chunked policies (``swap``, ``lmk``), ``quant_resident=True`` and
-any family but dense.
+asks for the CPU.  ``quant_resident=True`` keeps 8-bit chunks in the
+pool as int8 QUANT pages that decode attends in place (the
+``decode_mqattn`` kernel on the card).  Refused at construction, each
+with a pointer to ``ROADMAP.md``: ``paged_pool=False`` (the slot
+engine), the non-chunked policies (``swap``, ``lmk``) and any family
+but dense.
 """
 from __future__ import annotations
 
@@ -60,7 +62,7 @@ _POLICY_FLAGS = {
 class LLMSConfig:
     policy: str = "llms"
     decode_batch: int = 1                  # decode slots (B)
-    quant_resident: bool = False           # not ported (refused)
+    quant_resident: bool = False           # int8 QUANT pages attended in place
     paged_pool: bool = True                # only the paged engine is ported
     pool_pages_16: int = 0
     pool_pages_8: int = 0
@@ -111,10 +113,6 @@ def _refuse_unported(model: ModelBase, cfg: LLMSConfig) -> None:
         raise NotImplementedError(
             "paged_pool=False runs the slot engine with the layer-"
             "pipelined restore, which is not ported yet (ROADMAP.md)")
-    if cfg.quant_resident:
-        raise NotImplementedError(
-            "quant_resident=True (quant-resident decode) is not ported "
-            "yet (ROADMAP.md)")
     if model.cfg.family != "dense":
         raise NotImplementedError(
             f"family {model.cfg.family!r} is not ported yet (ROADMAP.md)")
@@ -248,9 +246,9 @@ class LLMService:
             cs = self.exe.cs
             self.res.ensure_extend_range(
                 ctx, n0 // cs, (n0 + len(prompt) - 1) // cs)
-            pt16, _, _ = pool.rows([ctx.cid])
+            pt16, pt8, qmask = pool.rows([ctx.cid])
             pool.arenas, logits, dens = self.exe.paged_extend(
-                pool.arenas, prompt, n0, pt16)
+                pool.arenas, prompt, n0, pt16, pt8, qmask)
             self.ctxs.acc_density(ctx, dens, n0 + len(prompt))
             ctx.n_tokens += len(prompt)
             if request.max_new_tokens > 0:
@@ -320,9 +318,9 @@ class LLMService:
             self.res.ensure_tail(st.ctx, p // cs)
             pool.touch(st.ctx.cid)
             pos.append(p)
-        pt16, _, _ = pool.rows([st.ctx.cid for st in live])
+        pt16, pt8, qmask = pool.rows([st.ctx.cid for st in live])
         pool.arenas, logits, mass = self.exe.paged_decode(
-            pool.arenas, fed, pos, pt16)
+            pool.arenas, fed, pos, pt16, pt8, qmask)
         for i, st in enumerate(live):
             self.ctxs.acc_density(st.ctx, mass[i], st.ctx.n_tokens)
             st.next_tok = st.sampler(logits[i])
@@ -344,9 +342,11 @@ class LLMService:
     @requires_serialized
     def _park(self, st: GenerationState):
         """Slot held -> idle; the pages stay in the pool, the entry marks
-        the context warm until an eviction invalidates it."""
-        self._reuse[st.ctx.cid] = (None, self.res.epoch)
-        self._reuse.move_to_end(st.ctx.cid)
+        the context warm until an eviction invalidates it (not under the
+        force_dequant control, whose pages die at switch-out)."""
+        if not self.res.force_dequant:
+            self._reuse[st.ctx.cid] = (None, self.res.epoch)
+            self._reuse.move_to_end(st.ctx.cid)
         self.res.slots.park(st.ctx.cid)
         st.cache = None
         st.slot = None
@@ -446,9 +446,9 @@ class LLMService:
         pool = self.res.pool
         pool.drop(ctx.cid)
         self.res.ensure_extend_range(ctx, 0, (len(tail) - 1) // self.exe.cs)
-        pt16, _, _ = pool.rows([ctx.cid])
+        pt16, pt8, qmask = pool.rows([ctx.cid])
         pool.arenas, _, dens = self.exe.paged_extend(
-            pool.arenas, np.asarray(tail, np.int32), 0, pt16)
+            pool.arenas, np.asarray(tail, np.int32), 0, pt16, pt8, qmask)
         self.ctxs.acc_density(ctx, dens, len(tail))
         ctx.n_tokens = len(tail)
         self.res.compress_and_swap_out(ctx)
@@ -459,17 +459,30 @@ class LLMService:
 
     def decode_ready_contexts(self) -> int:
         """Contexts whose next switch-in needs neither dequantization nor
-        disk I/O: generations holding a slot and parked contexts whose
-        state survived every eviction since (epoch match)."""
+        disk I/O: generations holding a slot, parked contexts whose state
+        survived every eviction since (epoch match), and — with the
+        quant-resident tier on — every context whose chunks are all in
+        memory with their decode-grid codes ready (the payload itself,
+        or the AoT re-grid memo of a packed chunk)."""
         ready = set(self.res.slots.held)
         for cid, (_, epoch) in self._reuse.items():
             if epoch == self.res.epoch:
                 ready.add(cid)
+        if self.exe.quant_resident and not self.res.force_dequant:
+            for cid, ctx in self.contexts.items():
+                if (ctx.n_tokens and ctx.chunks
+                        and all(m.in_memory and m.bits != 16
+                                and (m.quant or i in ctx.qmemo)
+                                for i, m in ctx.chunks.items())):
+                    ready.add(cid)
         return len(ready)
 
     def stats(self) -> Dict[str, float]:
         from repro_torch.core.restore import io_counters
         sw = [r["switch_s"] for r in self.records]
+        n_quant = sum(1 for ctx in self.contexts.values()
+                      for m in ctx.chunks.values()
+                      if m.in_memory and m.quant)
         io = io_counters()
         out = {
             "calls": len(sw),
@@ -484,7 +497,7 @@ class LLMService:
             "decode_slots": self.decode_batch,
             "slots_held": len(self.res.slots.held),
             "decode_ready_contexts": self.decode_ready_contexts(),
-            "quant_resident_chunks": 0,
+            "quant_resident_chunks": n_quant,
             "paged_pool": True,
             "device": str(self.device),
         }

@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles with
 ``nvcc`` for ``sm_90a`` into ``build/lib<name>.so`` at the repository
 root (a directory ``.gitignore`` lists), at first use.  No fallback:
 a missing ``nvcc`` or a failed build raises.  ``build_all`` starts one
-``nvcc`` per source at once, so a script that needs every kernel pays
-for the slowest build, not for their sum.
+``nvcc`` per source at once, so the first use of any kernel pays for
+the slowest build of them all, not for their sum.
 """
 from __future__ import annotations
 
@@ -20,6 +20,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-prec-div=true", "-shared", "-Xcompiler", "-fPIC")
+
+SOURCES = ("chunk_quant", "decode_mqattn")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -64,7 +66,7 @@ def _stale(name: str) -> bool:
     return not out.exists() or out.stat().st_mtime < src.stat().st_mtime
 
 
-def build_all(names: Iterable[str]) -> Dict[str, str]:
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     """Compile every stale kernel source in parallel.  -> name -> the
     compiler's log (``-Xptxas -v``: registers, shared memory, spills)."""
     names = [n for n in names if _stale(n)]
@@ -76,10 +78,11 @@ def build_all(names: Iterable[str]) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded shared library of ``csrc/<name>.cu``, built if stale."""
+    """The loaded shared library of ``csrc/<name>.cu``; every stale
+    source is built first, in parallel."""
     lib = _LIBS.get(name)
     if lib is None:
-        build_all([name])
+        build_all()
         lib = ctypes.CDLL(str(_paths(name)[1]))
         _LIBS[name] = lib
     return lib

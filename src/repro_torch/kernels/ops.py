@@ -1,8 +1,8 @@
 """Public kernel entry points.
 
 Each op sends a CUDA tensor to its hand-written kernel
-(``kernels/chunk_quant.py``) and a CPU tensor to the plain PyTorch
-version (``kernels/ref.py``).  There is no fallback: a CUDA call the
+(``kernels/chunk_quant.py``, ``kernels/decode_mqattn.py``) and a CPU
+tensor to the plain PyTorch version (``kernels/ref.py``).  There is no fallback: a CUDA call the
 kernel refuses raises, and any other device raises.
 """
 from __future__ import annotations
@@ -19,7 +19,7 @@ def _route(t: torch.Tensor) -> str:
         return "cuda"
     if t.device.type == "cpu":
         return "cpu"
-    raise ValueError(f"no chunk codec for device {t.device}")
+    raise ValueError(f"no kernel for device {t.device}")
 
 
 def chunk_quantize(x: torch.Tensor, bits: int
@@ -39,3 +39,21 @@ def chunk_dequantize(packed: torch.Tensor, scale: torch.Tensor, bits: int,
     from repro_torch.kernels import chunk_quant
     return chunk_quant.dequantize(packed.contiguous(), scale.contiguous(),
                                   bits, n_tokens, dtype)
+
+
+def decode_mqattn(q, k, v, k_q, v_q, k_scale, v_scale, quant_mask, n_valid,
+                  window: int = 0, n_sinks: int = 0, want_mass: bool = False,
+                  select: bool = False):
+    """One-token attention over a mixed bf16/int8 cache.  q (B,H,hd);
+    k/v (B,S,KV,hd) bf16; k_q/v_q int8; scales (B,S,KV) fp32; quant_mask
+    (B,S) bool; n_valid (B,) int.  -> out (B,H,hd) bf16 [, mass (B,S)]
+    (forms: ``kernels/ref.py::decode_mqattn_plain``)."""
+    if _route(q) == "cpu":
+        return ref.decode_mqattn_plain(q, k, v, k_q, v_q, k_scale, v_scale,
+                                       quant_mask, n_valid, window, n_sinks,
+                                       want_mass, select)
+    from repro_torch.kernels import decode_mqattn as kmq
+    c = [t.contiguous() for t in (q, k, v, k_q, v_q, k_scale, v_scale,
+                                  quant_mask)]
+    return kmq.decode_mqattn(*c, n_valid.to(torch.int32).contiguous(),
+                             window, n_sinks, want_mass, select)

@@ -1,6 +1,8 @@
-"""Plain PyTorch versions of the chunk codec (the semantics of record).
+"""Plain PyTorch versions of the port's kernels (the semantics of record):
+the chunk codec, the decode-grid quantizer and mixed-cache decode
+attention (``decode_mqattn``).
 
-Mirrors the JAX package's ``kernels/ref.py`` (``qmax_for``,
+The codec mirrors the JAX package's ``kernels/ref.py`` (``qmax_for``,
 ``quantize_ref``, ``dequantize_ref``) operation for operation, so the
 two agree bit for bit in fp32 and bf16:
 
@@ -17,8 +19,9 @@ two agree bit for bit in fp32 and bf16:
   * 4- and 2-bit codes are packed along T, token ``r*per + j`` in bit
     group ``j`` of byte row ``r``.
 
-The CUDA kernels (``kernels/chunk_quant.py``) are held against these
-functions; ``kernels/ops.py`` sends CPU tensors here.
+The CUDA kernels (``kernels/chunk_quant.py``, ``kernels/decode_mqattn.py``)
+are held against these functions; ``kernels/ops.py`` sends CPU tensors
+here.
 """
 from __future__ import annotations
 
@@ -77,3 +80,118 @@ def dequantize_ref(packed: torch.Tensor, scale: torch.Tensor, bits: int,
         outs.append(torch.where(c >= half, c - (1 << bits), c))  # sign-extend
     codes = torch.stack(outs, dim=1).reshape(T, F)
     return (codes.to(torch.float32) * scale).to(dtype)
+
+
+# --------------------------------------------------------------------- #
+# decode-grid quantization (per-(token, kv-head) symmetric scales)
+#
+# The chunk codec above is the STORAGE grid (per-channel scales over the
+# token axis).  Quant-resident decode attends the DECODE grid: one scale
+# per (token, kv-head), shared across head_dim.  As with the storage
+# codec, the scale is ``max|x| * fl32(1/127)``: the reference runs its
+# oracle (which divides by 127.0) under ``jax.jit``, where XLA rewrites
+# the division by the constant into that product, and the port computes
+# what the reference serves.
+# --------------------------------------------------------------------- #
+def quantize_token_head_ref(x: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (..., hd) float -> (codes int8 (..., hd), scales fp32 (...,))."""
+    xf = x.to(torch.float32)
+    inv = torch.tensor(np.float32(1) / np.float32(127), device=x.device)
+    scale = torch.clamp_min(xf.abs().amax(dim=-1) * inv, 1e-8)
+    codes = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return codes.to(torch.int8), scale
+
+
+def dequantize_token_head_ref(codes: torch.Tensor, scale: torch.Tensor,
+                              dtype=torch.bfloat16) -> torch.Tensor:
+    """Inverse of ``quantize_token_head_ref`` -> (..., hd) in ``dtype``."""
+    return (codes.to(torch.float32) * scale[..., None]).to(dtype)
+
+
+# --------------------------------------------------------------------- #
+# decode_mqattn: one-step attention over a MIXED cache (bf16 recent
+# window + int8 quant-resident segments, fused dequant per position)
+# --------------------------------------------------------------------- #
+NEG_INF = -0.7 * float(np.finfo(np.float32).max)
+
+
+def _mixed_kv(k, v, k_q, v_q, k_scale, v_scale, quant_mask):
+    """The attended bf16 K/V: ``(code * scale) -> bf16`` at quant
+    positions, the bf16 cache elsewhere (the value a full dequant would
+    have materialized, so mixed decode equals full-dequant decode)."""
+    m = quant_mask[:, :, None, None]
+    kd = dequantize_token_head_ref(k_q, k_scale, k.dtype)
+    vd = dequantize_token_head_ref(v_q, v_scale, v.dtype)
+    return torch.where(m, kd, k), torch.where(m, vd, v)
+
+
+def _valid_keys(n_valid, B: int, S: int, window: int, n_sinks: int,
+                device) -> torch.Tensor:
+    """(B, S) bool: key j of row b is attended."""
+    k_pos = torch.arange(S, device=device)
+    nv = torch.as_tensor(n_valid, device=device).reshape(-1).expand(B)
+    valid = k_pos[None, :] < nv[:, None]
+    if window > 0:
+        valid = valid & ((k_pos[None, :] >= nv[:, None] - window)
+                         | (k_pos[None, :] < n_sinks))
+    return valid
+
+
+def decode_mqattn_ref(q, k, v, k_q, v_q, k_scale, v_scale, quant_mask,
+                      n_valid, window: int = 0, n_sinks: int = 0
+                      ) -> torch.Tensor:
+    """Mirror of the reference's oracle (``decode_mqattn_ref``): q (B,H,hd);
+    k/v (B,S,KV,hd) bf16; k_q/v_q int8; scales (B,S,KV) fp32; quant_mask
+    (B,S) bool; n_valid () or (B,).  Softmax in fp32 over -inf-masked
+    scores, PV in fp32.  -> (B,H,hd) in q.dtype."""
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    kb, vb = _mixed_kv(k, v, k_q, v_q, k_scale, v_scale, quant_mask)
+    qg = q.reshape(B, KV, H // KV, hd).to(torch.float32)
+    s = torch.einsum("bngd,bknd->bngk", qg, kb.to(torch.float32)) \
+        / np.sqrt(hd)
+    valid = _valid_keys(n_valid, B, S, window, n_sinks, q.device)
+    s = torch.where(valid[:, None, None, :], s, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bngk,bknd->bngd", p, vb.to(torch.float32))
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+def decode_mqattn_plain(q, k, v, k_q, v_q, k_scale, v_scale, quant_mask,
+                        n_valid, window: int = 0, n_sinks: int = 0,
+                        want_mass: bool = False, select: bool = False):
+    """Plain version of the CUDA kernel (``kernels/decode_mqattn.py``),
+    both of its forms.  Scores fp32 times 1/sqrt(hd), invalid keys at the
+    finite NEG_INF; p = exp(s - m), l = sum p.
+
+      * fused  (``select=False``): out = bf16(sum_j p_j v_j / max(l,
+        1e-30)), PV in fp32 — the reference's Pallas kernel and its
+        blocked CPU mirror;
+      * select (``select=True``): p / l rounded to bf16 times the bf16
+        values with fp32 accumulation — the reference's plain
+        ``dequant_select`` + ``decode_attention`` path.
+
+    mass (B, S) = sum over heads of p / max(l, 1e-30) in fp32, over H.
+    -> out (B,H,hd) bf16 [, mass]."""
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    kb, vb = _mixed_kv(k, v, k_q, v_q, k_scale, v_scale, quant_mask)
+    qg = q.reshape(B, KV, H // KV, hd).to(torch.float32)
+    s = torch.einsum("bngd,bknd->bngk", qg, kb.to(torch.float32)) \
+        * (1.0 / np.sqrt(hd))
+    valid = _valid_keys(n_valid, B, S, window, n_sinks, q.device)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
+    pn = p / l
+    if select:
+        out = torch.einsum("bngk,bknd->bngd", pn.to(vb.dtype), vb)
+    else:
+        out = torch.einsum("bngk,bknd->bngd", p,
+                           vb.to(torch.float32)) / l
+    out = out.reshape(B, H, hd).to(torch.bfloat16)
+    if want_mass:
+        return out, (pn.sum(dim=(1, 2)) / H).to(torch.float32)
+    return out

@@ -1,8 +1,10 @@
 """Shared model primitives for dense serving (mirror of the JAX
 package's models/common.py: the functions dense serving runs).
 
-These stay plain PyTorch: the JAX package computes them outside any
-Pallas kernel too.  Casts follow the reference one for one — scores
+These stay plain PyTorch, as the JAX package computes them outside any
+Pallas kernel too — except ``mixed_decode_attention``, which on the
+card runs the ``decode_mqattn`` CUDA kernel.  Casts follow the
+reference one for one — scores
 and softmax in fp32, ``p`` cast to the value dtype before the PV
 product, masking with the finite ``NEG_INF`` (a fully masked row comes
 out uniform, not NaN) — because the Eq.-1 density they emit drives the
@@ -154,18 +156,146 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 # --------------------------------------------------------------------- #
+# Mixed-precision decode attention: bf16 recent window + int8
+# quant-resident chunk segments (fused dequant, selected per position).
+#
+# A quant position's value is ``(code * scale) -> bf16``: exactly what a
+# full dequantization materializes into the bf16 cache, so quant-resident
+# decode gives the full-dequant path's tokens.
+# --------------------------------------------------------------------- #
+
+# from this many cache positions on, the CPU path switches from the
+# plain select (``decode_attention`` numerics) to the blocked
+# online-softmax scan, as the reference does
+MIXED_BLOCKED_MIN_S = 4096
+
+
+def dequant_select(x_cache: torch.Tensor, x_q: torch.Tensor,
+                   x_scale: torch.Tensor, quant_mask: torch.Tensor
+                   ) -> torch.Tensor:
+    """Per-position select between the bf16 cache and the dequantized
+    int8 segments.  x_cache (B,S,KV,hd); x_q int8; x_scale (B,S,KV);
+    quant_mask (B,S) bool."""
+    dq = (x_q.to(torch.float32) * x_scale[..., None]).to(x_cache.dtype)
+    return torch.where(quant_mask[:, :, None, None], dq, x_cache)
+
+
+def mixed_decode_attention_blocked(q, k_cache, v_cache, k_q, v_q, k_scale,
+                                   v_scale, quant_mask, cur_pos,
+                                   window: int = 0, n_sinks: int = 0,
+                                   want_density: bool = False,
+                                   block: int = 1024):
+    """The reference's blocked scan: online softmax over key blocks, one
+    (B, block, KV, hd) tile dequantized at a time, PV in fp32, and a
+    second pass for the normalized per-key mass.  The reference pads the
+    last block with invalid keys, whose p is exactly 0; here the last
+    block is just shorter."""
+    B, _, H, hd = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    qg = q.reshape(B, 1, KV, G, hd).to(torch.float32)
+    scale = 1.0 / np.sqrt(hd)
+    pos_b = cur_pos.expand(B) if cur_pos.dim() == 0 else cur_pos
+
+    def scores(lo: int, hi: int):
+        kf = dequant_select(k_cache[:, lo:hi], k_q[:, lo:hi],
+                            k_scale[:, lo:hi], quant_mask[:, lo:hi]
+                            ).to(torch.float32)
+        s = torch.einsum("bqngd,bknd->bngqk", qg, kf)[:, :, :, 0] * scale
+        k_pos = torch.arange(lo, hi, device=q.device)
+        valid = k_pos[None, :] < pos_b[:, None]
+        if window > 0:
+            valid = valid & ((k_pos[None, :] >= (pos_b[:, None] - window))
+                             | (k_pos[None, :] < n_sinks))
+        return torch.where(valid[:, None, None, :], s, NEG_INF)
+
+    blocks = [(lo, min(lo + block, S)) for lo in range(0, S, block)]
+    m = torch.full((B, KV, G), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, KV, G), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KV, G, hd), dtype=torch.float32, device=q.device)
+    for lo, hi in blocks:
+        s = scores(lo, hi)
+        vf = dequant_select(v_cache[:, lo:hi], v_q[:, lo:hi],
+                            v_scale[:, lo:hi], quant_mask[:, lo:hi]
+                            ).to(torch.float32)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bngk,bknd->bngd", p, vf)
+        m = m_new
+    l_safe = torch.clamp_min(l, 1e-30)
+    out = (acc / l_safe[..., None]).to(q.dtype).reshape(B, 1, H, hd)
+    if not want_density:
+        return out
+    masses = []
+    for lo, hi in blocks:
+        p = torch.exp(scores(lo, hi) - m[..., None]) / l_safe[..., None]
+        masses.append((p.sum(dim=(1, 2)) / H).to(torch.float32))
+    return out, torch.cat(masses, dim=1)
+
+
+def mixed_decode_attention(q, k_cache, v_cache, k_q, v_q, k_scale, v_scale,
+                           quant_mask, cur_pos, window: int = 0,
+                           n_sinks: int = 0, want_density: bool = False):
+    """One-step attention over a mixed cache.  q (B,1,H,hd); k/v bf16 and
+    k_q/v_q int8 caches (B,S,KV,hd); scales (B,S,KV); quant_mask (B,S);
+    cur_pos () or (B,).  -> out (B,1,H,hd)[, per-key mass (B,S)].
+
+    On the card every case runs the ``decode_mqattn`` CUDA kernel, in the
+    form of the reference branch it stands for: fused without density
+    (the reference's Pallas kernel) or with density at S >= 4096 (its
+    blocked scan), select with density below (its plain select path).
+    On the CPU the reference's own branches run as plain PyTorch."""
+    S = k_cache.shape[1]
+    if q.is_cuda:
+        from repro_torch.kernels import ops as kops
+        B = q.shape[0]
+        n_valid = cur_pos.expand(B) if cur_pos.dim() == 0 else cur_pos
+        res = kops.decode_mqattn(
+            q[:, 0], k_cache, v_cache, k_q, v_q, k_scale, v_scale,
+            quant_mask, n_valid, window, n_sinks, want_mass=want_density,
+            select=want_density and S < MIXED_BLOCKED_MIN_S)
+        if want_density:
+            return res[0][:, None], res[1]
+        return res[:, None]
+    if S >= MIXED_BLOCKED_MIN_S:
+        return mixed_decode_attention_blocked(
+            q, k_cache, v_cache, k_q, v_q, k_scale, v_scale, quant_mask,
+            cur_pos, window, n_sinks, want_density)
+    k = dequant_select(k_cache, k_q, k_scale, quant_mask)
+    v = dequant_select(v_cache, v_q, v_scale, quant_mask)
+    return decode_attention(q, k, v, cur_pos, window=window,
+                            n_sinks=n_sinks, want_density=want_density)
+
+
+# --------------------------------------------------------------------- #
 # Paged KV pool: dense cache view over page arenas
 # --------------------------------------------------------------------- #
-def paged_cache_view(arenas, leaves, pt16: torch.Tensor, pos=None):
-    """The dense (L, B, S, ...) slot-cache view of the pool's bf16
-    arenas through the (B, C) page-table rows ``pt16`` (page 0 =
-    scratch).  The view is a gathered COPY: writes into it do not reach
-    the arenas (the entries scatter new tokens back explicitly).  The
-    quant-resident arenas (``pt8``) are not ported (ROADMAP.md)."""
+def paged_cache_view(arenas, leaves, pt16: torch.Tensor, pt8=None,
+                     quant_chunks=None, pos=None):
+    """The dense (L, B, S, ...) slot-cache view of the pool's arenas
+    through the (B, C) page-table rows (page 0 = scratch): ``<leaf>16``
+    bf16 through ``pt16`` and, in quant-resident mode, ``<leaf>8`` int8
+    codes and ``<leaf>8s`` per-(token, kv-head) scales through ``pt8``,
+    with ``quant_chunks`` (B, C) bool marking the chunks that live in
+    the int8 arena -> ``quant_mask`` (1, B, S).  The view is a gathered
+    COPY: writes into it do not reach the arenas (the entries scatter
+    new tokens back explicitly)."""
     from repro_torch.kernels.paged import gather_pages
     cache = {"pos": pos}
     for n in leaves:
         cache[n] = gather_pages(arenas[n + "16"], pt16)
+    if pt8 is not None:
+        for n in leaves:
+            cache[n + "_q"] = gather_pages(arenas[n + "8"], pt8)
+            cache[n + "_scale"] = gather_pages(arenas[n + "8s"], pt8)
+        B, C = quant_chunks.shape
+        cs = arenas[leaves[0] + "16"].shape[2]
+        qm = quant_chunks[:, :, None].expand(B, C, cs)
+        # leading axis of 1: axis 1 stays the batch axis for every leaf
+        cache["quant_mask"] = qm.reshape(B, C * cs)[None]
     return cache
 
 

@@ -1,11 +1,17 @@
 """Dense decoder-only transformer (llama family) — the serving entries.
 
 Mirror of the JAX package's models/dense.py for what serving runs:
-``init``, ``head_weight``, ``decode_step`` (window layout), the
-interleaved-chunk ``recompute`` (paper Fig. 7; also the chunked
+``init``, ``head_weight``, ``decode_step`` (window and mixed layouts),
+the interleaved-chunk ``recompute`` (paper Fig. 7; also the chunked
 prefill-append) and the paged-pool entries ``decode_paged`` /
 ``extend_paged``.  Layer parameters are stacked (L, ...) as in the
 reference; its ``lax.scan`` over layers is a Python loop here.
+
+The mixed layout is the quant-resident working cache: bf16 ``k``/``v``
+plus int8 ``k_q``/``v_q`` segments with per-(token, kv-head) scales,
+selected per position by ``quant_mask``.  The all-int8 decode cache
+(the reference's ``quantized`` branch, on no serving path) is not
+ported (ROADMAP.md).
 
 Caches differ from the reference in one way: entries write new K/V
 rows IN PLACE into the cache tensors they are given (the gathered page
@@ -25,6 +31,32 @@ from repro_torch.models.kvspec import KVSpec, LAYOUT_MIXED, LAYOUT_WINDOW
 
 def _layer(params: Dict, l: int) -> Dict[str, torch.Tensor]:
     return {k: v[l] for k, v in params["layers"].items()}
+
+
+# the mixed-precision (quant-resident) cache leaves that ride along the
+# bf16 k/v through every entry point but are never written by them
+_QUANT_LEAVES = ("k_q", "v_q", "k_scale", "v_scale")
+
+
+def _quant_layer(cache, l: int):
+    """Layer l's quant-segment leaves (k_q, v_q, k_scale, v_scale): the
+    per-layer form of the reference's ``_quant_scan_xs``."""
+    return tuple(cache[n][l] for n in _QUANT_LEAVES)
+
+
+def _carry_quant_leaves(new_cache, cache, qm):
+    """Decode/recompute never write the quant segments: alias them (and
+    the updated quant mask) into the output cache."""
+    for n in _QUANT_LEAVES:
+        new_cache[n] = cache[n]
+    new_cache["quant_mask"] = qm
+    return new_cache
+
+
+def _int8_cache_unported():
+    return NotImplementedError(
+        "the all-int8 decode cache (the reference's decode_qattn path) is "
+        "on no serving path and is not ported yet (ROADMAP.md)")
 
 
 class DenseModel(ModelBase):
@@ -123,15 +155,26 @@ class DenseModel(ModelBase):
         return x + C.swiglu(h, pl["w_gate"], pl["w_up"], pl["w_down"])
 
     def _build_cache(self, batch, seq, dtype, layout):
-        if layout != LAYOUT_WINDOW:
-            raise NotImplementedError(
-                f"cache layout {layout!r} (quant-resident) is not ported "
-                "yet (ROADMAP.md)")
-        cfg = self.cfg
+        if dtype == torch.int8:
+            raise _int8_cache_unported()
+        cfg, dev = self.cfg, self.device
         shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=dtype, device=self.device),
-                "pos": torch.zeros((), dtype=torch.int64, device=self.device)}
+        cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=dtype, device=dev),
+                 "pos": torch.zeros((), dtype=torch.int64, device=dev)}
+        if layout == LAYOUT_MIXED:
+            # bf16 recent window + int8 quant-resident segments with
+            # per-(token, kv-head) scales, selected per position by
+            # quant_mask; its leading axis of 1 keeps axis 1 the batch
+            # axis of every leaf
+            for n in ("k", "v"):
+                cache[n + "_q"] = torch.zeros(shape, dtype=torch.int8,
+                                              device=dev)
+                cache[n + "_scale"] = torch.zeros(
+                    shape[:-1], dtype=torch.float32, device=dev)
+            cache["quant_mask"] = torch.zeros((1, batch, seq),
+                                              dtype=torch.bool, device=dev)
+        return cache
 
     # ------------------------------------------------------------------ #
     def decode_step(self, params, tokens, cache, window: int = 0,
@@ -145,6 +188,16 @@ class DenseModel(ModelBase):
         x = params["embed"][tokens].to(torch.bfloat16)           # (B, 1, d)
         pos = cache["pos"]
         positions = pos[None] if pos.dim() == 0 else pos[:, None]
+        mixed = "k_q" in cache               # bf16 window + int8 segments
+        if "k_scale" in cache and not mixed:
+            raise _int8_cache_unported()
+        if mixed:
+            # the new token lands in the bf16 window: clear its
+            # quant-mask bit once (the mask is shared across layers),
+            # per row for a (B,) pos
+            s_pos = torch.arange(cache["k"].shape[2], device=x.device)
+            idx = pos[None] if pos.dim() == 0 else pos
+            qm = cache["quant_mask"] & ~(s_pos[None, :] == idx[:, None])[None]
         masses = []
         for l in range(cfg.n_layers):
             pl = _layer(params, l)
@@ -153,9 +206,15 @@ class DenseModel(ModelBase):
             q, k = self._rope(q, k, positions)
             k_c = C.ring_update(cache["k"][l], k, pos)
             v_c = C.ring_update(cache["v"][l], v, pos)
-            out = C.decode_attention(q, k_c, v_c, pos + 1, window=window,
-                                     n_sinks=n_sinks,
-                                     want_density=want_density)
+            if mixed:
+                out = C.mixed_decode_attention(
+                    q, k_c, v_c, *_quant_layer(cache, l), qm[0], pos + 1,
+                    window=window, n_sinks=n_sinks,
+                    want_density=want_density)
+            else:
+                out = C.decode_attention(q, k_c, v_c, pos + 1,
+                                         window=window, n_sinks=n_sinks,
+                                         want_density=want_density)
             if want_density:
                 out, mass = out
                 masses.append(mass)
@@ -164,6 +223,8 @@ class DenseModel(ModelBase):
         x = C.rms_norm(x, params["ln_f"], cfg.norm_eps)
         logits = (x[:, 0] @ self.head_weight(params)).to(torch.float32)
         new_cache = {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+        if mixed:
+            _carry_quant_leaves(new_cache, cache, qm)
         out = DecodeOut(logits, new_cache)
         if want_density:
             return out, torch.stack(masses).mean(dim=0)          # (B, S)
@@ -180,8 +241,10 @@ class DenseModel(ModelBase):
         seq_len: valid context tokens INCLUDING the missing ones.
         Recomputes the missing K/V (global RoPE, on-the-fly causal mask,
         attending over resident + recomputed KV) and writes them into
-        ``cache`` in place.  -> (cache, hidden (B, M, d), density
-        (B, S) | None).
+        ``cache`` in place.  In a mixed cache the recomputed positions
+        leave the quant mask and resident quant segments are read
+        through ``dequant_select``.  -> (cache, hidden (B, M, d),
+        density (B, S) | None).
 
         The same entry is the chunked prefill-append: miss_pos =
         [S0, S0+T) against a cache holding the first S0 tokens.  Bucket
@@ -194,6 +257,11 @@ class DenseModel(ModelBase):
         k_pos_all = torch.arange(S, device=x.device)
         mask = C.causal_window_mask(miss_pos, k_pos_all, window, n_sinks)
         mask = mask & (k_pos_all < seq_len)[None, :]
+        mixed = "k_q" in cache
+        if mixed:
+            # recomputed positions land in the bf16 window
+            hit = (k_pos_all[None, :] == miss_pos[:, None]).any(dim=0)
+            qm = cache["quant_mask"] & ~hit[None, None]
         dens = []
         for l in range(cfg.n_layers):
             pl = _layer(params, l)
@@ -203,14 +271,22 @@ class DenseModel(ModelBase):
             q, k = self._rope(q, k, miss_pos)
             k_c[:, miss_pos] = k.to(k_c.dtype)
             v_c[:, miss_pos] = v.to(v_c.dtype)
-            ao = C.gqa_attention(q, k_c.to(q.dtype), v_c.to(q.dtype), mask,
-                                 want_density=want_density)
+            if mixed:
+                kq_c, vq_c, ks_c, vs_c = _quant_layer(cache, l)
+                k_att = C.dequant_select(k_c, kq_c, ks_c, qm[0])
+                v_att = C.dequant_select(v_c, vq_c, vs_c, qm[0])
+            else:
+                k_att, v_att = k_c, v_c
+            ao = C.gqa_attention(q, k_att.to(q.dtype), v_att.to(q.dtype),
+                                 mask, want_density=want_density)
             x = x + ao.out.reshape(*x.shape[:2], -1) @ pl["wo"]
             x = self._ffn(pl, x)
             if want_density:
                 dens.append(ao.key_density)
         x = C.rms_norm(x, params["ln_f"], cfg.norm_eps)
         density = torch.stack(dens).mean(dim=0) if want_density else None
+        if mixed:
+            cache["quant_mask"] = qm
         return cache, x, density
 
     # ------------------------------------------------------------------ #
@@ -221,12 +297,15 @@ class DenseModel(ModelBase):
     # ------------------------------------------------------------------ #
     def decode_paged(self, params, tokens, arenas, pt16, pos,
                      window: int = 0, n_sinks: int = 0,
-                     want_density: bool = False):
+                     want_density: bool = False, pt8=None,
+                     quant_chunks=None):
         """One [B, 1] decode round over the pool.  tokens (B, 1); pt16
-        (B, C) page-table rows; pos (B,) per-row positions.
-        -> (arenas, logits[, mass])."""
+        (B, C) page-table rows; pos (B,) per-row positions; in
+        quant-resident mode pt8 (B, C) int8-arena rows and quant_chunks
+        (B, C) bool (else both None).  -> (arenas, logits[, mass])."""
         cs = arenas["k16"].shape[2]
-        cache = C.paged_cache_view(arenas, ("k", "v"), pt16, pos)
+        cache = C.paged_cache_view(arenas, ("k", "v"), pt16, pt8,
+                                   quant_chunks, pos)
         out = self.decode_step(params, tokens, cache, window, n_sinks,
                                want_density)
         mass = None
@@ -242,13 +321,16 @@ class DenseModel(ModelBase):
 
     def extend_paged(self, params, miss_tokens, miss_pos, arenas, pt16,
                      seq_len, window: int = 0, n_sinks: int = 0,
-                     want_density: bool = False):
+                     want_density: bool = False, pt8=None,
+                     quant_chunks=None):
         """Chunked prefill-append over the pool (B = 1): the paged form of
         ``recompute``'s append mode.  miss_pos positions map to bf16
         pages already allocated in pt16 (padding positions map to the
-        scratch page 0).  -> (arenas, hidden (1, M, d), density)."""
+        scratch page 0); pt8 / quant_chunks as in ``decode_paged``.
+        -> (arenas, hidden (1, M, d), density)."""
         cs = arenas["k16"].shape[2]
-        cache = C.paged_cache_view(arenas, ("k", "v"), pt16,
+        cache = C.paged_cache_view(arenas, ("k", "v"), pt16, pt8,
+                                   quant_chunks,
                                    torch.zeros((), dtype=torch.int64))
         new_cache, x, density = self.recompute(
             params, miss_tokens, miss_pos, cache, seq_len, window,

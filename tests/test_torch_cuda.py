@@ -6,8 +6,10 @@ JAX, without the suite's conftest:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerance: none for the codec kernels (bit-exact against their plain
-PyTorch versions); bf16 level (2% of the logit range) between the card
-and the CPU for the model, whose bf16 matmuls round differently.
+PyTorch versions); for ``decode_mqattn`` two bf16 ulps of the largest
+output and 1e-6 on the mass (the sums run in another order); bf16
+level (2% of the logit range) between the card and the CPU for the
+model, whose bf16 matmuls round differently.
 """
 import tempfile
 
@@ -21,7 +23,10 @@ torch = pytest.importorskip("torch")
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (README.md: run on the card)")
-    return torch.device("cuda")
+    from repro_torch.models.common import configure_numerics
+    dev = torch.device("cuda")
+    configure_numerics(dev)        # fp32-accumulated bf16 products
+    return dev
 
 
 def _x(shape, bits, dtype, device):
@@ -103,3 +108,99 @@ def test_llmservice_on_card_runs_the_codec_kernels(card):
         outs.append((x[:, -1] @ p["head"]).float().cpu())
     span = float(outs[0].abs().max())
     assert float((outs[0] - outs[1]).abs().max()) <= 0.02 * span + 1e-3
+
+
+def _mixed_case(B, S, H, KV, hd, quant_share, device, seed=0, cs=16):
+    """A mixed cache on ``device``: bf16 K/V, decode-grid int8 codes and
+    scales, a quant mask set on whole 16-token chunks with the given
+    share, n_valid per row in [1, S] with S and 1 included."""
+    from repro_torch.kernels import ref
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g)              # noqa: E731
+    q, k, v = (r(B, H, hd).bfloat16(), r(B, S, KV, hd).bfloat16(),
+               r(B, S, KV, hd).bfloat16())
+    k_q, k_s = ref.quantize_token_head_ref(r(B, S, KV, hd) * 2)
+    v_q, v_s = ref.quantize_token_head_ref(r(B, S, KV, hd) * 2)
+    chunks = torch.rand((B, -(-S // cs)), generator=g) < quant_share
+    qm = chunks.repeat_interleave(cs, dim=1)[:, :S].contiguous()
+    nv = torch.randint(1, S + 1, (B,), generator=g, dtype=torch.int32)
+    nv[0] = S
+    if B > 1:
+        nv[1] = 1
+    return [t.to(device) for t in (q, k, v, k_q, v_q, k_s, v_s, qm, nv)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("select", [False, True])
+@pytest.mark.parametrize("window,n_sinks", [(0, 0), (256, 4)])
+@pytest.mark.parametrize("quant_share", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("B,S,H,KV,hd", [(4, 512, 32, 32, 128),
+                                         (2, 4096, 32, 8, 128),
+                                         (3, 4100, 4, 4, 16),
+                                         (1, 16, 4, 2, 16)])
+def test_cuda_decode_mqattn_matches_plain_version(card, B, S, H, KV, hd,
+                                                  quant_share, window,
+                                                  n_sinks, select):
+    """The kernel against its plain PyTorch version on the card, both
+    forms, with and without the mass.  out within 2^-7 * max|out| (two
+    bf16 ulps: the sums run in another order), mass within 1e-6; a
+    rerun is bit-identical (no atomics)."""
+    from repro_torch.kernels import decode_mqattn as kmq
+    from repro_torch.kernels import ref
+    args = _mixed_case(B, S, H, KV, hd, quant_share, card, seed=S + B)
+    o_r, m_r = ref.decode_mqattn_plain(*args, window, n_sinks,
+                                       want_mass=True, select=select)
+    o_k, m_k = kmq.decode_mqattn(*args, window, n_sinks, want_mass=True,
+                                 select=select)
+    o_n = kmq.decode_mqattn(*args, window, n_sinks, select=select)
+    torch.cuda.synchronize()
+    tol = 2 ** -7 * float(o_r.float().abs().max())
+    assert float((o_k.float() - o_r.float()).abs().max()) <= tol
+    assert float((m_k - m_r).abs().max()) <= 1e-6
+    assert torch.equal(o_n, o_k)
+    o_k2, m_k2 = kmq.decode_mqattn(*args, window, n_sinks, want_mass=True,
+                                   select=select)
+    assert torch.equal(o_k2, o_k) and torch.equal(m_k2, m_k)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_mqattn_counts_launches_and_refuses_bad_input(card):
+    from repro_torch.kernels import decode_mqattn as kmq
+    kmq.reset_launches()
+    args = _mixed_case(1, 64, 4, 2, 16, 0.5, card)
+    kmq.decode_mqattn(*args)
+    assert kmq.decode_mqattn.launches == 1
+    bad = list(args)
+    bad[1] = args[1].float()                       # k must be bf16
+    with pytest.raises(ValueError):
+        kmq.decode_mqattn(*bad)
+    bad = list(args)
+    bad[8] = args[8].long()                        # n_valid must be int32
+    with pytest.raises(ValueError):
+        kmq.decode_mqattn(*bad)
+    assert kmq.decode_mqattn.launches == 1
+
+
+@pytest.mark.cuda
+def test_llmservice_quant_resident_on_card_runs_decode_mqattn(card):
+    """The reduced llama2-7b served with quant_resident=True on the card
+    launches the mixed-cache kernel and admits QUANT pages."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.service import LLMService, LLMSConfig
+    from repro_torch.kernels import decode_mqattn as kmq
+    from repro_torch.models.registry import build_model
+    cfg = reduced(get_config("llama2-7b"))
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    sc = LLMSConfig(policy="vllm_sq", max_ctx_len=64, quant_resident=True,
+                    swap_dir=tempfile.mkdtemp())
+    rng = np.random.default_rng(0)
+    kmq.reset_launches()
+    with LLMService(model, params, sc, device="cuda") as svc:
+        st = svc.newLLMCtx()
+        for _ in range(2):
+            _, toks = svc.callLLM(st, rng.integers(1, 512, 20).tolist(), 4)
+            assert len(toks) == 4
+        assert svc.stats()["quant_resident_chunks"] > 0
+        assert svc.stats()["pool_pages8_used"] > 0
+    assert kmq.decode_mqattn.launches > 0

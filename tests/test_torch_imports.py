@@ -85,7 +85,6 @@ def test_llmservice_defaults_to_the_card(monkeypatch, tmp_path):
     (dict(paged_pool=False), "slot engine"),
     (dict(policy="swap"), "whole-state"),
     (dict(policy="lmk"), "whole-state"),
-    (dict(quant_resident=True), "quant"),
 ])
 def test_unported_configurations_are_refused(kw, what, tmp_path):
     from repro_torch.configs import get_config, reduced
@@ -104,3 +103,22 @@ def test_other_families_are_refused():
     cfg = get_config("llama2-7b").with_overrides(family="moe")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg, device="cpu")
+
+
+def test_quant_resident_service_constructs(tmp_path):
+    """quant_resident=True is ported: the service builds the int8 QUANT
+    arenas beside the bf16 ones and serves a call on the CPU."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.service import LLMService, LLMSConfig
+    from repro_torch.models.registry import build_model
+    cfg = reduced(get_config("llama2-7b"))
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    sc = LLMSConfig(max_ctx_len=64, swap_dir=str(tmp_path),
+                    quant_resident=True)
+    with LLMService(model, params, sc, device="cpu") as svc:
+        arenas = svc.res.pool.arenas
+        assert arenas["k8"].dtype == torch.int8
+        assert arenas["v8s"].dtype == torch.float32
+        _, toks = svc.callLLM(svc.newLLMCtx(), [1, 2, 3], max_new_tokens=2)
+    assert len(toks) == 2

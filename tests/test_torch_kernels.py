@@ -159,3 +159,163 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         chunk_quant.dequantize(torch.zeros(16, 8, dtype=torch.int8),
                                torch.ones(8), 8, 16)
+
+
+# --------------------------------------------------------------------- #
+# decode_mqattn and mixed-cache decode attention
+#
+# Tolerances: out (bf16) within 2^-7 * max|out_ref| — two bf16 ulps of
+# the largest value: the two frameworks sum the fp32 dot products and
+# the PV product in different orders (and XLA's exp is not torch's), so
+# a value near a bf16 rounding boundary can round the other way.  The
+# per-key mass (fp32 probabilities <= 1) within 1e-6.
+# --------------------------------------------------------------------- #
+from _torch_parity import to_torch
+from repro.kernels import decode_qattn as jdq
+from repro.models import common as JC
+from repro_torch.models import common as TC
+
+
+def _mixed_inputs(B, S, H, KV, hd, seed, quant_share=0.5, cs=16):
+    """The same mixed cache in both frameworks: bf16 K/V, their
+    decode-grid int8 codes and scales, and a quant mask set on whole
+    16-token chunks.  -> (jax tuple, torch tuple, n_valid numpy)."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    q32, k32, v32 = f32(B, H, hd), f32(B, S, KV, hd), f32(B, S, KV, hd)
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16)
+                  for a in (q32, k32, v32))
+    jkq, jks = jref.quantize_token_head_ref(f32(B, S, KV, hd) * 2)
+    jvq, jvs = jref.quantize_token_head_ref(f32(B, S, KV, hd) * 2)
+    chunks = rng.random((B, -(-S // cs))) < quant_share
+    qm = np.repeat(chunks, cs, axis=1)[:, :S]
+    j = (jq, jk, jv, jkq, jvq, jks, jvs, jnp.asarray(qm))
+    t = tuple(to_torch(np.asarray(a)) for a in j)
+    return j, t
+
+
+def _n_valid(B, S, seed):
+    rng = np.random.default_rng(seed + 100)
+    nv = rng.integers(1, S + 1, B)
+    nv[0] = S
+    if B > 1:
+        nv[1] = 1
+    return nv
+
+
+def _assert_out_close(ref, got):
+    ref = np.asarray(ref, np.float32) if not isinstance(ref, torch.Tensor) \
+        else ref.float().numpy()
+    got = got.float().numpy()
+    assert np.abs(got - ref).max() <= 2 ** -7 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("window,n_sinks", [(0, 0), (24, 4)])
+@pytest.mark.parametrize("B,S,H,KV,hd", [(2, 64, 4, 2, 16),
+                                         (3, 300, 4, 4, 16)])
+def test_decode_mqattn_ref_matches_reference(B, S, H, KV, hd, window,
+                                             n_sinks):
+    """The port's oracle against the reference's, and its plain kernel
+    version (fused form) against the reference's interpret-mode Pallas
+    kernel: same inputs, n_valid per row in [1, S]."""
+    j, t = _mixed_inputs(B, S, H, KV, hd, seed=S + H)
+    nv = _n_valid(B, S, seed=S)
+    o_ref = jref.decode_mqattn_ref(*j, jnp.asarray(nv), window, n_sinks)
+    o_pal = jdq.decode_mqattn(*j, jnp.asarray(nv), window, n_sinks,
+                              interpret=True)
+    o_t = tref.decode_mqattn_ref(*t, torch.from_numpy(nv), window, n_sinks)
+    _assert_out_close(o_ref, o_t)
+    o_plain = tops.decode_mqattn(*t, torch.from_numpy(nv), window, n_sinks)
+    _assert_out_close(o_pal, o_plain)
+    _assert_out_close(o_ref, o_plain)
+
+
+@pytest.mark.parametrize("want_density", [False, True])
+@pytest.mark.parametrize("S,cur", [(512, "rows"), (512, "scalar"),
+                                   (4096, "rows")])
+def test_mixed_decode_attention_matches_reference(S, cur, want_density):
+    """The port's CPU dispatch (plain select below 4096 positions, the
+    blocked scan from 4096 on) against the reference's, with and
+    without the per-key mass."""
+    B, H, KV, hd = 2, 4, 2, 16
+    (jq, *jrest), (tq, *trest) = _mixed_inputs(B, S, H, KV, hd, seed=S)
+    nv = _n_valid(B, S, seed=S) if cur == "rows" else np.int64(S // 3)
+    for window, n_sinks in ((0, 0), (256, 4)):
+        rj = JC.mixed_decode_attention(jq[:, None], *jrest,
+                                       jnp.asarray(nv, jnp.int32), window,
+                                       n_sinks, want_density)
+        rt = TC.mixed_decode_attention(tq[:, None], *trest,
+                                       torch.as_tensor(nv), window, n_sinks,
+                                       want_density)
+        if want_density:
+            (rj, mj), (rt, mt) = rj, rt
+            assert mt.dtype == torch.float32 and mt.shape == (B, S)
+            np.testing.assert_allclose(mt.numpy(), np.asarray(mj),
+                                       rtol=0, atol=1e-6)
+        assert rt.shape == (B, 1, H, hd) and rt.dtype == torch.bfloat16
+        _assert_out_close(rj, rt)
+
+
+@pytest.mark.parametrize("select", [False, True])
+def test_decode_mqattn_plain_forms_match_reference_paths(select):
+    """The plain kernel version's two forms, each against the reference
+    path it stands for: the select form against ``dequant_select`` +
+    ``decode_attention``, the fused form against the blocked scan."""
+    B, S, H, KV, hd = 2, 512, 8, 2, 16
+    (jq, *jrest), t = _mixed_inputs(B, S, H, KV, hd, seed=7)
+    nv = _n_valid(B, S, seed=7)
+    if select:
+        k = JC.dequant_select(jrest[0], jrest[2], jrest[4], jrest[6])
+        v = JC.dequant_select(jrest[1], jrest[3], jrest[5], jrest[6])
+        oj, mj = JC.decode_attention(jq[:, None], k, v,
+                                     jnp.asarray(nv, jnp.int32),
+                                     want_density=True)
+    else:
+        oj, mj = JC.mixed_decode_attention_blocked(
+            jq[:, None], *jrest, jnp.asarray(nv, jnp.int32),
+            want_density=True, block=128)
+    ot, mt = tref.decode_mqattn_plain(*t, torch.from_numpy(nv),
+                                      want_mass=True, select=select)
+    _assert_out_close(np.asarray(oj)[:, 0], ot)
+    np.testing.assert_allclose(mt.numpy(), np.asarray(mj), rtol=0, atol=1e-6)
+
+
+def test_decode_mqattn_wrapper_refuses_cpu_tensors():
+    from repro_torch.kernels import decode_mqattn as kmq
+    _, t = _mixed_inputs(1, 16, 4, 2, 16, seed=1)
+    before = kmq.decode_mqattn.launches
+    with pytest.raises(ValueError):
+        kmq.decode_mqattn(*t, torch.ones(1, dtype=torch.int32))
+    assert kmq.decode_mqattn.launches == before
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_token_head_quantizer_byte_equal_to_served_codec(dtype):
+    """The decode-grid quantizer equals, byte for byte, the reference's
+    served ``ChunkCodec.quantize_resident_blocks`` (its oracle under
+    ``jax.jit``, where ``max|x| / 127`` becomes ``max|x| * fl32(1/127)``),
+    and the dequantized blocks are bit-identical too."""
+    from repro.core import chunks as jchunks
+    from repro_torch.core import chunks as tchunks
+    jdt, _ = DTYPES[dtype]
+    rng = np.random.default_rng(11)
+    bj, bt = {}, {}
+    for n in ("k", "v"):
+        x = jnp.asarray((rng.standard_normal((16, 4 * 2 * 16)) * 3
+                         ).astype(np.float32)).astype(jdt)
+        x = x.at[:, :16].set(0)                  # the 1e-8 scale floor
+        bj[n], bt[n] = x, to_torch(np.asarray(x))
+    hd = {"k": 16, "v": 16}
+    qj = jchunks.ChunkCodec(("k", "v"), 16).quantize_resident_blocks(bj, hd)
+    tc = tchunks.ChunkCodec(("k", "v"), 16, "cpu")
+    qt = tc.quantize_resident_blocks(bt, hd)
+    assert qj.shapes == qt.shapes and qj.n_tokens == qt.n_tokens
+    for n in qj.data:
+        for a, b in zip(qj.data[n], qt.data[n]):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert a.tobytes() == b.tobytes()
+    dj = jchunks.ChunkCodec(("k", "v"), 16).dequantize_resident(qj)
+    dt = tc.dequantize_resident(qt)
+    for n in dj:
+        np.testing.assert_array_equal(np.asarray(dj[n]).view(np.int16),
+                                      dt[n].view(torch.int16).numpy())

@@ -233,3 +233,75 @@ def test_extend_then_decode_paged_teacher_forced():
                         to_np(at[n])[:, page])
         # pages no row owns stay untouched (zero) in both
         np.testing.assert_array_equal(to_np(at[n])[:, 5], 0)
+
+
+def test_extend_then_decode_paged_quant_resident_teacher_forced():
+    """The mixed (quant-resident) paged view: row 0 holds chunk 0 as an
+    int8 QUANT page and appends 12 tokens into a bf16 page; then four
+    decode rounds of two rows, row 1 with its chunk 1 quant-resident,
+    fed the SAME tokens in both packages.  Hidden states, logits,
+    densities, per-key masses and the written bf16 pages agree at bf16
+    level after every step (tolerances as above); the int8 pages are
+    read, never written."""
+    jcfg, jmodel, jparams, tcfg, tmodel, tparams = tiny_pair()
+    from repro.kernels import ref as jref
+    L, KV, hd, cs, P = jcfg.n_layers, jcfg.n_kv_heads, jcfg.head_dim, 16, 10
+    rng = np.random.default_rng(9)
+    aj = {}
+    for n in ("k", "v"):
+        aj[n + "16"] = jnp.asarray(rng.standard_normal(
+            (L, P, cs, KV, hd)).astype(np.float32)).astype(jnp.bfloat16)
+        codes, sc = jref.quantize_token_head_ref(jnp.asarray(
+            rng.standard_normal((L, P, cs, KV, hd)).astype(np.float32)))
+        aj[n + "8"], aj[n + "8s"] = codes, sc
+    at = {k: to_torch(np.asarray(a)) for k, a in aj.items()}
+    pt16 = np.array([[0, 7, 0, 0], [4, 0, 5, 0]], np.int32)
+    pt8 = np.array([[2, 0, 0, 0], [0, 3, 0, 0]], np.int32)
+    qc = np.array([[True, False, False, False],
+                   [False, True, False, False]])
+    tq = lambda a, dt=torch.long: torch.from_numpy(a).to(dt)  # noqa: E731
+
+    toks = rng.integers(1, jcfg.vocab, 12).astype(np.int32)
+    pos = np.concatenate([np.arange(16, 28), np.full(4, 63)]).astype(np.int32)
+    tk = np.concatenate([toks, np.zeros(4, np.int32)])
+    aj, jx, jd = jmodel.extend_paged(
+        jparams, jnp.asarray(tk)[None], jnp.asarray(pos), aj,
+        jnp.asarray(pt16[:1]), jnp.asarray(pt8[:1]), jnp.asarray(qc[:1]),
+        28, want_density=True)
+    at, tx, td = tmodel.extend_paged(
+        tparams, tq(tk)[None], tq(pos), at, tq(pt16[:1]), 28,
+        want_density=True, pt8=tq(pt8[:1]), quant_chunks=tq(qc[:1], torch.bool))
+    _close_bf16(jx[:, :12], tx[:, :12])
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=1e-4)
+    for step, tok in enumerate(rng.integers(1, jcfg.vocab, (4, 2))):
+        p = np.array([28 + step, 32 + step], np.int32)
+        aj, jl, jm = jmodel.decode_paged(
+            jparams, jnp.asarray(tok[:, None], jnp.int32), aj,
+            jnp.asarray(pt16), jnp.asarray(pt8), jnp.asarray(qc),
+            jnp.asarray(p), want_density=True)
+        at, tl, tm = tmodel.decode_paged(
+            tparams, tq(tok[:, None].astype(np.int64)), at, tq(pt16), tq(p),
+            want_density=True, pt8=tq(pt8), quant_chunks=tq(qc, torch.bool))
+        _close_bf16(jl, tl)
+        np.testing.assert_allclose(tm.numpy(), np.asarray(jm), atol=1e-4)
+    for n in ("k", "v"):
+        for page in (7, 5):
+            _close_bf16(np.asarray(aj[n + "16"])[:, page].astype(np.float32),
+                        to_np(at[n + "16"])[:, page])
+        np.testing.assert_array_equal(at[n + "8"].numpy(),
+                                      np.asarray(aj[n + "8"]))
+
+
+def test_mixed_cache_layout_and_int8_refusal():
+    """init_cache's mixed layout carries the int8 segments, their scales
+    and a (1, B, S) mask; the all-int8 cache is refused, naming the
+    roadmap."""
+    _, _, _, tcfg, tmodel, _ = tiny_pair()
+    from repro_torch.models.kvspec import LAYOUT_MIXED
+    c = tmodel.init_cache(2, 32, layout=LAYOUT_MIXED)
+    L, KV, hd = tcfg.n_layers, tcfg.n_kv_heads, tcfg.head_dim
+    assert c["k_q"].shape == (L, 2, 32, KV, hd) and c["k_q"].dtype == torch.int8
+    assert c["v_scale"].shape == (L, 2, 32, KV)
+    assert c["quant_mask"].shape == (1, 2, 32) and not c["quant_mask"].any()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmodel.init_cache(1, 32, dtype=torch.int8)

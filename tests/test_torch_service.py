@@ -101,7 +101,7 @@ def test_codec_extract_insert_match_reference():
     assert tchunks.chunk_ranges(40, 16) == jchunks.chunk_ranges(40, 16)
 
 
-def _services(budget, max_ctx=64, swap_dirs=None):
+def _services(budget, max_ctx=64, swap_dirs=None, **extra):
     jcfg, jmodel, jparams, tcfg, tmodel, _ = tiny_pair()
     jparams = dict(jparams)
     jparams["head"] = (jparams["head"].astype(jnp.float32) * HEAD_SCALE
@@ -109,7 +109,8 @@ def _services(budget, max_ctx=64, swap_dirs=None):
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, "cpu")
     dirs = swap_dirs or (tempfile.mkdtemp(), tempfile.mkdtemp())
     kw = dict(policy="llms", paged_pool=True, decode_batch=1,
-              max_ctx_len=max_ctx, chunk_tokens=16, memory_budget=budget)
+              max_ctx_len=max_ctx, chunk_tokens=16, memory_budget=budget,
+              **extra)
     js = JService(jmodel, jparams, JConfig(swap_dir=dirs[0], **kw))
     ts = TService(tmodel, tparams, TConfig(swap_dir=dirs[1], **kw),
                   device="cpu")
@@ -168,7 +169,7 @@ def _instrument(svc):
     return log
 
 
-def _replay(svc, trace, n_ctx):
+def _replay(svc, trace, n_ctx, quant=False):
     log = _instrument(svc)
     stubs = [svc.newLLMCtx() for _ in range(n_ctx)]
     records = []
@@ -184,6 +185,13 @@ def _replay(svc, trace, n_ctx):
             "restored": sorted(log["restored"]),
             "n_tokens": ctx.n_tokens,
         })
+        if quant:
+            stats = svc.stats()
+            records[-1].update(
+                quant={i: m.quant for i, m in sorted(ctx.chunks.items())},
+                quant_resident_chunks=stats["quant_resident_chunks"],
+                decode_ready_contexts=stats["decode_ready_contexts"],
+                pages8_used=stats["pool_pages8_used"])
     return records
 
 
@@ -251,3 +259,108 @@ def test_port_reads_reference_swap_files_after_replay():
             p = os.path.join(js.store.root, f)
             _assert_payload_equal(jrestore.read_chunk_file(p),
                                   trestore.read_chunk_file(p))
+
+
+# --------------------------------------------------------------------- #
+# quant-resident decode (int8 QUANT pages attended in place)
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("n_ctx,rounds,budget_chunks", [(4, 3, 5),
+                                                       (3, 3, 3)])
+def test_quant_resident_replay_matches_reference(n_ctx, rounds,
+                                                 budget_chunks):
+    """The same replay with ``quant_resident=True`` in both services:
+    8-bit chunks become decode-grid payloads admitted into QUANT pages,
+    4/2-bit chunks are re-gridded, decode attends the mixed cache.
+    Equal tokens and per-call records (bits, quant flags, the
+    ``quant_resident_chunks`` and ``decode_ready_contexts`` stats, QUANT
+    pages in use, evicted and disk-restored keys).  Tolerance: none."""
+    raw_chunk = 2 * 4 * 4 * 16 * 16 * 2
+    js, ts = _services(budget=budget_chunks * raw_chunk, quant_resident=True)
+    trace = _trace(n_ctx, rounds)
+    with js, ts:
+        rec_j = _replay(js, trace, n_ctx, quant=True)
+        rec_t = _replay(ts, trace, n_ctx, quant=True)
+    for i, (a, b) in enumerate(zip(rec_j, rec_t)):
+        assert a == b, f"call {i}: reference {a} != port {b}"
+    assert any(r["quant_resident_chunks"] for r in rec_t)
+    assert any(r["pages8_used"] for r in rec_t)
+    assert any(r["restored"] for r in rec_t)
+    assert any(b in (2, 4) for r in rec_t for b in r["bits"].values())
+
+
+def test_quant_resident_tokens_equal_force_dequant():
+    """Token identity of the tier (the reference's
+    tests/test_quant_resident.py contract): decoding over int8 QUANT
+    pages through the fused select gives exactly the tokens of the
+    force_dequant control, which materializes the SAME payloads into
+    bf16 pages.  Policy vllm_sq makes every chunk 8-bit."""
+    _, _, _, tcfg, tmodel, tparams = tiny_pair()
+    kw = dict(policy="vllm_sq", paged_pool=True, decode_batch=1,
+              max_ctx_len=64, chunk_tokens=16, memory_budget=10_000_000,
+              quant_resident=True)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, tcfg.vocab, 18).tolist() for _ in range(3)]
+
+    def drive(force):
+        svc = TService(tmodel, tparams,
+                       TConfig(swap_dir=tempfile.mkdtemp(), **kw),
+                       device="cpu")
+        svc.res.force_dequant = force
+        with svc:
+            stubs = [svc.newLLMCtx() for _ in prompts]
+            toks = [svc.callLLM(st, p[r:], 6)[1]
+                    for r in range(2) for st, p in zip(stubs, prompts)]
+            quant = [m.quant for c in svc.contexts.values()
+                     for m in c.chunks.values()]
+            return toks, quant, svc.stats()
+
+    toks_q, quant_q, st_q = drive(False)
+    toks_d, quant_d, st_d = drive(True)
+    assert quant_q and all(quant_q) and quant_q == quant_d
+    assert st_q["pool_pages8_used"] > 0 and st_d["pool_pages8_used"] == 0
+    assert toks_q == toks_d
+
+
+def test_token_head_chunk_files_cross_read(tmp_path):
+    """A decode-grid (``token_head``) chunk file written by one package
+    is read by the other, payload for payload, and both write the same
+    bytes for the same blocks.  Tolerance: none."""
+    bj, bt = _blocks(F=4 * 4 * 16, seed=21)
+    js, ts = _services(1 << 20, quant_resident=True)
+    with js, ts:
+        pj = js.res._encode_blocks(bj, 8, quant=True)
+        pt = ts.res._encode_blocks(bt, 8, quant=True)
+    assert isinstance(pt, tchunks.QuantResidentChunk)
+    fj, ft = str(tmp_path / "j.chunk"), str(tmp_path / "t.chunk")
+    jrestore.write_chunk_file(fj, pj, 4)
+    trestore.write_chunk_file(ft, pt, 4)
+    with open(fj, "rb") as a, open(ft, "rb") as b:
+        assert a.read() == b.read()
+    rj, rt = trestore.read_chunk_file(fj), jrestore.read_chunk_file(ft)
+    assert isinstance(rj, tchunks.QuantResidentChunk)
+    assert isinstance(rt, jchunks.QuantResidentChunk)
+    _assert_payload_equal(pj, rj)
+    _assert_payload_equal(pt, rt)
+
+
+def test_pagepool_quant_rows_alloc8_and_free_chunk():
+    """The pool's QUANT bookkeeping: ``alloc8`` marks the chunk QUANT in
+    the table, ``rows`` returns its int8 page row and mask (None rows
+    outside quant-resident mode), ``free_chunk`` returns the page."""
+    _, ts = _services(1 << 20, quant_resident=True)
+    with ts:
+        pool = ts.res.pool
+        free8 = len(pool._free8)
+        page = pool.alloc8(7, 1)
+        p16 = pool.alloc16(7, 0)
+        pt16, pt8, qmask = pool.rows([7, 8])
+        assert pt8[0, 1] == page and pt16[0, 0] == p16 and pt16[0, 1] == 0
+        assert qmask.tolist()[0][:3] == [False, True, False]
+        assert not qmask[1].any() and not pt8[1].any()
+        assert pool.stats()["pool_pages8_used"] == 1
+        pool.free_chunk(7, 1)
+        assert len(pool._free8) == free8 and pool.kind(7, 1) == 0
+        assert not pool.rows([7])[2].any()
+    _, plain = _services(1 << 20)
+    with plain:
+        assert plain.res.pool.rows([0])[1:] == (None, None)
