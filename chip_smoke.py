@@ -15,9 +15,15 @@ result line):
              dequantized values) over bits {8, 4, 2}, bf16/fp32 inputs
              and four shapes; decode_mqattn in both forms, with and
              without the mass, over five shapes, three quant shares and
-             two (window, sinks) settings.  Time each kernel, its plain
-             version, its bound and (for decode_mqattn) the library's
-             attention at the shapes serving gives them;
+             two (window, sinks) settings; attn_density in both forms,
+             with and without the density, at serving's extend (seq_len
+             48 and 200, bucket pads, G 1/4/8), a long append and the
+             Pallas kernel's own setting, causal, windowed and with
+             rows that see no key; decode_qattn in both forms, with and
+             without the mass, at two shapes and two (window, sinks)
+             settings.  Time each kernel, its plain version, its bound
+             and (for the attention kernels) the library's attention at
+             the shapes the main path gives them;
 3. serve   — llama2-7b at full width and depth (random bf16 weights from
              a seeded torch.Generator, built once) behind LLMService
              (policy llms, paged pool, decode_batch 1): 4 contexts x 3
@@ -25,13 +31,18 @@ result line):
              KV, so compression, AoT swap-out, LCTRU eviction and disk
              restores all fire.  Run twice with the bf16 pool and twice
              with quant_resident=True (8-bit chunks admitted into int8
-             QUANT pages and attended in place by decode_mqattn).  The
-             kernel launch counts are zeroed just before each run and
-             read just after; each rerun from the same seed must give
-             identical tokens and bit plans;
+             QUANT pages and attended in place by decode_mqattn).  Every
+             prefill-append attends through attn_density (one launch per
+             layer).  The kernel launch counts are zeroed just before
+             each run and read just after; each rerun from the same seed
+             must give identical tokens and bit plans.  Then the same
+             model decodes over an all-int8 cache (decode_qattn, one
+             launch per layer and token), twice, with identical tokens
+             and masses;
 4. check   — the reduced llama2-7b served teacher-forced on the card
              agrees with the same port on the CPU (plain PyTorch), over
-             the bf16 page view and over a mixed (quant-resident) view.
+             the bf16 page view, a mixed (quant-resident) view and an
+             all-int8 decode cache.
 
 The last lines are the kernel record ({"kernels": [...]}), the card's
 ``nvidia-smi`` name and power limit, and {"ok": true, "device": ...}.
@@ -57,8 +68,14 @@ MQ_TIMED = [(1, 512, 32, 32, 128, 0.5), (1, 4096, 32, 32, 128, 0.5)]
 MQ_OUT_TOL = 2 ** -7                       # x max|out_plain|: two bf16 ulps
 PROFILED_ROUND = 81                        # 4th decode round of the last call
 MQ_MASS_TOL = 1e-6
+# attn_density: out as above; the density (fp32 sums of probabilities in
+# another order) within 1e-5 of the largest density
+AD_DENS_TOL = 1e-5
+AD_SERVE = dict(S=512, H=32, hd=128, bucket=64, pad=511)
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12                     # H100 SXM, outside tensor cores
+BF16_OPS_PER_S = 989e12                    # H100 SXM, bf16 tensor cores
+INT8_DECODE = dict(S=512, prompt=32, new=32)
 
 
 def log(*a):
@@ -147,6 +164,8 @@ def _profile_round(fn):
     for ev in prof.key_averages():
         name = ev.key.lower()
         cat = ("decode_mqattn" if "mqattn" in name or "mass_kernel" in name
+               else "attn_density" if "attn_kernel" in name
+               or "density_kernel" in name
                else "indexing (page gather, scatter)" if "index" in name
                else "matmul" if any(t in name for t in
                                     ("gemm", "gemv", "xmma", "cutlass"))
@@ -385,6 +404,271 @@ def mqattn_phase():
     return worst, times
 
 
+def _ad_case(B, Sq, Sk, H, KV, hd, q_pos, g, dev):
+    """q (B,Sq,H,hd), k/v (B,Sk,KV,hd) bf16 on the card and the (Sq,)
+    int32 query positions."""
+    import torch
+    r = lambda *s: torch.randn(s, generator=g, device=dev)   # noqa: E731
+    qp = torch.as_tensor(q_pos, dtype=torch.int32, device=dev)
+    return [r(B, Sq, H, hd).bfloat16(), r(B, Sk, KV, hd).bfloat16(),
+            r(B, Sk, KV, hd).bfloat16(), qp]
+
+
+def _serve_positions(seq_len):
+    """serving's bucket-padded extend positions at S = 512: a first
+    prefill of 48 tokens (seq_len 48) or an append of 40 at [160, 200)
+    (seq_len 200), then pads at 511 up to the 64-token bucket."""
+    n = 48 if seq_len == 48 else 40
+    return (list(range(seq_len - n, seq_len))
+            + [AD_SERVE["pad"]] * (AD_SERVE["bucket"] - n))
+
+
+def _ad_bound_ms(args, seq_len, window, n_sinks, want_density):
+    """Least time for one call: q, the K/V rows some query sees, out
+    (and the density) once over the HBM rate, or 4 hd FLOPs per visible
+    (query-head, key) pair (QK and PV) over the bf16 tensor-core rate,
+    the larger."""
+    from repro_torch.kernels import ref
+    q, k, _, qp = args
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    vis = ref.extend_visibility(qp.long(), Sk, seq_len, window, n_sinks)
+    n_pairs = int(vis.sum()) * H * B
+    n_keys = int(vis.any(dim=0).sum())
+    nbytes = B * (2 * Sq * H * hd * 2 + n_keys * KV * hd * 2 * 2) + 4 * Sq \
+        + (4 * B * Sk if want_density else 0)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, 4 * hd * n_pairs / BF16_OPS_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def attn_phase():
+    """attn_density against its plain version on the card, both forms,
+    with and without the density; identical reruns; timings."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import attn_density as kad
+    from repro_torch.kernels import ref
+    from repro_torch.models.common import configure_numerics
+    dev = torch.device("cuda")
+    configure_numerics(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    S, H, hd = AD_SERVE["S"], AD_SERVE["H"], AD_SERVE["hd"]
+    cases = []        # (label, args, seq_len, (window, n_sinks) settings)
+    for seq_len in (48, 200):
+        for KV in (32, 8, 4):                         # G = 1, 4, 8
+            cases.append((f"serve seq_len {seq_len} G {H // KV}",
+                          _ad_case(1, 64, S, H, KV, hd,
+                                   _serve_positions(seq_len), g, dev),
+                          seq_len, ((0, 0), (512, 4), (16, 0))))
+    long_args = _ad_case(1, 512, 4096, H, 32, hd, list(range(3584, 4096)),
+                         g, dev)
+    cases.append(("long append", long_args, 4096, ((0, 0), (512, 4))))
+    pallas_args = _ad_case(1, 2048, 2048, H, 32, hd, list(range(2048)), g,
+                           dev)
+    cases.append(("Pallas setting", pallas_args, 2048, ((0, 0), (512, 4))))
+    worst = {"out": 0.0, "out_rel": 0.0, "density": 0.0, "density_rel": 0.0}
+    n_cases = n_empty = 0
+    for label, args, seq_len, masks in cases:
+        for window, n_sinks in masks:
+            vis = ref.extend_visibility(args[3].long(), args[1].shape[1],
+                                        seq_len, window, n_sinks)
+            n_empty += int((~vis.any(dim=1)).sum())
+            for form in ("served", "flash"):
+                o_r, d_r = ref.attn_density_plain(*args, seq_len, window,
+                                                  n_sinks, True, form)
+                o_k, d_k = kad.attn_density(*args, seq_len, window, n_sinks,
+                                            True, form)
+                o_n, d_n = kad.attn_density(*args, seq_len, window, n_sinks,
+                                            False, form)
+                o_2, d_2 = kad.attn_density(*args, seq_len, window, n_sinks,
+                                            True, form)
+                torch.cuda.synchronize()
+                span = float(o_r.float().abs().max())
+                dspan = float(d_r.abs().max())
+                d_o = float((o_k.float() - o_r.float()).abs().max())
+                d_d = float((d_k - d_r).abs().max())
+                case = (f"{label} window {window} sinks {n_sinks} {form}")
+                if not (torch.isfinite(o_k.float()).all()
+                        and torch.isfinite(d_k).all()
+                        and d_o <= MQ_OUT_TOL * span
+                        and d_d <= AD_DENS_TOL * dspan):
+                    raise AssertionError(
+                        f"attn_density {case}: max |d out| {d_o} (range "
+                        f"{span}), max |d density| {d_d} (range {dspan})")
+                if not (d_n is None and torch.equal(o_n, o_k)
+                        and torch.equal(o_2, o_k) and torch.equal(d_2, d_k)):
+                    raise AssertionError(f"attn_density {case}: reruns "
+                                         "differ")
+                worst["out"] = max(worst["out"], d_o)
+                worst["out_rel"] = max(worst["out_rel"], d_o / span)
+                worst["density"] = max(worst["density"], d_d)
+                worst["density_rel"] = max(worst["density_rel"],
+                                           d_d / dspan)
+                n_cases += 1
+    if n_empty == 0:
+        raise AssertionError("no attn_density case had a row that sees no "
+                             "key")
+    log(f"[kernels] attn_density: {n_cases} cases x (with, without density) "
+        f"within tolerance of the plain version ({n_empty} rows that see no "
+        f"key among them): max |d out| {worst['out']} ({worst['out_rel']} "
+        f"of max|out|, tolerance {MQ_OUT_TOL}), max |d density| "
+        f"{worst['density']} ({worst['density_rel']} of max density, "
+        f"tolerance {AD_DENS_TOL}); reruns bit-identical")
+
+    def timed(label, args, seq_len, form, want_density):
+        q, k, v, qp = args
+        fn = lambda: kad.attn_density(*args, seq_len, 0, 0,  # noqa: E731
+                                      want_density, form)
+        plain = lambda: ref.attn_density_plain(  # noqa: E731
+            *args, seq_len, 0, 0, want_density, form)
+        mask = ref.extend_visibility(qp.long(), k.shape[1], seq_len)
+        q4, k4, v4 = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = lambda: F.scaled_dot_product_attention(     # noqa: E731
+            q4, k4, v4, attn_mask=mask)
+        bound, by = _ad_bound_ms(args, seq_len, 0, 0, want_density)
+        iters = 200 if q.shape[1] <= 64 else 20
+        row = {"shape": label, "form": form, "density": want_density,
+               "call_ms": _time_ms(fn, iters=iters),
+               "device_ms": _device_ms(fn, ("attn_kernel", "density_kernel"),
+                                       iters=min(iters, 50)),
+               "plain_call_ms": _time_ms(plain, iters=min(iters, 50)),
+               "plain_device_ms": _device_ms(plain, iters=min(iters, 50)),
+               "library_call_ms": _time_ms(lib, iters=iters),
+               "library_device_ms": _device_ms(lib, iters=min(iters, 50)),
+               "bound_ms": bound, "bound_by": by}
+        log(f"[kernels] attn_density {label} {form}"
+            f"{' + density' if want_density else ''}: kernel "
+            f"{row['device_ms']} ms on the device, {row['call_ms']:.5f} ms "
+            f"per call; plain {row['plain_device_ms']} ms on the device, "
+            f"{row['plain_call_ms']:.5f} ms per call; "
+            f"scaled_dot_product_attention with the boolean mask (out "
+            f"only) {row['library_device_ms']} ms on the device, "
+            f"{row['library_call_ms']:.5f} ms per call; bound "
+            f"{bound:.5f} ms ({by})")
+        return row
+
+    serve = _ad_case(1, 64, S, H, 32, hd, _serve_positions(200), g, dev)
+    times = {
+        "out": timed("(1,64,32,32,128) over 512, seq_len 200", serve, 200,
+                     "served", False),
+        "density": timed("(1,64,32,32,128) over 512, seq_len 200", serve,
+                         200, "served", True),
+        "long": timed("(1,512,32,32,128) at [3584,4096) over 4096",
+                      long_args, 4096, "served", True),
+        "pallas": timed("(1,2048,32,32,128) causal", pallas_args, 2048,
+                        "flash", True),
+    }
+    return worst, times
+
+
+def _dq_bound_ms(args, want_mass):
+    """Least time for one call: each valid key's int8 K/V row and its two
+    scales (2 hd + 8 bytes per kv-head), q, n_valid, out and the mass once
+    over the HBM rate, or 4 H hd FLOPs per valid key over the bf16
+    tensor-core rate, the larger."""
+    q, k_q, _, _, _, nv = args
+    B, H, hd = q.shape
+    S, KV = k_q.shape[1], k_q.shape[2]
+    n = int(nv.long().clamp(max=S).sum())
+    nbytes = (n * KV * (2 * hd + 8) + 2 * B * H * hd * 2 + 4 * B
+              + (4 * B * S if want_mass else 0))
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, 4 * H * hd * n / BF16_OPS_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def qattn_phase():
+    """decode_qattn against its plain version on the card, both forms,
+    with and without the mass; identical reruns; timings."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_qattn as kdq
+    from repro_torch.kernels import ref
+    from repro_torch.models.common import configure_numerics
+    dev = torch.device("cuda")
+    configure_numerics(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    def case(B, S, H, KV, hd, full=False):
+        a = _mq_case(B, S, H, KV, hd, 1.0, g, dev, full=full)
+        return [a[0], a[3], a[4], a[5], a[6], a[8]]
+
+    worst = {"out": 0.0, "out_rel": 0.0, "mass": 0.0}
+    n_cases = 0
+    for shape in ((1, 512, 32, 32, 128), (4, 4096, 32, 32, 128)):
+        args = case(*shape)
+        for window, n_sinks in ((0, 0), (256, 4)):
+            for select in (False, True):
+                o_r, m_r = ref.decode_qattn_plain(*args, window, n_sinks,
+                                                  True, select)
+                o_k, m_k = kdq.decode_qattn(*args, window, n_sinks, True,
+                                            select)
+                o_n = kdq.decode_qattn(*args, window, n_sinks, False,
+                                       select)
+                o_2, m_2 = kdq.decode_qattn(*args, window, n_sinks, True,
+                                            select)
+                torch.cuda.synchronize()
+                span = float(o_r.float().abs().max())
+                d_o = float((o_k.float() - o_r.float()).abs().max())
+                d_m = float((m_k - m_r).abs().max())
+                label = (f"{shape} window {window} sinks {n_sinks} "
+                         f"{'select' if select else 'fused'}")
+                if not (torch.isfinite(o_k.float()).all()
+                        and d_o <= MQ_OUT_TOL * span and d_m <= MQ_MASS_TOL):
+                    raise AssertionError(
+                        f"decode_qattn {label}: max |d out| {d_o} (range "
+                        f"{span}), max |d mass| {d_m}")
+                if not (torch.equal(o_n, o_k) and torch.equal(o_2, o_k)
+                        and torch.equal(m_2, m_k)):
+                    raise AssertionError(f"decode_qattn {label}: reruns "
+                                         "differ")
+                worst["out"] = max(worst["out"], d_o)
+                worst["out_rel"] = max(worst["out_rel"], d_o / span)
+                worst["mass"] = max(worst["mass"], d_m)
+                n_cases += 1
+    log(f"[kernels] decode_qattn: {n_cases} cases x (with, without mass) "
+        f"within tolerance of the plain version: max |d out| "
+        f"{worst['out']} ({worst['out_rel']} of max|out|, tolerance "
+        f"{MQ_OUT_TOL}), max |d mass| {worst['mass']} (tolerance "
+        f"{MQ_MASS_TOL}); reruns bit-identical")
+
+    times = []
+    for shape, select in (((1, 512, 32, 32, 128), True),
+                          ((4, 4096, 32, 32, 128), False)):
+        args = case(*shape, full=True)
+        q, k_q, v_q, k_s, v_s, nv = args
+        fn = lambda: kdq.decode_qattn(*args, want_mass=True,  # noqa: E731
+                                      select=select)
+        plain = lambda: ref.decode_qattn_plain(  # noqa: E731
+            *args, want_mass=True, select=select)
+        kb = ref.dequantize_token_head_ref(k_q, k_s)
+        vb = ref.dequantize_token_head_ref(v_q, v_s)
+        q4 = q[:, :, None]
+        k4, v4 = (t.transpose(1, 2).contiguous() for t in (kb, vb))
+        lib = lambda: F.scaled_dot_product_attention(     # noqa: E731
+            q4, k4, v4)
+        bound, by = _dq_bound_ms(args, True)
+        row = {"shape": str(shape).replace(" ", ""),
+               "form": "select" if select else "fused",
+               "call_ms": _time_ms(fn),
+               "device_ms": _device_ms(fn, ("mqattn_kernel", "mass_kernel")),
+               "plain_call_ms": _time_ms(plain, iters=50),
+               "plain_device_ms": _device_ms(plain),
+               "library_call_ms": _time_ms(lib),
+               "library_device_ms": _device_ms(lib),
+               "bound_ms": bound, "bound_by": by}
+        times.append(row)
+        log(f"[kernels] decode_qattn {row['shape']} {row['form']} + mass, "
+            f"n_valid = S: kernel {row['device_ms']} ms on the device, "
+            f"{row['call_ms']:.5f} ms per call; plain "
+            f"{row['plain_device_ms']} ms on the device, "
+            f"{row['plain_call_ms']:.5f} ms per call; "
+            f"scaled_dot_product_attention over the dequantized bf16 K/V "
+            f"(out only) {row['library_device_ms']} ms on the device, "
+            f"{row['library_call_ms']:.5f} ms per call; bound "
+            f"{bound:.5f} ms ({by})")
+    return worst, times
+
+
 # --------------------------------------------------------------------- #
 # 3. serve llama2-7b at full width
 # --------------------------------------------------------------------- #
@@ -433,6 +717,7 @@ def serve_phase(model, params, seed, swap_root, label,
     import torch
     from repro_torch.core import restore
     from repro_torch.core.service import LLMService, LLMSConfig
+    from repro_torch.kernels import attn_density as kad
     from repro_torch.kernels import chunk_quant
     from repro_torch.kernels import decode_mqattn as kmq
 
@@ -451,7 +736,8 @@ def serve_phase(model, params, seed, swap_root, label,
                     quant_resident=quant_resident,
                     swap_dir=tempfile.mkdtemp(dir=swap_root))
     svc = LLMService(model, params, sc, device=device)
-    n_logits = {"checked": 0, "quant_rounds": 0, "rounds": 0}
+    n_logits = {"checked": 0, "quant_rounds": 0, "rounds": 0,
+                "profile_extend": False}
     round_profile = {}
     exe = svc.exe
     extend, decode = exe.paged_extend, exe.paged_decode
@@ -479,7 +765,16 @@ def serve_phase(model, params, seed, swap_root, label,
             return out
         return decode(*a, **k)
 
-    exe.paged_extend = checked(extend)
+    def extend_profiled(*a, **k):
+        # the last call's prefill-append, once, under the profiler
+        if on_card and n_logits["profile_extend"]:
+            n_logits["profile_extend"] = False
+            out, round_profile["extend"] = _profile_round(
+                lambda: extend(*a, **k))
+            return out
+        return extend(*a, **k)
+
+    exe.paged_extend = checked(extend_profiled)
     exe.paged_decode = checked(decode_tally)
 
     # codec launches per switch-in and per switch-out of each call
@@ -515,10 +810,13 @@ def serve_phase(model, params, seed, swap_root, label,
         stubs = [svc.newLLMCtx() for _ in range(4)]
         chunk_quant.reset_launches()
         kmq.reset_launches()
+        kad.reset_launches()
         t_run = time.perf_counter()
         for i, (c, prompt, max_new) in enumerate(trace):
             read0 = restore.io_counters()["read"]
             mq0 = kmq.decode_mqattn.launches
+            ad0 = kad.attn_density.launches
+            n_logits["profile_extend"] = i == len(trace) - 1
             phase["in"][:] = phase["out"][:] = [0, 0]
             t1 = time.perf_counter()
             _, toks = svc.callLLM(stubs[c], prompt, max_new)
@@ -530,22 +828,28 @@ def serve_phase(model, params, seed, swap_root, label,
             restored = restore.io_counters()["read"] - read0
             pages8 = pool.stats()["pool_pages8_used"]
             mq = kmq.decode_mqattn.launches - mq0
+            ad = kad.attn_density.launches - ad0
             records.append({"ctx": c, "tokens": list(map(int, toks)),
                             "bits": bits, "restored_bytes": restored,
                             "switch_s": rec["switch_s"],
                             "launches_in": list(phase["in"]),
                             "launches_out": list(phase["out"]),
-                            "quant_pages": pages8, "mqattn_launches": mq})
+                            "quant_pages": pages8, "mqattn_launches": mq,
+                            "attn_density_launches": ad})
             log(f"[serve:{label}] call {i:2d} ctx {c} prompt {len(prompt)} "
                 f"-> {len(toks)} tokens | switch {rec['switch_s'] * 1e3:.3f}"
                 f" ms | restored {restored} B | wall {wall * 1e3:.1f} ms | "
                 f"quantize/dequantize launches: switch-in {phase['in']}, "
                 f"switch-out {phase['out']} | QUANT pages {pages8} | "
-                f"decode_mqattn launches {mq} | bits {bits}")
+                f"decode_mqattn launches {mq} | attn_density launches {ad} "
+                f"| bits {bits}")
         run_s = time.perf_counter() - t_run
         launches = {"quantize": chunk_quant.quantize.launches,
                     "dequantize": chunk_quant.dequantize.launches,
-                    "decode_mqattn": kmq.decode_mqattn.launches}
+                    "decode_mqattn": kmq.decode_mqattn.launches,
+                    "attn_density": kad.attn_density.launches,
+                    "attn_density_with_density":
+                        kad.attn_density.density_launches}
         stats = svc.stats()
         widths = {}
         for ctx in svc.contexts.values():
@@ -558,13 +862,22 @@ def serve_phase(model, params, seed, swap_root, label,
         f"{quant_pages['admitted']}; chunk bit widths stored "
         f"{dict(sorted(widths.items()))}")
     log(f"[serve:{label}] stats {json.dumps(stats, default=str)}")
-    if round_profile:
+    if "round" in round_profile:
         log(f"[serve:{label}] decode round {PROFILED_ROUND} under the "
             f"profiler: {json.dumps(round_profile['round'])}")
+    if "extend" in round_profile:
+        log(f"[serve:{label}] the last call's prefill-append under the "
+            f"profiler: {json.dumps(round_profile['extend'])}")
 
     if on_card and not (launches["quantize"] > 0
                         and launches["dequantize"] > 0):
         raise AssertionError(f"a codec kernel never ran: {launches}")
+    # every prefill-append attends through attn_density, once per layer
+    if on_card and any(r["attn_density_launches"] < cfg.n_layers
+                       or r["attn_density_launches"] % cfg.n_layers
+                       for r in records):
+        raise AssertionError("a call's extend did not run attn_density once "
+                             "per layer")
     if not any(b < 16 for b in widths):
         raise AssertionError("no chunk was stored below 16 bits")
     if not any(r["restored_bytes"] > 0 for r in records):
@@ -586,7 +899,65 @@ def serve_phase(model, params, seed, swap_root, label,
             "run_s": run_s, "widths": widths,
             "quant_rounds": n_logits["quant_rounds"],
             "round_profile": round_profile.get("round"),
+            "extend_profile": round_profile.get("extend"),
             "quant_pages_admitted": quant_pages["admitted"]}
+
+
+def int8_decode_phase(model, params, seed, label):
+    """The all-int8 decode cache at full width: a prompt fed through
+    ``decode_step`` one token at a time (the only way the reference fills
+    this cache), then greedy tokens with the per-key mass.  The
+    decode_qattn launch count is zeroed just before and read just
+    after."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_qattn as kdq
+    cfg, dev = model.cfg, model.device
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    S, n_prompt, n_new = (INT8_DECODE[k] for k in ("S", "prompt", "new"))
+    prompt = np.random.default_rng(seed).integers(1, cfg.vocab, n_prompt)
+    cache = model.init_cache(1, S, dtype=torch.int8)
+    kdq.reset_launches()
+    t0 = time.perf_counter()
+    for tok in prompt:
+        out = model.decode_step(params, torch.tensor([[int(tok)]],
+                                                     device=dev), cache)
+        cache = out.cache
+    sync()
+    prompt_s = time.perf_counter() - t0
+    logits, toks, masses, per_token_ms = out.logits, [], [], []
+    for _ in range(n_new):
+        nxt = int(torch.argmax(logits[0]))
+        t1 = time.perf_counter()
+        out, mass = model.decode_step(params, torch.tensor([[nxt]],
+                                                           device=dev),
+                                      cache, want_density=True)
+        sync()
+        per_token_ms.append((time.perf_counter() - t1) * 1e3)
+        if not torch.isfinite(out.logits).all():
+            raise AssertionError("non-finite logits over the int8 cache")
+        cache, logits = out.cache, out.logits
+        toks.append(nxt)
+        masses.append(mass.float().cpu())
+    launches = kdq.decode_qattn.launches
+    mass = torch.stack(masses)
+    if int(cache["pos"]) != n_prompt + n_new:
+        raise AssertionError(f"int8 cache at {int(cache['pos'])}")
+    if on_card and launches != (n_prompt + n_new) * cfg.n_layers:
+        raise AssertionError(f"{launches} decode_qattn launches, not "
+                             f"{(n_prompt + n_new) * cfg.n_layers}")
+    sums = mass.sum(dim=-1)
+    if not torch.allclose(sums, torch.ones_like(sums), atol=1e-3):
+        raise AssertionError(f"int8 decode masses do not sum to 1: {sums}")
+    ms = sorted(per_token_ms)
+    log(f"[int8:{label}] all-int8 cache (1, {S}): {n_prompt}-token prompt "
+        f"fed one token at a time in {prompt_s:.2f} s, then {n_new} greedy "
+        f"tokens with the mass: per token median {ms[len(ms) // 2]:.2f} ms "
+        f"(min {ms[0]:.2f}, max {ms[-1]:.2f}); decode_qattn launches "
+        f"{launches} ({cfg.n_layers} a token); tokens {toks}")
+    return {"tokens": toks, "mass": mass, "launches": launches,
+            "per_token_ms": per_token_ms, "prompt_s": prompt_s}
 
 
 # --------------------------------------------------------------------- #
@@ -630,11 +1001,33 @@ def _teacher_forced(model, params, dev, arenas0, mixed):
     return torch.cat(logits)
 
 
+def _teacher_forced_int8(model, params, dev):
+    """Eight decode_step rounds of two rows over an all-int8 cache, row 1
+    starting at position 7, fed fixed tokens.  -> logits and masses,
+    stacked, on the CPU."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 4)
+    cache = model.init_cache(2, 64, dtype=torch.int8)
+    cache["pos"] = torch.tensor([0, 7], device=dev)
+    logits, masses = [], []
+    for _ in range(8):
+        tok = torch.as_tensor(rng.integers(1, model.cfg.vocab, (2, 1)),
+                              device=dev)
+        out, mass = model.decode_step(params, tok, cache, want_density=True)
+        cache = out.cache
+        logits.append(out.logits.float().cpu())
+        masses.append(mass.float().cpu())
+    return torch.cat(logits), torch.cat(masses)
+
+
 def check_phase():
     import numpy as np
     import torch
     from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import attn_density as kad
     from repro_torch.kernels import decode_mqattn as kmq
+    from repro_torch.kernels import decode_qattn as kdq
     from repro_torch.kernels import ref
     from repro_torch.models.registry import build_model
 
@@ -658,6 +1051,7 @@ def check_phase():
     views["mixed"] = mixed
     for view, arenas0 in views.items():
         kmq.reset_launches()
+        kad.reset_launches()
         ref_l = _teacher_forced(cpu, params_cpu, "cpu", arenas0,
                                 view == "mixed")
         card_l = _teacher_forced(gpu, params_gpu, "cuda", arenas0,
@@ -672,10 +1066,32 @@ def check_phase():
             raise AssertionError(
                 f"mixed view: {kmq.decode_mqattn.launches} decode_mqattn "
                 f"launches, not {4 * L}")
+        if kad.attn_density.launches != L:
+            raise AssertionError(
+                f"{view} view: {kad.attn_density.launches} attn_density "
+                f"launches in the extend, not {L}")
         log(f"[check] reduced llama2-7b, {view} page view, teacher-forced "
-            f"extend + 4 decode rounds: card vs CPU max |logit diff| "
-            f"{worst:.5f} (range {span:.4f}, tolerance 2% of range: bf16 "
-            f"matmuls round differently)")
+            f"extend (attn_density on the card) + 4 decode rounds: card vs "
+            f"CPU max |logit diff| {worst:.5f} (range {span:.4f}, "
+            f"tolerance 2% of range: bf16 matmuls round differently)")
+    kdq.reset_launches()
+    ref_l, ref_m = _teacher_forced_int8(cpu, params_cpu, "cpu")
+    card_l, card_m = _teacher_forced_int8(gpu, params_gpu, "cuda")
+    span = float(ref_l.abs().max())
+    worst = float((ref_l - card_l).abs().max())
+    worst_m = float((ref_m - card_m).abs().max())
+    if not torch.isfinite(card_l).all() or worst > 0.02 * span + 1e-3 \
+            or worst_m > 1e-3:
+        raise AssertionError(
+            f"int8 cache: card logits differ from the CPU plain path: max "
+            f"|diff| {worst} over range {span}, max |d mass| {worst_m}")
+    if kdq.decode_qattn.launches != 8 * L:
+        raise AssertionError(f"int8 cache: {kdq.decode_qattn.launches} "
+                             f"decode_qattn launches, not {8 * L}")
+    log(f"[check] reduced llama2-7b, all-int8 decode cache, teacher-forced "
+        f"8 rounds of 2 rows ((B,) pos): card vs CPU max |logit diff| "
+        f"{worst:.5f} (range {span:.4f}, tolerance 2% of range), max |d "
+        f"mass| {worst_m:.3g} (tolerance 1e-3: bf16 K/V and p upstream)")
 
 
 def _device_or_call(row, prefix):
@@ -705,6 +1121,8 @@ def main() -> int:
     smi = build_phase()
     max_err, times = kernel_phase()
     mq_err, mq_times = mqattn_phase()
+    ad_err, ad_times = attn_phase()
+    dq_err, dq_times = qattn_phase()
     from repro_torch.configs import get_config
     model, params = build_weights(get_config("llama2-7b"), SEED)
     runs = {}
@@ -713,6 +1131,8 @@ def main() -> int:
                              ("quant1", True), ("quant-rerun", True)):
             runs[label] = serve_phase(model, params, SEED, root, label,
                                       quant_resident=quant)
+    int8 = [int8_decode_phase(model, params, SEED, label)
+            for label in ("run1", "rerun")]
     del model, params
     torch.cuda.empty_cache()
     for a_name, b_name in (("run1", "rerun"), ("quant1", "quant-rerun")):
@@ -721,6 +1141,10 @@ def main() -> int:
                 raise AssertionError(f"{b_name} differs: {a} vs {b}")
         log(f"[serve] {b_name} from the same seed: identical tokens and bit "
             f"plans over {len(runs[a_name]['records'])} calls")
+    if not (int8[0]["tokens"] == int8[1]["tokens"]
+            and torch.equal(int8[0]["mass"], int8[1]["mass"])):
+        raise AssertionError("the int8 decode rerun differs")
+    log("[int8] rerun from the same seed: identical tokens and masses")
     first, quant = runs["run1"], runs["quant1"]
     check_phase()
 
@@ -763,6 +1187,59 @@ def main() -> int:
             "shape", "form", "device_ms", "call_ms", "plain_device_ms",
             "plain_call_ms", "library_device_ms", "library_call_ms",
             "bound_ms", "bound_by")},
+    })
+    for name, line, key, launches, err in (
+            ("attn_density_out", 128, "out", first["launches"]
+             ["attn_density"], ad_err["out"]),
+            ("attn_density_mass", 156, "density", first["launches"]
+             ["attn_density_with_density"], ad_err["density"])):
+        row = ad_times[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/attn_density.cu",
+            "replaces": f"src/repro/kernels/attn_density.py:{line}",
+            "launches": launches, "max_abs_err": err,
+            "ms": _device_or_call(row, ""),
+            "plain_ms": _device_or_call(row, "plain_"),
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": (_device_or_call(row, "library_") if key == "out"
+                           else None),
+            "library_call": ("F.scaled_dot_product_attention with the "
+                             "boolean mask: out only" if key == "out"
+                             else None),
+            "shape": f"{row['shape']}, {row['form']} form"
+                     f"{' + density' if row['density'] else ''}",
+            "call_ms": row["call_ms"], "plain_call_ms": row["plain_call_ms"],
+            "launches_quant_resident": quant["launches"][
+                "attn_density" if key == "out"
+                else "attn_density_with_density"],
+            **{name: {k: ad_times[src][k] for k in (
+                "shape", "form", "device_ms", "call_ms", "plain_device_ms",
+                "library_device_ms", "bound_ms", "bound_by")}
+               for name, src in (("long_append", "long"),
+                                 ("pallas_setting", "pallas"))},
+        })
+    row, long_row = dq_times
+    kernels.append({
+        "name": "decode_qattn", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_mqattn.cu",
+        "replaces": "src/repro/kernels/decode_qattn.py:84",
+        "launches": int8[0]["launches"],
+        "max_abs_err": dq_err["out"], "max_abs_err_mass": dq_err["mass"],
+        "ms": _device_or_call(row, ""),
+        "plain_ms": _device_or_call(row, "plain_"),
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": _device_or_call(row, "library_"),
+        "library_call": "F.scaled_dot_product_attention over the "
+                        "dequantized bf16 K/V: out only, no mass",
+        "shape": f"{row['shape']} {row['form']} + mass, n_valid = S",
+        "call_ms": row["call_ms"], "plain_call_ms": row["plain_call_ms"],
+        "at_4096": {k: long_row[k] for k in (
+            "shape", "form", "device_ms", "call_ms", "plain_device_ms",
+            "plain_call_ms", "library_device_ms", "library_call_ms",
+            "bound_ms", "bound_by")},
+        "int8_decode_ms_per_token": sorted(int8[0]["per_token_ms"])[
+            len(int8[0]["per_token_ms"]) // 2],
     })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

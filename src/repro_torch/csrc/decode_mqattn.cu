@@ -1,23 +1,32 @@
-// Mixed-cache decode attention for Hopper (sm_90a): one new token per
-// row attends a cache whose positions live either in the bf16 window or
-// in int8 quant-resident segments (per-(token, kv-head) fp32 scales),
-// selected per position by quant_mask; optionally it also emits the
-// Eq.-1 per-key attention mass that feeds the Eq.-3 bit plan.
+// Decode attention for Hopper (sm_90a) over a mixed or an all-int8
+// cache.  Mixed: one new token per row attends a cache whose positions
+// live either in the bf16 window or in int8 quant-resident segments
+// (per-(token, kv-head) fp32 scales), selected per position by
+// quant_mask.  All-int8 (template ALL_QUANT): every position is int8
+// codes and scales, with no bf16 cache and no mask.  Either optionally
+// also emits the Eq.-1 per-key attention mass that feeds the Eq.-3 bit
+// plan.
 //
-// Replaces the Pallas TPU kernel of the JAX package:
+// Replaces the Pallas TPU kernels of the JAX package:
 //   src/repro/kernels/decode_qattn.py  decode_mqattn (_mixed_kernel)
-// and adds what the reference computes beside it on the serving path
-// (src/repro/models/common.py mixed_decode_attention): the per-key mass
-// of its blocked scan and the bf16-rounded p of its plain select path.
-// The plain PyTorch version is src/repro_torch/kernels/ref.py
-// decode_mqattn_plain.
+//   src/repro/kernels/decode_qattn.py  decode_qattn  (_kernel)
+// and adds what the reference computes beside them on its jnp paths
+// (src/repro/models/common.py mixed_decode_attention and
+// decode_attention with scales): the per-key mass and the bf16-rounded
+// p of the plain select path.  The plain PyTorch versions are
+// src/repro_torch/kernels/ref.py decode_mqattn_plain and
+// decode_qattn_plain.  Both C entry points below share one kernel
+// template.
 //
 // The function.  q (B,H,hd) bf16; k, v (B,S,KV,hd) bf16; kq, vq int8 of
 // the same shape; ks, vs (B,S,KV) fp32; qmask (B,S) bool; n_valid (B,)
 // int32.  Key j of row b is valid when j < n_valid[b] and, with a
 // window, j >= n_valid[b] - window or j < n_sinks.  At a quant position
-// the key/value is bf16(code * scale) (the value a full dequantization
-// materializes), elsewhere the bf16 cache value.  Scores are fp32 times
+// of the mixed cache the key/value is bf16(code * scale) (the value a
+// full dequantization materializes), elsewhere the bf16 cache value.
+// In the all-int8 cache it is code * scale in fp32 in the fused form
+// (the Pallas decode_qattn) and bf16(code * scale) in the select form
+// (decode_attention with scales).  Scores are fp32 times
 // 1/sqrt(hd); invalid keys take the finite NEG_INF = -0.7 FLT_MAX.  Query
 // head h reads kv-head h / G, G = H / KV.  Two forms (template SELECT):
 //   fused  — out = bf16(sum_j exp(s_j - m) v_j / max(l, 1e-30)), PV fp32;
@@ -41,8 +50,8 @@
 // bit-identical.
 //
 // Bound.  Memory: the valid keys' bytes, n_valid * KV * (2 hd * 2) at
-// bf16 positions and n_valid * KV * (2 hd + 8) at quant positions, per
-// layer.  This first version reads only the valid rows, but it runs one
+// bf16 positions and n_valid * KV * (2 hd + 8) at quant positions (all
+// of them in the all-int8 cache), per layer.  This first version reads only the valid rows, but it runs one
 // block per (b, kv-head) — 32 blocks for llama2-7b at batch 1 on 132 SMs
 // — with only 4 rows in flight per warp, so it is latency-bound well
 // above that bound; splitting S across blocks (flash-decoding) and
@@ -95,8 +104,9 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;  // identical on every lane: each butterfly step commutes
 }
 
-// This lane's PER elements of one attended (b, j, kv-head) row.
-template <int PER>
+// This lane's PER elements of one attended (b, j, kv-head) row; a
+// dequantized value is rounded to bf16 when ROUND.
+template <int PER, bool ROUND>
 __device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ x,
                                          const int8_t* __restrict__ xq,
                                          const float* __restrict__ xs,
@@ -108,7 +118,8 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
       const int d = d0 + i;
-      r[i] = d < hd ? bf16_round((float)xq[row * hd + d] * sc) : 0.0f;
+      const float y = d < hd ? (float)xq[row * hd + d] * sc : 0.0f;
+      r[i] = ROUND ? bf16_round(y) : y;
     }
   } else {
 #pragma unroll
@@ -119,9 +130,12 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int PER, int GMAX, bool SELECT, bool MASS>
+template <int PER, int GMAX, bool SELECT, bool MASS, bool ALL_QUANT>
 __global__ void __launch_bounds__(kThreads)
     mqattn_kernel(const Args a) {
+  // the mixed cache attends bf16(code * scale); the all-int8 cache
+  // rounds only in the select form
+  constexpr bool kRound = !ALL_QUANT || SELECT;
   // shared: [kWarps][G*hd] PV partials, then [kWarps][GMAX] max / sum
   extern __shared__ float smem[];
   const int S = a.S, H = a.H, KV = a.KV, hd = a.hd;
@@ -133,7 +147,7 @@ __global__ void __launch_bounds__(kThreads)
   float* red = smem;
   float* wstat = smem + kWarps * GH;
   float* srow = a.scratch + ((size_t)b * H + h0) * S;  // + g * S + j
-  const uint8_t* qm = a.qmask + (size_t)b * S;
+  const uint8_t* qm = ALL_QUANT ? nullptr : a.qmask + (size_t)b * S;
 
   float qr[GMAX][PER];
 #pragma unroll
@@ -158,8 +172,9 @@ __global__ void __launch_bounds__(kThreads)
       const int j = j0 + u;
       ok[u] = key_valid(j, nv, a.window, a.n_sinks);
       if (ok[u])
-        load_row<PER>(a.k, a.kq, a.ks, ((size_t)b * S + j) * KV + kvh, hd,
-                      qm[j] != 0, lane, kr[u]);
+        load_row<PER, kRound>(a.k, a.kq, a.ks,
+                              ((size_t)b * S + j) * KV + kvh, hd,
+                              ALL_QUANT || qm[j] != 0, lane, kr[u]);
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -235,8 +250,9 @@ __global__ void __launch_bounds__(kThreads)
       const int j = j0 + u;
       ok[u] = key_valid(j, nv, a.window, a.n_sinks);
       if (ok[u])
-        load_row<PER>(a.v, a.vq, a.vs, ((size_t)b * S + j) * KV + kvh, hd,
-                      qm[j] != 0, lane, vr[u]);
+        load_row<PER, kRound>(a.v, a.vq, a.vs,
+                              ((size_t)b * S + j) * KV + kvh, hd,
+                              ALL_QUANT || qm[j] != 0, lane, vr[u]);
 #pragma unroll
       for (int g = 0; g < GMAX; ++g)
         sv[u][g] = (ok[u] && g < G && lane == 0) ? srow[(size_t)g * S + j]
@@ -298,37 +314,65 @@ __global__ void mass_kernel(const float* __restrict__ scratch,
   mass[idx] = x / (float)H;
 }
 
-template <int PER, int GMAX>
+template <int PER, int GMAX, bool ALL_QUANT>
 void launch(const Args& a, int B, bool select, bool mass, cudaStream_t st) {
   const int G = a.H / a.KV;
   const size_t smem =
       sizeof(float) * ((size_t)kWarps * G * a.hd + kWarps * GMAX);
   const dim3 grid(B * a.KV), block(kThreads);
   if (select && mass)
-    mqattn_kernel<PER, GMAX, true, true><<<grid, block, smem, st>>>(a);
+    mqattn_kernel<PER, GMAX, true, true, ALL_QUANT>
+        <<<grid, block, smem, st>>>(a);
   else if (select)
-    mqattn_kernel<PER, GMAX, true, false><<<grid, block, smem, st>>>(a);
+    mqattn_kernel<PER, GMAX, true, false, ALL_QUANT>
+        <<<grid, block, smem, st>>>(a);
   else if (mass)
-    mqattn_kernel<PER, GMAX, false, true><<<grid, block, smem, st>>>(a);
+    mqattn_kernel<PER, GMAX, false, true, ALL_QUANT>
+        <<<grid, block, smem, st>>>(a);
   else
-    mqattn_kernel<PER, GMAX, false, false><<<grid, block, smem, st>>>(a);
+    mqattn_kernel<PER, GMAX, false, false, ALL_QUANT>
+        <<<grid, block, smem, st>>>(a);
 }
 
-template <int PER>
+template <int PER, bool ALL_QUANT>
 void launch_per(const Args& a, int B, bool select, bool mass,
                 cudaStream_t st) {
   if (a.H / a.KV == 1)
-    launch<PER, 1>(a, B, select, mass, st);
+    launch<PER, 1, ALL_QUANT>(a, B, select, mass, st);
   else
-    launch<PER, kMaxGroup>(a, B, select, mass, st);
+    launch<PER, kMaxGroup, ALL_QUANT>(a, B, select, mass, st);
+}
+
+bool bad_shape(int B, int S, int H, int KV, int hd) {
+  return B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV || hd <= 0 ||
+         hd > kMaxHd || H / KV > kMaxGroup;
+}
+
+// the attention launch, then (with a mass) the head sum of the scratch
+template <bool ALL_QUANT>
+int run(const Args& a, int B, int select, void* mass, cudaStream_t st) {
+  const bool want_mass = mass != nullptr;
+  const int per = (a.hd + 31) / 32;
+  if (per == 1)
+    launch_per<1, ALL_QUANT>(a, B, select != 0, want_mass, st);
+  else if (per == 2)
+    launch_per<2, ALL_QUANT>(a, B, select != 0, want_mass, st);
+  else
+    launch_per<4, ALL_QUANT>(a, B, select != 0, want_mass, st);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !want_mass) return (int)err;
+  mass_kernel<<<(B * a.S + 255) / 256, 256, 0, st>>>(
+      a.scratch, static_cast<float*>(mass), B, a.H, a.S);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// C interface (loaded with ctypes).  Returns cudaGetLastError() after
-// the launches (0 = launched), or -1 for shapes the kernel does not take
-// (hd > 128, H not a multiple of KV, G = H / KV > 8).  `mass` may be
-// null: then no mass is written and the second launch is skipped.
+// C interfaces (loaded with ctypes).  Each returns cudaGetLastError()
+// after the launches (0 = launched), or -1 for shapes the kernel does
+// not take (hd > 128, H not a multiple of KV, G = H / KV > 8).  `mass`
+// may be null: then no mass is written and the second launch is
+// skipped.
 extern "C" int decode_mqattn(const void* q, const void* k, const void* v,
                              const void* kq, const void* vq, const void* ks,
                              const void* vs, const void* qmask,
@@ -336,9 +380,7 @@ extern "C" int decode_mqattn(const void* q, const void* k, const void* v,
                              void* mass, int B, int S, int H, int KV, int hd,
                              int window, int n_sinks, float scale,
                              int select, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV || hd <= 0 ||
-      hd > kMaxHd || H / KV > kMaxGroup)
-    return -1;
+  if (bad_shape(B, S, H, KV, hd)) return -1;
   Args a;
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.k = static_cast<const __nv_bfloat16*>(k);
@@ -358,18 +400,35 @@ extern "C" int decode_mqattn(const void* q, const void* k, const void* v,
   a.window = window;
   a.n_sinks = n_sinks;
   a.scale = scale;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool want_mass = mass != nullptr;
-  const int per = (hd + 31) / 32;
-  if (per == 1)
-    launch_per<1>(a, B, select != 0, want_mass, st);
-  else if (per == 2)
-    launch_per<2>(a, B, select != 0, want_mass, st);
-  else
-    launch_per<4>(a, B, select != 0, want_mass, st);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || !want_mass) return (int)err;
-  mass_kernel<<<(B * S + 255) / 256, 256, 0, st>>>(
-      static_cast<const float*>(scratch), static_cast<float*>(mass), B, H, S);
-  return (int)cudaGetLastError();
+  return run<false>(a, B, select, mass, static_cast<cudaStream_t>(stream));
+}
+
+// The all-int8 cache: no bf16 k/v and no quant mask.
+extern "C" int decode_qattn(const void* q, const void* kq, const void* vq,
+                            const void* ks, const void* vs,
+                            const void* n_valid, void* out, void* scratch,
+                            void* mass, int B, int S, int H, int KV, int hd,
+                            int window, int n_sinks, float scale, int select,
+                            void* stream) {
+  if (bad_shape(B, S, H, KV, hd)) return -1;
+  Args a;
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = nullptr;
+  a.v = nullptr;
+  a.kq = static_cast<const int8_t*>(kq);
+  a.vq = static_cast<const int8_t*>(vq);
+  a.ks = static_cast<const float*>(ks);
+  a.vs = static_cast<const float*>(vs);
+  a.qmask = nullptr;
+  a.n_valid = static_cast<const int*>(n_valid);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.scratch = static_cast<float*>(scratch);
+  a.S = S;
+  a.H = H;
+  a.KV = KV;
+  a.hd = hd;
+  a.window = window;
+  a.n_sinks = n_sinks;
+  a.scale = scale;
+  return run<true>(a, B, select, mass, static_cast<cudaStream_t>(stream));
 }

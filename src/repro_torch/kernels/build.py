@@ -21,7 +21,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-prec-div=true", "-shared", "-Xcompiler", "-fPIC")
 
-SOURCES = ("chunk_quant", "decode_mqattn")
+SOURCES = ("chunk_quant", "decode_mqattn", "attn_density")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -1,7 +1,8 @@
 """Public kernel entry points.
 
 Each op sends a CUDA tensor to its hand-written kernel
-(``kernels/chunk_quant.py``, ``kernels/decode_mqattn.py``) and a CPU
+(``kernels/chunk_quant.py``, ``kernels/attn_density.py``,
+``kernels/decode_mqattn.py``, ``kernels/decode_qattn.py``) and a CPU
 tensor to the plain PyTorch version (``kernels/ref.py``).  There is no fallback: a CUDA call the
 kernel refuses raises, and any other device raises.
 """
@@ -57,3 +58,37 @@ def decode_mqattn(q, k, v, k_q, v_q, k_scale, v_scale, quant_mask, n_valid,
                                   quant_mask)]
     return kmq.decode_mqattn(*c, n_valid.to(torch.int32).contiguous(),
                              window, n_sinks, want_mass, select)
+
+
+def decode_qattn(q, k_q, v_q, k_scale, v_scale, n_valid, window: int = 0,
+                 n_sinks: int = 0, want_mass: bool = False,
+                 select: bool = False):
+    """One-token attention over an all-int8 cache.  q (B,H,hd); k_q/v_q
+    (B,S,KV,hd) int8; scales (B,S,KV) fp32; n_valid () or (B,) int.
+    -> out (B,H,hd) [, mass (B,S)] (forms:
+    ``kernels/ref.py::decode_qattn_plain``)."""
+    if _route(q) == "cpu":
+        return ref.decode_qattn_plain(q, k_q, v_q, k_scale, v_scale, n_valid,
+                                      window, n_sinks, want_mass, select)
+    from repro_torch.kernels import decode_qattn as kdq
+    B = q.shape[0]
+    nv = torch.as_tensor(n_valid, device=q.device).to(torch.int32)
+    nv = nv.reshape(-1).expand(B).contiguous()
+    c = [t.contiguous() for t in (q, k_q, v_q, k_scale, v_scale)]
+    return kdq.decode_qattn(*c, nv, window, n_sinks, want_mass, select)
+
+
+def attn_density(q, k, v, q_pos, seq_len, window: int = 0, n_sinks: int = 0,
+                 want_density: bool = True, form: str = "served"):
+    """Attention of queries at positions ``q_pos`` (Sq,) over a cache
+    bounded by ``seq_len``, with the Eq.-1 key density.  q (B,Sq,H,hd);
+    k/v (B,Sk,KV,hd).  -> (out (B,Sq,H,hd), density (B,Sk) | None)
+    (forms: ``kernels/ref.py::attn_density_plain``)."""
+    if _route(q) == "cpu":
+        return ref.attn_density_plain(q, k, v, q_pos, seq_len, window,
+                                      n_sinks, want_density, form)
+    from repro_torch.kernels import attn_density as kad
+    c = [t.contiguous() for t in (q, k, v)]
+    return kad.attn_density(*c, q_pos.to(torch.int32).contiguous(),
+                            int(seq_len), window, n_sinks, want_density,
+                            form)

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the port's kernels (the semantics of record):
-the chunk codec, the decode-grid quantizer and mixed-cache decode
-attention (``decode_mqattn``).
+the chunk codec, the decode-grid quantizer, extend attention with the
+Eq.-1 density (``attn_density``), and decode attention over a mixed
+(``decode_mqattn``) or an all-int8 (``decode_qattn``) cache.
 
 The codec mirrors the JAX package's ``kernels/ref.py`` (``qmax_for``,
 ``quantize_ref``, ``dequantize_ref``) operation for operation, so the
@@ -19,9 +20,9 @@ two agree bit for bit in fp32 and bf16:
   * 4- and 2-bit codes are packed along T, token ``r*per + j`` in bit
     group ``j`` of byte row ``r``.
 
-The CUDA kernels (``kernels/chunk_quant.py``, ``kernels/decode_mqattn.py``)
-are held against these functions; ``kernels/ops.py`` sends CPU tensors
-here.
+The CUDA kernels (``kernels/chunk_quant.py``, ``kernels/attn_density.py``,
+``kernels/decode_mqattn.py``, ``kernels/decode_qattn.py``) are held
+against these functions; ``kernels/ops.py`` sends CPU tensors here.
 """
 from __future__ import annotations
 
@@ -195,3 +196,123 @@ def decode_mqattn_plain(q, k, v, k_q, v_q, k_scale, v_scale, quant_mask,
     if want_mass:
         return out, (pn.sum(dim=(1, 2)) / H).to(torch.float32)
     return out
+
+
+# --------------------------------------------------------------------- #
+# decode_qattn: one-step attention over an ALL-int8 cache
+# --------------------------------------------------------------------- #
+def decode_qattn_plain(q, k_q, v_q, k_scale, v_scale, n_valid,
+                       window: int = 0, n_sinks: int = 0,
+                       want_mass: bool = False, select: bool = False):
+    """Plain version of the CUDA kernel (``kernels/decode_qattn.py``),
+    both of its forms.  q (B,H,hd) bf16 or fp32; k_q/v_q (B,S,KV,hd)
+    int8; scales (B,S,KV) fp32; n_valid () or (B,).  Scores fp32 times
+    1/sqrt(hd), invalid keys at the finite NEG_INF; p = exp(s - m),
+    l = sum p.
+
+      * fused  (``select=False``): K/V = code * scale kept in fp32,
+        out = sum_j p_j v_j / max(l, 1e-30), PV in fp32 — the
+        reference's Pallas ``decode_qattn`` and its oracle;
+      * select (``select=True``): K/V = code * scale rounded to q's
+        dtype, p / l rounded to that dtype before PV — the reference's
+        jnp ``decode_attention`` with scales (the all-int8 cache's
+        ``decode_step``).
+
+    mass (B, S) = sum over heads of p / max(l, 1e-30) in fp32, over H.
+    -> out (B,H,hd) in q's dtype [, mass]."""
+    B, H, hd = q.shape
+    S, KV = k_q.shape[1], k_q.shape[2]
+    kd = k_q.to(torch.float32) * k_scale[..., None]
+    vd = v_q.to(torch.float32) * v_scale[..., None]
+    if select:
+        kd, vd = kd.to(q.dtype), vd.to(q.dtype)
+    qg = q.reshape(B, KV, H // KV, hd).to(torch.float32)
+    s = torch.einsum("bngd,bknd->bngk", qg, kd.to(torch.float32)) \
+        * (1.0 / np.sqrt(hd))
+    valid = _valid_keys(n_valid, B, S, window, n_sinks, q.device)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
+    pn = p / l
+    if select:
+        out = torch.einsum("bngk,bknd->bngd", pn.to(vd.dtype), vd)
+    else:
+        out = torch.einsum("bngk,bknd->bngd", p, vd) / l
+    out = out.reshape(B, H, hd).to(q.dtype)
+    if want_mass:
+        return out, (pn.sum(dim=(1, 2)) / H).to(torch.float32)
+    return out
+
+
+# --------------------------------------------------------------------- #
+# attn_density: extend attention with the Eq.-1 per-key density
+# --------------------------------------------------------------------- #
+def extend_visibility(q_pos: torch.Tensor, Sk: int, seq_len: int,
+                      window: int = 0, n_sinks: int = 0) -> torch.Tensor:
+    """(Sq, Sk) bool: key j is visible to the query at q_pos[i] when
+    j <= q_pos[i], j < seq_len and, with a window, j > q_pos[i] - window
+    or j < n_sinks (``causal_window_mask`` & ``k < seq_len``)."""
+    k = torch.arange(Sk, device=q_pos.device)[None, :]
+    q = q_pos[:, None]
+    m = k <= q
+    if window > 0:
+        m = m & ((k > (q - window)) | (k < n_sinks))
+    return m & (k < seq_len)
+
+
+def attn_density_plain(q, k, v, q_pos=None, seq_len=None, window: int = 0,
+                       n_sinks: int = 0, want_density: bool = True,
+                       form: str = "served"):
+    """Plain version of the CUDA kernel (``kernels/attn_density.py``),
+    both of its forms.  q (B,Sq,H,hd); k/v (B,Sk,KV,hd), bf16 or fp32;
+    q_pos (Sq,) int (default ``arange(Sq)``); seq_len (default Sk).
+    Visibility is ``extend_visibility``; invisible scores take the
+    finite NEG_INF, so a query with no visible key is uniform over all
+    Sk keys.  Scores fp32 times 1/sqrt(hd).
+
+      * ``form="served"``: what serving's extend computes
+        (``models/common.gqa_attention``, op for op): softmax in fp32,
+        p rounded to v's dtype before PV, density = sum p over heads and
+        queries / (H * max(1, visible queries of the key)) — a query
+        with no visible key counts its uniform p;
+      * ``form="flash"``: the reference's Pallas ``attn_density``
+        (``_fwd`` + ``_mass``): p = exp(s - m) in fp32, PV in fp32,
+        out = acc / max(l, 1e-30); the mass sums p / max(l, 1e-30) over
+        visible (query, key) pairs only.
+
+    -> (out (B,Sq,H,hd) in q's dtype, density (B,Sk) fp32 | None)."""
+    if form not in ("served", "flash"):
+        raise ValueError(f"form must be 'served' or 'flash', not {form!r}")
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    if q_pos is None:
+        q_pos = torch.arange(Sq, device=q.device)
+    if seq_len is None:
+        seq_len = Sk
+    mask = extend_visibility(q_pos.to(q.device), Sk, int(seq_len), window,
+                             n_sinks)
+    maskb = mask[None]                                        # (1, Sq, Sk)
+    qg = q.reshape(B, Sq, KV, G, hd)
+    scale = 1.0 / np.sqrt(hd)
+    s = torch.einsum("bqngd,bknd->bngqk", qg.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    s = torch.where(maskb[:, None, None], s, NEG_INF)
+    if form == "served":
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bngqk,bknd->bqngd", p.to(v.dtype), v)
+        pm = p
+    else:
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
+        o = torch.einsum("bngqk,bknd->bngqd", p, v.to(torch.float32)) / l
+        out = o.permute(0, 3, 1, 2, 4)
+        pm = torch.where(maskb[:, None, None], p / l, 0.0)
+    out = out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+    if not want_density:
+        return out, None
+    mass = torch.sum(pm, dim=(1, 2, 3))                           # (B, Sk)
+    nvalid = torch.clamp_min(torch.sum(maskb, dim=1), 1)          # (1, Sk)
+    return out, (mass / (H * nvalid)).to(torch.float32)

@@ -2,8 +2,12 @@
 package's models/common.py: the functions dense serving runs).
 
 These stay plain PyTorch, as the JAX package computes them outside any
-Pallas kernel too — except ``mixed_decode_attention``, which on the
-card runs the ``decode_mqattn`` CUDA kernel.  Casts follow the
+Pallas kernel too — except the attention of serving's extend
+(``extend_attention``: the ``attn_density`` kernel) and of decode over
+a mixed or an all-int8 cache (``mixed_decode_attention``: the
+``decode_mqattn`` kernel; ``decode_attention`` with scales: the
+``decode_qattn`` kernel), which go through ``kernels/ops.py`` (on a
+CPU tensor, to the kernels' plain versions).  Casts follow the
 reference one for one — scores
 and softmax in fp32, ``p`` cast to the value dtype before the PV
 product, masking with the finite ``NEG_INF`` (a fully masked row comes
@@ -125,13 +129,43 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return AttnOut(out, density)
 
 
+def extend_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     q_pos: torch.Tensor, seq_len, window: int = 0,
+                     n_sinks: int = 0, want_density: bool = False
+                     ) -> AttnOut:
+    """The attention of serving's extend (``DenseModel.recompute``):
+    queries at positions ``q_pos`` (Sq,) over the whole cache k/v
+    (B,Sk,KV,hd), under ``causal_window_mask(q_pos, k) & (k <
+    seq_len)``, with the Eq.-1 key density.  It computes what
+    ``gqa_attention`` computes under that mask (``form="served"``): on
+    the card through the ``attn_density`` CUDA kernel, on the CPU
+    through its plain version."""
+    from repro_torch.kernels import ops as kops
+    out, density = kops.attn_density(q, k, v, q_pos, seq_len, window,
+                                     n_sinks, want_density, form="served")
+    return AttnOut(out, density)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cur_pos: torch.Tensor,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None,
                      window: int = 0, n_sinks: int = 0,
                      want_density: bool = False):
-    """One-step attention.  q (B,1,H,hd); caches (B,S,KV,hd) bf16.
-    cur_pos () or (B,): the new token attends to cache[:cur_pos].
-    -> out (B,1,H,hd)[, per-key mass (B,S) fp32]."""
+    """One-step attention.  q (B,1,H,hd); caches (B,S,KV,hd) bf16, or
+    int8 with per-(B,S,KV) fp32 scales.  cur_pos () or (B,): the new
+    token attends to cache[:cur_pos].  -> out (B,1,H,hd)[, per-key mass
+    (B,S) fp32].  With scales it runs ``ops.decode_qattn`` in the select
+    form (K/V dequantized to q's dtype, p rounded before PV: what the
+    reference computes here), the ``decode_qattn`` kernel on the card."""
+    if k_scale is not None:
+        from repro_torch.kernels import ops as kops
+        res = kops.decode_qattn(q[:, 0], k_cache, v_cache, k_scale, v_scale,
+                                cur_pos, window, n_sinks,
+                                want_mass=want_density, select=True)
+        if want_density:
+            return res[0][:, None], res[1]
+        return res[:, None]
     B, _, H, hd = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV

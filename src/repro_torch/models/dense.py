@@ -1,17 +1,17 @@
 """Dense decoder-only transformer (llama family) — the serving entries.
 
 Mirror of the JAX package's models/dense.py for what serving runs:
-``init``, ``head_weight``, ``decode_step`` (window and mixed layouts),
-the interleaved-chunk ``recompute`` (paper Fig. 7; also the chunked
-prefill-append) and the paged-pool entries ``decode_paged`` /
+``init``, ``head_weight``, ``decode_step`` (window, mixed and all-int8
+caches), the interleaved-chunk ``recompute`` (paper Fig. 7; also the
+chunked prefill-append) and the paged-pool entries ``decode_paged`` /
 ``extend_paged``.  Layer parameters are stacked (L, ...) as in the
 reference; its ``lax.scan`` over layers is a Python loop here.
 
 The mixed layout is the quant-resident working cache: bf16 ``k``/``v``
 plus int8 ``k_q``/``v_q`` segments with per-(token, kv-head) scales,
-selected per position by ``quant_mask``.  The all-int8 decode cache
-(the reference's ``quantized`` branch, on no serving path) is not
-ported (ROADMAP.md).
+selected per position by ``quant_mask``.  The all-int8 cache
+(``init_cache(dtype=torch.int8)``) holds int8 ``k``/``v`` codes and
+``k_scale``/``v_scale``: the reference's ``quantized`` decode branch.
 
 Caches differ from the reference in one way: entries write new K/V
 rows IN PLACE into the cache tensors they are given (the gathered page
@@ -24,6 +24,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels.paged import scatter_token
+from repro_torch.kernels.ref import quantize_token_head_ref
 from repro_torch.models import common as C
 from repro_torch.models.api import DecodeOut, ModelBase
 from repro_torch.models.kvspec import KVSpec, LAYOUT_MIXED, LAYOUT_WINDOW
@@ -51,12 +52,6 @@ def _carry_quant_leaves(new_cache, cache, qm):
         new_cache[n] = cache[n]
     new_cache["quant_mask"] = qm
     return new_cache
-
-
-def _int8_cache_unported():
-    return NotImplementedError(
-        "the all-int8 decode cache (the reference's decode_qattn path) is "
-        "on no serving path and is not ported yet (ROADMAP.md)")
 
 
 class DenseModel(ModelBase):
@@ -155,14 +150,17 @@ class DenseModel(ModelBase):
         return x + C.swiglu(h, pl["w_gate"], pl["w_up"], pl["w_down"])
 
     def _build_cache(self, batch, seq, dtype, layout):
-        if dtype == torch.int8:
-            raise _int8_cache_unported()
         cfg, dev = self.cfg, self.device
         shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.head_dim)
         cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
                  "v": torch.zeros(shape, dtype=dtype, device=dev),
                  "pos": torch.zeros((), dtype=torch.int64, device=dev)}
-        if layout == LAYOUT_MIXED:
+        if dtype == torch.int8:
+            # all-int8 cache: codes with per-(token, kv-head) scales
+            for n in ("k_scale", "v_scale"):
+                cache[n] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=dev)
+        elif layout == LAYOUT_MIXED:
             # bf16 recent window + int8 quant-resident segments with
             # per-(token, kv-head) scales, selected per position by
             # quant_mask; its leading axis of 1 keeps axis 1 the batch
@@ -179,9 +177,10 @@ class DenseModel(ModelBase):
     # ------------------------------------------------------------------ #
     def decode_step(self, params, tokens, cache, window: int = 0,
                     n_sinks: int = 0, want_density: bool = False):
-        """One token per row.  tokens (B, 1); cache window layout with a
-        0-d ``pos`` (every row at one position) or a (B,) ``pos`` (row b
-        at its own position).  Writes the new K/V into ``cache`` in
+        """One token per row.  tokens (B, 1); cache window, mixed or
+        all-int8 layout with a 0-d ``pos`` (every row at one position) or
+        a (B,) ``pos`` (row b at its own position).  Writes the new K/V
+        (in the all-int8 cache: their codes and scales) into ``cache`` in
         place.  -> DecodeOut(logits (B, V) fp32, cache with pos + 1)
         [, per-key mass (B, S) averaged over layers]."""
         cfg = self.cfg
@@ -189,8 +188,7 @@ class DenseModel(ModelBase):
         pos = cache["pos"]
         positions = pos[None] if pos.dim() == 0 else pos[:, None]
         mixed = "k_q" in cache               # bf16 window + int8 segments
-        if "k_scale" in cache and not mixed:
-            raise _int8_cache_unported()
+        quantized = "k_scale" in cache and not mixed   # all-int8 cache
         if mixed:
             # the new token lands in the bf16 window: clear its
             # quant-mask bit once (the mask is shared across layers),
@@ -204,17 +202,32 @@ class DenseModel(ModelBase):
             h = C.rms_norm(x, pl["ln_attn"], cfg.norm_eps)
             q, k, v = self._qkv(pl, h)
             q, k = self._rope(q, k, positions)
-            k_c = C.ring_update(cache["k"][l], k, pos)
-            v_c = C.ring_update(cache["v"][l], v, pos)
-            if mixed:
-                out = C.mixed_decode_attention(
-                    q, k_c, v_c, *_quant_layer(cache, l), qm[0], pos + 1,
-                    window=window, n_sinks=n_sinks,
-                    want_density=want_density)
-            else:
+            if quantized:
+                # per-(token, kv-head) symmetric scales, as the reference
+                # serves them (max|x| * fl32(1/127)); the attention
+                # dequantizes inside the kernel
+                kq, ks = quantize_token_head_ref(k)
+                vq, vs = quantize_token_head_ref(v)
+                k_c = C.ring_update(cache["k"][l], kq, pos)
+                v_c = C.ring_update(cache["v"][l], vq, pos)
+                ks_c = C.ring_update(cache["k_scale"][l], ks, pos)
+                vs_c = C.ring_update(cache["v_scale"][l], vs, pos)
                 out = C.decode_attention(q, k_c, v_c, pos + 1,
+                                         k_scale=ks_c, v_scale=vs_c,
                                          window=window, n_sinks=n_sinks,
                                          want_density=want_density)
+            else:
+                k_c = C.ring_update(cache["k"][l], k, pos)
+                v_c = C.ring_update(cache["v"][l], v, pos)
+                if mixed:
+                    out = C.mixed_decode_attention(
+                        q, k_c, v_c, *_quant_layer(cache, l), qm[0],
+                        pos + 1, window=window, n_sinks=n_sinks,
+                        want_density=want_density)
+                else:
+                    out = C.decode_attention(q, k_c, v_c, pos + 1,
+                                             window=window, n_sinks=n_sinks,
+                                             want_density=want_density)
             if want_density:
                 out, mass = out
                 masses.append(mass)
@@ -225,6 +238,9 @@ class DenseModel(ModelBase):
         new_cache = {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
         if mixed:
             _carry_quant_leaves(new_cache, cache, qm)
+        elif quantized:
+            new_cache["k_scale"] = cache["k_scale"]
+            new_cache["v_scale"] = cache["v_scale"]
         out = DecodeOut(logits, new_cache)
         if want_density:
             return out, torch.stack(masses).mean(dim=0)          # (B, S)
@@ -239,8 +255,10 @@ class DenseModel(ModelBase):
         """miss_tokens (B, M) original text of the missing slots;
         miss_pos (M,) absolute positions; cache: KV with holes there;
         seq_len: valid context tokens INCLUDING the missing ones.
-        Recomputes the missing K/V (global RoPE, on-the-fly causal mask,
-        attending over resident + recomputed KV) and writes them into
+        Recomputes the missing K/V (global RoPE, attending over resident
+        + recomputed KV under the causal/window mask bounded by
+        ``seq_len``, through ``C.extend_attention``: the
+        ``attn_density`` kernel on the card) and writes them into
         ``cache`` in place.  In a mixed cache the recomputed positions
         leave the quant mask and resident quant segments are read
         through ``dequant_select``.  -> (cache, hidden (B, M, d),
@@ -253,12 +271,9 @@ class DenseModel(ModelBase):
         in the reference."""
         cfg = self.cfg
         x = params["embed"][miss_tokens].to(torch.bfloat16)      # (B, M, d)
-        S = cache["k"].shape[2]
-        k_pos_all = torch.arange(S, device=x.device)
-        mask = C.causal_window_mask(miss_pos, k_pos_all, window, n_sinks)
-        mask = mask & (k_pos_all < seq_len)[None, :]
         mixed = "k_q" in cache
         if mixed:
+            k_pos_all = torch.arange(cache["k"].shape[2], device=x.device)
             # recomputed positions land in the bf16 window
             hit = (k_pos_all[None, :] == miss_pos[:, None]).any(dim=0)
             qm = cache["quant_mask"] & ~hit[None, None]
@@ -277,8 +292,9 @@ class DenseModel(ModelBase):
                 v_att = C.dequant_select(v_c, vq_c, vs_c, qm[0])
             else:
                 k_att, v_att = k_c, v_c
-            ao = C.gqa_attention(q, k_att.to(q.dtype), v_att.to(q.dtype),
-                                 mask, want_density=want_density)
+            ao = C.extend_attention(q, k_att.to(q.dtype), v_att.to(q.dtype),
+                                    miss_pos, seq_len, window, n_sinks,
+                                    want_density)
             x = x + ao.out.reshape(*x.shape[:2], -1) @ pl["wo"]
             x = self._ffn(pl, x)
             if want_density:

@@ -6,10 +6,11 @@ JAX, without the suite's conftest:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerance: none for the codec kernels (bit-exact against their plain
-PyTorch versions); for ``decode_mqattn`` two bf16 ulps of the largest
-output and 1e-6 on the mass (the sums run in another order); bf16
-level (2% of the logit range) between the card and the CPU for the
-model, whose bf16 matmuls round differently.
+PyTorch versions); for ``decode_mqattn`` and ``decode_qattn`` two bf16
+ulps of the largest output and 1e-6 on the mass, for ``attn_density``
+two bf16 ulps and 1e-5 of the largest density (the sums run in another
+order); bf16 level (2% of the logit range) between the card and the
+CPU for the model, whose bf16 matmuls round differently.
 """
 import tempfile
 
@@ -204,3 +205,177 @@ def test_llmservice_quant_resident_on_card_runs_decode_mqattn(card):
         assert svc.stats()["quant_resident_chunks"] > 0
         assert svc.stats()["pool_pages8_used"] > 0
     assert kmq.decode_mqattn.launches > 0
+
+
+# --------------------------------------------------------------------- #
+# attn_density: extend attention with the Eq.-1 density
+#
+# Tolerance: out within 2^-7 * max|out| (two bf16 ulps: the sums and the
+# online (m, l) run in another order, and the served form rounds p to
+# bf16, where a p near a rounding boundary may round the other way);
+# density within 1e-5 * max|density| (fp32 probabilities summed in
+# another order).  Reruns are bit-identical (no atomics).
+# --------------------------------------------------------------------- #
+def _extend_case(B, Sq, Sk, H, KV, hd, seq_len, n_pad, device, seed=0,
+                 pad_pos=None):
+    """q (B,Sq,H,hd), k/v (B,Sk,KV,hd) bf16 and q_pos: the Sq - n_pad
+    positions just below seq_len, then n_pad bucket-pad rows at
+    ``pad_pos`` (default Sk - 1)."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g).bfloat16()   # noqa: E731
+    n = Sq - n_pad
+    pad = Sk - 1 if pad_pos is None else pad_pos
+    qp = torch.tensor(list(range(seq_len - n, seq_len)) + [pad] * n_pad,
+                      dtype=torch.int32)
+    return [t.to(device) for t in (r(B, Sq, H, hd), r(B, Sk, KV, hd),
+                                   r(B, Sk, KV, hd), qp)]
+
+
+def _check_extend(args, seq_len, window, n_sinks, form):
+    from repro_torch.kernels import attn_density as kad
+    from repro_torch.kernels import ref
+    o_r, d_r = ref.attn_density_plain(*args, seq_len, window, n_sinks,
+                                      True, form)
+    o_k, d_k = kad.attn_density(*args, seq_len, window, n_sinks, True, form)
+    o_n, d_n = kad.attn_density(*args, seq_len, window, n_sinks, False,
+                                form)
+    o_2, d_2 = kad.attn_density(*args, seq_len, window, n_sinks, True, form)
+    torch.cuda.synchronize()
+    assert d_n is None and torch.isfinite(o_k.float()).all()
+    assert float((o_k.float() - o_r.float()).abs().max()) <= \
+        2 ** -7 * float(o_r.float().abs().max())
+    assert float((d_k - d_r).abs().max()) <= 1e-5 * float(d_r.abs().max())
+    assert torch.equal(o_n, o_k) and torch.equal(o_2, o_k)
+    assert torch.equal(d_2, d_k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["served", "flash"])
+@pytest.mark.parametrize("window,n_sinks", [(0, 0), (512, 4), (16, 0)])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,seq_len,n_pad", [
+    (1, 64, 512, 32, 32, 128, 200, 24),      # serving's extend, G = 1
+    (1, 64, 512, 32, 8, 128, 48, 16),        # G = 4
+    (1, 64, 512, 32, 4, 128, 200, 24),       # G = 8
+    (2, 40, 100, 4, 2, 16, 90, 3),           # ragged tiles, B = 2
+])
+def test_cuda_attn_density_matches_plain_version(card, B, Sq, Sk, H, KV, hd,
+                                                 seq_len, n_pad, window,
+                                                 n_sinks, form):
+    """The kernel against its plain PyTorch version on the card, both
+    forms, with and without the density; window 16 with no sinks leaves
+    the pad rows with no visible key (uniform p)."""
+    args = _extend_case(B, Sq, Sk, H, KV, hd, seq_len, n_pad, card,
+                        seed=Sq + KV)
+    _check_extend(args, seq_len, window, n_sinks, form)
+
+
+@pytest.mark.cuda
+def test_cuda_attn_density_pallas_form_at_width(card):
+    """The Pallas kernel's own setting (q_pos = arange, seq_len = Sk) at
+    (1, 1024, 32, 32, 128), causal and windowed."""
+    args = _extend_case(1, 1024, 1024, 32, 32, 128, 1024, 0, card, seed=3)
+    for window, n_sinks in ((0, 0), (256, 4)):
+        _check_extend(args, 1024, window, n_sinks, "flash")
+
+
+@pytest.mark.cuda
+def test_cuda_attn_density_counts_launches_and_refuses_bad_input(card):
+    from repro_torch.kernels import attn_density as kad
+    kad.reset_launches()
+    q, k, v, qp = _extend_case(1, 8, 32, 4, 2, 16, 20, 2, card)
+    kad.attn_density(q, k, v, qp, 20)
+    assert kad.attn_density.launches == 1
+    with pytest.raises(ValueError):
+        kad.attn_density(q.float(), k, v, qp, 20)
+    with pytest.raises(ValueError):
+        kad.attn_density(q, k, v, qp.long(), 20)
+    assert kad.attn_density.launches == 1
+
+
+# --------------------------------------------------------------------- #
+# decode_qattn: the all-int8 cache (tolerances as decode_mqattn above)
+# --------------------------------------------------------------------- #
+@pytest.mark.cuda
+@pytest.mark.parametrize("select", [False, True])
+@pytest.mark.parametrize("window,n_sinks", [(0, 0), (256, 4)])
+@pytest.mark.parametrize("B,S,H,KV,hd", [(1, 512, 32, 32, 128),
+                                         (4, 4096, 32, 32, 128),
+                                         (3, 4100, 4, 4, 16),
+                                         (2, 96, 8, 2, 32)])
+def test_cuda_decode_qattn_matches_plain_version(card, B, S, H, KV, hd,
+                                                 window, n_sinks, select):
+    from repro_torch.kernels import decode_qattn as kdq
+    from repro_torch.kernels import ref
+    a = _mixed_case(B, S, H, KV, hd, 1.0, card, seed=S + B)
+    args = [a[0], a[3], a[4], a[5], a[6], a[8]]
+    o_r, m_r = ref.decode_qattn_plain(*args, window, n_sinks,
+                                      want_mass=True, select=select)
+    o_k, m_k = kdq.decode_qattn(*args, window, n_sinks, want_mass=True,
+                                select=select)
+    o_n = kdq.decode_qattn(*args, window, n_sinks, select=select)
+    torch.cuda.synchronize()
+    tol = 2 ** -7 * float(o_r.float().abs().max())
+    assert float((o_k.float() - o_r.float()).abs().max()) <= tol
+    assert float((m_k - m_r).abs().max()) <= 1e-6
+    assert torch.equal(o_n, o_k)
+    o_2, m_2 = kdq.decode_qattn(*args, window, n_sinks, want_mass=True,
+                                select=select)
+    assert torch.equal(o_2, o_k) and torch.equal(m_2, m_k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos_kind", ["scalar", "rows"])
+def test_cuda_int8_decode_step_matches_cpu(card, pos_kind):
+    """The reduced llama2-7b's all-int8 ``decode_step`` on the card, fed
+    the same tokens as the same port on the CPU: logits within 2% of
+    their range, L ``decode_qattn`` launches a step."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import decode_qattn as kdq
+    from repro_torch.models.registry import build_model
+    cfg = reduced(get_config("llama2-7b"))
+    cpu = build_model(cfg, device="cpu")
+    pc = cpu.init(torch.Generator().manual_seed(0))
+    gpu = build_model(cfg, device="cuda")
+    pg = {k: ({n: w.cuda() for n, w in v.items()} if isinstance(v, dict)
+              else v.cuda()) for k, v in pc.items()}
+    caches = [m.init_cache(2, 64, dtype=torch.int8) for m in (cpu, gpu)]
+    if pos_kind == "rows":
+        caches = [dict(c, pos=torch.tensor([0, 7], device=c["k"].device))
+                  for c in caches]
+    rng = np.random.default_rng(1)
+    kdq.reset_launches()
+    for step in range(6):
+        tok = torch.from_numpy(rng.integers(1, cfg.vocab, (2, 1)))
+        outs = []
+        for i, (m, p) in enumerate(((cpu, pc), (gpu, pg))):
+            o, mass = m.decode_step(p, tok.to(m.device), caches[i],
+                                    want_density=True)
+            caches[i] = o.cache
+            outs.append((o.logits.cpu(), mass.cpu()))
+        span = float(outs[0][0].abs().max())
+        assert float((outs[0][0] - outs[1][0]).abs().max()) <= \
+            0.02 * span + 1e-3
+        assert float((outs[0][1] - outs[1][1]).abs().max()) <= 1e-3
+    assert kdq.decode_qattn.launches == 6 * cfg.n_layers
+
+
+@pytest.mark.cuda
+def test_cuda_recompute_runs_attn_density(card):
+    """Serving's extend on the card goes through the kernel: one launch
+    per layer of ``recompute``, the density finite and non-negative."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import attn_density as kad
+    from repro_torch.models.registry import build_model
+    cfg = reduced(get_config("llama2-7b"))
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    cache = model.init_cache(1, 64)
+    toks = torch.randint(1, cfg.vocab, (1, 16), device="cuda")
+    pos = torch.tensor(list(range(12)) + [63] * 4, device="cuda")
+    kad.reset_launches()
+    _, x, dens = model.recompute(params, toks, pos, cache, 12,
+                                 want_density=True)
+    torch.cuda.synchronize()
+    assert kad.attn_density.launches == cfg.n_layers
+    assert dens.shape == (1, 64) and torch.isfinite(dens).all()
+    assert float(dens.min()) >= 0.0

@@ -170,7 +170,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 # a value near a bf16 rounding boundary can round the other way.  The
 # per-key mass (fp32 probabilities <= 1) within 1e-6.
 # --------------------------------------------------------------------- #
-from _torch_parity import to_torch
+from _torch_parity import bf16_pair, to_torch
 from repro.kernels import decode_qattn as jdq
 from repro.models import common as JC
 from repro_torch.models import common as TC
@@ -319,3 +319,217 @@ def test_token_head_quantizer_byte_equal_to_served_codec(dtype):
     for n in dj:
         np.testing.assert_array_equal(np.asarray(dj[n]).view(np.int16),
                                       dt[n].view(torch.int16).numpy())
+
+
+# --------------------------------------------------------------------- #
+# attn_density: extend attention with the Eq.-1 density
+#
+# Tolerances.  Flash form against the reference's oracle and its
+# interpret-mode Pallas kernel on fp32 inputs: those of the reference's
+# own test (tests/test_kernels.py): out rtol 2e-3 / atol 2e-3, density
+# atol 2e-4.  Served form against the JAX ``gqa_attention`` on bf16
+# inputs: out within two bf16 ulps of the largest value (sums in another
+# order), density within 1e-5 (fp32 probabilities); against the port's
+# own ``gqa_attention`` bit-identical (the CPU serving path before the
+# kernel existed).
+# --------------------------------------------------------------------- #
+from repro.kernels import attn_density as kad
+
+AD_FLASH_CASES = [
+    dict(B=2, Sq=64, Sk=64, H=4, KV=2, hd=32, window=0, n_sinks=0),
+    dict(B=1, Sq=100, Sk=100, H=8, KV=8, hd=64, window=0, n_sinks=0),
+    dict(B=1, Sq=128, Sk=128, H=4, KV=1, hd=16, window=48, n_sinks=8),
+    dict(B=2, Sq=48, Sk=48, H=6, KV=3, hd=8, window=0, n_sinks=0),
+]
+
+
+@pytest.mark.parametrize("case", AD_FLASH_CASES,
+                         ids=lambda c: "-".join(map(str, c.values())))
+def test_attn_density_plain_flash_matches_reference(case):
+    """The flash form with q_pos = arange(Sq), seq_len = Sk against the
+    reference's oracle and its interpret-mode Pallas kernel (bq = bk =
+    32), on the reference test's four cases, fp32 inputs."""
+    c = case
+    rng = np.random.default_rng(sum(c.values()))
+    f32 = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    q = f32(c["B"], c["Sq"], c["H"], c["hd"])
+    k, v = (f32(c["B"], c["Sk"], c["KV"], c["hd"]) for _ in range(2))
+    o_ref, d_ref = jref.attn_density_ref(q, k, v, c["window"], c["n_sinks"])
+    o_pal, d_pal = kad.attn_density(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), c["window"], c["n_sinks"],
+                                    interpret=True, bq=32, bk=32)
+    o_t, d_t = tref.attn_density_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        window=c["window"], n_sinks=c["n_sinks"], form="flash")
+    assert o_t.dtype == torch.float32 and d_t.shape == (c["B"], c["Sk"])
+    for o_j, d_j in ((o_ref, d_ref), (o_pal, d_pal)):
+        np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), rtol=2e-3,
+                                   atol=2e-3)
+        np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), rtol=2e-3,
+                                   atol=2e-4)
+
+
+AD_SERVED_CASES = [
+    # (B, Sq, Sk, H, KV, hd, q_pos, seq_len, window, n_sinks)
+    (1, 16, 64, 4, 4, 16, list(range(30, 42)) + [63] * 4, 42, 0, 0),
+    (2, 16, 64, 8, 2, 16, list(range(30, 42)) + [63] * 4, 42, 16, 2),
+    (1, 12, 48, 8, 1, 32, [3, 9, 17, 18, 30, 31, 32, 40, 41, 47, 47, 47],
+     44, 0, 0),
+    # window 8, no sinks: the pad rows at 63 see no key (uniform p)
+    (1, 16, 64, 4, 2, 16, list(range(30, 42)) + [63] * 4, 42, 8, 0),
+]
+
+
+@pytest.mark.parametrize("case", AD_SERVED_CASES, ids=lambda c: str(c[:8]))
+def test_attn_density_plain_served_matches_gqa_attention(case):
+    """The served form against the JAX ``gqa_attention`` under
+    ``causal_window_mask(q_pos, k) & (k < seq_len)`` (what the
+    reference's ``recompute`` serves): repeated pad positions, windows
+    with and without sinks, G up to 8, rows that see no key; and
+    bit-identical to the port's ``gqa_attention`` under that mask."""
+    B, Sq, Sk, H, KV, hd, q_pos, seq_len, window, n_sinks = case
+    rng = np.random.default_rng(Sq + Sk + H)
+    f32 = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    (qj, qt), (kj, kt), (vj, vt) = (
+        bf16_pair(f32(*s)) for s in ((B, Sq, H, hd), (B, Sk, KV, hd),
+                                     (B, Sk, KV, hd)))
+    qp = np.asarray(q_pos)
+    kp = np.arange(Sk)
+    mj = JC.causal_window_mask(jnp.asarray(qp), jnp.asarray(kp), window,
+                               n_sinks) & (jnp.asarray(kp) < seq_len)[None]
+    aj = JC.gqa_attention(qj, kj, vj, mj, want_density=True)
+    o_t, d_t = tref.attn_density_plain(qt, kt, vt, torch.from_numpy(qp),
+                                       seq_len, window, n_sinks, True,
+                                       "served")
+    _assert_out_close(np.asarray(aj.out).astype(np.float32), o_t)
+    np.testing.assert_allclose(d_t.numpy(), np.asarray(aj.key_density),
+                               rtol=0, atol=1e-5)
+    mt = TC.causal_window_mask(torch.from_numpy(qp), torch.from_numpy(kp),
+                               window, n_sinks)
+    at = TC.gqa_attention(qt, kt, vt, mt & (torch.from_numpy(kp)
+                                            < seq_len)[None],
+                          want_density=True)
+    assert torch.equal(o_t, at.out) and torch.equal(d_t, at.key_density)
+    e = TC.extend_attention(qt, kt, vt, torch.from_numpy(qp), seq_len,
+                            window, n_sinks, want_density=True)
+    assert torch.equal(e.out, o_t) and torch.equal(e.key_density, d_t)
+
+
+# --------------------------------------------------------------------- #
+# decode_qattn: one-token attention over an all-int8 cache
+#
+# Tolerances.  Fused form against the reference's oracle and its
+# interpret-mode Pallas kernel on fp32 q: those of the reference's own
+# test, rtol 2e-4 / atol 2e-5.  Select form against the JAX
+# ``decode_attention`` with scales on bf16 q: out within two bf16 ulps
+# of the largest value, mass within 1e-6 (as decode_mqattn above).
+# --------------------------------------------------------------------- #
+DQ_CASES = [
+    dict(B=2, S=96, H=8, KV=2, hd=32, nv=50, window=0, n_sinks=0),
+    dict(B=1, S=200, H=4, KV=4, hd=64, nv=200, window=0, n_sinks=0),
+    dict(B=3, S=128, H=8, KV=1, hd=16, nv=100, window=40, n_sinks=4),
+]
+
+
+def _int8_cache(B, S, H, KV, hd, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, hd)).astype(np.float32)
+    kq, vq = (rng.integers(-127, 128, (B, S, KV, hd)).astype(np.int8)
+              for _ in range(2))
+    ks, vs = (rng.uniform(0.001, 0.02, (B, S, KV)).astype(np.float32)
+              for _ in range(2))
+    return q, kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("case", DQ_CASES,
+                         ids=lambda c: "-".join(map(str, c.values())))
+def test_decode_qattn_plain_fused_matches_reference(case):
+    """The fused form against the reference's oracle and its
+    interpret-mode Pallas kernel (bs = 32) on the reference test's three
+    cases."""
+    c = case
+    q, kq, vq, ks, vs = _int8_cache(c["B"], c["S"], c["H"], c["KV"],
+                                    c["hd"], seed=c["S"] + c["H"])
+    o_ref = jref.decode_qattn_ref(q, kq, vq, ks, vs, c["nv"], c["window"],
+                                  c["n_sinks"])
+    o_pal = jdq.decode_qattn(*(jnp.asarray(a) for a in (q, kq, vq, ks, vs)),
+                             c["nv"], c["window"], c["n_sinks"],
+                             interpret=True, bs=32)
+    o_t = tref.decode_qattn_plain(
+        *(torch.from_numpy(a) for a in (q, kq, vq, ks, vs)),
+        torch.tensor(c["nv"]), c["window"], c["n_sinks"])
+    assert o_t.dtype == torch.float32
+    for o_j in (o_ref, o_pal):
+        np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), rtol=2e-4,
+                                   atol=2e-5)
+
+
+@pytest.mark.parametrize("cur,window,n_sinks", [("scalar", 0, 0),
+                                                ("rows", 0, 0),
+                                                ("rows", 24, 4)])
+def test_decode_qattn_plain_select_matches_decode_attention(cur, window,
+                                                            n_sinks):
+    """The select form with the mass against the JAX ``decode_attention``
+    with scales (the reference's all-int8 ``decode_step`` attention), and
+    the port's ``decode_attention`` with scales routes to it."""
+    B, S, H, KV, hd = 2, 64, 8, 2, 16
+    q, kq, vq, ks, vs = _int8_cache(B, S, H, KV, hd, seed=3)
+    qj, qt = bf16_pair(q)
+    nv = _n_valid(B, S, seed=3) if cur == "rows" else np.int64(S // 3)
+    oj, mj = JC.decode_attention(qj[:, None], jnp.asarray(kq),
+                                 jnp.asarray(vq), jnp.asarray(nv, jnp.int32),
+                                 k_scale=jnp.asarray(ks),
+                                 v_scale=jnp.asarray(vs), window=window,
+                                 n_sinks=n_sinks, want_density=True)
+    t8 = [torch.from_numpy(a) for a in (kq, vq, ks, vs)]
+    ot, mt = tref.decode_qattn_plain(qt, *t8, torch.as_tensor(nv), window,
+                                     n_sinks, want_mass=True, select=True)
+    _assert_out_close(np.asarray(oj)[:, 0], ot)
+    np.testing.assert_allclose(mt.numpy(), np.asarray(mj), rtol=0, atol=1e-6)
+    od, md = TC.decode_attention(qt[:, None], t8[0], t8[1],
+                                 torch.as_tensor(nv), k_scale=t8[2],
+                                 v_scale=t8[3], window=window,
+                                 n_sinks=n_sinks, want_density=True)
+    assert torch.equal(od[:, 0], ot) and torch.equal(md, mt)
+
+
+def test_new_ops_route_cpu_tensors_to_plain_versions():
+    """``ops.attn_density`` and ``ops.decode_qattn`` take the plain
+    versions for CPU tensors and count no kernel launch."""
+    from repro_torch.kernels import attn_density as kad_t
+    from repro_torch.kernels import decode_qattn as kdq_t
+    before = (kad_t.attn_density.launches, kdq_t.decode_qattn.launches)
+    rng = np.random.default_rng(4)
+    _, q = bf16_pair(rng.standard_normal((1, 8, 4, 16)).astype(np.float32))
+    _, k = bf16_pair(rng.standard_normal((1, 32, 2, 16)).astype(np.float32))
+    qp = torch.arange(8, 16)
+    for form in ("served", "flash"):
+        o, d = tops.attn_density(q, k, k, qp, 16, form=form)
+        o2, d2 = tref.attn_density_plain(q, k, k, qp, 16, form=form)
+        assert torch.equal(o, o2) and torch.equal(d, d2)
+    q8, kq, vq, ks, vs = _int8_cache(1, 32, 4, 2, 16, seed=5)
+    t = [torch.from_numpy(a) for a in (kq, vq, ks, vs)]
+    _, qb = bf16_pair(q8)
+    o, m = tops.decode_qattn(qb, *t, 20, want_mass=True, select=True)
+    o2, m2 = tref.decode_qattn_plain(qb, *t, 20, want_mass=True, select=True)
+    assert torch.equal(o, o2) and torch.equal(m, m2)
+    assert before == (kad_t.attn_density.launches,
+                      kdq_t.decode_qattn.launches)
+
+
+def test_new_cuda_wrappers_refuse_cpu_tensors():
+    from repro_torch.kernels import attn_density as kad_t
+    from repro_torch.kernels import decode_qattn as kdq_t
+    q = torch.zeros(1, 8, 4, 16, dtype=torch.bfloat16)
+    k = torch.zeros(1, 32, 2, 16, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        kad_t.attn_density(q, k, k, torch.arange(8, dtype=torch.int32), 8)
+    with pytest.raises(ValueError):
+        kad_t.attn_density(q, k, k, torch.arange(8, dtype=torch.int32), 8,
+                           form="blocked")
+    kq = torch.zeros(1, 32, 2, 16, dtype=torch.int8)
+    sc = torch.ones(1, 32, 2)
+    with pytest.raises(ValueError):
+        kdq_t.decode_qattn(q[:, 0], kq, kq, sc, sc,
+                           torch.ones(1, dtype=torch.int32))
+    assert kad_t.attn_density.launches == kdq_t.decode_qattn.launches == 0

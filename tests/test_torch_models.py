@@ -20,6 +20,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax
 import jax.numpy as jnp
 
 from _torch_parity import bf16_pair, tiny_pair, to_np, to_torch
@@ -294,14 +295,61 @@ def test_extend_then_decode_paged_quant_resident_teacher_forced():
 
 def test_mixed_cache_layout_and_int8_refusal():
     """init_cache's mixed layout carries the int8 segments, their scales
-    and a (1, B, S) mask; the all-int8 cache is refused, naming the
-    roadmap."""
-    _, _, _, tcfg, tmodel, _ = tiny_pair()
+    and a (1, B, S) mask; the all-int8 cache (once refused) is int8
+    k/v codes with (L, B, S, KV) fp32 scales and no mask, as in the
+    reference's ``_build_cache``."""
+    jcfg, jmodel, _, tcfg, tmodel, _ = tiny_pair()
     from repro_torch.models.kvspec import LAYOUT_MIXED
     c = tmodel.init_cache(2, 32, layout=LAYOUT_MIXED)
     L, KV, hd = tcfg.n_layers, tcfg.n_kv_heads, tcfg.head_dim
     assert c["k_q"].shape == (L, 2, 32, KV, hd) and c["k_q"].dtype == torch.int8
     assert c["v_scale"].shape == (L, 2, 32, KV)
     assert c["quant_mask"].shape == (1, 2, 32) and not c["quant_mask"].any()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.init_cache(1, 32, dtype=torch.int8)
+    c8 = tmodel.init_cache(2, 32, dtype=torch.int8)
+    j8 = jmodel.init_cache(2, 32, dtype=jnp.int8)
+    assert sorted(c8) == sorted(j8) == ["k", "k_scale", "pos", "v",
+                                        "v_scale"]
+    for n in ("k", "v"):
+        assert c8[n].shape == (L, 2, 32, KV, hd) == j8[n].shape
+        assert c8[n].dtype == torch.int8 and not c8[n].any()
+        assert c8[n + "_scale"].shape == (L, 2, 32, KV) == \
+            j8[n + "_scale"].shape
+        assert c8[n + "_scale"].dtype == torch.float32
+    assert c8["pos"].dim() == 0 and int(c8["pos"]) == 0
+
+
+@pytest.mark.parametrize("pos_kind", ["scalar", "rows"])
+def test_int8_decode_step_matches_reference_teacher_forced(pos_kind):
+    """The all-int8 cache: eight ``decode_step`` rounds with the per-key
+    mass, fed the SAME tokens in both packages, against the reference's
+    jitted ``decode_step`` (its scales as XLA serves them: max|x| *
+    fl32(1/127)), with a 0-d pos or a (B,) pos.  Layer 0's codes and
+    scales, whose inputs agree bit for bit, are byte-equal at every
+    step; deeper layers' inputs differ at bf16 level (module note), so
+    there the dequantized K/V agree to 2% of their range (codes within
+    two steps).  Logits and masses as in the module note."""
+    jcfg, jmodel, jparams, tcfg, tmodel, tparams = tiny_pair()
+    B, S = 2, 32
+    jc = jmodel.init_cache(B, S, dtype=jnp.int8)
+    tc = tmodel.init_cache(B, S, dtype=torch.int8)
+    if pos_kind == "rows":
+        jc["pos"] = jnp.asarray([0, 5], jnp.int32)
+        tc["pos"] = torch.tensor([0, 5])
+    step = jax.jit(lambda p, t, c: jmodel.decode_step(p, t, c,
+                                                      want_density=True))
+    rng = np.random.default_rng(10)
+    for _ in range(8):
+        tok = rng.integers(1, jcfg.vocab, (B, 1))
+        jo, jm = step(jparams, jnp.asarray(tok, jnp.int32), jc)
+        to, tm = tmodel.decode_step(tparams, torch.from_numpy(tok).long(), tc,
+                                    want_density=True)
+        jc, tc = jo.cache, to.cache
+        _close_bf16(jo.logits, to.logits)
+        np.testing.assert_allclose(tm.numpy(), np.asarray(jm), atol=1e-4)
+        for n in ("k", "v"):
+            jq, jsc = np.asarray(jc[n]), np.asarray(jc[n + "_scale"])
+            tq, tsc = tc[n].numpy(), tc[n + "_scale"].numpy()
+            assert tq[0].tobytes() == jq[0].tobytes()
+            assert tsc[0].tobytes() == jsc[0].tobytes()
+            _close_bf16(jq * jsc[..., None], tq * tsc[..., None])
+    np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
