@@ -15,15 +15,19 @@ result line):
              dequantized values) over bits {8, 4, 2}, bf16/fp32 inputs
              and four shapes; decode_mqattn in both forms, with and
              without the mass, over five shapes, three quant shares and
-             two (window, sinks) settings; attn_density in both forms,
-             with and without the density, at serving's extend (seq_len
-             48 and 200, bucket pads, G 1/4/8), a long append and the
-             Pallas kernel's own setting, causal, windowed and with
-             rows that see no key; decode_qattn in both forms, with and
+             two (window, sinks) settings, and the edge cases of its
+             split plan (MQ_EDGE); attn_density in both forms, with and
+             without the density, at serving's extend (seq_len 48 and
+             200, bucket pads, G 1/4/8), a long append, the Pallas
+             kernel's own setting and the edge cases of its tile plan
+             (ragged tiles, hd 16/20/80, G 64), causal, windowed and
+             with rows that see no key; decode_qattn in both forms, with and
              without the mass, at two shapes and two (window, sinks)
-             settings.  Time each kernel, its plain version, its bound
-             and (for the attention kernels) the library's attention at
-             the shapes the main path gives them;
+             settings.  Time each kernel (per launch of its kernels, by
+             name; a kernel the profiler does not find raises), its
+             plain version, its bound and (for the attention kernels)
+             the library's attention at the shapes the main path gives
+             them;
 3. serve   — llama2-7b at full width and depth (random bf16 weights from
              a seeded torch.Generator, built once) behind LLMService
              (policy llms, paged pool, decode_batch 1): 4 contexts x 3
@@ -65,6 +69,15 @@ CHECK_SHAPES = [SERVE_SHAPE, (16, 384), (32, 100), (4, 64)]
 MQ_SHAPES = [(1, 512, 32, 32, 128), (4, 512, 32, 32, 128),
              (2, 4096, 32, 8, 128), (3, 4100, 4, 4, 16), (1, 16, 4, 2, 16)]
 MQ_TIMED = [(1, 512, 32, 32, 128, 0.5), (1, 4096, 32, 32, 128, 0.5)]
+# decode_mqattn edge cases of the split plan (B, S, H, KV, hd, n_valid per
+# row, (window, sinks) settings): n_valid inside a split; splits wholly
+# between the sinks and the window; rows of one batch ending in different
+# splits; one split; hd not a multiple of 8 (element-wise loads)
+MQ_EDGE = [((1, 512, 32, 32, 128), [100], ((0, 0), (256, 4))),
+           ((1, 512, 32, 32, 128), [512], ((128, 4), (64, 0))),
+           ((4, 512, 32, 32, 128), [512, 1, 200, 77], ((0, 0), (128, 4))),
+           ((1, 16, 4, 2, 16), [16], ((0, 0), (8, 2))),
+           ((2, 300, 8, 2, 20), [300, 131], ((0, 0), (64, 3)))]
 MQ_OUT_TOL = 2 ** -7                       # x max|out_plain|: two bf16 ulps
 PROFILED_ROUND = 81                        # 4th decode round of the last call
 MQ_MASS_TOL = 1e-6
@@ -72,6 +85,10 @@ MQ_MASS_TOL = 1e-6
 # another order) within 1e-5 of the largest density
 AD_DENS_TOL = 1e-5
 AD_SERVE = dict(S=512, H=32, hd=128, bucket=64, pad=511)
+# the kernels' names, as the profiler reports them
+AD_KERNELS = ("attn_density_tc_kernel", "attn_density_reduce_kernel")
+MQ_KERNELS = ("mq_split_kernel", "mq_split_pv_kernel", "mq_combine_kernel")
+DQ_KERNELS = ("mqattn_kernel", "mass_kernel")    # decode_qattn's template
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12                     # H100 SXM, outside tensor cores
 BF16_OPS_PER_S = 989e12                    # H100 SXM, bf16 tensor cores
@@ -100,9 +117,13 @@ def build_phase():
     log(f"[build] nvcc {' '.join(build.NVCC_FLAGS)}: "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
+        entry = "?"
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                # the mangled kernel name, e.g. ...mq_split_kernelILi1ELb0E...
+                entry = line.split("'")[1] if "'" in line else line
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {name}: {entry[:72]}: {line.strip()}")
     smi = nvidia_smi_line()
     log(f"[build] card: {smi}")
     return smi
@@ -126,11 +147,15 @@ def _time_ms(fn, iters=200, warmup=20):
     return a.elapsed_time(b) / iters
 
 
-def _device_ms(fn, match=None, iters=50):
+def _device_ms(fn, match=None, iters=50, by_kernel=None):
     """Device time per call from the profiler's CUDA kernel records: the
     kernels whose name contains ``match`` (a string or a tuple of them;
-    all kernels when None), summed and divided by ``iters``.  None when
-    the profiler records no device time."""
+    all kernels when None), summed and divided by ``iters``.  Raises when
+    ``match`` is given and no kernel matches it (a kernel renamed without
+    its match, or a profiler that records no device time); None when
+    ``match`` is None and the profiler records no device time.  With a
+    dict ``by_kernel``, also each matching kernel's time per call, by
+    name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -143,8 +168,16 @@ def _device_ms(fn, match=None, iters=50):
     subs = (match,) if isinstance(match, str) else match
     for ev in prof.key_averages():
         if subs is None or any(m in ev.key for m in subs):
-            total_us += getattr(ev, "device_time_total",
-                                getattr(ev, "cuda_time_total", 0.0))
+            us = getattr(ev, "device_time_total",
+                         getattr(ev, "cuda_time_total", 0.0))
+            total_us += us
+            if by_kernel is not None and us > 0 and subs is not None:
+                m = next(m for m in subs if m in ev.key)
+                name = ev.key[ev.key.index(m):].split("(")[0]
+                by_kernel[name] = us / iters / 1e3
+    if subs is not None and total_us == 0:
+        raise AssertionError(f"the profiler recorded no device time for a "
+                             f"kernel matching {subs}")
     return total_us / iters / 1e3 if total_us > 0 else None
 
 
@@ -163,9 +196,9 @@ def _profile_round(fn):
     cats, n_kernels = {}, 0
     for ev in prof.key_averages():
         name = ev.key.lower()
-        cat = ("decode_mqattn" if "mqattn" in name or "mass_kernel" in name
-               else "attn_density" if "attn_kernel" in name
-               or "density_kernel" in name
+        cat = ("decode_mqattn" if any(t in name for t in MQ_KERNELS)
+               else "decode_qattn" if any(t in name for t in DQ_KERNELS)
+               else "attn_density" if any(t in name for t in AD_KERNELS)
                else "indexing (page gather, scatter)" if "index" in name
                else "matmul" if any(t in name for t in
                                     ("gemm", "gemv", "xmma", "cutlass"))
@@ -261,11 +294,12 @@ def kernel_phase():
     return max_err, times
 
 
-def _mq_case(B, S, H, KV, hd, quant_share, g, dev, full=False, cs=16):
+def _mq_case(B, S, H, KV, hd, quant_share, g, dev, full=False, cs=16,
+             n_valid=None):
     """A mixed cache on the card: bf16 K/V, decode-grid int8 codes and
     scales, the quant mask on whole 16-token chunks with about the given
     share, n_valid per row from [1, S] (S in row 0, 1 in the last row of
-    a batch), or S everywhere with ``full``."""
+    a batch), S everywhere with ``full``, or the given ``n_valid``."""
     import torch
     from repro_torch.kernels import ref
     r = lambda *s: torch.randn(s, generator=g, device=dev)   # noqa: E731
@@ -276,7 +310,9 @@ def _mq_case(B, S, H, KV, hd, quant_share, g, dev, full=False, cs=16):
     chunks = torch.rand((B, -(-S // cs)), generator=g, device=dev) \
         < quant_share
     qm = chunks.repeat_interleave(cs, dim=1)[:, :S].contiguous()
-    if full:
+    if n_valid is not None:
+        nv = torch.tensor(n_valid, dtype=torch.int32, device=dev)
+    elif full:
         nv = torch.full((B,), S, dtype=torch.int32, device=dev)
     else:
         nv = torch.randint(1, S + 1, (B,), generator=g, device=dev,
@@ -322,45 +358,55 @@ def mqattn_phase():
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     worst = {"out": 0.0, "out_rel": 0.0, "mass": 0.0}
     n_cases = 0
-    for B, S, H, KV, hd in MQ_SHAPES:
-        for share in (0.0, 0.5, 1.0):
-            args = _mq_case(B, S, H, KV, hd, share, g, dev)
-            for window, n_sinks in ((0, 0), (256, 4)):
-                for select in (False, True):
-                    o_r, m_r = ref.decode_mqattn_plain(
-                        *args, window, n_sinks, want_mass=True,
-                        select=select)
-                    o_k, m_k = kmq.decode_mqattn(*args, window, n_sinks,
-                                                 want_mass=True,
-                                                 select=select)
-                    o_n = kmq.decode_mqattn(*args, window, n_sinks,
-                                            select=select)
-                    o_2, m_2 = kmq.decode_mqattn(*args, window, n_sinks,
-                                                 want_mass=True,
-                                                 select=select)
-                    torch.cuda.synchronize()
-                    span = float(o_r.float().abs().max())
-                    d_o = float((o_k.float() - o_r.float()).abs().max())
-                    d_m = float((m_k - m_r).abs().max())
-                    case = (f"({B},{S},{H},{KV},{hd}) share {share} window "
-                            f"{window} sinks {n_sinks} "
-                            f"{'select' if select else 'fused'}")
-                    if not (torch.isfinite(o_k.float()).all()
-                            and d_o <= MQ_OUT_TOL * span
-                            and d_m <= MQ_MASS_TOL):
-                        raise AssertionError(
-                            f"decode_mqattn {case}: max |d out| {d_o} "
-                            f"(range {span}), max |d mass| {d_m}")
-                    if not (torch.equal(o_n, o_k) and torch.equal(o_2, o_k)
-                            and torch.equal(m_2, m_k)):
-                        raise AssertionError(
-                            f"decode_mqattn {case}: reruns differ")
-                    worst["out"] = max(worst["out"], d_o)
-                    worst["out_rel"] = max(worst["out_rel"],
-                                           d_o / max(span, 1e-30))
-                    worst["mass"] = max(worst["mass"], d_m)
-                    n_cases += 1
-    log(f"[kernels] decode_mqattn: {n_cases} cases x (with, without mass) "
+    cases = [(_mq_case(*shape, share, g, dev), ((0, 0), (256, 4)))
+             for shape in MQ_SHAPES for share in (0.0, 0.5, 1.0)]
+    cases += [(_mq_case(*shape, 0.5, g, dev, n_valid=nv), masks)
+              for shape, nv, masks in MQ_EDGE]
+    for args, masks in cases:
+        B, H, hd = args[0].shape
+        S, KV = args[1].shape[1], args[1].shape[2]
+        share = round(float(args[7].float().mean()), 3)
+        for window, n_sinks in masks:
+            for select in (False, True):
+                o_r, m_r = ref.decode_mqattn_plain(
+                    *args, window, n_sinks, want_mass=True,
+                    select=select)
+                o_k, m_k = kmq.decode_mqattn(*args, window, n_sinks,
+                                             want_mass=True,
+                                             select=select)
+                o_n = kmq.decode_mqattn(*args, window, n_sinks,
+                                        select=select)
+                o_2, m_2 = kmq.decode_mqattn(*args, window, n_sinks,
+                                             want_mass=True,
+                                             select=select)
+                torch.cuda.synchronize()
+                span = float(o_r.float().abs().max())
+                d_o = float((o_k.float() - o_r.float()).abs().max())
+                d_m = float((m_k - m_r).abs().max())
+                case = (f"({B},{S},{H},{KV},{hd}) share {share} window "
+                        f"{window} sinks {n_sinks} "
+                        f"{'select' if select else 'fused'}")
+                if not (torch.isfinite(o_k.float()).all()
+                        and d_o <= MQ_OUT_TOL * span
+                        and d_m <= MQ_MASS_TOL):
+                    raise AssertionError(
+                        f"decode_mqattn {case}: max |d out| {d_o} "
+                        f"(range {span}), max |d mass| {d_m}")
+                if not (torch.equal(o_n, o_k) and torch.equal(o_2, o_k)
+                        and torch.equal(m_2, m_k)):
+                    raise AssertionError(
+                        f"decode_mqattn {case}: reruns differ")
+                valid = ref._valid_keys(args[8], B, S, window, n_sinks, dev)
+                if bool((m_k[~valid] != 0).any()):
+                    raise AssertionError(
+                        f"decode_mqattn {case}: mass not 0 at an invalid key")
+                worst["out"] = max(worst["out"], d_o)
+                worst["out_rel"] = max(worst["out_rel"],
+                                       d_o / max(span, 1e-30))
+                worst["mass"] = max(worst["mass"], d_m)
+                n_cases += 1
+    log(f"[kernels] decode_mqattn: {n_cases} cases ({len(MQ_EDGE)} edge "
+        f"shapes of the split plan among them) x (with, without mass) "
         f"within tolerance of the plain version: max |d out| "
         f"{worst['out']} ({worst['out_rel']} of max|out|, tolerance "
         f"{MQ_OUT_TOL}), max |d mass| {worst['mass']} (tolerance "
@@ -381,10 +427,12 @@ def mqattn_phase():
         lib = lambda: F.scaled_dot_product_attention(     # noqa: E731
             q4, k4, v4)
         bound, by = _mq_bound_ms(args, True)
+        parts = {}
         row = {"shape": f"({B},{S},{H},{KV},{hd})", "quant_share": share,
                "form": "select" if select else "fused",
                "call_ms": _time_ms(fn),
-               "device_ms": _device_ms(fn, ("mqattn_kernel", "mass_kernel")),
+               "device_ms": _device_ms(fn, MQ_KERNELS, by_kernel=parts),
+               "device_ms_by_kernel": parts,
                "plain_call_ms": _time_ms(plain, iters=50),
                "plain_device_ms": _device_ms(plain),
                "library_call_ms": _time_ms(lib),
@@ -400,7 +448,7 @@ def mqattn_phase():
             f"(out only: no dequant, select or mass) "
             f"{row['library_device_ms']} ms on the device, "
             f"{row['library_call_ms']:.5f} ms per call; bound "
-            f"{bound:.5f} ms ({by})")
+            f"{bound:.5f} ms ({by}); kernel by launch {parts}")
     return worst, times
 
 
@@ -466,6 +514,21 @@ def attn_phase():
     pallas_args = _ad_case(1, 2048, 2048, H, 32, hd, list(range(2048)), g,
                            dev)
     cases.append(("Pallas setting", pallas_args, 2048, ((0, 0), (512, 4))))
+    # edge cases of the tile plan: Sq G and Sk off the tiles, hd 16, 20 and
+    # 80 (zero-padded in shared memory; 20 loads element by element), G 8
+    # and 64, and 16-row tiles that hold rows seeing no key beside rows
+    # seeing keys (the pads under window 8)
+    for label, shape, q_pos, seq_len in (
+            ("ragged rows and keys, hd 16", (2, 37, 100, 4, 4, 16),
+             list(range(57, 90)) + [99] * 4, 90),
+            ("G 8, hd 80", (1, 50, 200, 16, 2, 80),
+             list(range(138, 180)) + [199] * 8, 180),
+            ("G 64", (1, 24, 300, 64, 1, 64), list(range(226, 250)), 250),
+            ("hd 20", (1, 10, 40, 2, 1, 20), list(range(25, 35)), 35),
+            ("empty and seeing rows in a tile", (1, 20, 64, 4, 4, 32),
+             list(range(30, 40)) + [63] * 10, 40)):
+        cases.append((label, _ad_case(*shape, q_pos, g, dev), seq_len,
+                      ((0, 0), (8, 0), (16, 2))))
     worst = {"out": 0.0, "out_rel": 0.0, "density": 0.0, "density_rel": 0.0}
     n_cases = n_empty = 0
     for label, args, seq_len, masks in cases:
@@ -527,10 +590,12 @@ def attn_phase():
             q4, k4, v4, attn_mask=mask)
         bound, by = _ad_bound_ms(args, seq_len, 0, 0, want_density)
         iters = 200 if q.shape[1] <= 64 else 20
+        parts = {}
         row = {"shape": label, "form": form, "density": want_density,
                "call_ms": _time_ms(fn, iters=iters),
-               "device_ms": _device_ms(fn, ("attn_kernel", "density_kernel"),
-                                       iters=min(iters, 50)),
+               "device_ms": _device_ms(fn, AD_KERNELS, iters=min(iters, 50),
+                                       by_kernel=parts),
+               "device_ms_by_kernel": parts,
                "plain_call_ms": _time_ms(plain, iters=min(iters, 50)),
                "plain_device_ms": _device_ms(plain, iters=min(iters, 50)),
                "library_call_ms": _time_ms(lib, iters=iters),
@@ -544,7 +609,7 @@ def attn_phase():
             f"scaled_dot_product_attention with the boolean mask (out "
             f"only) {row['library_device_ms']} ms on the device, "
             f"{row['library_call_ms']:.5f} ms per call; bound "
-            f"{bound:.5f} ms ({by})")
+            f"{bound:.5f} ms ({by}); kernel by launch {parts}")
         return row
 
     serve = _ad_case(1, 64, S, H, 32, hd, _serve_positions(200), g, dev)
@@ -650,7 +715,7 @@ def qattn_phase():
         row = {"shape": str(shape).replace(" ", ""),
                "form": "select" if select else "fused",
                "call_ms": _time_ms(fn),
-               "device_ms": _device_ms(fn, ("mqattn_kernel", "mass_kernel")),
+               "device_ms": _device_ms(fn, DQ_KERNELS),
                "plain_call_ms": _time_ms(plain, iters=50),
                "plain_device_ms": _device_ms(plain),
                "library_call_ms": _time_ms(lib),

@@ -7,7 +7,11 @@ what serving's extend needs beside them: query positions, ``seq_len``,
 and the served form of ``models/common.gqa_attention``.  The plain
 PyTorch version is ``kernels/ref.py::attn_density_plain``;
 ``kernels/ops.py`` dispatches between the two by the tensor's device.
-Design and bound are in the CUDA source's note.
+Design and bound are in the CUDA source's note: (query, head) rows in
+blocks of 4 warps, 16 or 64 rows a block (``plan``), bf16 K/V tiles
+double-buffered through shared memory, QK and PV on the tensor cores
+(``mma.sync`` m16n8k16), the key mass summed from the score fragments
+and reduced by a second fixed-order launch.
 
 The wrapper checks device, dtype, shape and contiguity, allocates the
 output, the density and the (B, KV, n_tiles, Sk) fp32 scratch with
@@ -28,7 +32,19 @@ from repro_torch.kernels import build
 
 MAX_HEAD_DIM = 128
 MAX_GROUP = 64
+WAVE_BLOCKS = 132                  # SMs of an H100 SXM
 _LIB = None
+
+
+def plan(B: int, Sq: int, H: int, KV: int):
+    """The kernel's tile plan (``attn_density_rows`` in the CUDA source):
+    64 (query, head) rows a block when B * KV * ceil(Sq G / 64) blocks
+    still give every SM one, else 16 rows, so that serving's extend
+    fills the card.  -> (rows a block, query tiles n_tiles, blocks)."""
+    G = H // KV
+    rows = 64 if B * KV * -(-Sq * G // 64) >= WAVE_BLOCKS else 16
+    n_tiles = -(-Sq * G // rows)
+    return rows, n_tiles, B * KV * n_tiles
 
 
 def _lib() -> ctypes.CDLL:
@@ -39,8 +55,8 @@ def _lib() -> ctypes.CDLL:
         lib.attn_density.argtypes = ([vp] * 7 + [ci] * 9
                                      + [ctypes.c_float, ci, vp])
         lib.attn_density.restype = ci
-        lib.attn_density_tiles.argtypes = [ci, ci]
-        lib.attn_density_tiles.restype = ci
+        lib.attn_density_rows.argtypes = [ci] * 4
+        lib.attn_density_rows.restype = ci
         _LIB = lib
     return _LIB
 
@@ -76,7 +92,10 @@ def attn_density(q, k, v, q_pos, seq_len: int, window: int = 0,
                          f"not H={H} KV={KV} hd={hd}")
     dev = q.device
     lib = _lib()
-    n_tiles = lib.attn_density_tiles(Sq, H // KV)
+    rows, n_tiles, _ = plan(B, Sq, H, KV)
+    if lib.attn_density_rows(B, Sq, H, KV) != rows:
+        raise RuntimeError("attn_density: the kernel's tile plan differs "
+                           "from plan()")
     out = torch.empty((B, Sq, H, hd), dtype=torch.bfloat16, device=dev)
     part = dens = None
     if want_density:

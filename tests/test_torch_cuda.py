@@ -379,3 +379,75 @@ def test_cuda_recompute_runs_attn_density(card):
     assert kad.attn_density.launches == cfg.n_layers
     assert dens.shape == (1, 64) and torch.isfinite(dens).all()
     assert float(dens.min()) >= 0.0
+
+
+# --------------------------------------------------------------------- #
+# Edge cases of the tile plan (attn_density) and the split plan
+# (decode_mqattn), and the plans the CUDA sources compute against the
+# wrappers' ``plan`` (tested on the CPU in tests/test_torch_plans.py).
+# Tolerances as above.
+# --------------------------------------------------------------------- #
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["served", "flash"])
+@pytest.mark.parametrize("window,n_sinks", [(0, 0), (8, 0), (16, 2)])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,seq_len,n_pad", [
+    (2, 37, 100, 4, 4, 16, 90, 4),       # Sq G and Sk off the tiles, hd 16
+    (1, 50, 200, 16, 2, 80, 180, 8),     # G 8 (2 queries a tile), hd 80
+    (1, 24, 300, 64, 1, 64, 250, 0),     # G 64: a query over 4 tiles
+    (1, 10, 40, 2, 1, 20, 35, 0),        # hd 20: element-wise loads
+    (1, 20, 64, 4, 4, 32, 40, 10),       # pads that see nothing beside
+])                                       # rows that see keys in a tile
+def test_cuda_attn_density_edge_cases(card, B, Sq, Sk, H, KV, hd, seq_len,
+                                      n_pad, window, n_sinks, form):
+    args = _extend_case(B, Sq, Sk, H, KV, hd, seq_len, n_pad, card,
+                        seed=Sq + hd)
+    _check_extend(args, seq_len, window, n_sinks, form)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("select", [False, True])
+@pytest.mark.parametrize("B,S,H,KV,hd,n_valid,window,n_sinks", [
+    (1, 512, 32, 32, 128, [100], 0, 0),        # n_valid inside a split
+    (1, 512, 32, 32, 128, [512], 128, 4),      # splits between sinks and
+    (1, 512, 32, 32, 128, [512], 64, 0),       # window, or before it
+    (4, 512, 32, 32, 128, [512, 1, 200, 77], 0, 0),
+    (4, 512, 32, 32, 128, [512, 1, 200, 77], 128, 4),
+    (1, 16, 4, 2, 16, [16], 8, 2),             # one split
+    (2, 300, 8, 2, 20, [300, 131], 64, 3),     # hd 20: element-wise loads
+])
+def test_cuda_decode_mqattn_edge_cases(card, B, S, H, KV, hd, n_valid,
+                                       window, n_sinks, select):
+    from repro_torch.kernels import decode_mqattn as kmq
+    from repro_torch.kernels import ref
+    args = _mixed_case(B, S, H, KV, hd, 0.5, card, seed=S + B + hd)
+    args[8] = torch.tensor(n_valid, dtype=torch.int32, device=card)
+    o_r, m_r = ref.decode_mqattn_plain(*args, window, n_sinks,
+                                       want_mass=True, select=select)
+    o_k, m_k = kmq.decode_mqattn(*args, window, n_sinks, want_mass=True,
+                                 select=select)
+    o_n = kmq.decode_mqattn(*args, window, n_sinks, select=select)
+    o_2, m_2 = kmq.decode_mqattn(*args, window, n_sinks, want_mass=True,
+                                 select=select)
+    torch.cuda.synchronize()
+    tol = 2 ** -7 * float(o_r.float().abs().max())
+    assert float((o_k.float() - o_r.float()).abs().max()) <= tol
+    assert float((m_k - m_r).abs().max()) <= 1e-6
+    valid = ref._valid_keys(args[8], B, S, window, n_sinks, card)
+    assert bool((m_k[~valid] == 0).all())   # exactly 0 at invalid keys
+    assert torch.equal(o_n, o_k) and torch.equal(o_2, o_k)
+    assert torch.equal(m_2, m_k)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_plans_match_the_wrappers(card):
+    """The CUDA sources' tile and split plans equal the wrappers'
+    ``plan``, which sizes the scratch buffers."""
+    from repro_torch.kernels import attn_density as kad
+    from repro_torch.kernels import decode_mqattn as kmq
+    la, lm = kad._lib(), kmq._lib()
+    for B, Sq, H, KV in ((1, 64, 32, 32), (1, 512, 32, 32), (2, 37, 4, 4),
+                         (1, 24, 64, 1), (4, 64, 32, 32), (1, 2048, 32, 8)):
+        assert la.attn_density_rows(B, Sq, H, KV) == kad.plan(B, Sq, H, KV)[0]
+    for B, S, KV in ((1, 512, 32), (1, 4096, 32), (4, 512, 32), (3, 4100, 4),
+                     (1, 16, 2), (2, 300, 2), (1, 65536, 32)):
+        assert lm.decode_mqattn_splits(B, S, KV) == kmq.plan(B, S, KV)[0]
