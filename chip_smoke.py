@@ -13,7 +13,8 @@ result line):
 2. kernels — hold each kernel against its plain PyTorch version on the
              card: the chunk codec bit for bit (codes, scales,
              dequantized values) over bits {8, 4, 2}, bf16/fp32 inputs
-             and four shapes; decode_mqattn in both forms, with and
+             and four shapes, the quantize kernel also with a second
+             leaf in one launch; decode_mqattn in both forms, with and
              without the mass, over five shapes, three quant shares and
              two (window, sinks) settings, and the edge cases of its
              split plan (MQ_EDGE); attn_density in both forms, with and
@@ -21,13 +22,17 @@ result line):
              200, bucket pads, G 1/4/8), a long append, the Pallas
              kernel's own setting and the edge cases of its tile plan
              (ragged tiles, hd 16/20/80, G 64), causal, windowed and
-             with rows that see no key; decode_qattn in both forms, with and
-             without the mass, at two shapes and two (window, sinks)
-             settings.  Time each kernel (per launch of its kernels, by
-             name; a kernel the profiler does not find raises), its
-             plain version, its bound and (for the attention kernels)
-             the library's attention at the shapes the main path gives
-             them;
+             with rows that see no key; decode_qattn in both forms, with
+             and without the mass, at two shapes and two (window, sinks)
+             settings and over MQ_EDGE with every position quant.  Time
+             each kernel (per launch of its kernels, by name; a kernel
+             the profiler does not find raises), its plain version, its
+             bound and (for the attention kernels) the library's
+             attention at the shapes the main path gives them; the
+             decode kernels and their library rows also with a cold L2
+             (a 128 MiB buffer written before every call, its kernels
+             left out), and a chunk's two leaves quantized in one launch
+             beside two launches;
 3. serve   — llama2-7b at full width and depth (random bf16 weights from
              a seeded torch.Generator, built once) behind LLMService
              (policy llms, paged pool, decode_batch 1): 4 contexts x 3
@@ -39,10 +44,11 @@ result line):
              prefill-append attends through attn_density (one launch per
              layer).  The kernel launch counts are zeroed just before
              each run and read just after; each rerun from the same seed
-             must give identical tokens and bit plans.  Then the same
-             model decodes over an all-int8 cache (decode_qattn, one
-             launch per layer and token), twice, with identical tokens
-             and masses;
+             must give identical tokens and bit plans; quantize
+             launches per chunk and per switch-out are reported.  Then
+             the same model decodes over an all-int8 cache (decode_qattn,
+             one launch per layer and token), twice, with identical
+             tokens and masses, one token of the first run profiled;
 4. check   — the reduced llama2-7b served teacher-forced on the card
              agrees with the same port on the CPU (plain PyTorch), over
              the bf16 page view, a mixed (quant-resident) view and an
@@ -56,6 +62,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -88,7 +95,8 @@ AD_SERVE = dict(S=512, H=32, hd=128, bucket=64, pad=511)
 # the kernels' names, as the profiler reports them
 AD_KERNELS = ("attn_density_tc_kernel", "attn_density_reduce_kernel")
 MQ_KERNELS = ("mq_split_kernel", "mq_split_pv_kernel", "mq_combine_kernel")
-DQ_KERNELS = ("mqattn_kernel", "mass_kernel")    # decode_qattn's template
+DQ_KERNELS = ("dq_split_kernel", "dq_split_pv_kernel", "dq_combine_kernel")
+QUANT_KERNEL = "quant_leaves_kernel<"
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12                     # H100 SXM, outside tensor cores
 BF16_OPS_PER_S = 989e12                    # H100 SXM, bf16 tensor cores
@@ -110,6 +118,22 @@ def nvidia_smi_line() -> str:
 # --------------------------------------------------------------------- #
 # 1. build
 # --------------------------------------------------------------------- #
+def _kernel_label(mangled: str) -> str:
+    """A mangled kernel name's own name and template arguments, e.g.
+    ``mq_split_kernelILi1ELb0E`` (the name follows its length)."""
+    end = mangled.find("_kernel")
+    if end < 0:
+        return mangled[:72]
+    end += len("_kernel")
+    for start in range(end - 1, 0, -1):
+        for k in (1, 2, 3):
+            d = mangled[max(0, start - k):start]
+            if d.isdigit() and int(d) == end - start:
+                args = re.match(r"I\w*?E(?=E)", mangled[end:])
+                return mangled[start:end] + (args.group(0) if args else "")
+    return mangled[:72]
+
+
 def build_phase():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -120,10 +144,12 @@ def build_phase():
         entry = "?"
         for line in text.splitlines():
             if "Compiling entry function" in line:
-                # the mangled kernel name, e.g. ...mq_split_kernelILi1ELb0E...
-                entry = line.split("'")[1] if "'" in line else line
+                # the mangled name, e.g. ..._cu_95efd00315mq_split_kernelILi1E
+                # ELb0EEEvN...: the kernel's name and template arguments
+                entry = _kernel_label(line.split("'")[1] if "'" in line
+                                      else line)
             elif "registers" in line or "spill" in line:
-                log(f"[build] {name}: {entry[:72]}: {line.strip()}")
+                log(f"[build] {name}: {entry}: {line.strip()}")
     smi = nvidia_smi_line()
     log(f"[build] card: {smi}")
     return smi
@@ -147,33 +173,89 @@ def _time_ms(fn, iters=200, warmup=20):
     return a.elapsed_time(b) / iters
 
 
-def _device_ms(fn, match=None, iters=50, by_kernel=None):
+_FLUSH = {}
+
+
+def _host_ms_pair(a, b, iters=40, warmup=5):
+    """Median host time of ``a`` and of ``b``, run in turns (a, b, b, a,
+    ...) so that both see the same host; each must end synchronised."""
+    for _ in range(warmup):
+        a()
+        b()
+    times = {a: [], b: []}
+    for i in range(iters):
+        for fn in ((a, b) if i % 2 == 0 else (b, a)):
+            t0 = time.perf_counter()
+            fn()
+            times[fn].append((time.perf_counter() - t0) * 1e3)
+    return tuple(sorted(times[f])[iters // 2] for f in (a, b))
+
+
+def _l2_flush():
+    """(flush, its kernels): a callable that writes 128 MiB (more than
+    the card's 50 MB L2), so that the next call finds none of its inputs
+    in the L2, and the names the profiler gives the flush's kernels,
+    learnt once over ten flushes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if not _FLUSH:
+        buf = torch.empty(16 * 2**20, dtype=torch.int64, device="cuda")
+        flush = lambda: buf.fill_(7)                     # noqa: E731
+        flush()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                flush()
+            torch.cuda.synchronize()
+        keys = {ev.key for ev in prof.key_averages() if _device_us(ev) > 0}
+        if not keys:
+            raise AssertionError("the profiler recorded no kernel of the "
+                                 "L2 flush")
+        _FLUSH.update(fn=flush, keys=keys)
+    return _FLUSH["fn"], _FLUSH["keys"]
+
+
+def _device_us(ev) -> float:
+    return getattr(ev, "device_time_total",
+                   getattr(ev, "cuda_time_total", 0.0))
+
+
+def _device_ms(fn, match=None, iters=50, by_kernel=None, flush=None):
     """Device time per call from the profiler's CUDA kernel records: the
     kernels whose name contains ``match`` (a string or a tuple of them;
     all kernels when None), summed and divided by ``iters``.  Raises when
     ``match`` is given and no kernel matches it (a kernel renamed without
     its match, or a profiler that records no device time); None when
     ``match`` is None and the profiler records no device time.  With a
-    dict ``by_kernel``, also each matching kernel's time per call, by
-    name."""
+    dict ``by_kernel``, also each counted kernel's time per call, by
+    name.  With ``flush`` (``_l2_flush()``), the flush runs before every
+    call and its own kernels are left out: the call's time with a cold
+    L2."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    flush, skip = flush if flush is not None else (None, set())
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
+            if flush is not None:
+                flush()
             fn()
         torch.cuda.synchronize()
     total_us = 0.0
     subs = (match,) if isinstance(match, str) else match
     for ev in prof.key_averages():
+        if ev.key in skip:
+            continue
         if subs is None or any(m in ev.key for m in subs):
-            us = getattr(ev, "device_time_total",
-                         getattr(ev, "cuda_time_total", 0.0))
+            us = _device_us(ev)
             total_us += us
-            if by_kernel is not None and us > 0 and subs is not None:
-                m = next(m for m in subs if m in ev.key)
-                name = ev.key[ev.key.index(m):].split("(")[0]
+            if by_kernel is not None and us > 0:
+                if subs is None:
+                    name = ev.key[:96]
+                else:
+                    m = next(m for m in subs if m in ev.key)
+                    name = ev.key[ev.key.index(m):].split("(")[0]
                 by_kernel[name] = us / iters / 1e3
     if subs is not None and total_us == 0:
         raise AssertionError(f"the profiler recorded no device time for a "
@@ -203,9 +285,7 @@ def _profile_round(fn):
                else "matmul" if any(t in name for t in
                                     ("gemm", "gemv", "xmma", "cutlass"))
                else "other")
-        us = getattr(ev, "device_time_total",
-                     getattr(ev, "cuda_time_total", 0.0))
-        cats[cat] = cats.get(cat, 0.0) + us / 1e3
+        cats[cat] = cats.get(cat, 0.0) + _device_us(ev) / 1e3
         n_kernels += ev.count
     busy = sum(cats.values())
     return out, {"wall_ms": wall_ms, "device_ms": busy,
@@ -240,14 +320,27 @@ def kernel_phase():
             for bits in (8, 4, 2):
                 x = (torch.randn(shape, generator=g, device=dev) * 3).to(dt)
                 x[:, 0] = 0                      # the 1e-8 scale floor
+                # a second leaf of the chunk, of another F (ragged when
+                # x's F is a multiple of the 16-byte vectors)
+                y = (torch.randn((T, 100 if F % 8 == 0 else 384),
+                                 generator=g, device=dev) * 3).to(dt)
                 p_k, s_k = chunk_quant.quantize(x, bits)
                 p_r, s_r = ref.quantize_ref(x, bits)
+                _, leaves = chunk_quant.quantize_leaves([x, y], bits)
                 torch.cuda.synchronize()
-                if not (torch.equal(p_k, p_r) and torch.equal(s_k, s_r)):
-                    bad = int((p_k != p_r).sum()) + int((s_k != s_r).sum())
-                    raise AssertionError(
-                        f"quantize {shape} {dt} {bits}-bit: {bad} codes or "
-                        "scales differ from the plain version")
+                for label, got, want in (
+                        ("quantize", (p_k, s_k), (p_r, s_r)),
+                        ("one launch of two leaves, leaf 1", leaves[0],
+                         (p_r, s_r)),
+                        ("one launch of two leaves, leaf 2", leaves[1],
+                         ref.quantize_ref(y, bits))):
+                    if not (torch.equal(got[0], want[0])
+                            and torch.equal(got[1], want[1])):
+                        bad = int((got[0] != want[0]).sum()) + int(
+                            (got[1] != want[1]).sum())
+                        raise AssertionError(
+                            f"{label} {shape} {dt} {bits}-bit: {bad} codes "
+                            "or scales differ from the plain version")
                 for out_dt in (torch.bfloat16, torch.float32):
                     d_k = chunk_quant.dequantize(p_r, s_r, bits, T, out_dt)
                     d_r = ref.dequantize_ref(p_r, s_r, bits, T, out_dt)
@@ -263,12 +356,13 @@ def kernel_phase():
                             f"dequantize {shape} {bits}-bit -> {out_dt}: "
                             f"max |diff| {err}")
                 n_cases += 1
-    log(f"[kernels] {n_cases} quantize cases x 2 dequantize dtypes "
-        f"bit-exact vs the plain versions (max |diff| {max_err})")
+    log(f"[kernels] {n_cases} quantize cases (each also in one launch "
+        f"with a second leaf) x 2 dequantize dtypes bit-exact vs the plain "
+        f"versions (max |diff| {max_err})")
 
     T, F = SERVE_SHAPE
-    x = (torch.randn(SERVE_SHAPE, generator=g, device=dev) * 3
-         ).to(torch.bfloat16)
+    x, x2 = ((torch.randn(SERVE_SHAPE, generator=g, device=dev) * 3
+              ).to(torch.bfloat16) for _ in range(2))
     times = {}
     for bits in (8, 4, 2):
         p, s = ref.quantize_ref(x, bits)
@@ -278,7 +372,7 @@ def kernel_phase():
         d_ref = lambda: ref.dequantize_ref(p, s, bits, T)    # noqa: E731
         bound, by = _codec_bound_ms(T, F, bits, 2)
         for name, fn, plain, match in (
-                ("quantize", q, q_ref, "::quant_kernel<"),
+                ("quantize", q, q_ref, QUANT_KERNEL),
                 ("dequantize", d, d_ref, "dequant_kernel<")):
             row = {"call_ms": _time_ms(fn),
                    "plain_call_ms": _time_ms(plain, iters=50),
@@ -291,6 +385,40 @@ def kernel_phase():
                 f" ms per call; plain {row['plain_device_ms']} ms on the "
                 f"device, {row['plain_call_ms']:.5f} ms per call; bound "
                 f"{bound:.5f} ms ({by})")
+        # a chunk's two leaves (k, v) in one launch, as switch-out runs it,
+        # beside two launches of one leaf each
+        two = lambda: chunk_quant.quantize_leaves([x, x2], bits)  # noqa: E731
+        per_leaf = lambda: (chunk_quant.quantize(x, bits),  # noqa: E731
+                            chunk_quant.quantize(x2, bits))
+        row = {"call_ms": _time_ms(two),
+               "device_ms": _device_ms(two, QUANT_KERNEL),
+               "per_leaf_call_ms": _time_ms(per_leaf),
+               "per_leaf_device_ms": _device_ms(per_leaf, QUANT_KERNEL),
+               "bound_ms": 2 * bound, "bound_by": by}
+        times[bits]["quantize_two_leaves"] = row
+        log(f"[kernels] ({T},{F}) x 2 leaves bf16 {bits}-bit quantize in one "
+            f"launch: {row['device_ms']} ms on the device, "
+            f"{row['call_ms']:.5f} ms per call; as two launches "
+            f"{row['per_leaf_device_ms']} ms on the device, "
+            f"{row['per_leaf_call_ms']:.5f} ms per call; bound "
+            f"{2 * bound:.5f} ms ({by})")
+    # the switch-out codec step on the host: a chunk's two leaves to a
+    # host payload in one launch and one copy, beside the per-leaf form
+    # (a launch and two synchronising copies per leaf)
+    from repro_torch.core.chunks import ChunkCodec
+    codec = ChunkCodec(("k", "v"), T, dev)
+    blocks = {"k": x, "v": x2}
+    one = lambda: codec.compress_blocks(blocks, 4)        # noqa: E731
+    per_leaf = lambda: {                                   # noqa: E731
+        n: tuple(t.cpu().numpy() for t in chunk_quant.quantize(b, 4))
+        for n, b in blocks.items()}
+    one_ms, per_leaf_ms = _host_ms_pair(one, per_leaf)
+    times["switch_out_host_ms"] = {"one_launch_one_copy": one_ms,
+                                   "per_leaf": per_leaf_ms}
+    log(f"[kernels] switch-out codec step, ({T},{F}) x 2 leaves bf16 "
+        f"4-bit to a host payload: {one_ms:.4f} ms host time (median) in "
+        f"one launch and one copy, {per_leaf_ms:.4f} ms as a launch and two "
+        f"copies per leaf")
     return max_err, times
 
 
@@ -435,21 +563,65 @@ def mqattn_phase():
                "device_ms_by_kernel": parts,
                "plain_call_ms": _time_ms(plain, iters=50),
                "plain_device_ms": _device_ms(plain),
-               "library_call_ms": _time_ms(lib),
-               "library_device_ms": _device_ms(lib),
-               "bound_ms": bound, "bound_by": by}
+               "bound_ms": bound, "bound_by": by,
+               **_cold_and_library(fn, MQ_KERNELS, lib, q4, k4, v4)}
         times.append(row)
         log(f"[kernels] decode_mqattn {row['shape']} {row['form']} + mass, "
             f"quant share {share}, n_valid = S: kernel {row['device_ms']} ms"
-            f" on the device, {row['call_ms']:.5f} ms per call; plain "
+            f" on the device (L2 cold {row['device_ms_l2_cold']} ms), "
+            f"{row['call_ms']:.5f} ms per call; plain "
             f"{row['plain_device_ms']} ms on the device, "
-            f"{row['plain_call_ms']:.5f} ms per call; "
-            f"scaled_dot_product_attention over the pre-selected bf16 K/V "
-            f"(out only: no dequant, select or mass) "
-            f"{row['library_device_ms']} ms on the device, "
-            f"{row['library_call_ms']:.5f} ms per call; bound "
-            f"{bound:.5f} ms ({by}); kernel by launch {parts}")
+            f"{row['plain_call_ms']:.5f} ms per call; bound "
+            f"{bound:.5f} ms ({by}); kernel by launch {parts}, L2 cold "
+            f"{row['device_ms_by_kernel_l2_cold']}")
+        _log_library("decode_mqattn", row, "over the pre-selected bf16 K/V "
+                     "(out only: no dequant, select or mass)")
     return worst, times
+
+
+def _sdpa_bound_ms(q4, k4, v4):
+    """The least time of scaled_dot_product_attention over these bf16
+    inputs: q, K, V read once and out written once at the HBM rate."""
+    nbytes = 2 * q4.numel() * 2 + (k4.numel() + v4.numel()) * 2
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _cold_and_library(fn, match, lib, q4, k4, v4):
+    """A decode kernel's device time with a cold L2 (a 128 MiB buffer
+    written before every call, its kernels left out), by launch; the
+    library call's device time with a warm and a cold L2, the kernels
+    the profiler saw for it, its own bytes bound, and whether a reading
+    came in below that bound (then it read from the L2, not the HBM,
+    and is no yardstick)."""
+    flush = _l2_flush()
+    cold, lib_warm, lib_cold = {}, {}, {}
+    row = {"device_ms_l2_cold": _device_ms(fn, match, iters=30,
+                                           by_kernel=cold, flush=flush),
+           "device_ms_by_kernel_l2_cold": cold,
+           "library_call_ms": _time_ms(lib),
+           "library_device_ms": _device_ms(lib, by_kernel=lib_warm),
+           "library_device_ms_l2_cold": _device_ms(lib, iters=30,
+                                                   by_kernel=lib_cold,
+                                                   flush=flush),
+           "library_kernels": lib_warm,
+           "library_kernels_l2_cold": lib_cold,
+           "library_bytes_bound_ms": _sdpa_bound_ms(q4, k4, v4)}
+    row["library_below_its_bytes_bound"] = [
+        k for k in ("library_device_ms", "library_device_ms_l2_cold")
+        if row[k] is not None and row[k] < row["library_bytes_bound_ms"]]
+    return row
+
+
+def _log_library(kernel, row, what):
+    flag = (f"; BELOW its bytes bound: {row['library_below_its_bytes_bound']}"
+            f" (read from the L2, not a yardstick)"
+            if row["library_below_its_bytes_bound"] else "")
+    log(f"[kernels] {kernel} {row['shape']}: scaled_dot_product_attention "
+        f"{what} {row['library_device_ms']} ms on the device (L2 cold "
+        f"{row['library_device_ms_l2_cold']} ms), "
+        f"{row['library_call_ms']:.5f} ms per call; its bytes bound "
+        f"{row['library_bytes_bound_ms']:.5f} ms{flag}; kernels seen "
+        f"{row['library_kernels']}, L2 cold {row['library_kernels_l2_cold']}")
 
 
 def _ad_case(B, Sq, Sk, H, KV, hd, q_pos, g, dev):
@@ -653,15 +825,22 @@ def qattn_phase():
     configure_numerics(dev)
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
 
-    def case(B, S, H, KV, hd, full=False):
-        a = _mq_case(B, S, H, KV, hd, 1.0, g, dev, full=full)
+    def case(B, S, H, KV, hd, full=False, n_valid=None):
+        a = _mq_case(B, S, H, KV, hd, 1.0, g, dev, full=full,
+                     n_valid=n_valid)
         return [a[0], a[3], a[4], a[5], a[6], a[8]]
 
     worst = {"out": 0.0, "out_rel": 0.0, "mass": 0.0}
     n_cases = 0
-    for shape in ((1, 512, 32, 32, 128), (4, 4096, 32, 32, 128)):
-        args = case(*shape)
-        for window, n_sinks in ((0, 0), (256, 4)):
+    cases = [(case(*shape), ((0, 0), (256, 4)))
+             for shape in ((1, 512, 32, 32, 128), (4, 4096, 32, 32, 128))]
+    # the split plan's edge cases, every position quant
+    cases += [(case(*shape, n_valid=nv), masks)
+              for shape, nv, masks in MQ_EDGE]
+    for args, masks in cases:
+        B, H, hd = args[0].shape
+        S, KV = args[1].shape[1], args[1].shape[2]
+        for window, n_sinks in masks:
             for select in (False, True):
                 o_r, m_r = ref.decode_qattn_plain(*args, window, n_sinks,
                                                   True, select)
@@ -675,8 +854,8 @@ def qattn_phase():
                 span = float(o_r.float().abs().max())
                 d_o = float((o_k.float() - o_r.float()).abs().max())
                 d_m = float((m_k - m_r).abs().max())
-                label = (f"{shape} window {window} sinks {n_sinks} "
-                         f"{'select' if select else 'fused'}")
+                label = (f"({B},{S},{H},{KV},{hd}) window {window} sinks "
+                         f"{n_sinks} {'select' if select else 'fused'}")
                 if not (torch.isfinite(o_k.float()).all()
                         and d_o <= MQ_OUT_TOL * span and d_m <= MQ_MASS_TOL):
                     raise AssertionError(
@@ -686,15 +865,21 @@ def qattn_phase():
                         and torch.equal(m_2, m_k)):
                     raise AssertionError(f"decode_qattn {label}: reruns "
                                          "differ")
+                valid = ref._valid_keys(args[5], B, S, window, n_sinks, dev)
+                if bool((m_k[~valid] != 0).any()):
+                    raise AssertionError(
+                        f"decode_qattn {label}: mass not 0 at an invalid key")
                 worst["out"] = max(worst["out"], d_o)
                 worst["out_rel"] = max(worst["out_rel"], d_o / span)
                 worst["mass"] = max(worst["mass"], d_m)
                 n_cases += 1
-    log(f"[kernels] decode_qattn: {n_cases} cases x (with, without mass) "
+    log(f"[kernels] decode_qattn: {n_cases} cases ({len(MQ_EDGE)} edge "
+        f"shapes of the split plan among them) x (with, without mass) "
         f"within tolerance of the plain version: max |d out| "
         f"{worst['out']} ({worst['out_rel']} of max|out|, tolerance "
         f"{MQ_OUT_TOL}), max |d mass| {worst['mass']} (tolerance "
-        f"{MQ_MASS_TOL}); reruns bit-identical")
+        f"{MQ_MASS_TOL}); mass 0 at every invalid key; reruns "
+        f"bit-identical")
 
     times = []
     for shape, select in (((1, 512, 32, 32, 128), True),
@@ -712,25 +897,26 @@ def qattn_phase():
         lib = lambda: F.scaled_dot_product_attention(     # noqa: E731
             q4, k4, v4)
         bound, by = _dq_bound_ms(args, True)
+        parts = {}
         row = {"shape": str(shape).replace(" ", ""),
                "form": "select" if select else "fused",
                "call_ms": _time_ms(fn),
-               "device_ms": _device_ms(fn, DQ_KERNELS),
+               "device_ms": _device_ms(fn, DQ_KERNELS, by_kernel=parts),
+               "device_ms_by_kernel": parts,
                "plain_call_ms": _time_ms(plain, iters=50),
                "plain_device_ms": _device_ms(plain),
-               "library_call_ms": _time_ms(lib),
-               "library_device_ms": _device_ms(lib),
-               "bound_ms": bound, "bound_by": by}
+               "bound_ms": bound, "bound_by": by,
+               **_cold_and_library(fn, DQ_KERNELS, lib, q4, k4, v4)}
         times.append(row)
         log(f"[kernels] decode_qattn {row['shape']} {row['form']} + mass, "
-            f"n_valid = S: kernel {row['device_ms']} ms on the device, "
-            f"{row['call_ms']:.5f} ms per call; plain "
-            f"{row['plain_device_ms']} ms on the device, "
-            f"{row['plain_call_ms']:.5f} ms per call; "
-            f"scaled_dot_product_attention over the dequantized bf16 K/V "
-            f"(out only) {row['library_device_ms']} ms on the device, "
-            f"{row['library_call_ms']:.5f} ms per call; bound "
-            f"{bound:.5f} ms ({by})")
+            f"n_valid = S: kernel {row['device_ms']} ms on the device (L2 "
+            f"cold {row['device_ms_l2_cold']} ms), {row['call_ms']:.5f} ms "
+            f"per call; plain {row['plain_device_ms']} ms on the device, "
+            f"{row['plain_call_ms']:.5f} ms per call; bound {bound:.5f} ms "
+            f"({by}); kernel by launch {parts}, L2 cold "
+            f"{row['device_ms_by_kernel_l2_cold']}")
+        _log_library("decode_qattn", row, "over the dequantized bf16 K/V "
+                     "(out only)")
     return worst, times
 
 
@@ -859,6 +1045,20 @@ def serve_phase(model, params, seed, swap_root, label,
     res, pool = svc.res, svc.res.pool
     res.switch_in = tally(res.switch_in, "in")
     res.compress_and_swap_out = tally(res.compress_and_swap_out, "out")
+    # chunks quantized by the storage codec (one quantize launch each)
+    codec = svc.exe.codec
+    compress_blocks = codec.compress_blocks
+    compressed = {"chunks": 0, "switch_outs": 0, "host_ms": []}
+
+    def counted_compress(*a, **k):
+        compressed["chunks"] += 1
+        t0 = time.perf_counter()
+        try:
+            return compress_blocks(*a, **k)
+        finally:
+            compressed["host_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    codec.compress_blocks = counted_compress
     alloc8 = pool.alloc8
     quant_pages = {"admitted": 0}
 
@@ -887,6 +1087,7 @@ def serve_phase(model, params, seed, swap_root, label,
             _, toks = svc.callLLM(stubs[c], prompt, max_new)
             sync()
             wall = time.perf_counter() - t1
+            compressed["switch_outs"] += phase["out"][0] > 0
             rec = svc.records[-1]
             ctx = svc.contexts[stubs[c].ctx_id]
             bits = [m.bits for _, m in sorted(ctx.chunks.items())]
@@ -926,6 +1127,20 @@ def serve_phase(model, params, seed, swap_root, label,
         f"{n_logits['quant_rounds']}; QUANT pages admitted "
         f"{quant_pages['admitted']}; chunk bit widths stored "
         f"{dict(sorted(widths.items()))}")
+    launches["quantize_per_chunk"] = (
+        launches["quantize"] / max(compressed["chunks"], 1))
+    launches["quantize_per_switch_out"] = (
+        sum(r["launches_out"][0] for r in records)
+        / max(compressed["switch_outs"], 1))
+    host = sorted(compressed["host_ms"]) or [0.0]
+    log(f"[serve:{label}] storage codec: {compressed['chunks']} chunks "
+        f"quantized in {launches['quantize']} launches "
+        f"({launches['quantize_per_chunk']} a chunk); "
+        f"{compressed['switch_outs']} calls' switch-outs quantized, "
+        f"{launches['quantize_per_switch_out']} launches each; "
+        f"compress_blocks host time per chunk median "
+        f"{host[len(host) // 2]:.4f} ms (min {host[0]:.4f}, max "
+        f"{host[-1]:.4f})")
     log(f"[serve:{label}] stats {json.dumps(stats, default=str)}")
     if "round" in round_profile:
         log(f"[serve:{label}] decode round {PROFILED_ROUND} under the "
@@ -956,7 +1171,7 @@ def serve_phase(model, params, seed, swap_root, label,
             raise AssertionError("no decode round attended a quant chunk")
         if quant_pages["admitted"] == 0:
             raise AssertionError("no QUANT page was admitted")
-    del svc, exe, extend, decode, res, pool, alloc8
+    del svc, exe, extend, decode, res, pool, alloc8, codec, compress_blocks
     gc.collect()                # the logit check closes over the executor
     if on_card:
         torch.cuda.empty_cache()
@@ -968,10 +1183,11 @@ def serve_phase(model, params, seed, swap_root, label,
             "quant_pages_admitted": quant_pages["admitted"]}
 
 
-def int8_decode_phase(model, params, seed, label):
+def int8_decode_phase(model, params, seed, label, profiled=False):
     """The all-int8 decode cache at full width: a prompt fed through
     ``decode_step`` one token at a time (the only way the reference fills
-    this cache), then greedy tokens with the per-key mass.  The
+    this cache), then greedy tokens with the per-key mass; with
+    ``profiled``, the middle token runs under the profiler.  The
     decode_qattn launch count is zeroed just before and read just
     after."""
     import numpy as np
@@ -992,14 +1208,20 @@ def int8_decode_phase(model, params, seed, label):
     sync()
     prompt_s = time.perf_counter() - t0
     logits, toks, masses, per_token_ms = out.logits, [], [], []
-    for _ in range(n_new):
+    profile = None
+    for i in range(n_new):
         nxt = int(torch.argmax(logits[0]))
-        t1 = time.perf_counter()
-        out, mass = model.decode_step(params, torch.tensor([[nxt]],
-                                                           device=dev),
-                                      cache, want_density=True)
-        sync()
-        per_token_ms.append((time.perf_counter() - t1) * 1e3)
+        step = lambda: model.decode_step(  # noqa: E731
+            params, torch.tensor([[nxt]], device=dev), cache,
+            want_density=True)
+        if on_card and profiled and i == n_new // 2:
+            # one token under the profiler, left out of the per-token times
+            (out, mass), profile = _profile_round(step)
+        else:
+            t1 = time.perf_counter()
+            out, mass = step()
+            sync()
+            per_token_ms.append((time.perf_counter() - t1) * 1e3)
         if not torch.isfinite(out.logits).all():
             raise AssertionError("non-finite logits over the int8 cache")
         cache, logits = out.cache, out.logits
@@ -1021,8 +1243,12 @@ def int8_decode_phase(model, params, seed, label):
         f"tokens with the mass: per token median {ms[len(ms) // 2]:.2f} ms "
         f"(min {ms[0]:.2f}, max {ms[-1]:.2f}); decode_qattn launches "
         f"{launches} ({cfg.n_layers} a token); tokens {toks}")
+    if profile is not None:
+        log(f"[int8:{label}] token {n_new // 2} under the profiler: "
+            f"{json.dumps(profile)}")
     return {"tokens": toks, "mass": mass, "launches": launches,
-            "per_token_ms": per_token_ms, "prompt_s": prompt_s}
+            "per_token_ms": per_token_ms, "prompt_s": prompt_s,
+            "profile": profile}
 
 
 # --------------------------------------------------------------------- #
@@ -1159,6 +1385,13 @@ def check_phase():
         f"mass| {worst_m:.3g} (tolerance 1e-3: bf16 K/V and p upstream)")
 
 
+# the L2-cold readings of the decode kernels' timed rows (kernel and
+# library) and the library's own bytes bound
+COLD_KEYS = ("device_ms_l2_cold", "device_ms_by_kernel_l2_cold",
+             "library_device_ms_l2_cold", "library_kernels",
+             "library_bytes_bound_ms", "library_below_its_bytes_bound")
+
+
 def _device_or_call(row, prefix):
     """The profiler's device time where it recorded one, else the
     event-timed time per call."""
@@ -1196,7 +1429,8 @@ def main() -> int:
                              ("quant1", True), ("quant-rerun", True)):
             runs[label] = serve_phase(model, params, SEED, root, label,
                                       quant_resident=quant)
-    int8 = [int8_decode_phase(model, params, SEED, label)
+    int8 = [int8_decode_phase(model, params, SEED, label,
+                              profiled=label == "run1")
             for label in ("run1", "rerun")]
     del model, params
     torch.cuda.empty_cache()
@@ -1229,8 +1463,25 @@ def main() -> int:
             "call_ms": row["call_ms"], "plain_call_ms": row["plain_call_ms"],
             "ms_by_bits": {b: _device_or_call(times[b][name], "")
                            for b in (8, 4, 2)},
+            "bound_ms_by_bits": {b: times[b][name]["bound_ms"]
+                                 for b in (8, 4, 2)},
             "launches_quant_resident": quant["launches"][name],
         })
+    kernels[0].update({
+        "two_leaves_ms_by_bits": {
+            b: _device_or_call(times[b]["quantize_two_leaves"], "")
+            for b in (8, 4, 2)},
+        "two_leaves_as_two_launches_ms_by_bits": {
+            b: times[b]["quantize_two_leaves"]["per_leaf_device_ms"]
+            for b in (8, 4, 2)},
+        "two_leaves_bound_ms_by_bits": {
+            b: times[b]["quantize_two_leaves"]["bound_ms"]
+            for b in (8, 4, 2)},
+        "switch_out_host_ms": times["switch_out_host_ms"],
+        "launches_per_chunk": first["launches"]["quantize_per_chunk"],
+        "launches_per_switch_out": first["launches"][
+            "quantize_per_switch_out"],
+    })
     row, long_row = mq_times
     kernels.append({
         "name": "decode_mqattn", "route": "cuda",
@@ -1248,10 +1499,11 @@ def main() -> int:
         "shape": f"{row['shape']} {row['form']} + mass, half quant, "
                  "n_valid = S",
         "call_ms": row["call_ms"], "plain_call_ms": row["plain_call_ms"],
+        **{k: row[k] for k in COLD_KEYS},
         "at_4096": {k: long_row[k] for k in (
             "shape", "form", "device_ms", "call_ms", "plain_device_ms",
             "plain_call_ms", "library_device_ms", "library_call_ms",
-            "bound_ms", "bound_by")},
+            "bound_ms", "bound_by", *COLD_KEYS)},
     })
     for name, line, key, launches, err in (
             ("attn_density_out", 128, "out", first["launches"]
@@ -1299,12 +1551,14 @@ def main() -> int:
                         "dequantized bf16 K/V: out only, no mass",
         "shape": f"{row['shape']} {row['form']} + mass, n_valid = S",
         "call_ms": row["call_ms"], "plain_call_ms": row["plain_call_ms"],
+        **{k: row[k] for k in COLD_KEYS},
         "at_4096": {k: long_row[k] for k in (
             "shape", "form", "device_ms", "call_ms", "plain_device_ms",
             "plain_call_ms", "library_device_ms", "library_call_ms",
-            "bound_ms", "bound_by")},
+            "bound_ms", "bound_by", *COLD_KEYS)},
         "int8_decode_ms_per_token": sorted(int8[0]["per_token_ms"])[
             len(int8[0]["per_token_ms"]) // 2],
+        "int8_decode_profiled_token": int8[0]["profile"],
     })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.models.api import resolve_device
 
 TOKEN_AXIS = 2                     # (L, B, S, ...) for every seq leaf
 
@@ -76,10 +77,10 @@ def block_shapes(blocks: Dict[str, torch.Tensor]) -> Dict[str, Tuple[int, ...]]:
 class ChunkCodec:
     """Extract / insert / (de)quantize chunks of a cache dict."""
 
-    def __init__(self, leaves, chunk_tokens: int = 16, device="cpu"):
+    def __init__(self, leaves, chunk_tokens: int = 16, device="cuda"):
         self.leaves = tuple(leaves)
         self.cs = chunk_tokens
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if not self.leaves:
             raise ValueError("cache has no sequence leaves; the whole-state "
                              "codec is not ported (ROADMAP.md)")
@@ -107,12 +108,20 @@ class ChunkCodec:
     # -- compression ------------------------------------------------------ #
     def compress_blocks(self, blocks: Dict[str, torch.Tensor],
                         bits: int) -> CompressedChunk:
-        """(T, F) blocks -> host payload through the chunk codec kernel
-        (one launch per leaf on the card)."""
-        data = {}
-        for name, blk in blocks.items():
-            packed, scale = kops.chunk_quantize(blk, bits)
-            data[name] = (packed.cpu().numpy(), scale.cpu().numpy())
+        """(T, F) blocks -> host payload through the chunk codec kernel:
+        one launch for the chunk's leaves on the card, and one copy of
+        their codes and scales to the host."""
+        buf, outs = kops.chunk_quantize_leaves(list(blocks.values()), bits)
+        host = buf.cpu().numpy()
+        base = buf.data_ptr()
+
+        def on_host(t: torch.Tensor, dtype) -> np.ndarray:
+            lo = t.data_ptr() - base
+            return host[lo:lo + t.numel() * t.element_size()].view(
+                dtype).reshape(tuple(t.shape))
+
+        data = {name: (on_host(p, np.int8), on_host(s, np.float32))
+                for name, (p, s) in zip(blocks, outs)}
         return CompressedChunk(bits=bits,
                                n_tokens=int(next(iter(blocks.values()))
                                             .shape[0]),

@@ -32,20 +32,31 @@
 //            out = bf16(sum).
 // mass (B,S) = sum over heads of exp(s - m) / max(l, 1e-30), over H.
 //
-// Design of decode_mqattn (the mixed cache): split S (flash-decoding).
-// The host plan (split_plan, and plan() in kernels/decode_mqattn.py)
-// cuts S into n_splits splits of at least 64 and at most 1024 keys so
-// that the (n_splits, KV, B) grid holds up to four blocks per SM: 8
-// splits of 64 keys, 256 blocks, at (1, 512, 32, 32, 128); 16 of 256
-// keys, 512 blocks, at S = 4096.  A block of 128
-// threads is 8 half-warps; a half-warp takes a key row at a time, lane t
-// the 16 B of elements [8t, 8t + 8) (one load of 8 bf16, or 8 int8 codes
-// and the row's scale), with 8 rows in flight per half-warp, 64 per
-// block; the next round's loads are issued before this one is used,
-// and a block's first round loads both forms of each row while the
-// split's quant mask comes into shared memory.  Decode at G <= 8 is a matrix-vector product, so the dots run
-// on CUDA cores (a half-warp shuffle sum per head).  A split's scores
-// stay in shared memory.  Launches:
+// Design: split S (flash-decoding), one design for both caches; the
+// all-int8 cache runs the same kernels instantiated with ALL_QUANT
+// (named dq_* so that a profile tells the two caches apart).  The host
+// plan (split_plan, and plan() in kernels/decode_mqattn.py) cuts S into
+// n_splits splits of at least 64 and at most 1024 keys so that the
+// (n_splits, KV, B) grid holds up to four blocks per SM: 8 splits of 64
+// keys, 256 blocks, at (1, 512, 32, 32, 128); 16 of 256 keys, 512
+// blocks, at (1, 4096, …); 4 of 1024 keys, 512 blocks, at (4, 4096, …).
+// A block of 128 threads is 8 half-warps; a half-warp takes a key row
+// at a time, lane t the elements [8t, 8t + 8) (one 16 B load of 8 bf16,
+// or one 8 B load of 8 int8 codes and the row's scale), with 8 rows in
+// flight per half-warp, 64 per block; the next round's loads are
+// issued before this one is used.  The mixed cache's first round loads
+// both forms of each row while the split's quant mask comes into shared
+// memory.  The all-int8 cache loads only codes and scales and reads no
+// mask: about 8.5 KB in flight per block where the bf16 rows have 16 KB,
+// but its split kernels need at most 128 registers at G = 1, so four
+// blocks share an SM and the 512 blocks at (4, 4096, …) run in one
+// wave.  (16 rows in flight per half-warp took 168 registers, three
+// blocks per SM and two waves; 16 codes a lane would need 16
+// accumulators per head, 128 registers at G = 8.)  Codes become fp32 by a byte permute and an
+// exact subtraction (code_f32), not a quarter-rate conversion.  Decode
+// at G <= 8 is a matrix-vector product, so the dots run on CUDA cores
+// (a half-warp shuffle sum per head).  A split's scores stay in shared
+// memory.  Launches:
 //   select: (1) scores, the split's (m_i, l_i) per head, and the scores
 //           to the (B,H,S) scratch; (2) every split's stats combined in
 //           split order into the global (m, l), p / l rounded to bf16,
@@ -59,18 +70,15 @@
 // Every reduction runs in a fixed order and no atomics are used, so
 // reruns are bit-identical.
 //
-// Design of decode_qattn (the all-int8 cache; not yet redesigned): the
-// template mqattn_kernel, one block of 8 warps per (b, kv-head), three
-// passes through a (B,H,S) scratch and a second launch for the mass.
-//
 // Bound.  Memory: the valid keys' bytes, n_valid * KV * (2 hd * 2) at
 // bf16 positions and n_valid * KV * (2 hd + 8) at quant positions (all
 // of them in the all-int8 cache), per layer; the operations (4 H hd per
 // valid key) are far below the fp32 rate.  At (1, 512, 32, 32, 128)
-// that is about 2 us; the split kernels are bound by the latency of two
-// or three short dependent launches and of each block's one round of
-// loads, decode_qattn by its 32 blocks.  Reading K/V through the page
-// tables instead of the gathered view is later work.
+// that is about 2 us; the kernels are bound by the latency of two or
+// three short dependent launches and of each block's one round of
+// loads; at S = 4096 by the bytes each block keeps in flight through
+// registers.  Reading K/V through the page tables instead of the
+// gathered view is later work.
 //
 // Numerics: expf (accurate, no --use_fast_math), IEEE division
 // (-prec-div=true), __float2bfloat16_rn for every bf16 rounding.
@@ -80,29 +88,18 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kUnroll = 4;  // keys a warp has in flight at once
 constexpr int kMaxHd = 128;
 constexpr int kMaxGroup = 8;
 // the port's NEG_INF: -0.7 * float32 max computed in double, then cast
 constexpr float kNegInf = (float)(-0.7 * 3.4028234663852886e38);
 
-struct Args {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const int8_t* kq;
-  const int8_t* vq;
-  const float* ks;
-  const float* vs;
-  const uint8_t* qmask;
-  const int* n_valid;
-  __nv_bfloat16* out;
-  float* scratch;
-  int S, H, KV, hd, window, n_sinks;
-  float scale;
-};
+constexpr int kSplitThreads = 128;                  // 8 half-warps
+constexpr int kHalfWarps = kSplitThreads / 16;
+constexpr int kRowsInFlight = 8;                    // a half-warp's keys
+constexpr int kMinSplitKeys = 64;
+constexpr int kMaxSplitKeys = 1024;                 // scores in smem
+constexpr int kTargetBlocks = 4 * 132;              // four blocks per SM
+constexpr int kCombineThreads = 256;
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -113,296 +110,20 @@ __device__ __forceinline__ bool key_valid(int j, int nv, int window,
   return j < nv && (window <= 0 || j >= nv - window || j < n_sinks);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;  // identical on every lane: each butterfly step commutes
-}
-
-// This lane's PER elements of one attended (b, j, kv-head) row; a
-// dequantized value is rounded to bf16 when ROUND.
-template <int PER, bool ROUND>
-__device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ x,
-                                         const int8_t* __restrict__ xq,
-                                         const float* __restrict__ xs,
-                                         size_t row, int hd, bool quant,
-                                         int lane, float (&r)[PER]) {
-  const int d0 = lane * PER;
-  if (quant) {
-    const float sc = xs[row];
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int d = d0 + i;
-      const float y = d < hd ? (float)xq[row * hd + d] * sc : 0.0f;
-      r[i] = ROUND ? bf16_round(y) : y;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int d = d0 + i;
-      r[i] = d < hd ? __bfloat162float(x[row * hd + d]) : 0.0f;
-    }
-  }
-}
-
-template <int PER, int GMAX, bool SELECT, bool MASS, bool ALL_QUANT>
-__global__ void __launch_bounds__(kThreads)
-    mqattn_kernel(const Args a) {
-  // the mixed cache attends bf16(code * scale); the all-int8 cache
-  // rounds only in the select form
-  constexpr bool kRound = !ALL_QUANT || SELECT;
-  // shared: [kWarps][G*hd] PV partials, then [kWarps][GMAX] max / sum
-  extern __shared__ float smem[];
-  const int S = a.S, H = a.H, KV = a.KV, hd = a.hd;
-  const int G = H / KV;
-  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV, h0 = kvh * G;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nv = min(a.n_valid[b], S);
-  const int GH = G * hd;
-  float* red = smem;
-  float* wstat = smem + kWarps * GH;
-  float* srow = a.scratch + ((size_t)b * H + h0) * S;  // + g * S + j
-  const uint8_t* qm = ALL_QUANT ? nullptr : a.qmask + (size_t)b * S;
-
-  float qr[GMAX][PER];
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g)
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int d = lane * PER + i;
-      qr[g][i] = (g < G && d < hd)
-                     ? __bfloat162float(a.q[((size_t)b * H + h0 + g) * hd + d])
-                     : 0.0f;
-    }
-
-  // ---- pass 1: scores of the valid keys, running max --------------- //
-  float mloc[GMAX];
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) mloc[g] = kNegInf;
-  for (int j0 = warp * kUnroll; j0 < nv; j0 += kWarps * kUnroll) {
-    float kr[kUnroll][PER];
-    bool ok[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {  // all rows' loads in flight
-      const int j = j0 + u;
-      ok[u] = key_valid(j, nv, a.window, a.n_sinks);
-      if (ok[u])
-        load_row<PER, kRound>(a.k, a.kq, a.ks,
-                              ((size_t)b * S + j) * KV + kvh, hd,
-                              ALL_QUANT || qm[j] != 0, lane, kr[u]);
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (!ok[u]) continue;
-#pragma unroll
-      for (int g = 0; g < GMAX; ++g) {
-        if (g >= G) break;
-        float part = 0.0f;
-#pragma unroll
-        for (int i = 0; i < PER; ++i) part += qr[g][i] * kr[u][i];
-        const float s = warp_sum(part) * a.scale;
-        if (lane == 0) srow[(size_t)g * S + j0 + u] = s;
-        mloc[g] = fmaxf(mloc[g], s);
-      }
-    }
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int g = 0; g < GMAX; ++g)
-      if (g < G) wstat[warp * GMAX + g] = mloc[g];
-  }
-  __syncthreads();
-  float m[GMAX];
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    float x = kNegInf;
-    if (g < G)
-      for (int w = 0; w < kWarps; ++w) x = fmaxf(x, wstat[w * GMAX + g]);
-    m[g] = x;
-  }
-
-  // ---- pass 2: l = sum exp(s - m) ----------------------------------- //
-  float lloc[GMAX];
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) lloc[g] = 0.0f;
-  for (int j = threadIdx.x; j < nv; j += kThreads) {
-    if (!key_valid(j, nv, a.window, a.n_sinks)) continue;
-#pragma unroll
-    for (int g = 0; g < GMAX; ++g)
-      if (g < G) lloc[g] += expf(srow[(size_t)g * S + j] - m[g]);
-  }
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) lloc[g] = warp_sum(lloc[g]);
-  __syncthreads();  // every thread has read the maxima
-  if (lane == 0) {
-#pragma unroll
-    for (int g = 0; g < GMAX; ++g)
-      if (g < G) wstat[warp * GMAX + g] = lloc[g];
-  }
-  __syncthreads();
-  float linv[GMAX];  // max(l, 1e-30), the divisor of both forms
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    float x = 0.0f;
-    if (g < G)
-      for (int w = 0; w < kWarps; ++w) x += wstat[w * GMAX + g];
-    linv[g] = fmaxf(x, 1e-30f);
-  }
-
-  // ---- pass 3: p, mass, PV ------------------------------------------ //
-  float acc[GMAX][PER];
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g)
-#pragma unroll
-    for (int i = 0; i < PER; ++i) acc[g][i] = 0.0f;
-  const int jend = MASS ? S : nv;
-  for (int j0 = warp * kUnroll; j0 < jend; j0 += kWarps * kUnroll) {
-    float vr[kUnroll][PER];
-    float sv[kUnroll][GMAX];  // lane 0's scores, read before any write
-    bool ok[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = j0 + u;
-      ok[u] = key_valid(j, nv, a.window, a.n_sinks);
-      if (ok[u])
-        load_row<PER, kRound>(a.v, a.vq, a.vs,
-                              ((size_t)b * S + j) * KV + kvh, hd,
-                              ALL_QUANT || qm[j] != 0, lane, vr[u]);
-#pragma unroll
-      for (int g = 0; g < GMAX; ++g)
-        sv[u][g] = (ok[u] && g < G && lane == 0) ? srow[(size_t)g * S + j]
-                                                 : 0.0f;
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = j0 + u;
-      if (!ok[u]) {
-        if (MASS && lane == 0 && j < S)
-          for (int g = 0; g < G; ++g) srow[(size_t)g * S + j] = 0.0f;
-        continue;
-      }
-#pragma unroll
-      for (int g = 0; g < GMAX; ++g) {
-        if (g >= G) break;
-        const float p = expf(__shfl_sync(0xffffffffu, sv[u][g], 0) - m[g]);
-        const float pn = p / linv[g];
-        if (MASS && lane == 0) srow[(size_t)g * S + j] = pn;
-        const float pw = SELECT ? bf16_round(pn) : p;
-#pragma unroll
-        for (int i = 0; i < PER; ++i) acc[g][i] += pw * vr[u][i];
-      }
-    }
-  }
-
-  // ---- fixed-order sum over the warps, normalise, store ------------- //
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    if (g >= G) break;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int d = lane * PER + i;
-      if (d < hd) red[warp * GH + g * hd + d] = acc[g][i];
-    }
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < GH; e += kThreads) {
-    float x = 0.0f;
-    for (int w = 0; w < kWarps; ++w) x += red[w * GH + e];
-    const int g = e / hd, d = e % hd;
-    if (!SELECT) {
-      float l = 0.0f;  // the same fixed-order sum as linv above
-      for (int w = 0; w < kWarps; ++w) l += wstat[w * GMAX + g];
-      x = x / fmaxf(l, 1e-30f);
-    }
-    a.out[((size_t)b * H + h0 + g) * hd + d] = __float2bfloat16_rn(x);
-  }
-}
-
-// mass[b, j] = sum_h scratch[b, h, j] / H, heads summed in order.
-__global__ void mass_kernel(const float* __restrict__ scratch,
-                            float* __restrict__ mass, int B, int H, int S) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= B * S) return;
-  const int b = idx / S, j = idx % S;
-  float x = 0.0f;
-  for (int h = 0; h < H; ++h) x += scratch[((size_t)b * H + h) * S + j];
-  mass[idx] = x / (float)H;
-}
-
-template <int PER, int GMAX, bool ALL_QUANT>
-void launch(const Args& a, int B, bool select, bool mass, cudaStream_t st) {
-  const int G = a.H / a.KV;
-  const size_t smem =
-      sizeof(float) * ((size_t)kWarps * G * a.hd + kWarps * GMAX);
-  const dim3 grid(B * a.KV), block(kThreads);
-  if (select && mass)
-    mqattn_kernel<PER, GMAX, true, true, ALL_QUANT>
-        <<<grid, block, smem, st>>>(a);
-  else if (select)
-    mqattn_kernel<PER, GMAX, true, false, ALL_QUANT>
-        <<<grid, block, smem, st>>>(a);
-  else if (mass)
-    mqattn_kernel<PER, GMAX, false, true, ALL_QUANT>
-        <<<grid, block, smem, st>>>(a);
-  else
-    mqattn_kernel<PER, GMAX, false, false, ALL_QUANT>
-        <<<grid, block, smem, st>>>(a);
-}
-
-template <int PER, bool ALL_QUANT>
-void launch_per(const Args& a, int B, bool select, bool mass,
-                cudaStream_t st) {
-  if (a.H / a.KV == 1)
-    launch<PER, 1, ALL_QUANT>(a, B, select, mass, st);
-  else
-    launch<PER, kMaxGroup, ALL_QUANT>(a, B, select, mass, st);
-}
-
 bool bad_shape(int B, int S, int H, int KV, int hd) {
   return B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV || hd <= 0 ||
          hd > kMaxHd || H / KV > kMaxGroup;
 }
 
-// the attention launch, then (with a mass) the head sum of the scratch
-template <bool ALL_QUANT>
-int run(const Args& a, int B, int select, void* mass, cudaStream_t st) {
-  const bool want_mass = mass != nullptr;
-  const int per = (a.hd + 31) / 32;
-  if (per == 1)
-    launch_per<1, ALL_QUANT>(a, B, select != 0, want_mass, st);
-  else if (per == 2)
-    launch_per<2, ALL_QUANT>(a, B, select != 0, want_mass, st);
-  else
-    launch_per<4, ALL_QUANT>(a, B, select != 0, want_mass, st);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || !want_mass) return (int)err;
-  mass_kernel<<<(B * a.S + 255) / 256, 256, 0, st>>>(
-      a.scratch, static_cast<float*>(mass), B, a.H, a.S);
-  return (int)cudaGetLastError();
-}
-
-
-// ===================================================================== //
-// decode_mqattn: split-S decoding over the mixed cache
-// ===================================================================== //
-constexpr int kSplitThreads = 128;                  // 8 half-warps
-constexpr int kHalfWarps = kSplitThreads / 16;
-constexpr int kRowsInFlight = 8;                    // a half-warp's keys
-constexpr int kChunk = kHalfWarps * kRowsInFlight;  // keys per round
-constexpr int kMinSplitKeys = 64;
-constexpr int kMaxSplitKeys = 1024;                 // scores in smem
-constexpr int kTargetBlocks = 4 * 132;              // four blocks per SM
-constexpr int kCombineThreads = 256;
-
 struct SplitArgs {
   const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
+  const __nv_bfloat16* k;    // null in the all-int8 cache
+  const __nv_bfloat16* v;    // null in the all-int8 cache
   const int8_t* kq;
   const int8_t* vq;
   const float* ks;
   const float* vs;
-  const uint8_t* qmask;
+  const uint8_t* qmask;      // null in the all-int8 cache
   const int* n_valid;
   __nv_bfloat16* out;
   float* sc;       // (B, H, S) scores, then (select, mass) p / l
@@ -429,23 +150,33 @@ int split_plan(int B, int S, int KV, int* len) {
 
 // One cache row's 8 elements [d0, d0 + 8): 16 B of bf16 (w), or 8 int8
 // codes (w8) and the row's scale; the first round of a block loads both
-// before it knows which the position holds.
+// before it knows which the position holds.  The all-int8 cache's row
+// has codes and scale only.
+template <bool AQ>
 struct Raw {
   uint4 w;
   uint2 w8;
   float sc;
 };
+template <>
+struct Raw<true> {
+  uint2 w8;
+  float sc;
+};
 
 // a half-warp's rows of one round of keys, loaded but not yet unpacked
+template <bool AQ>
 struct Rows {
-  Raw r[kRowsInFlight];
-  bool ok[kRowsInFlight];  // a valid key
-  bool qt[kRowsInFlight];  // at a quant position
+  static constexpr int N = kRowsInFlight;
+  static constexpr int kChunk = kHalfWarps * N;  // a block's keys a round
+  Raw<AQ> r[N];
+  bool ok[N];  // a valid key
+  bool qt[N];  // at a quant position (mixed cache)
 };
 
 // The split kernels' shared memory: a split's scores (then p, then the
 // PV partials of the half-warps), the block reductions, the combined
-// (m, l) and the split's quant mask.
+// (m, l) and (mixed cache) the split's quant mask.
 struct SplitSmem {
   float* ssm;    // [G][split_len], later [kHalfWarps][G][hd]
   float* buf;    // [kSplitThreads / 32][GMAX]
@@ -474,17 +205,19 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
 }
 
 // the loads of one row; `bf`, `q8`: which of its two forms to read
-__device__ __forceinline__ Raw fetch(const __nv_bfloat16* __restrict__ x,
-                                     const int8_t* __restrict__ xq,
-                                     const float* __restrict__ xs,
-                                     size_t row, int hd, int d0, bool bf,
-                                     bool q8, bool vec) {
-  Raw r = {make_uint4(0u, 0u, 0u, 0u), make_uint2(0u, 0u), 0.0f};
+template <bool AQ>
+__device__ __forceinline__ Raw<AQ> fetch(const __nv_bfloat16* __restrict__ x,
+                                         const int8_t* __restrict__ xq,
+                                         const float* __restrict__ xs,
+                                         size_t row, int hd, int d0, bool bf,
+                                         bool q8, bool vec) {
+  Raw<AQ> r{};
   if (d0 >= hd) return r;
   if (q8) r.sc = xs[row];
   if (vec) {
     if (q8) r.w8 = *reinterpret_cast<const uint2*>(xq + row * hd + d0);
-    if (bf) r.w = *reinterpret_cast<const uint4*>(x + row * hd + d0);
+    if constexpr (!AQ)
+      if (bf) r.w = *reinterpret_cast<const uint4*>(x + row * hd + d0);
   } else {  // hd not a multiple of 8: element by element, zeros past hd
     uint32_t w[4] = {0u, 0u, 0u, 0u}, w8[2] = {0u, 0u};
 #pragma unroll
@@ -492,60 +225,90 @@ __device__ __forceinline__ Raw fetch(const __nv_bfloat16* __restrict__ x,
       if (d0 + i >= hd) break;
       if (q8)
         w8[i / 4] |= (uint32_t)(uint8_t)xq[row * hd + d0 + i] << (8 * (i % 4));
-      if (bf)
-        w[i / 2] |= (uint32_t)__bfloat16_as_ushort(x[row * hd + d0 + i])
-                    << (16 * (i % 2));
+      if constexpr (!AQ)
+        if (bf)
+          w[i / 2] |= (uint32_t)__bfloat16_as_ushort(x[row * hd + d0 + i])
+                      << (16 * (i % 2));
     }
-    r.w = make_uint4(w[0], w[1], w[2], w[3]);
+    if constexpr (!AQ) r.w = make_uint4(w[0], w[1], w[2], w[3]);
     r.w8 = make_uint2(w8[0], w8[1]);
   }
   return r;
 }
 
-// the 8 values as fp32: bf16, or bf16(code * scale) at a quant position
-__device__ __forceinline__ void unpack(const Raw& r, bool quant,
+// code i of the 4 int8 codes in w as fp32, exactly (float)code: the
+// biased byte (code + 128) under the exponent of 2^23, minus 2^23 + 128
+// (a byte permute and an add: no quarter-rate int-to-float conversion)
+__device__ __forceinline__ float code_f32(uint32_t w, int i) {
+  const uint32_t u = __byte_perm(w ^ 0x80808080u, 0x4b000000u, 0x7440 | i);
+  return __uint_as_float(u) - 8388736.0f;
+}
+
+// the 8 values as fp32.  Mixed cache: bf16, or bf16(code * scale) at a
+// quant position.  All-int8 cache: code * scale, rounded to bf16 when
+// ROUND (the select form), kept in fp32 otherwise (the fused form).
+template <bool AQ, bool ROUND>
+__device__ __forceinline__ void unpack(const Raw<AQ>& r, bool quant,
                                        float (&f)[8]) {
-  const uint32_t w[4] = {r.w.x, r.w.y, r.w.z, r.w.w};
   const uint32_t w8[2] = {r.w8.x, r.w8.y};
+  if constexpr (AQ) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    if (quant) {
-      const int8_t c = (int8_t)((w8[i / 4] >> (8 * (i % 4))) & 0xffu);
-      f[i] = bf16_round((float)c * r.sc);
-    } else {
-      f[i] = __uint_as_float(((w[i / 2] >> (16 * (i % 2))) & 0xffffu) << 16);
+    for (int i = 0; i < 8; ++i) {
+      const float y = code_f32(w8[i / 4], i % 4) * r.sc;
+      f[i] = ROUND ? bf16_round(y) : y;
+    }
+  } else {
+    const uint32_t w[4] = {r.w.x, r.w.y, r.w.z, r.w.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (quant) {
+        f[i] = bf16_round(code_f32(w8[i / 4], i % 4) * r.sc);
+      } else {
+        f[i] = __uint_as_float(((w[i / 2] >> (16 * (i % 2))) & 0xffffu)
+                               << 16);
+      }
     }
   }
 }
 
 // issue the loads of a half-warp's keys c0 + u * kHalfWarps + hw of
-// [c0, s1), elements [d0, d0 + 8); invalid keys read as zeros.  With
-// `first` the quant mask is not read yet: both forms of each row load,
-// and mark_quant picks one after the mask has reached shared memory.
+// [c0, s1), elements [d0, d0 + 8); invalid keys read as zeros.  Mixed
+// cache: with `first` the quant mask is not read yet: both forms of each
+// row load, and mark_quant picks one after the mask has reached shared
+// memory.  All-int8 cache: codes and scales only, no mask.
+template <bool AQ>
 __device__ __forceinline__ void issue_rows(const SplitArgs& a,
                                            const __nv_bfloat16* x,
                                            const int8_t* xq, const float* xs,
                                            const uint8_t* qms, int b, int kvh,
                                            int s0, int c0, int s1, int nv,
-                                           bool first, Rows& R) {
+                                           bool first, Rows<AQ>& R) {
   const int hw = threadIdx.x / 16, d0 = (threadIdx.x % 16) * 8;
 #pragma unroll
-  for (int u = 0; u < kRowsInFlight; ++u) {
+  for (int u = 0; u < Rows<AQ>::N; ++u) {
     const int j = c0 + u * kHalfWarps + hw;
+    const size_t row = ((size_t)b * a.S + j) * a.KV + kvh;
     R.ok[u] = j < s1 && key_valid(j, nv, a.window, a.n_sinks);
-    R.qt[u] = R.ok[u] && !first && qms[j - s0] != 0;
-    R.r[u] = R.ok[u]
-                 ? fetch(x, xq, xs, ((size_t)b * a.S + j) * a.KV + kvh, a.hd,
-                         d0, first || !R.qt[u], first || R.qt[u], a.vec != 0)
-                 : Raw{make_uint4(0u, 0u, 0u, 0u), make_uint2(0u, 0u), 0.0f};
+    if constexpr (AQ) {
+      R.qt[u] = true;  // every position (unpack does not read it)
+      R.r[u] = R.ok[u] ? fetch<true>(nullptr, xq, xs, row, a.hd, d0, false,
+                                     true, a.vec != 0)
+                       : Raw<true>{};
+    } else {
+      R.qt[u] = R.ok[u] && !first && qms[j - s0] != 0;
+      R.r[u] = R.ok[u] ? fetch<false>(x, xq, xs, row, a.hd, d0,
+                                      first || !R.qt[u], first || R.qt[u],
+                                      a.vec != 0)
+                       : Raw<false>{};
+    }
   }
 }
 
-__device__ __forceinline__ void mark_quant(Rows& R, const uint8_t* qms,
+__device__ __forceinline__ void mark_quant(Rows<false>& R, const uint8_t* qms,
                                            int s0, int c0) {
   const int hw = threadIdx.x / 16;
 #pragma unroll
-  for (int u = 0; u < kRowsInFlight; ++u)
+  for (int u = 0; u < Rows<false>::N; ++u)
     R.qt[u] = R.ok[u] && qms[c0 + u * kHalfWarps + hw - s0] != 0;
 }
 
@@ -598,9 +361,9 @@ __device__ __forceinline__ void block_reduce(float (&x)[GMAX], int G,
 // `cur` holds the first round's V rows, issued and marked), one round's
 // loads in flight while the last is used; then the half-warps' sums
 // added in order into the split's partial
-template <int GMAX>
+template <int GMAX, bool AQ, bool ROUND>
 __device__ __forceinline__ void split_pv(const SplitArgs& a,
-                                         const SplitSmem& sh, Rows& cur,
+                                         const SplitSmem& sh, Rows<AQ>& cur,
                                          int b, int kvh, int split, int s0,
                                          int s1, int nv) {
   const int G = a.G, hd = a.hd, L = a.split_len, tid = threadIdx.x;
@@ -610,16 +373,16 @@ __device__ __forceinline__ void split_pv(const SplitArgs& a,
   for (int g = 0; g < GMAX; ++g)
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[g][i] = 0.0f;
-  for (int c0 = s0; c0 < s1; c0 += kChunk) {
-    Rows nxt;
-    if (c0 + kChunk < s1)
-      issue_rows(a, a.v, a.vq, a.vs, sh.qms, b, kvh, s0, c0 + kChunk, s1, nv,
-                 false, nxt);
+  for (int c0 = s0; c0 < s1; c0 += Rows<AQ>::kChunk) {
+    Rows<AQ> nxt;
+    if (c0 + Rows<AQ>::kChunk < s1)
+      issue_rows<AQ>(a, a.v, a.vq, a.vs, sh.qms, b, kvh, s0,
+                     c0 + Rows<AQ>::kChunk, s1, nv, false, nxt);
 #pragma unroll
-    for (int u = 0; u < kRowsInFlight; ++u) {
+    for (int u = 0; u < Rows<AQ>::N; ++u) {
       if (!cur.ok[u]) continue;
       float f[8];
-      unpack(cur.r[u], cur.qt[u], f);
+      unpack<AQ, ROUND>(cur.r[u], cur.qt[u], f);
       const int jj = c0 + u * kHalfWarps + hw - s0;
 #pragma unroll
       for (int g = 0; g < GMAX; ++g) {
@@ -654,9 +417,12 @@ __device__ __forceinline__ void split_pv(const SplitArgs& a,
 // shared memory (and, for the select form or the mass, to sc; -inf at
 // invalid keys) and its (m, l) per head; the fused form also turns them
 // into p = exp(s - m) and writes the split's PV partial.
-template <int GMAX, bool FUSED>
-__global__ void __launch_bounds__(kSplitThreads)
-    mq_split_kernel(const SplitArgs a) {
+template <int GMAX, bool FUSED, bool AQ>
+__device__ __forceinline__ void split_scores(const SplitArgs& a) {
+  // the mixed cache attends bf16(code * scale); the all-int8 cache
+  // rounds only in the select form
+  constexpr bool kRound = !AQ || !FUSED;
+  constexpr int kChunk = Rows<AQ>::kChunk;
   extern __shared__ float sm[];
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int G = a.G, S = a.S, L = a.split_len, h0 = kvh * G;
@@ -674,21 +440,25 @@ __global__ void __launch_bounds__(kSplitThreads)
                      ? __bfloat162float(
                            a.q[((size_t)b * a.H + h0 + g) * a.hd + d0 + i])
                      : 0.0f;
-  Rows cur;
-  issue_rows(a, a.k, a.kq, a.ks, sh.qms, b, kvh, s0, s0, s1, nv, true, cur);
-  load_qmask(a, sh.qms, b, s0, n);
-  __syncthreads();
-  mark_quant(cur, sh.qms, s0, s0);
+  Rows<AQ> cur;
+  issue_rows<AQ>(a, a.k, a.kq, a.ks, sh.qms, b, kvh, s0, s0, s1, nv, true,
+                 cur);
+  if constexpr (!AQ) {
+    load_qmask(a, sh.qms, b, s0, n);
+    __syncthreads();
+    mark_quant(cur, sh.qms, s0, s0);
+  }
   for (int c0 = s0; c0 < s1; c0 += kChunk) {
-    Rows nxt;
+    Rows<AQ> nxt;
     if (c0 + kChunk < s1)
-      issue_rows(a, a.k, a.kq, a.ks, sh.qms, b, kvh, s0, c0 + kChunk, s1, nv,
-                 false, nxt);
+      issue_rows<AQ>(a, a.k, a.kq, a.ks, sh.qms, b, kvh, s0, c0 + kChunk, s1,
+                     nv, false, nxt);
 #pragma unroll
-    for (int u = 0; u < kRowsInFlight; ++u) {
+    for (int u = 0; u < Rows<AQ>::N; ++u) {
+      if (c0 + u * kHalfWarps >= s1) break;  // the block's rows end here
       const int j = c0 + u * kHalfWarps + hw;
       float f[8];
-      unpack(cur.r[u], cur.qt[u], f);
+      unpack<AQ, kRound>(cur.r[u], cur.qt[u], f);
 #pragma unroll
       for (int g = 0; g < GMAX; ++g) {
         if (g >= G) break;
@@ -709,8 +479,8 @@ __global__ void __launch_bounds__(kSplitThreads)
   }
   // fused: the V rows of the first round load during the reductions
   if (FUSED) {
-    issue_rows(a, a.v, a.vq, a.vs, sh.qms, b, kvh, s0, s0, s1, nv, false,
-               cur);
+    issue_rows<AQ>(a, a.v, a.vq, a.vs, sh.qms, b, kvh, s0, s0, s1, nv, false,
+                   cur);
   }
   __syncthreads();
   float m[GMAX], l[GMAX];
@@ -742,7 +512,7 @@ __global__ void __launch_bounds__(kSplitThreads)
       st[0] = m[g];
       st[1] = l[g];
     }
-  if (FUSED) split_pv<GMAX>(a, sh, cur, b, kvh, split, s0, s1, nv);
+  if (FUSED) split_pv<GMAX, AQ, kRound>(a, sh, cur, b, kvh, split, s0, s1, nv);
 }
 
 constexpr int kBatch = 16;  // loads issued together in the combining loops
@@ -781,10 +551,9 @@ __device__ __forceinline__ float2 head_stats(const SplitArgs& a, int b,
 // Launch 2 of the select form: p / l with the global (m, l), rounded to
 // bf16, and the split's PV partial; with the mass, p / l back into sc.
 // The first round of V rows, the scores, the quant mask and the stats
-// all load at once.
-template <int GMAX>
-__global__ void __launch_bounds__(kSplitThreads)
-    mq_split_pv_kernel(const SplitArgs a) {
+// all load at once.  Both caches round the values to bf16 here.
+template <int GMAX, bool AQ>
+__device__ __forceinline__ void split_select_pv(const SplitArgs& a) {
   extern __shared__ float sm[];
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int G = a.G, S = a.S, L = a.split_len, h0 = kvh * G;
@@ -792,15 +561,16 @@ __global__ void __launch_bounds__(kSplitThreads)
   const int tid = threadIdx.x;
   const int nv = min(a.n_valid[b], S);
   const SplitSmem sh = split_smem(sm, a, GMAX);
-  Rows cur;
-  issue_rows(a, a.v, a.vq, a.vs, sh.qms, b, kvh, s0, s0, s1, nv, true, cur);
+  Rows<AQ> cur;
+  issue_rows<AQ>(a, a.v, a.vq, a.vs, sh.qms, b, kvh, s0, s0, s1, nv, true,
+                 cur);
   for (int e = tid; e < G * n; e += kSplitThreads) {
     const int g = e / n, jj = e % n;
     cp_async4(sh.ssm + g * L + jj, a.sc + ((size_t)b * a.H + h0 + g) * S +
                                        s0 + jj);
   }
   asm volatile("cp.async.commit_group;\n" ::);
-  load_qmask(a, sh.qms, b, s0, n);
+  if constexpr (!AQ) load_qmask(a, sh.qms, b, s0, n);
   if (tid < G) {
     const float2 x = head_stats(a, b, h0 + tid);
     sh.ml[tid] = x.x;
@@ -808,7 +578,7 @@ __global__ void __launch_bounds__(kSplitThreads)
   }
   asm volatile("cp.async.wait_all;\n" ::);
   __syncthreads();
-  mark_quant(cur, sh.qms, s0, s0);
+  if constexpr (!AQ) mark_quant(cur, sh.qms, s0, s0);
   for (int e = tid; e < G * n; e += kSplitThreads) {
     const int g = e / n, jj = e % n;
     const float pn = expf(sh.ssm[g * L + jj] - sh.ml[g]) / sh.ml[G + g];
@@ -817,7 +587,7 @@ __global__ void __launch_bounds__(kSplitThreads)
     sh.ssm[g * L + jj] = bf16_round(pn);
   }
   __syncthreads();
-  split_pv<GMAX>(a, sh, cur, b, kvh, split, s0, s1, nv);
+  split_pv<GMAX, AQ, true>(a, sh, cur, b, kvh, split, s0, s1, nv);
 }
 
 // Last launch, grid (out blocks + mass blocks, B), 8 warps.  An out
@@ -826,8 +596,7 @@ __global__ void __launch_bounds__(kSplitThreads)
 // keys' mass = p / l summed over heads (0 at -inf), warp w taking every
 // 8th head in order, then the 8 partials in order, over H.
 template <bool SELECT>
-__global__ void __launch_bounds__(kCombineThreads)
-    mq_combine_kernel(const SplitArgs a, int out_blocks) {
+__device__ __forceinline__ void combine(const SplitArgs& a, int out_blocks) {
   extern __shared__ float sm[];  // [H] m, [H] l (fused), [8][32] mass
   const int b = blockIdx.y, H = a.H, hd = a.hd, ns = a.n_splits;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -889,18 +658,59 @@ __global__ void __launch_bounds__(kCombineThreads)
   }
 }
 
+// The kernels, by name: mq_* over the mixed cache (decode_mqattn), dq_*
+// over the all-int8 cache (decode_qattn).
+template <int GMAX, bool FUSED>
+__global__ void __launch_bounds__(kSplitThreads)
+    mq_split_kernel(const SplitArgs a) {
+  split_scores<GMAX, FUSED, false>(a);
+}
 template <int GMAX>
+__global__ void __launch_bounds__(kSplitThreads)
+    mq_split_pv_kernel(const SplitArgs a) {
+  split_select_pv<GMAX, false>(a);
+}
+template <bool SELECT>
+__global__ void __launch_bounds__(kCombineThreads)
+    mq_combine_kernel(const SplitArgs a, int out_blocks) {
+  combine<SELECT>(a, out_blocks);
+}
+template <int GMAX, bool FUSED>
+__global__ void __launch_bounds__(kSplitThreads)
+    dq_split_kernel(const SplitArgs a) {
+  split_scores<GMAX, FUSED, true>(a);
+}
+template <int GMAX>
+__global__ void __launch_bounds__(kSplitThreads)
+    dq_split_pv_kernel(const SplitArgs a) {
+  split_select_pv<GMAX, true>(a);
+}
+template <bool SELECT>
+__global__ void __launch_bounds__(kCombineThreads)
+    dq_combine_kernel(const SplitArgs a, int out_blocks) {
+  combine<SELECT>(a, out_blocks);
+}
+
+template <int GMAX, bool AQ>
 int run_split(const SplitArgs& a, int B, bool select, cudaStream_t st) {
   const size_t smem =
       sizeof(float) * ((size_t)ssm_floats(a.G, a.split_len, a.hd) +
                        (kSplitThreads / 32) * GMAX + 2 * a.G) +
-      a.split_len;  // the quant mask
+      (AQ ? 0 : a.split_len);  // the quant mask
   const dim3 grid(a.n_splits, a.KV, B);
   if (select) {
-    mq_split_kernel<GMAX, false><<<grid, kSplitThreads, smem, st>>>(a);
-    mq_split_pv_kernel<GMAX><<<grid, kSplitThreads, smem, st>>>(a);
+    if constexpr (AQ) {
+      dq_split_kernel<GMAX, false><<<grid, kSplitThreads, smem, st>>>(a);
+      dq_split_pv_kernel<GMAX><<<grid, kSplitThreads, smem, st>>>(a);
+    } else {
+      mq_split_kernel<GMAX, false><<<grid, kSplitThreads, smem, st>>>(a);
+      mq_split_pv_kernel<GMAX><<<grid, kSplitThreads, smem, st>>>(a);
+    }
   } else {
-    mq_split_kernel<GMAX, true><<<grid, kSplitThreads, smem, st>>>(a);
+    if constexpr (AQ)
+      dq_split_kernel<GMAX, true><<<grid, kSplitThreads, smem, st>>>(a);
+    else
+      mq_split_kernel<GMAX, true><<<grid, kSplitThreads, smem, st>>>(a);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -909,28 +719,28 @@ int run_split(const SplitArgs& a, int B, bool select, cudaStream_t st) {
   const dim3 cgrid(out_blocks + (a.mass != nullptr ? (a.S + 31) / 32 : 0),
                    B);
   const size_t csmem = sizeof(float) * (2 * a.H + per);
-  if (select)
-    mq_combine_kernel<true><<<cgrid, per, csmem, st>>>(a, out_blocks);
-  else
-    mq_combine_kernel<false><<<cgrid, per, csmem, st>>>(a, out_blocks);
+  if constexpr (AQ) {
+    if (select)
+      dq_combine_kernel<true><<<cgrid, per, csmem, st>>>(a, out_blocks);
+    else
+      dq_combine_kernel<false><<<cgrid, per, csmem, st>>>(a, out_blocks);
+  } else {
+    if (select)
+      mq_combine_kernel<true><<<cgrid, per, csmem, st>>>(a, out_blocks);
+    else
+      mq_combine_kernel<false><<<cgrid, per, csmem, st>>>(a, out_blocks);
+  }
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// C interfaces (loaded with ctypes).  Each returns cudaGetLastError()
-// after the launches (0 = launched), or -1 for shapes the kernel does
-// not take (hd > 128, H not a multiple of KV, G = H / KV > 8).  `mass`
-// may be null: then no mass is written.  decode_mqattn's scratch holds
-// B * H * (S + n_splits * (2 + hd)) floats, decode_qattn's B * H * S.
-extern "C" int decode_mqattn(const void* q, const void* k, const void* v,
-                             const void* kq, const void* vq, const void* ks,
-                             const void* vs, const void* qmask,
-                             const void* n_valid, void* out, void* scratch,
-                             void* mass, int B, int S, int H, int KV, int hd,
-                             int window, int n_sinks, float scale,
-                             int select, void* stream) {
-  if (bad_shape(B, S, H, KV, hd)) return -1;
+// Both entries' arguments and the scratch: scores (B,H,S), stats
+// (B,H,n_splits,2), partials (B,H,n_splits,hd).
+SplitArgs split_args(const void* q, const void* k, const void* v,
+                     const void* kq, const void* vq, const void* ks,
+                     const void* vs, const void* qmask, const void* n_valid,
+                     void* out, void* scratch, void* mass, int B, int S,
+                     int H, int KV, int hd, int window, int n_sinks,
+                     float scale, int select) {
   SplitArgs a;
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.k = static_cast<const __nv_bfloat16*>(k);
@@ -954,18 +764,37 @@ extern "C" int decode_mqattn(const void* q, const void* k, const void* v,
   a.vec = hd % 8 == 0;
   a.write_scores = select != 0 || mass != nullptr;
   a.scale = scale;
-  // the scratch: scores (B,H,S), stats (B,H,n_splits,2), partials
-  // (B,H,n_splits,hd)
   a.sc = static_cast<float*>(scratch);
   a.stats = a.sc + (size_t)B * H * S;
   a.partial = a.stats + (size_t)B * H * a.n_splits * 2;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return a.G == 1 ? run_split<1>(a, B, select != 0, st)
-                  : run_split<kMaxGroup>(a, B, select != 0, st);
+  return a;
 }
 
-// The split plan of decode_mqattn (kernels/decode_mqattn.py plan() is
-// the same rule): n_splits; the wrapper sizes the scratch with it.
+}  // namespace
+
+// C interfaces (loaded with ctypes).  Each returns cudaGetLastError()
+// after the launches (0 = launched), or -1 for shapes the kernel does
+// not take (hd > 128, H not a multiple of KV, G = H / KV > 8).  `mass`
+// may be null: then no mass is written.  The scratch of either holds
+// B * H * (S + n_splits * (2 + hd)) floats.
+extern "C" int decode_mqattn(const void* q, const void* k, const void* v,
+                             const void* kq, const void* vq, const void* ks,
+                             const void* vs, const void* qmask,
+                             const void* n_valid, void* out, void* scratch,
+                             void* mass, int B, int S, int H, int KV, int hd,
+                             int window, int n_sinks, float scale,
+                             int select, void* stream) {
+  if (bad_shape(B, S, H, KV, hd)) return -1;
+  const SplitArgs a =
+      split_args(q, k, v, kq, vq, ks, vs, qmask, n_valid, out, scratch, mass,
+                 B, S, H, KV, hd, window, n_sinks, scale, select);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return a.G == 1 ? run_split<1, false>(a, B, select != 0, st)
+                  : run_split<kMaxGroup, false>(a, B, select != 0, st);
+}
+
+// The split plan of both entries (kernels/decode_mqattn.py plan() is the
+// same rule): n_splits; the wrappers size the scratch with it.
 extern "C" int decode_mqattn_splits(int B, int S, int KV) {
   if (B <= 0 || S <= 0 || KV <= 0) return -1;
   int len;
@@ -980,24 +809,11 @@ extern "C" int decode_qattn(const void* q, const void* kq, const void* vq,
                             int window, int n_sinks, float scale, int select,
                             void* stream) {
   if (bad_shape(B, S, H, KV, hd)) return -1;
-  Args a;
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.k = nullptr;
-  a.v = nullptr;
-  a.kq = static_cast<const int8_t*>(kq);
-  a.vq = static_cast<const int8_t*>(vq);
-  a.ks = static_cast<const float*>(ks);
-  a.vs = static_cast<const float*>(vs);
-  a.qmask = nullptr;
-  a.n_valid = static_cast<const int*>(n_valid);
-  a.out = static_cast<__nv_bfloat16*>(out);
-  a.scratch = static_cast<float*>(scratch);
-  a.S = S;
-  a.H = H;
-  a.KV = KV;
-  a.hd = hd;
-  a.window = window;
-  a.n_sinks = n_sinks;
-  a.scale = scale;
-  return run<true>(a, B, select, mass, static_cast<cudaStream_t>(stream));
+  const SplitArgs a =
+      split_args(q, nullptr, nullptr, kq, vq, ks, vs, nullptr, n_valid, out,
+                 scratch, mass, B, S, H, KV, hd, window, n_sinks, scale,
+                 select);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return a.G == 1 ? run_split<1, true>(a, B, select != 0, st)
+                  : run_split<kMaxGroup, true>(a, B, select != 0, st);
 }

@@ -8,7 +8,7 @@ kernel refuses raises, and any other device raises.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -30,6 +30,26 @@ def chunk_quantize(x: torch.Tensor, bits: int
         return ref.quantize_ref(x, bits)
     from repro_torch.kernels import chunk_quant
     return chunk_quant.quantize(x.contiguous(), bits)
+
+
+def chunk_quantize_leaves(xs: Sequence[torch.Tensor], bits: int
+                          ) -> Tuple[torch.Tensor,
+                                     List[Tuple[torch.Tensor, torch.Tensor]]]:
+    """The leaves (T, F_i) of one chunk -> (buf, [(packed, scales)]):
+    each leaf's codes and scales (as ``chunk_quantize``) are views of the
+    one uint8 buffer ``buf``, so the chunk comes to the host in one copy.
+    On the card one launch quantizes up to eight leaves."""
+    from repro_torch.kernels import chunk_quant
+    xs = list(xs)
+    if _route(xs[0]) == "cpu":
+        refs = [ref.quantize_ref(x, bits) for x in xs]
+        buf, outs = chunk_quant.leaf_buffer(
+            xs[0].shape[0], [x.shape[1] for x in xs], bits, xs[0].device)
+        for (p, s), (rp, rs) in zip(outs, refs):
+            p.copy_(rp)
+            s.copy_(rs)
+        return buf, outs
+    return chunk_quant.quantize_leaves([x.contiguous() for x in xs], bits)
 
 
 def chunk_dequantize(packed: torch.Tensor, scale: torch.Tensor, bits: int,

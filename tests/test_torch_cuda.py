@@ -451,3 +451,111 @@ def test_cuda_kernel_plans_match_the_wrappers(card):
     for B, S, KV in ((1, 512, 32), (1, 4096, 32), (4, 512, 32), (3, 4100, 4),
                      (1, 16, 2), (2, 300, 2), (1, 65536, 32)):
         assert lm.decode_mqattn_splits(B, S, KV) == kmq.plan(B, S, KV)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("select", [False, True])
+@pytest.mark.parametrize("B,S,H,KV,hd,n_valid,window,n_sinks", [
+    (1, 512, 32, 32, 128, [100], 0, 0),        # n_valid inside a split
+    (1, 512, 32, 32, 128, [512], 128, 4),      # splits between sinks and
+    (1, 512, 32, 32, 128, [512], 64, 0),       # window, or before it
+    (4, 512, 32, 32, 128, [512, 1, 200, 77], 0, 0),
+    (4, 512, 32, 32, 128, [512, 1, 200, 77], 128, 4),
+    (1, 16, 4, 2, 16, [16], 8, 2),             # one split
+    (2, 300, 8, 2, 20, [300, 131], 64, 3),     # hd 20: element-wise loads
+])
+def test_cuda_decode_qattn_edge_cases(card, B, S, H, KV, hd, n_valid,
+                                      window, n_sinks, select):
+    """The all-int8 cache over the split plan's edge cases (those of
+    ``test_cuda_decode_mqattn_edge_cases``, every position quant), both
+    forms: tolerances as above, the mass exactly 0 at invalid keys,
+    reruns bit-identical."""
+    from repro_torch.kernels import decode_qattn as kdq
+    from repro_torch.kernels import ref
+    a = _mixed_case(B, S, H, KV, hd, 1.0, card, seed=S + B + hd)
+    args = [a[0], a[3], a[4], a[5], a[6],
+            torch.tensor(n_valid, dtype=torch.int32, device=card)]
+    o_r, m_r = ref.decode_qattn_plain(*args, window, n_sinks,
+                                      want_mass=True, select=select)
+    o_k, m_k = kdq.decode_qattn(*args, window, n_sinks, want_mass=True,
+                                select=select)
+    o_n = kdq.decode_qattn(*args, window, n_sinks, select=select)
+    o_2, m_2 = kdq.decode_qattn(*args, window, n_sinks, want_mass=True,
+                                select=select)
+    torch.cuda.synchronize()
+    tol = 2 ** -7 * float(o_r.float().abs().max())
+    assert float((o_k.float() - o_r.float()).abs().max()) <= tol
+    assert float((m_k - m_r).abs().max()) <= 1e-6
+    valid = ref._valid_keys(args[5], B, S, window, n_sinks, card)
+    assert bool((m_k[~valid] == 0).all())   # exactly 0 at invalid keys
+    assert torch.equal(o_n, o_k) and torch.equal(o_2, o_k)
+    assert torch.equal(m_2, m_k)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_qattn_counts_launches_and_refuses_bad_input(card):
+    from repro_torch.kernels import decode_qattn as kdq
+    kdq.reset_launches()
+    a = _mixed_case(1, 64, 4, 2, 16, 1.0, card)
+    args = [a[0], a[3], a[4], a[5], a[6], a[8]]
+    kdq.decode_qattn(*args, want_mass=True, select=True)
+    assert kdq.decode_qattn.launches == 1
+    bad = list(args)
+    bad[1] = args[1].float()                       # k_q must be int8
+    with pytest.raises(ValueError):
+        kdq.decode_qattn(*bad)
+    assert kdq.decode_qattn.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_quantize_leaves_matches_plain_version(card, bits, dtype):
+    """One launch quantizes leaves of different F (a chunk of llama2-7b's
+    width, one off the 16-byte vectors' alignment, one ragged) bit for
+    bit as per-leaf ``quantize_ref``; so does a chunk of nine leaves in
+    two launches."""
+    from repro_torch.kernels import chunk_quant, ref
+    dt = getattr(torch, dtype)
+    xs = [_x((16, F), bits, dt, card) for F in (131072, 384, 100)]
+    chunk_quant.reset_launches()
+    buf, outs = chunk_quant.quantize_leaves(xs, bits)
+    assert chunk_quant.quantize.launches == 1
+    for x, (p, s) in zip(xs, outs):
+        p_r, s_r = ref.quantize_ref(x, bits)
+        assert torch.equal(p, p_r) and torch.equal(s, s_r)
+    many = [_x((16, 64 + 8 * i), bits, dt, card) for i in range(9)]
+    _, outs = chunk_quant.quantize_leaves(many, bits)
+    assert chunk_quant.quantize.launches == 3
+    for x, (p, s) in zip(many, outs):
+        p_r, s_r = ref.quantize_ref(x, bits)
+        assert torch.equal(p, p_r) and torch.equal(s, s_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4, 2])
+def test_cuda_codec_compresses_a_chunk_in_one_launch(card, bits):
+    """``ChunkCodec.compress_blocks`` on the card: one quantize launch a
+    chunk, and the payload byte-equal to the CPU codec's."""
+    from repro_torch.core.chunks import ChunkCodec
+    from repro_torch.kernels import chunk_quant
+    blocks = {n: _x((16, F), bits, torch.bfloat16, card)
+              for n, F in (("k", 4096), ("v", 4096))}
+    chunk_quant.reset_launches()
+    pc = ChunkCodec(("k", "v"), 16, card).compress_blocks(blocks, bits)
+    assert chunk_quant.quantize.launches == 1
+    pp = ChunkCodec(("k", "v"), 16, "cpu").compress_blocks(
+        {n: b.cpu() for n, b in blocks.items()}, bits)
+    assert pc.shapes == pp.shapes and pc.nbytes == pp.nbytes
+    for n in pp.data:
+        for x, y in zip(pc.data[n], pp.data[n]):
+            assert x.dtype == y.dtype and x.tobytes() == y.tobytes()
+
+
+@pytest.mark.cuda
+def test_cuda_decode_qattn_plan_matches_the_wrapper(card):
+    from repro_torch.kernels import decode_qattn as kdq
+    lib = kdq._lib()
+    for B, S, KV in ((1, 512, 32), (4, 4096, 32), (3, 4100, 4), (1, 16, 2),
+                     (2, 300, 2)):
+        assert lib.decode_mqattn_splits(B, S, KV) == kdq.plan(B, S, KV)[0]

@@ -65,6 +65,14 @@ def test_build_model_defaults_to_the_card(monkeypatch):
     assert build_model(cfg, device="cpu").device.type == "cpu"
 
 
+def test_chunk_codec_defaults_to_the_card(monkeypatch):
+    from repro_torch.core.chunks import ChunkCodec
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ChunkCodec(("k", "v"), 16)
+    assert ChunkCodec(("k", "v"), 16, "cpu").device.type == "cpu"
+
+
 def test_llmservice_defaults_to_the_card(monkeypatch, tmp_path):
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.service import LLMService, LLMSConfig

@@ -161,6 +161,38 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                torch.ones(8), 8, 16)
 
 
+def test_quantize_leaves_refuses_cpu_tensors_and_bad_leaves():
+    """The multi-leaf wrapper takes CUDA leaves only, and checks them
+    before it builds or launches anything."""
+    from repro_torch.kernels import chunk_quant
+    before = chunk_quant.quantize.launches
+    with pytest.raises(ValueError):
+        chunk_quant.quantize_leaves([torch.zeros(16, 8)], 8)
+    with pytest.raises(ValueError):
+        chunk_quant.quantize_leaves([], 8)
+    assert chunk_quant.quantize.launches == before
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+def test_leaf_buffer_layout(bits):
+    """``leaf_buffer`` lays every leaf's codes and scales out in one
+    buffer, 256-byte aligned and disjoint (the kernel's vector stores
+    need 16 bytes)."""
+    from repro_torch.kernels import chunk_quant
+    Fs = (131072, 384, 100)
+    buf, outs = chunk_quant.leaf_buffer(16, Fs, bits, "cpu")
+    spans = []
+    for F, (p, s) in zip(Fs, outs):
+        assert p.shape == (16 * bits // 8, F) and s.shape == (F,)
+        for t in (p, s):
+            lo = t.data_ptr() - buf.data_ptr()
+            assert lo % 256 == 0
+            spans.append((lo, lo + t.numel() * t.element_size()))
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert spans[-1][1] <= buf.numel()
+
+
 # --------------------------------------------------------------------- #
 # decode_mqattn and mixed-cache decode attention
 #

@@ -72,3 +72,23 @@ def test_decode_mqattn_plan_splits_and_scratch(B, S, KV):
         assert 2 * SMS <= blocks <= max(4 * SMS, B * KV, cap)
     H, hd = 4 * KV, 128
     assert kmq.scratch_floats(B, S, H, KV, hd) == B * H * (S + n * (2 + hd))
+
+
+@pytest.mark.parametrize("B,S,KV,expect", [
+    (1, 512, 32, (8, 64, 256)),      # the smoke's int8 decode, serving
+    (4, 4096, 32, (4, 1024, 512)),   # the timed fused + mass shape
+    (3, 4100, 4, (44, 94, 528)),     # a ragged tail
+    (1, 16, 2, (1, 16, 2)),          # one split
+    (2, 300, 2, (4, 75, 16)),        # hd 20 in the edge cases
+])
+def test_decode_qattn_plan_and_scratch(B, S, KV, expect):
+    """The all-int8 cache runs decode_mqattn's split kernels with the
+    same plan and the same scratch layout: scores (B, H, S), then each
+    split's (m, l) and PV partial."""
+    from repro_torch.kernels import decode_qattn as kdq
+    assert kdq.plan(B, S, KV) == kmq.plan(B, S, KV) == expect
+    n, length, _ = expect
+    assert (n - 1) * length < S <= n * length
+    H, hd = 4 * KV, 20 if S == 300 else 128
+    assert kdq.scratch_floats(B, S, H, KV, hd) == \
+        B * H * (S + n * (2 + hd))

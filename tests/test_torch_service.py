@@ -75,6 +75,49 @@ def test_codec_payloads_byte_equal(bits):
                                       dt[n].view(torch.int16).numpy())
 
 
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunk_quantize_leaves_cpu_matches_quantize_ref(bits, dtype):
+    """On the CPU, ``ops.chunk_quantize_leaves`` gives the bytes of a
+    loop of ``quantize_ref``, as views of one buffer (the chunk's one
+    copy to the host)."""
+    from repro_torch.kernels import chunk_quant
+    from repro_torch.kernels import ops as tops
+    from repro_torch.kernels import ref as tref
+    rng = np.random.default_rng(bits)
+    xs = [torch.from_numpy((rng.standard_normal((16, F)) * 3)
+                           .astype(np.float32)).to(getattr(torch, dtype))
+          for F in (1024, 384, 100)]
+    before = chunk_quant.quantize.launches
+    buf, outs = tops.chunk_quantize_leaves(xs, bits)
+    assert chunk_quant.quantize.launches == before
+    lo, hi = buf.data_ptr(), buf.data_ptr() + buf.numel()
+    for x, (p, s) in zip(xs, outs):
+        rp, rs = tref.quantize_ref(x, bits)
+        assert p.dtype == torch.int8 and s.dtype == torch.float32
+        assert p.numpy().tobytes() == rp.numpy().tobytes()
+        assert s.numpy().tobytes() == rs.numpy().tobytes()
+        assert lo <= p.data_ptr() and s.data_ptr() + 4 * s.numel() <= hi
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+def test_codec_multi_leaf_payloads_byte_equal(bits):
+    """``ChunkCodec.compress_blocks`` quantizes a chunk's leaves together
+    (one launch and one host copy on the card) and its payloads stay
+    byte-equal to the reference's, leaves of different F included."""
+    rng = np.random.default_rng(10 + bits)
+    bj, bt = {}, {}
+    for n, F in (("k", 384), ("v", 100), ("w", 256)):
+        x = jnp.asarray(rng.standard_normal((16, F)).astype(np.float32)
+                        ).astype(jnp.bfloat16)
+        bj[n], bt[n] = x, to_torch(np.asarray(x))
+    pj = jchunks.ChunkCodec(("k", "v", "w"), 16).compress_blocks(bj, bits)
+    pt = tchunks.ChunkCodec(("k", "v", "w"), 16, "cpu").compress_blocks(
+        bt, bits)
+    _assert_payload_equal(pj, pt)
+    assert pt.nbytes == pj.nbytes
+
+
 def test_codec_extract_insert_match_reference():
     """Canonical (T, F) views of a window cache agree bit for bit with
     the reference's, and insert writes them back where extract read."""
