@@ -16,15 +16,18 @@ result line):
              and four shapes, the quantize kernel also with a second
              leaf in one launch; decode_mqattn in both forms, with and
              without the mass, over five shapes, three quant shares and
-             two (window, sinks) settings, and the edge cases of its
-             split plan (MQ_EDGE); attn_density in both forms, with and
-             without the density, at serving's extend (seq_len 48 and
-             200, bucket pads, G 1/4/8), a long append, the Pallas
+             two (window, sinks) settings, the edge cases of its split
+             plan (MQ_EDGE) and the other dense configs' GQA shapes
+             (GQA_SHAPES: G 3 at hd 64, G 5, G 8) at (4, 512);
+             attn_density in both forms, with and without the density,
+             at serving's extend (seq_len 48 and 200, bucket pads,
+             G 1/4/8, and the GQA shapes), a long append, the Pallas
              kernel's own setting and the edge cases of its tile plan
              (ragged tiles, hd 16/20/80, G 64), causal, windowed and
              with rows that see no key; decode_qattn in both forms, with
              and without the mass, at two shapes and two (window, sinks)
-             settings and over MQ_EDGE with every position quant.  Time
+             settings, over MQ_EDGE with every position quant and at the
+             GQA shapes.  Time
              each kernel (per launch of its kernels, by name; a kernel
              the profiler does not find raises), its plain version, its
              bound and (for the attention kernels) the library's
@@ -49,16 +52,44 @@ result line):
              the same model decodes over an all-int8 cache (decode_qattn,
              one launch per layer and token), twice, with identical
              tokens and masses, one token of the first run profiled;
-4. check   — the reduced llama2-7b served teacher-forced on the card
-             agrees with the same port on the CPU (plain PyTorch), over
-             the bf16 page view, a mixed (quant-resident) view and an
-             all-int8 decode cache.
+3b. router — the main path through its normal entry point: the port's
+             launch.serve.serve (main's serving step: service config,
+             the restore pipeline's profile, trace, router, run_trace)
+             replays a markov trace (trace.synth.synthesize, seed SEED;
+             ROUTER) of 16 calls over 6 contexts through an inline
+             ServiceRouter (2 apps at priority mix 1:1, decode_batch 4,
+             slice_steps 4, next-context hints) over LLMService on the
+             same llama2-7b weights, then a preemption episode (a
+             background generation on every slot, a foreground call
+             arriving after their second round).  With the bf16 pool and
+             with quant_resident=True, each with a same-seed rerun that
+             must give identical tokens, bit plans and evictions; then
+             once with the service's own AoT swap-out off (llms_nolife),
+             where the next-context hint must flush chunks, and once at
+             decode_batch 1, whose tokens are compared with the batched
+             run's (reported, not required): the share that agrees, and
+             for each call the first step where the picks differ, with
+             the B = 1 run's top-2 gap and the runs' logit difference
+             there.  No call may fail, chunks must go to disk and come
+             back, rounds must run with B >= 2, and the quant run must
+             launch decode_mqattn on such a round.  Then smollm-360m at
+             full width (G = 3, hd 64, tied head) serves 8 calls the
+             same way, with a rerun, and once through launch.serve.main
+             itself (its own seeded init, the threaded router, the
+             printed JSON read back).  Kernel launch counts are zeroed
+             just before each replay and read just after;
+4. check   — the reduced llama2-7b and the reduced smollm-360m (G = 2,
+             tied head) served teacher-forced on the card agree with the
+             same port on the CPU (plain PyTorch), over the bf16 page
+             view, a mixed (quant-resident) view and an all-int8 decode
+             cache.
 
 The last lines are the kernel record ({"kernels": [...]}), the card's
 ``nvidia-smi`` name and power limit, and {"ok": true, "device": ...}.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -85,6 +116,10 @@ MQ_EDGE = [((1, 512, 32, 32, 128), [100], ((0, 0), (256, 4))),
            ((4, 512, 32, 32, 128), [512, 1, 200, 77], ((0, 0), (128, 4))),
            ((1, 16, 4, 2, 16), [16], ((0, 0), (8, 2))),
            ((2, 300, 8, 2, 20), [300, 131], ((0, 0), (64, 3)))]
+# the other dense configs' attention shapes (name, H, KV, hd): G = 3 with
+# hd 64 (attn_density's small path), G = 5 and G = 8, at S = 512
+GQA_SHAPES = [("smollm-360m", 15, 5, 64), ("qwen2.5-14b", 40, 8, 128),
+              ("qwen3-32b", 64, 8, 128)]
 MQ_OUT_TOL = 2 ** -7                       # x max|out_plain|: two bf16 ulps
 PROFILED_ROUND = 81                        # 4th decode round of the last call
 MQ_MASS_TOL = 1e-6
@@ -97,10 +132,19 @@ AD_KERNELS = ("attn_density_tc_kernel", "attn_density_reduce_kernel")
 MQ_KERNELS = ("mq_split_kernel", "mq_split_pv_kernel", "mq_combine_kernel")
 DQ_KERNELS = ("dq_split_kernel", "dq_split_pv_kernel", "dq_combine_kernel")
 QUANT_KERNEL = "quant_leaves_kernel<"
+PROFILE_TRIES = 3                          # profiler windows before a miss
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12                     # H100 SXM, outside tensor cores
 BF16_OPS_PER_S = 989e12                    # H100 SXM, bf16 tensor cores
 INT8_DECODE = dict(S=512, prompt=32, new=32)
+# the router phase: launch.serve's markov trace of Table-3 lengths scaled
+# by 0.1 (prompts of 1-160 tokens), 8 new tokens a call, 2 apps at 1:1,
+# decode slices of 4 rounds over a batch of up to 4, a window of 512 (no
+# call drops: prompt + new <= 256) and a budget of 6 raw chunks, so that
+# chunks go to disk and come back; the 10th round of >= 2 rows profiled
+ROUTER = dict(contexts=6, calls=16, gqa_calls=8, max_new=8,
+              max_ctx=512, budget_chunks=6, decode_batch=4, slice_steps=4,
+              apps=2, mix="1:1", profiled_round=10)
 
 
 def log(*a):
@@ -203,14 +247,20 @@ def _l2_flush():
         flush = lambda: buf.fill_(7)                     # noqa: E731
         flush()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                flush()
-            torch.cuda.synchronize()
-        keys = {ev.key for ev in prof.key_averages() if _device_us(ev) > 0}
+        for i in range(PROFILE_TRIES):      # see _device_ms
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    flush()
+                torch.cuda.synchronize()
+            keys = {ev.key for ev in prof.key_averages()
+                    if _device_us(ev) > 0}
+            if keys:
+                break
+            log(f"[profiler] window {i + 1} of {PROFILE_TRIES} recorded "
+                "no kernel of the L2 flush; profiling it again")
         if not keys:
             raise AssertionError("the profiler recorded no kernel of the "
-                                 "L2 flush")
+                                 f"L2 flush in {PROFILE_TRIES} windows")
         _FLUSH.update(fn=flush, keys=keys)
     return _FLUSH["fn"], _FLUSH["keys"]
 
@@ -234,32 +284,43 @@ def _device_ms(fn, match=None, iters=50, by_kernel=None, flush=None):
     import torch
     from torch.profiler import ProfilerActivity, profile
     flush, skip = flush if flush is not None else (None, set())
+    subs = (match,) if isinstance(match, str) else match
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            if flush is not None:
-                flush()
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    subs = (match,) if isinstance(match, str) else match
-    for ev in prof.key_averages():
-        if ev.key in skip:
-            continue
-        if subs is None or any(m in ev.key for m in subs):
-            us = _device_us(ev)
-            total_us += us
-            if by_kernel is not None and us > 0:
-                if subs is None:
-                    name = ev.key[:96]
-                else:
-                    m = next(m for m in subs if m in ev.key)
-                    name = ev.key[ev.key.index(m):].split("(")[0]
-                by_kernel[name] = us / iters / 1e3
+    # the profiler now and then records no kernel of a window (seen on
+    # this card's machine in two runs of many): profile the window again,
+    # up to PROFILE_TRIES times, before calling the kernel missing
+    for i in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        total_us, parts = 0.0, {}
+        for ev in prof.key_averages():
+            if ev.key in skip:
+                continue
+            if subs is None or any(m in ev.key for m in subs):
+                us = _device_us(ev)
+                total_us += us
+                if us > 0:
+                    if subs is None:
+                        name = ev.key[:96]
+                    else:
+                        m = next(m for m in subs if m in ev.key)
+                        name = ev.key[ev.key.index(m):].split("(")[0]
+                    parts[name] = us / iters / 1e3
+        if subs is None or total_us > 0:
+            break
+        log(f"[profiler] window {i + 1} of {PROFILE_TRIES} recorded no "
+            f"device time for a kernel matching {subs}; profiling it again")
     if subs is not None and total_us == 0:
         raise AssertionError(f"the profiler recorded no device time for a "
-                             f"kernel matching {subs}")
+                             f"kernel matching {subs} in {PROFILE_TRIES} "
+                             "windows")
+    if by_kernel is not None:
+        by_kernel.update(parts)
     return total_us / iters / 1e3 if total_us > 0 else None
 
 
@@ -490,6 +551,9 @@ def mqattn_phase():
              for shape in MQ_SHAPES for share in (0.0, 0.5, 1.0)]
     cases += [(_mq_case(*shape, 0.5, g, dev, n_valid=nv), masks)
               for shape, nv, masks in MQ_EDGE]
+    # the GQA shapes at the router's batch of 4
+    cases += [(_mq_case(4, 512, H, KV, hd, 0.5, g, dev), ((0, 0), (256, 4)))
+              for _, H, KV, hd in GQA_SHAPES]
     for args, masks in cases:
         B, H, hd = args[0].shape
         S, KV = args[1].shape[1], args[1].shape[2]
@@ -534,7 +598,9 @@ def mqattn_phase():
                 worst["mass"] = max(worst["mass"], d_m)
                 n_cases += 1
     log(f"[kernels] decode_mqattn: {n_cases} cases ({len(MQ_EDGE)} edge "
-        f"shapes of the split plan among them) x (with, without mass) "
+        f"shapes of the split plan and the GQA shapes "
+        f"{[(H, KV, hd) for _, H, KV, hd in GQA_SHAPES]} at (4, 512) among "
+        f"them) x (with, without mass) "
         f"within tolerance of the plain version: max |d out| "
         f"{worst['out']} ({worst['out_rel']} of max|out|, tolerance "
         f"{MQ_OUT_TOL}), max |d mass| {worst['mass']} (tolerance "
@@ -680,6 +746,11 @@ def attn_phase():
                           _ad_case(1, 64, S, H, KV, hd,
                                    _serve_positions(seq_len), g, dev),
                           seq_len, ((0, 0), (512, 4), (16, 0))))
+    for name, Hg, KVg, hdg in GQA_SHAPES:               # serving's extend
+        cases.append((f"serve {name} ({Hg}/{KVg}, hd {hdg}) seq_len 200",
+                      _ad_case(1, 64, S, Hg, KVg, hdg,
+                               _serve_positions(200), g, dev),
+                      200, ((0, 0), (512, 4), (16, 0))))
     long_args = _ad_case(1, 512, 4096, H, 32, hd, list(range(3584, 4096)),
                          g, dev)
     cases.append(("long append", long_args, 4096, ((0, 0), (512, 4))))
@@ -743,7 +814,9 @@ def attn_phase():
     if n_empty == 0:
         raise AssertionError("no attn_density case had a row that sees no "
                              "key")
-    log(f"[kernels] attn_density: {n_cases} cases x (with, without density) "
+    log(f"[kernels] attn_density: {n_cases} cases (the GQA shapes "
+        f"{[(H, KV, hd) for _, H, KV, hd in GQA_SHAPES]} at serving's "
+        f"extend among them) x (with, without density) "
         f"within tolerance of the plain version ({n_empty} rows that see no "
         f"key among them): max |d out| {worst['out']} ({worst['out_rel']} "
         f"of max|out|, tolerance {MQ_OUT_TOL}), max |d density| "
@@ -837,6 +910,8 @@ def qattn_phase():
     # the split plan's edge cases, every position quant
     cases += [(case(*shape, n_valid=nv), masks)
               for shape, nv, masks in MQ_EDGE]
+    cases += [(case(4, 512, H, KV, hd), ((0, 0), (256, 4)))
+              for _, H, KV, hd in GQA_SHAPES]
     for args, masks in cases:
         B, H, hd = args[0].shape
         S, KV = args[1].shape[1], args[1].shape[2]
@@ -874,7 +949,8 @@ def qattn_phase():
                 worst["mass"] = max(worst["mass"], d_m)
                 n_cases += 1
     log(f"[kernels] decode_qattn: {n_cases} cases ({len(MQ_EDGE)} edge "
-        f"shapes of the split plan among them) x (with, without mass) "
+        f"shapes of the split plan and the GQA shapes at (4, 512) among "
+        f"them) x (with, without mass) "
         f"within tolerance of the plain version: max |d out| "
         f"{worst['out']} ({worst['out_rel']} of max|out|, tolerance "
         f"{MQ_OUT_TOL}), max |d mass| {worst['mass']} (tolerance "
@@ -1252,6 +1328,443 @@ def int8_decode_phase(model, params, seed, label, profiled=False):
 
 
 # --------------------------------------------------------------------- #
+# 3b. the main path through the router
+# --------------------------------------------------------------------- #
+def router_phase(model, params, seed, swap_root, label, n_calls,
+                 quant_resident=False, policy="llms", decode_batch=None,
+                 profiled=False, keep_logits=False):
+    """The main path through its normal entry point: the port's
+    ``launch.serve.serve`` (the serving step of ``launch.serve.main``:
+    the service config, the pipeline profile under ``llms``, a markov
+    trace from ``trace.synth.synthesize`` and ``run_trace``) replays the
+    trace through an inline ``ServiceRouter`` (2 apps at priority mix
+    1:1, decode-slice preemption, next-context hints) over
+    ``LLMService`` on ``model``'s device (the CPU only to rehearse this
+    script at a reduced size).  The kernel launch counts are zeroed just
+    before the replay and read just after.  With ``profiled``, one
+    decode round of at least two rows runs under the profiler; with
+    ``keep_logits``, every greedy pick of the trace's calls keeps its
+    logits row (on the CPU) and the context's bit plan at the call's
+    start."""
+    import numpy as np
+    import torch
+    from repro_torch.core import restore
+    from repro_torch.kernels import attn_density as kad
+    from repro_torch.kernels import chunk_quant
+    from repro_torch.kernels import decode_mqattn as kmq
+    from repro_torch.launch.serve import parse_args, serve
+
+    cfg, device = model.cfg, model.device
+    on_card = device.type == "cuda"
+    B = ROUTER["decode_batch"] if decode_batch is None else decode_batch
+    raw_chunk = 2 * cfg.n_layers * 16 * cfg.n_kv_heads * cfg.head_dim * 2
+    args = parse_args([
+        "--policy", policy, "--pattern", "markov",
+        "--contexts", str(ROUTER["contexts"]), "--calls", str(n_calls),
+        "--max-ctx", str(ROUTER["max_ctx"]),
+        "--budget-mib", repr(ROUTER["budget_chunks"] * raw_chunk / 2**20),
+        "--max-new", str(ROUTER["max_new"]), "--seed", str(seed),
+        "--concurrency", str(ROUTER["apps"]),
+        "--priority-mix", ROUTER["mix"],
+        "--slice-steps", str(ROUTER["slice_steps"]),
+        "--decode-batch", str(B),
+        "--swap-dir", tempfile.mkdtemp(dir=swap_root)]
+        + (["--quant-resident"] if quant_resident else []))
+    tally = {"checked": 0, "rounds": [], "profile": None}
+    log_, picks, plans, run = [], [], {}, {}
+    # the calls whose picks are being kept: the trace's, not the episode's
+    rec = {"on": keep_logits, "rows": None, "calls": {}}
+
+    def keep(cid, row):
+        k = rec["calls"][cid] - 1
+        step = sum(1 for p in picks if p[:2] == (cid, k))
+        picks.append((cid, k, step, torch.as_tensor(
+            np.asarray(row, np.float32)).reshape(-1).clone()))
+
+    def on_start(svc, router):
+        exe, res = svc.exe, svc.res
+        extend, decode, evict = exe.paged_extend, exe.paged_decode, res.evict
+        begin, decode_round = svc.begin_call, svc._decode_round_paged
+
+        def finite(out):
+            if not np.isfinite(np.asarray(out[1], np.float32)).all():
+                raise AssertionError("non-finite logits in the router phase")
+            tally["checked"] += 1
+            return out
+
+        def checked_extend(*a, **k):
+            out = finite(extend(*a, **k))
+            if rec["on"] and rec["rows"] is not None:
+                keep(rec["rows"][0], out[1])
+            return out
+
+        def checked_decode(*a, **k):
+            # (arenas, toks, pos, pt16, pt8, qmask): the round's rows,
+            # whether a row holds a quant chunk, and its decode_mqattn
+            # launches
+            rows = len(a[1])
+            qmask = a[5] if len(a) > 5 else k.get("qmask")
+            quant_round = qmask is not None and bool(np.asarray(qmask).any())
+            mq0 = kmq.decode_mqattn.launches
+            if (on_card and profiled and tally["profile"] is None
+                    and rows >= 2
+                    and len(tally["rounds"]) >= ROUTER["profiled_round"]):
+                out, tally["profile"] = _profile_round(
+                    lambda: decode(*a, **k))
+                tally["profile"]["rows"] = rows
+            else:
+                out = decode(*a, **k)
+            tally["rounds"].append((rows, quant_round,
+                                    kmq.decode_mqattn.launches - mq0))
+            finite(out)
+            if rec["on"]:
+                for cid, row in zip(rec["rows"], out[1]):
+                    keep(cid, row)
+            return out
+
+        def logged_evict(key):
+            log_.append(("evict", tuple(int(x) for x in key)))
+            return evict(key)
+
+        def recorded_begin(stub, request):
+            cid = stub.ctx_id
+            if rec["on"]:
+                k = rec["calls"].get(cid, 0)
+                rec["calls"][cid] = k + 1
+                plans[cid, k] = tuple((m.bits, m.quant) for _, m in sorted(
+                    svc.contexts[cid].chunks.items()))
+            rec["rows"] = [cid]
+            return begin(stub, request)
+
+        def recorded_round(live, fed):
+            rec["rows"] = [st.ctx.cid for st in live]
+            return decode_round(live, fed)
+
+        exe.paged_extend, exe.paged_decode = checked_extend, checked_decode
+        res.evict = logged_evict
+        svc.begin_call, svc._decode_round_paged = recorded_begin, recorded_round
+
+        def done(job, cancelled):
+            cid = job["stub"].ctx_id
+            chunks = sorted(svc.contexts[cid].chunks.items())
+            log_.append(("done", cid, tuple(int(t) for t in
+                                            job["stream"].tokens),
+                         job["stream"].n_preempts,
+                         tuple(m.bits for _, m in chunks),
+                         tuple(m.quant for _, m in chunks)))
+
+        router.on_complete = done
+        run["read0"] = restore.io_counters()["read"]
+        chunk_quant.reset_launches()
+        kmq.reset_launches()
+        kad.reset_launches()
+        run["t0"] = time.perf_counter()
+
+    def on_end(svc, router, events):
+        rec["on"] = False
+        run["trace_calls"] = len(router.call_records)
+        run["episode"] = _preempt_episode(router, events)
+        if on_card:
+            torch.cuda.synchronize()
+        run["run_s"] = time.perf_counter() - run["t0"]
+        run["launches"] = {
+            "quantize": chunk_quant.quantize.launches,
+            "dequantize": chunk_quant.dequantize.launches,
+            "attn_density": kad.attn_density.launches,
+            "attn_density_with_density": kad.attn_density.density_launches,
+            "decode_mqattn": kmq.decode_mqattn.launches}
+        run["restored"] = restore.io_counters()["read"] - run["read0"]
+        run["calls"] = list(router.call_records)
+        run["router"] = router.stats()
+        run["pipeline"] = (dataclasses.asdict(svc.res.profile)
+                           if svc.res.profiled else None)
+
+    stats = serve(model, params, args, threaded=False, on_start=on_start,
+                  on_end=on_end, verbose=False)
+    episode, calls, r = run["episode"], run["calls"], run["router"]
+    trace_calls, launches = run["trace_calls"], run["launches"]
+    run_s, restored = run["run_s"], run["restored"]
+    failed = stats["failed_calls"] + sum(x.error is not None
+                                         for x in episode)
+    n_calls += len(episode)
+    sizes = {}
+    for rows, _, _ in tally["rounds"]:
+        sizes[rows] = sizes.get(rows, 0) + 1
+    batched_mq = sum(mq > 0 for rows, _, mq in tally["rounds"] if rows >= 2)
+    done_ = [e for e in log_ if e[0] == "done"]
+    bits = [b for e in done_ for b in e[4]]
+    n_evict = sum(e[0] == "evict" for e in log_)
+    name = f"[router:{label}]"
+    for i, c in enumerate(calls):
+        ttft = c.get("ttft_s")
+        log(f"{name} call {i:2d} {c['app']} prio {c['priority']} ctx "
+            f"{c['ctx']} | wait {c['wait_s'] * 1e3:.1f} ms | switch "
+            f"{c['switch_s'] * 1e3:.3f} ms | wall (service) "
+            f"{c['service_s'] * 1e3:.1f} ms | ttft "
+            f"{'-' if ttft is None else f'{ttft * 1e3:.1f} ms'} | preempts "
+            f"{c['n_preempts']} | tokens {list(done_[i][2])} | bits "
+            f"{list(done_[i][4])}")
+    walls = sorted(c["service_s"] * 1e3 for c in calls)
+    switch = sorted(c["switch_s"] * 1e3 for c in calls)
+    log(f"{name} {cfg.name} policy {policy}, quant_resident "
+        f"{quant_resident}, decode_batch {B}: {len(calls)} calls in "
+        f"{run_s:.2f} s")
+    log(f"{name} per-call wall (service) median "
+        f"{walls[len(walls) // 2]:.1f} ms (min {walls[0]:.1f}, max "
+        f"{walls[-1]:.1f})")
+    log(f"{name} switch_s median {switch[len(switch) // 2]:.3f} ms (max "
+        f"{switch[-1]:.3f})")
+    for prio in ("foreground", "background"):
+        if prio in r:
+            p = r[prio]
+            log(f"{name} {prio}: {p['calls']} calls, queue wait mean "
+                f"{p['wait_mean_s'] * 1e3:.1f} ms (p95 "
+                f"{p['wait_p95_s'] * 1e3:.1f}), TTFT mean "
+                f"{p.get('ttft_mean_s', 0) * 1e3:.1f} ms (p95 "
+                f"{p.get('ttft_p95_s', 0) * 1e3:.1f}), preempts "
+                f"{p['preempts']}")
+    log(f"{name} preemptions {r['preemptions']} "
+        f"{r['preemptions_by_priority']}")
+    log(f"{name} AoT flushes {r['aot_flushes']} (prefetch hints "
+        f"{r['prefetch_hints']})")
+    log(f"{name} prediction accuracy {r['pred_hits']}/{r['pred_total']}")
+    log(f"{name} decode-batch sizes {dict(sorted(sizes.items()))} over "
+        f"{r['decode_rounds']} rounds, tokens per round "
+        f"{r['tokens_per_round']:.3f}, joins mid-slice "
+        f"{r['joins_mid_slice']}; rounds over a quant chunk "
+        f"{sum(q for _, q, _ in tally['rounds'])}, of them with >= 2 rows "
+        f"and decode_mqattn {batched_mq}")
+    log(f"{name} kernel launches per call "
+        f"{ {k: v / max(len(calls), 1) for k, v in launches.items()} } "
+        f"(in all {launches})")
+    log(f"{name} evictions {n_evict}, restored {restored} B from disk; "
+        f"chunk bit widths {sorted(set(bits))}; logits checked finite "
+        f"{tally['checked']} times; failed calls {failed}")
+    if tally["profile"] is not None:
+        log(f"{name} a decode round of {tally['profile']['rows']} rows "
+            f"under the profiler: {json.dumps(tally['profile'])}")
+    log(f"{name} pipeline profile (recompute s = base + per chunk * x, "
+        f"read s = base + per byte * n): {run['pipeline']}")
+
+    if failed or len(done_) != n_calls:
+        raise AssertionError(f"{name} {failed} failed calls, "
+                             f"{len(done_)} of {n_calls} completed")
+    if not (r["preemptions"] and all(x.n_preempts == 0 for x in episode[-1:])
+            and any(x.n_preempts for x in episode)):
+        raise AssertionError(f"{name} the foreground arrival preempted no "
+                             "background generation")
+    if B > 1 and not any(rows >= 2 for rows, _, _ in tally["rounds"]):
+        raise AssertionError(f"{name} no decode round ran with B >= 2")
+    if not (n_evict and restored > 0):
+        raise AssertionError(f"{name} no chunk went to disk and came back")
+    if not any(b < 16 for b in bits):
+        raise AssertionError(f"{name} no chunk was stored below 16 bits")
+    if not tally["checked"]:
+        raise AssertionError(f"{name} no logits were checked")
+    if on_card and not (launches["quantize"] and launches["dequantize"]
+                        and launches["attn_density"]):
+        raise AssertionError(f"{name} a kernel of the path never ran: "
+                             f"{launches}")
+    if quant_resident and on_card and B > 1 and not batched_mq:
+        raise AssertionError(f"{name} decode_mqattn never ran on a round "
+                             "of >= 2 rows")
+    if policy == "llms_nolife" and not r["aot_flushes"]:
+        raise AssertionError(f"{name} the next-context hint flushed nothing")
+    if run["pipeline"] is None:
+        raise AssertionError(f"{name} the service did not profile the "
+                             "restore pipeline")
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"log": log_, "router": r, "calls": calls, "sizes": sizes,
+            "trace_calls": trace_calls,
+            "launches": launches, "run_s": run_s, "restored": restored,
+            "evictions": n_evict, "batched_mq": batched_mq,
+            "profile": tally["profile"], "picks": picks, "plans": plans}
+
+
+def _preempt_episode(router, events):
+    """Decode-slice preemption after the trace: a background generation
+    on each decode slot (fresh contexts, the trace's first prompts, three
+    slices long), and a foreground call that arrives after their second
+    round; at the next slice boundary the router suspends one background
+    generation (``suspend_call``) for it and resumes that one later
+    (``resume_call``).  Inline, so it is deterministic.  -> the streams,
+    the foreground one last."""
+    fg, bg = router.sessions["app0"], router.sessions["app1"]
+    prompts = [ev.prompt[:64].tolist() for ev in events]
+    n = router.decode_batch
+    streams = [bg.stream(bg.new_ctx(), prompts[i],
+                         max_new_tokens=3 * ROUTER["slice_steps"])
+               for i in range(n)]
+    fg_stub = fg.new_ctx()
+    rounds = []
+
+    def arrive(live):
+        rounds.append(len(live))
+        if len(rounds) == 2:
+            streams.append(fg.stream(fg_stub, prompts[n], max_new_tokens=4))
+
+    hook, router.on_round = router.on_round, arrive
+    router.drain()
+    router.on_round = hook
+    return streams
+
+
+def entry_point_phase(swap_root):
+    """``launch.serve.main`` as a user runs it, on the card: smollm-360m
+    at full width from its own seeded init, its threaded router (2 apps,
+    each submitting from a thread of its own) at the router phase's
+    settings.  The printed JSON must show every call served.  -> the
+    stats."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attn_density as kad
+    from repro_torch.kernels import chunk_quant
+    from repro_torch.kernels import decode_mqattn as kmq
+    from repro_torch.launch import serve
+    cfg = get_config("smollm-360m")
+    raw_chunk = 2 * cfg.n_layers * 16 * cfg.n_kv_heads * cfg.head_dim * 2
+    argv = ["--arch", cfg.name, "--contexts", str(ROUTER["contexts"]),
+            "--calls", str(ROUTER["gqa_calls"]),
+            "--max-ctx", str(ROUTER["max_ctx"]),
+            "--budget-mib", repr(ROUTER["budget_chunks"] * raw_chunk / 2**20),
+            "--concurrency", str(ROUTER["apps"]),
+            "--priority-mix", ROUTER["mix"],
+            "--slice-steps", str(ROUTER["slice_steps"]),
+            "--decode-batch", str(ROUTER["decode_batch"]),
+            "--seed", str(SEED), "--swap-dir", tempfile.mkdtemp(dir=swap_root)]
+    chunk_quant.reset_launches()
+    kmq.reset_launches()
+    kad.reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        stats = serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = out.getvalue()
+    printed = json.loads(text[re.search(r"^\{", text, re.M).start():])
+    r = printed["router"]
+    n = sum(r[p]["calls"] for p in ("foreground", "background") if p in r)
+    launches = {"quantize": chunk_quant.quantize.launches,
+                "dequantize": chunk_quant.dequantize.launches,
+                "attn_density": kad.attn_density.launches,
+                "decode_mqattn": kmq.decode_mqattn.launches}
+    log(f"[entry] python -m repro_torch.launch.serve {' '.join(argv[:-2])}: "
+        f"{n} calls, failed {printed['failed_calls']}, device "
+        f"{printed['device']}, wall {wall:.2f} s (model build included), "
+        f"replay {printed['wall_s']:.2f} s, decode rounds "
+        f"{r['decode_rounds']} at {r['tokens_per_round']:.3f} tokens a "
+        f"round, preemptions {r['preemptions']}, kernel launches "
+        f"{launches}")
+    if printed["failed_calls"] or n != ROUTER["gqa_calls"] \
+            or not printed["device"].startswith("cuda"):
+        raise AssertionError(f"[entry] the entry point served {n} of "
+                             f"{ROUTER['gqa_calls']} calls, "
+                             f"{printed['failed_calls']} failed, on "
+                             f"{printed['device']}")
+    if not launches["attn_density"]:
+        raise AssertionError("[entry] no prefill went through attn_density")
+    return stats
+
+
+def _same_run(a, b, what):
+    """A rerun from the same seed must give the same completions (order,
+    tokens, preemptions, bit plans, quant flags) and evictions."""
+    if a["log"] != b["log"]:
+        i = next((i for i, (x, y) in enumerate(zip(a["log"], b["log"]))
+                  if x != y), min(len(a["log"]), len(b["log"])))
+        raise AssertionError(f"{what}: the rerun differs at entry {i}: "
+                             f"{a['log'][i:i + 1]} vs {b['log'][i:i + 1]}")
+    n = sum(e[0] == "done" for e in a["log"])
+    log(f"[router] {what}: the same-seed rerun gave identical tokens, bit "
+        f"plans and evictions over {n} calls")
+
+
+def _tokens_by_call(run):
+    """{(ctx, k): tokens of ctx's k-th call} over a router run's trace
+    calls (they complete before the preemption episode starts)."""
+    seen, out = {}, {}
+    done = [e for e in run["log"] if e[0] == "done"]
+    for e in done[:run["trace_calls"]]:
+        k = seen.get(e[1], 0)
+        seen[e[1]] = k + 1
+        out[e[1], k] = e[2]
+    return out
+
+
+def _batch_agreement(batched, serial):
+    """The share of the batched run's tokens equal to the B = 1 run's,
+    call by call and position by position, over the trace's calls (the
+    preemption episode differs with B: one background call a slot)."""
+    a, b = _tokens_by_call(batched), _tokens_by_call(serial)
+    same = total = 0
+    for key, toks in a.items():
+        ref = b.get(key, ())
+        total += len(toks)
+        same += sum(x == y for x, y in zip(toks, ref))
+    return same / max(total, 1), same, total
+
+
+def _batch_divergence(batched, serial):
+    """Where the batched run's greedy picks first leave the B = 1 run's,
+    call by call, from the logits both runs kept (``keep_logits``).  A
+    call whose earlier calls on its context gave other tokens, or that
+    starts under another bit plan, is counted as such and not examined.
+    For every other call that differs: its first differing step, the
+    B = 1 row's top-2 gap there, the largest logit difference between
+    the runs there (over the vocabulary and on the two picked tokens),
+    the largest difference over the call's earlier steps, and whether
+    the gap lies within the step's difference (a near-tie).  -> (counts,
+    the examined calls)."""
+    import torch
+
+    def by_call(run):
+        out = {}
+        for cid, k, step, row in run["picks"]:
+            out.setdefault((cid, k), {})[step] = row
+        return out
+
+    a, b = by_call(batched), by_call(serial)
+    counts = {"calls": 0, "equal": 0, "near_tie": 0, "wide": 0,
+              "after_a_difference": 0, "other_bit_plan": 0}
+    examined, diverged = [], set()
+    for key in sorted(set(a) & set(b), key=lambda x: (x[1], x[0])):
+        counts["calls"] += 1
+        ra, rb = a[key], b[key]
+        steps = sorted(set(ra) & set(rb))
+        first = next((j for j in steps
+                      if int(ra[j].argmax()) != int(rb[j].argmax())), None)
+        if key[0] in diverged:
+            counts["after_a_difference"] += 1
+            continue
+        if first is None:
+            counts["equal"] += 1
+            continue
+        diverged.add(key[0])
+        if batched["plans"][key] != serial["plans"][key]:
+            counts["other_bit_plan"] += 1
+            continue
+        t1, t4 = int(rb[first].argmax()), int(ra[first].argmax())
+        top2 = torch.topk(rb[first], 2).values
+        gap = float(top2[0] - top2[1])
+        d = (ra[first] - rb[first]).abs()
+        before = max((float((ra[j] - rb[j]).abs().max())
+                      for j in steps if j < first), default=None)
+        tie = gap <= float(d.max())
+        counts["near_tie" if tie else "wide"] += 1
+        examined.append({"ctx": key[0], "call": key[1], "step": first,
+                         "tokens_b1_b4": (t1, t4), "top2_gap_b1": gap,
+                         "max_abs_diff": float(d.max()),
+                         "diff_on_picked": (float(d[t1]), float(d[t4])),
+                         "max_abs_diff_before": before, "near_tie": tie})
+    return counts, examined
+
+
+# --------------------------------------------------------------------- #
 # 4. reduced model on the card vs the same port on the CPU
 # --------------------------------------------------------------------- #
 def _teacher_forced(model, params, dev, arenas0, mixed):
@@ -1281,7 +1794,7 @@ def _teacher_forced(model, params, dev, arenas0, mixed):
     toks = t(prompt + [0] * (len(pos) - n))[None]
     ar, x, _ = model.extend_paged(params, toks, pos, ar, t(pt16)[:1],
                                   lo + n, want_density=True, **first)
-    logits = [(x[:, n - 1] @ params["head"]).float().cpu()]
+    logits = [(x[:, n - 1] @ model.head_weight(params)).float().cpu()]
     starts = [lo + n, 32][:rows]
     for step in range(4):
         tok = t(rng.integers(1, vocab, (rows, 1)))
@@ -1313,7 +1826,14 @@ def _teacher_forced_int8(model, params, dev):
 
 
 def check_phase():
-    import numpy as np
+    for name in ("llama2-7b", "smollm-360m"):
+        _check_config(name)
+
+
+def _check_config(name):
+    """The reduced ``name`` teacher-forced on the card against the same
+    port on the CPU, over the bf16 page view, the mixed page view and the
+    all-int8 decode cache."""
     import torch
     from repro_torch.configs import get_config, reduced
     from repro_torch.kernels import attn_density as kad
@@ -1322,7 +1842,9 @@ def check_phase():
     from repro_torch.kernels import ref
     from repro_torch.models.registry import build_model
 
-    cfg = reduced(get_config("llama2-7b"))
+    cfg = reduced(get_config(name))
+    what = (f"reduced {name} (H {cfg.n_heads} / KV {cfg.n_kv_heads}"
+            f"{', tied head' if cfg.tie_embeddings else ''})")
     cpu = build_model(cfg, device="cpu")
     params_cpu = cpu.init(torch.Generator().manual_seed(SEED))
     gpu = build_model(cfg, device="cuda")
@@ -1351,20 +1873,20 @@ def check_phase():
         worst = float((ref_l - card_l).abs().max())
         if not torch.isfinite(card_l).all() or worst > 0.02 * span + 1e-3:
             raise AssertionError(
-                f"{view} view: card logits differ from the CPU plain path: "
-                f"max |diff| {worst} over range {span}")
+                f"{what} {view} view: card logits differ from the CPU plain "
+                f"path: max |diff| {worst} over range {span}")
         if view == "mixed" and kmq.decode_mqattn.launches != 4 * L:
             raise AssertionError(
-                f"mixed view: {kmq.decode_mqattn.launches} decode_mqattn "
-                f"launches, not {4 * L}")
+                f"{what} mixed view: {kmq.decode_mqattn.launches} "
+                f"decode_mqattn launches, not {4 * L}")
         if kad.attn_density.launches != L:
             raise AssertionError(
-                f"{view} view: {kad.attn_density.launches} attn_density "
-                f"launches in the extend, not {L}")
-        log(f"[check] reduced llama2-7b, {view} page view, teacher-forced "
-            f"extend (attn_density on the card) + 4 decode rounds: card vs "
-            f"CPU max |logit diff| {worst:.5f} (range {span:.4f}, "
-            f"tolerance 2% of range: bf16 matmuls round differently)")
+                f"{what} {view} view: {kad.attn_density.launches} "
+                f"attn_density launches in the extend, not {L}")
+        log(f"[check] {what}, {view} page view, teacher-forced extend "
+            f"(attn_density on the card) + 4 decode rounds: card vs CPU max "
+            f"|logit diff| {worst:.5f} (range {span:.4f}, tolerance 2% of "
+            f"range: bf16 matmuls round differently)")
     kdq.reset_launches()
     ref_l, ref_m = _teacher_forced_int8(cpu, params_cpu, "cpu")
     card_l, card_m = _teacher_forced_int8(gpu, params_gpu, "cuda")
@@ -1374,15 +1896,16 @@ def check_phase():
     if not torch.isfinite(card_l).all() or worst > 0.02 * span + 1e-3 \
             or worst_m > 1e-3:
         raise AssertionError(
-            f"int8 cache: card logits differ from the CPU plain path: max "
-            f"|diff| {worst} over range {span}, max |d mass| {worst_m}")
+            f"{what} int8 cache: card logits differ from the CPU plain path: "
+            f"max |diff| {worst} over range {span}, max |d mass| {worst_m}")
     if kdq.decode_qattn.launches != 8 * L:
-        raise AssertionError(f"int8 cache: {kdq.decode_qattn.launches} "
-                             f"decode_qattn launches, not {8 * L}")
-    log(f"[check] reduced llama2-7b, all-int8 decode cache, teacher-forced "
-        f"8 rounds of 2 rows ((B,) pos): card vs CPU max |logit diff| "
-        f"{worst:.5f} (range {span:.4f}, tolerance 2% of range), max |d "
-        f"mass| {worst_m:.3g} (tolerance 1e-3: bf16 K/V and p upstream)")
+        raise AssertionError(f"{what} int8 cache: "
+                             f"{kdq.decode_qattn.launches} decode_qattn "
+                             f"launches, not {8 * L}")
+    log(f"[check] {what}, all-int8 decode cache, teacher-forced 8 rounds of "
+        f"2 rows ((B,) pos): card vs CPU max |logit diff| {worst:.5f} "
+        f"(range {span:.4f}, tolerance 2% of range), max |d mass| "
+        f"{worst_m:.3g} (tolerance 1e-3: bf16 K/V and p upstream)")
 
 
 # the L2-cold readings of the decode kernels' timed rows (kernel and
@@ -1397,6 +1920,13 @@ def _device_or_call(row, prefix):
     event-timed time per call."""
     dev = row[prefix + "device_ms"]
     return dev if dev is not None else row[prefix + "call_ms"]
+
+
+def _router_launches(routed, key):
+    """A kernel's launches in the router phase's runs (llama2-7b with the
+    bf16 pool and quant-resident, smollm-360m), each counted from 0."""
+    return {"launches_router": {label: routed[label]["launches"][key]
+                                for label in ("bf16", "quant", "gqa")}}
 
 
 def main() -> int:
@@ -1432,8 +1962,45 @@ def main() -> int:
     int8 = [int8_decode_phase(model, params, SEED, label,
                               profiled=label == "run1")
             for label in ("run1", "rerun")]
+    t_router = time.perf_counter()
+    routed = {}
+    with tempfile.TemporaryDirectory(prefix="llms_chip_router_") as root:
+        for label, kw in (
+                ("bf16", dict(profiled=True)),
+                ("bf16-rerun", dict(keep_logits=True)),
+                ("quant", dict(quant_resident=True, profiled=True)),
+                ("quant-rerun", dict(quant_resident=True)),
+                ("aot-hint", dict(policy="llms_nolife")),
+                ("serial", dict(decode_batch=1, keep_logits=True))):
+            routed[label] = router_phase(model, params, SEED, root, label,
+                                         ROUTER["calls"], **kw)
     del model, params
     torch.cuda.empty_cache()
+    model, params = build_weights(get_config("smollm-360m"), SEED)
+    with tempfile.TemporaryDirectory(prefix="llms_chip_gqa_") as root:
+        for label in ("gqa", "gqa-rerun"):
+            routed[label] = router_phase(model, params, SEED, root, label,
+                                         ROUTER["gqa_calls"])
+        entry_point_phase(root)
+    del model, params
+    torch.cuda.empty_cache()
+    for a, b in (("bf16", "bf16-rerun"), ("quant", "quant-rerun"),
+                 ("gqa", "gqa-rerun")):
+        _same_run(routed[a], routed[b], f"{a} (llama2-7b)" if a != "gqa"
+                  else "smollm-360m")
+    share, same, total = _batch_agreement(routed["bf16"], routed["serial"])
+    log(f"[router] decode_batch 4 against 1 on the card, bf16 pool: "
+        f"{same} of {total} tokens agree ({share:.4f}); not required (the "
+        f"products at M = 4 and M = 1 may round differently)")
+    counts, examined = _batch_divergence(routed["bf16-rerun"],
+                                         routed["serial"])
+    log(f"[router] decode_batch 4 against 1, call by call: {counts}")
+    for e in examined:
+        log(f"[router] first divergence: {json.dumps(e)}")
+    for label in ("bf16-rerun", "serial"):
+        routed[label].pop("picks")
+    log(f"[router] the router phases took "
+        f"{time.perf_counter() - t_router:.1f} s")
     for a_name, b_name in (("run1", "rerun"), ("quant1", "quant-rerun")):
         for a, b in zip(runs[a_name]["records"], runs[b_name]["records"]):
             if (a["tokens"], a["bits"]) != (b["tokens"], b["bits"]):
@@ -1453,6 +2020,7 @@ def main() -> int:
         row = times[4][name]
         kernels.append({
             "name": f"chunk_{name}", "route": "cuda", "source": src,
+            **_router_launches(routed, name),
             "replaces": f"src/repro/kernels/chunk_quant.py:{line}",
             "launches": first["launches"][name], "max_abs_err": max_err,
             "ms": _device_or_call(row, ""),
@@ -1486,6 +2054,7 @@ def main() -> int:
     kernels.append({
         "name": "decode_mqattn", "route": "cuda",
         "source": "src/repro_torch/csrc/decode_mqattn.cu",
+        **_router_launches(routed, "decode_mqattn"),
         "replaces": "src/repro/kernels/decode_qattn.py:183",
         "launches": quant["launches"]["decode_mqattn"],
         "max_abs_err": mq_err["out"], "max_abs_err_mass": mq_err["mass"],
@@ -1514,6 +2083,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/attn_density.cu",
+            **_router_launches(routed, "attn_density" if key == "out"
+                               else "attn_density_with_density"),
             "replaces": f"src/repro/kernels/attn_density.py:{line}",
             "launches": launches, "max_abs_err": err,
             "ms": _device_or_call(row, ""),

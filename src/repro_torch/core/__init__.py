@@ -1,6 +1,9 @@
-"""LLMS core of the port: the paged serving path (paper Table 1 API).
+"""LLMS core of the port: the paged serving path (paper Table 1 API)
+and the multi-app router above it.
 
 Public surface:
+  scheduler.ServiceRouter / AppSession  (admission, decode slices,
+                                         next-context hints, layer 4)
   LLMService / LLMSConfig / LLMCtxStub  (paper Table 1 API, facade)
   requests.GenerationRequest / SamplingParams
   executor.ModelExecutor                (model entries, layer 1)
@@ -9,10 +12,10 @@ Public surface:
   chunks.ChunkCodec / CompressedChunk   (chunk memory model, Fig. 4)
   compression.plan_buckets              (tolerance-aware planner, Eq. 3)
   lifecycle.LCTRUQueue                  (eviction order, §3.4)
-
-The router (``scheduler.ServiceRouter``) is not ported yet (ROADMAP.md).
 """
 from repro_torch.core.requests import (  # noqa
     BACKGROUND, FOREGROUND, GenerationRequest, GenerationStream,
     SamplingParams)
 from repro_torch.core.service import LLMService, LLMSConfig, LLMCtxStub  # noqa
+from repro_torch.core.scheduler import (  # noqa
+    AppSession, NextContextPredictor, ServiceRouter, parse_priority)

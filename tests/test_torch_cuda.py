@@ -559,3 +559,151 @@ def test_cuda_decode_qattn_plan_matches_the_wrapper(card):
     for B, S, KV in ((1, 512, 32), (4, 4096, 32), (3, 4100, 4), (1, 16, 2),
                      (2, 300, 2)):
         assert lib.decode_mqattn_splits(B, S, KV) == kdq.plan(B, S, KV)[0]
+
+
+# --------------------------------------------------------------------- #
+# the router on the card
+# --------------------------------------------------------------------- #
+def _router_replay(device, quant=False):
+    """The reduced smollm-360m (port init from seed 0 on the CPU, its
+    tied head scaled 16x) behind the port's ServiceRouter on ``device``:
+    a markov trace of 16 calls over 6 contexts, 2 apps at 1:1,
+    decode_batch 4, slice_steps 4, prediction on, a budget of three raw
+    chunks.  -> (log of completions (ctx, tokens, preemptions, bits) and
+    evictions in order, every greedy pick in the order made as
+    ((ctx, its call's index on the ctx, step), logits row on the CPU),
+    run_trace's stats)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.scheduler import ServiceRouter
+    from repro_torch.core.service import LLMService, LLMSConfig
+    from repro_torch.launch.serve import run_trace
+    from repro_torch.models.registry import build_model
+    from repro_torch.trace.synth import synthesize
+    cfg = reduced(get_config("smollm-360m"))
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    params["embed"] = (params["embed"].float() * 16).bfloat16()
+    params = {k: ({n: w.to(device) for n, w in v.items()}
+                  if isinstance(v, dict) else v.to(device))
+              for k, v in params.items()}
+    model = build_model(cfg, device=device)
+    raw_chunk = 2 * cfg.n_layers * 16 * cfg.n_kv_heads * cfg.head_dim * 2
+    sc = LLMSConfig(max_ctx_len=128, memory_budget=3 * raw_chunk,
+                    decode_batch=4, quant_resident=quant,
+                    swap_dir=tempfile.mkdtemp())
+    events = synthesize(6, 16, cfg.vocab, pattern="markov", scale=0.05,
+                        seed=2)
+    log, picks = [], []
+    rows, calls, steps = [], {}, {}
+    with LLMService(model, params, sc, device=device) as svc:
+        exe, res = svc.exe, svc.res
+        begin, decode_round = svc.begin_call, svc._decode_round_paged
+
+        def on_call(stub, request):
+            rows[:] = [stub.ctx_id]
+            calls[stub.ctx_id] = calls.get(stub.ctx_id, 0) + 1
+            return begin(stub, request)
+
+        def on_round(live, fed):
+            rows[:] = [st.ctx.cid for st in live]
+            return decode_round(live, fed)
+
+        svc.begin_call, svc._decode_round_paged = on_call, on_round
+        for entry in ("paged_extend", "paged_decode"):
+            fn = getattr(exe, entry)
+
+            def rec(*a, _fn=fn, **k):
+                out = _fn(*a, **k)
+                lg = torch.as_tensor(np.asarray(out[1], np.float32))
+                for cid, row in zip(rows, lg.reshape(-1, lg.shape[-1])):
+                    call = (cid, calls[cid] - 1)
+                    steps[call] = steps.get(call, -1) + 1
+                    picks.append((call + (steps[call],), row))
+                return out
+
+            setattr(exe, entry, rec)
+        evict = res.evict
+
+        def ev(key):
+            log.append(("evict", tuple(int(k) for k in key)))
+            return evict(key)
+
+        res.evict = ev
+        with ServiceRouter(svc, predict=True, slice_steps=4) as router:
+            def done(job, cancelled):
+                cid = job["stub"].ctx_id
+                ch = sorted(svc.contexts[cid].chunks.items())
+                log.append(("done", cid, tuple(job["stream"].tokens),
+                            job["stream"].n_preempts,
+                            tuple(m.bits for _, m in ch),
+                            tuple(m.quant for _, m in ch)))
+
+            router.on_complete = done
+            stats = run_trace(router, events, n_apps=2, priority_mix="1:1",
+                              max_new=6)
+    return log, picks, stats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "quant"])
+def test_cuda_router_matches_cpu(card, quant):
+    """The port's router on the card against the same port on the CPU:
+    equal bit plans, quant flags and evictions, and equal tokens wherever
+    the CPU run's top-2 gap exceeds the card-vs-CPU logit difference at
+    that step.  Both runs make their greedy picks in the same order, call
+    by call.  If a pick differs, it must be a near-tie: the logits of the
+    two picked tokens moved between the runs by no more than any logit
+    did over all the picks before it (the runs' ordinary difference on
+    equal inputs); and the logs must agree up to that call's completion,
+    which differs from the CPU run's in its tokens only.  A same-seed
+    rerun on the card is identical."""
+    log_c, pk_c, st_c = _router_replay("cpu", quant)
+    log_g, pk_g, st_g = _router_replay("cuda", quant)
+    log_r, pk_r, _ = _router_replay("cuda", quant)
+    assert log_r == log_g
+    assert [k for k, _ in pk_r] == [k for k, _ in pk_g]
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(pk_r, pk_g))
+    assert st_g["failed_calls"] == st_c["failed_calls"] == 0
+    assert st_g["router"]["tokens_per_round"] > 1.0
+    assert len(pk_c) == len(pk_g)
+    flip, err_before = None, 0.0
+    for (key_c, a), (key_g, b) in zip(pk_c, pk_g):
+        assert key_c == key_g
+        assert torch.isfinite(b).all()
+        d = (a - b).abs()
+        t_c, t_g = int(a.argmax()), int(b.argmax())
+        if t_c != t_g:
+            flip = key_c
+            break
+        err_before = max(err_before, float(d.max()))
+    if flip is None:
+        assert log_g == log_c
+    else:
+        gap = float(a[t_c] - a[t_g])
+        moved = (float(d[t_c]), float(d[t_g]))
+        assert max(moved) <= err_before, (flip, gap, moved, err_before)
+        cid, k = flip[:2]
+        n = [i for i, e in enumerate(log_c)
+             if e[0] == "done" and e[1] == cid][k]
+        assert log_g[:n] == log_c[:n]
+        assert log_g[n][:2] == log_c[n][:2] and log_g[n][2] != log_c[n][2]
+        assert log_g[n][3:] == log_c[n][3:]
+
+
+@pytest.mark.cuda
+def test_cuda_serve_main_on_the_card(card, capsys):
+    """``python -m repro_torch.launch.serve`` without ``--device`` runs
+    on the card: the reduced smollm-360m from its seeded init, the
+    threaded router, quant-resident, every call served."""
+    import json
+    from repro_torch.launch import serve
+    stats = serve.main(["--reduced", "--calls", "8", "--contexts", "3",
+                        "--max-ctx", "512", "--concurrency", "2",
+                        "--decode-batch", "4", "--slice-steps", "4",
+                        "--quant-resident"])
+    out = capsys.readouterr().out
+    printed = json.loads(out[out.index("{"):])
+    assert printed["failed_calls"] == stats["failed_calls"] == 0
+    assert printed["device"].startswith("cuda")
+    assert printed["router"]["foreground"]["calls"] \
+        + printed["router"]["background"]["calls"] == 8

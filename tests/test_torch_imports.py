@@ -4,6 +4,8 @@ run on the card unless the caller asks for the CPU."""
 import ast
 import os
 import pathlib
+import subprocess
+import sys
 
 import pytest
 
@@ -35,6 +37,49 @@ def _imported_roots(path: pathlib.Path):
             if name in ("import_module", "__import__") and node.args \
                     and isinstance(node.args[0], ast.Constant):
                 yield str(node.args[0].value).split(".")[0], node.lineno
+
+
+# the modules of the router slice: each is scanned above and imports
+# without triton or a card
+ROUTER_SLICE = (
+    "repro_torch.core.scheduler", "repro_torch.data.pipeline",
+    "repro_torch.trace.synth", "repro_torch.loadgen",
+    "repro_torch.loadgen.spec", "repro_torch.loadgen.metrics",
+    "repro_torch.loadgen.scenarios", "repro_torch.loadgen.driver",
+    "repro_torch.launch.serve", "repro_torch.configs.smollm_360m",
+    "repro_torch.configs.opt_6_7b", "repro_torch.configs.qwen2_5_14b",
+    "repro_torch.configs.qwen3_32b", "repro_torch.configs.deepseek_67b")
+
+
+def _module_path(mod: str) -> pathlib.Path:
+    rel = pathlib.Path(*mod.split(".")[1:])
+    path = PORT / rel.with_suffix(".py")
+    return path if path.exists() else PORT / rel / "__init__.py"
+
+
+@pytest.mark.parametrize("mod", ROUTER_SLICE)
+def test_router_slice_modules_are_scanned(mod):
+    assert _module_path(mod) in _sources()
+
+
+def test_router_slice_imports_without_triton_or_card():
+    """A fresh interpreter with ``triton`` unimportable and no card
+    imports every module of the slice, and neither JAX nor the JAX
+    package is loaded by it."""
+    code = (
+        "import sys\n"
+        "sys.modules['triton'] = None\n"
+        "import torch\n"
+        "torch.cuda.is_available = lambda: False\n"
+        f"for m in {ROUTER_SLICE!r}:\n"
+        "    __import__(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro', 'triton') and sys.modules[m])\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
 
 
 @pytest.mark.parametrize("path", _sources(),
