@@ -23,8 +23,9 @@ result line):
              at serving's extend (seq_len 48 and 200, bucket pads,
              G 1/4/8, and the GQA shapes), a long append, the Pallas
              kernel's own setting and the edge cases of its tile plan
-             (ragged tiles, hd 16/20/80, G 64), causal, windowed and
-             with rows that see no key; decode_qattn in both forms, with
+             (ragged tiles, hd 16/20/80, G 64), the slot engine's
+             shapes (a non-contiguous recompute set, lmk's whole-context
+             recompute), causal, windowed and with rows that see no key; decode_qattn in both forms, with
              and without the mass, at two shapes and two (window, sinks)
              settings, over MQ_EDGE with every position quant and at the
              GQA shapes.  Time
@@ -78,11 +79,27 @@ result line):
              itself (its own seeded init, the threaded router, the
              printed JSON read back).  Kernel launch counts are zeroed
              just before each replay and read just after;
+3c. slot  — the slot engine (paged_pool=False) on the same llama2-7b
+             weights, the serve phase's trace (SLOT): llms with the
+             card's restore profile and a rerun under that profile
+             (identical tokens, bit plans and splits required), llms
+             unprofiled (the heaviest half of each restore recomputed:
+             the Fig.-8 layer-pipelined restore, one of them profiled),
+             llms_nopipe, the whole-state baselines swap and lmk, and
+             llms with quant_resident (decode_mqattn on the mixed slot
+             cache); each run's tokens held against a no-pressure run
+             call by call (first divergence and top-2 gap reported),
+             switch_s over disk restores, the splits and each pipelined
+             restore's wall time and wait in LayerFeed.fetch reported.
+             Kernel launch counts are zeroed just before each run and
+             read just after.  Then one full-width restore two ways
+             (pipelined against whole-file inserts + extend_nod), which
+             must agree bit for bit, window and mixed cache;
 4. check   — the reduced llama2-7b and the reduced smollm-360m (G = 2,
              tied head) served teacher-forced on the card agree with the
              same port on the CPU (plain PyTorch), over the bf16 page
              view, a mixed (quant-resident) view and an all-int8 decode
-             cache.
+             cache; and the reduced llama2-7b's pipelined restore.
 
 The last lines are the kernel record ({"kernels": [...]}), the card's
 ``nvidia-smi`` name and power limit, and {"ok": true, "device": ...}.
@@ -98,6 +115,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 SEED = 0
 SERVE_SHAPE = (16, 32 * 32 * 128)          # one chunk leaf of llama2-7b
@@ -145,6 +163,14 @@ INT8_DECODE = dict(S=512, prompt=32, new=32)
 ROUTER = dict(contexts=6, calls=16, gqa_calls=8, max_new=8,
               max_ctx=512, budget_chunks=6, decode_batch=4, slice_steps=4,
               apps=2, mix="1:1", profiled_round=10)
+# the slot phase: the serve phase's trace with paged_pool=False and a
+# budget of 8 raw chunks (64 MiB; a whole-state snapshot of 64 tokens
+# takes 4), so that every policy restores from disk (lmk: recomputes a
+# killed context) at least twice; the full-width restore check reads
+# chunks SLOT["io"] at SLOT["io_bits"] and recomputes SLOT["recompute"]
+# (64 query rows with the bucket pads) of a 128-token context
+SLOT = dict(budget_chunks=8, max_ctx=256, n_tokens=128, io=[0, 2, 3, 6],
+            io_bits=[8, 4, 2, 16], recompute=[1, 4, 5])
 
 
 def log(*a):
@@ -751,6 +777,21 @@ def attn_phase():
                       _ad_case(1, 64, S, Hg, KVg, hdg,
                                _serve_positions(200), g, dev),
                       200, ((0, 0), (512, 4), (16, 0))))
+    # the slot engine's shapes: the pipelined restore's recompute set of
+    # non-contiguous chunks (SLOT["recompute"], 48 rows padded with the
+    # pad slot 511 to the 64-row bucket) in a 128-token context, and
+    # lmk's whole-context recompute (200 tokens from position 0, padded
+    # to the 256-row bucket), both over S = 512
+    slot_pos = ([p for c in SLOT["recompute"] for p in range(16 * c,
+                                                            16 * c + 16)]
+                + [AD_SERVE["pad"]] * 16)
+    slot_args = _ad_case(1, 64, S, H, 32, hd, slot_pos, g, dev)
+    lmk_args = _ad_case(1, 256, S, H, 32, hd,
+                        list(range(200)) + [AD_SERVE["pad"]] * 56, g, dev)
+    cases.append(("slot recompute set", slot_args, SLOT["n_tokens"],
+                  ((0, 0), (512, 4), (16, 0))))
+    cases.append(("lmk whole recompute", lmk_args, 200,
+                  ((0, 0), (512, 4), (16, 0))))
     long_args = _ad_case(1, 512, 4096, H, 32, hd, list(range(3584, 4096)),
                          g, dev)
     cases.append(("long append", long_args, 4096, ((0, 0), (512, 4))))
@@ -816,7 +857,8 @@ def attn_phase():
                              "key")
     log(f"[kernels] attn_density: {n_cases} cases (the GQA shapes "
         f"{[(H, KV, hd) for _, H, KV, hd in GQA_SHAPES]} at serving's "
-        f"extend among them) x (with, without density) "
+        f"extend, the slot recompute set {SLOT['recompute']} and lmk's "
+        f"whole recompute among them) x (with, without density) "
         f"within tolerance of the plain version ({n_empty} rows that see no "
         f"key among them): max |d out| {worst['out']} ({worst['out_rel']} "
         f"of max|out|, tolerance {MQ_OUT_TOL}), max |d density| "
@@ -867,6 +909,11 @@ def attn_phase():
                       long_args, 4096, "served", True),
         "pallas": timed("(1,2048,32,32,128) causal", pallas_args, 2048,
                         "flash", True),
+        "slot": timed(f"(1,64,32,32,128) at chunks {SLOT['recompute']} + "
+                      f"16 pads over 512, seq_len {SLOT['n_tokens']}",
+                      slot_args, SLOT["n_tokens"], "served", False),
+        "lmk": timed("(1,256,32,32,128) at [0,200) + 56 pads over 512, "
+                     "seq_len 200", lmk_args, 200, "served", True),
     }
     return worst, times
 
@@ -1765,8 +1812,503 @@ def _batch_divergence(batched, serial):
 
 
 # --------------------------------------------------------------------- #
+# 3c. the slot engine: paged_pool=False, the Fig.-8 pipelined restore and
+#     the whole-state baselines
+# --------------------------------------------------------------------- #
+def slot_phase(model, params, seed, swap_root, label, policy="llms",
+               quant_resident=False, split="profiled", profile=None,
+               budget_chunks=SLOT["budget_chunks"], profile_restore=False):
+    """Drive LLMService over ``model`` with ``paged_pool=False`` (each
+    context assembled into a slot cache) through ``callLLM``: the serve
+    phase's trace (4 contexts x 3 rounds, prompts 32-64, 8 new tokens,
+    decode_batch 1).  ``split``: "profiled" measures the card's §3.3.i
+    profile (``profile_pipeline``) and the Eq.-4 split follows it;
+    "forced" leaves the service unprofiled, so the heaviest half of
+    every restore is recomputed (the Fig.-8 loop surely runs); a given
+    ``profile`` (a rerun) is injected instead.  The kernel launch counts
+    are zeroed just before the calls and read just after.  Every greedy
+    pick keeps its logits row (on the CPU).  With ``profile_restore``,
+    the first pipelined restore runs under the profiler."""
+    import numpy as np
+    import torch
+    from repro_torch.core import restore
+    from repro_torch.core.service import LLMService, LLMSConfig
+    from repro_torch.kernels import attn_density as kad
+    from repro_torch.kernels import chunk_quant
+    from repro_torch.kernels import decode_mqattn as kmq
+    from repro_torch.kernels import decode_qattn as kdq
+
+    cfg, device = model.cfg, model.device
+    on_card = device.type == "cuda"
+    name = f"[slot:{label}]"
+    sc = LLMSConfig(policy=policy, paged_pool=False, decode_batch=1,
+                    max_ctx_len=SLOT["max_ctx"], chunk_tokens=16,
+                    memory_budget=budget_chunks * 2 * cfg.n_layers * 16
+                    * cfg.n_kv_heads * cfg.head_dim * 2,   # raw chunks
+                    quant_resident=quant_resident,
+                    swap_dir=tempfile.mkdtemp(dir=swap_root))
+    svc = LLMService(model, params, sc, device=device)
+    exe, res = svc.exe, svc.res
+    if sc.use_pipeline:
+        if profile is not None:
+            for k, v in profile.items():
+                setattr(res.profile, k, v)
+            res.profiled = True
+        elif split == "profiled":
+            svc.profile_pipeline()
+    used_profile = dataclasses.asdict(res.profile) if res.profiled else None
+    now = {"split": [], "pipelined": [], "whole": [], "rows": []}
+    prof = {}
+    plan, run_pipe = res._plan_restore, exe.run_pipelined
+    whole, extend, decode = res._restore_whole_timed, exe.extend, exe.decode
+
+    def logged_plan(ctx, missing):
+        re_idx, io_idx = plan(ctx, missing)
+        now["split"].append((list(map(int, re_idx)), list(map(int, io_idx))))
+        return re_idx, io_idx
+
+    def logged_pipe(*a, **k):
+        if on_card and profile_restore and "restore" not in prof:
+            out, prof["restore"] = _profile_round(lambda: run_pipe(*a, **k))
+        else:
+            out = run_pipe(*a, **k)
+        now["pipelined"].append(dict(exe.last_pipelined))
+        return out
+
+    def logged_whole(ctx, cache):
+        now["whole"].append(
+            "resident" if ctx.whole is not None
+            else "read" if sc.use_disk and res.store.nbytes((ctx.cid, -1))
+            else "recompute")
+        return whole(ctx, cache)
+
+    def kept(fn):
+        def run(*a, **k):
+            out = fn(*a, **k)
+            row = torch.as_tensor(np.asarray(out[1], np.float32)).reshape(-1)
+            if not torch.isfinite(row).all():
+                raise AssertionError(f"{name} non-finite logits")
+            now["rows"].append(row.clone())
+            return out
+        return run
+
+    res._plan_restore, exe.run_pipelined = logged_plan, logged_pipe
+    res._restore_whole_timed = whole if sc.chunked else logged_whole
+    exe.extend, exe.decode = kept(extend), kept(decode)
+    trace = _trace(cfg.vocab, seed)
+    records, picks = [], []
+    with svc:
+        stubs = [svc.newLLMCtx() for _ in range(4)]
+        chunk_quant.reset_launches()
+        kmq.reset_launches()
+        kad.reset_launches()
+        kdq.reset_launches()
+        t_run = time.perf_counter()
+        for i, (c, prompt, max_new) in enumerate(trace):
+            for v in now.values():
+                v.clear()
+            read0 = restore.io_counters()["read"]
+            ad0, mq0 = kad.attn_density.launches, kmq.decode_mqattn.launches
+            t1 = time.perf_counter()
+            _, toks = svc.callLLM(stubs[c], prompt, max_new)
+            exe.sync()
+            wall = time.perf_counter() - t1
+            ctx = svc.contexts[stubs[c].ctx_id]
+            bits = [m.bits for _, m in sorted(ctx.chunks.items())]
+            rec = {"ctx": c, "tokens": list(map(int, toks)), "bits": bits,
+                   "switch_s": svc.records[-1]["switch_s"], "wall_s": wall,
+                   "restored_bytes": restore.io_counters()["read"] - read0,
+                   "split": list(now["split"]),
+                   "pipelined": list(now["pipelined"]),
+                   "whole": list(now["whole"]),
+                   "attn_density_launches": kad.attn_density.launches - ad0,
+                   "mqattn_launches": kmq.decode_mqattn.launches - mq0}
+            rec["disk_restore"] = bool(rec["restored_bytes"] > 0 or any(
+                w in ("read", "recompute") for w in rec["whole"]))
+            if len(now["rows"]) != len(toks):
+                raise AssertionError(f"{name} call {i}: {len(now['rows'])} "
+                                     f"logits rows for {len(toks)} tokens")
+            picks.extend((i, j, row) for j, row in enumerate(now["rows"]))
+            records.append(rec)
+            pl = ", ".join(f"{p['wall_s'] * 1e3:.1f} ms (fetch wait "
+                           f"{p['fetch_wait_s'] * 1e3:.1f} ms)"
+                           for p in rec["pipelined"])
+            log(f"{name} call {i:2d} ctx {c} prompt {len(prompt)} -> "
+                f"{len(toks)} tokens | switch {rec['switch_s'] * 1e3:.3f} ms "
+                f"| read {rec['restored_bytes']} B | split (recompute, io) "
+                f"{rec['split']} | pipelined {pl or '-'} | whole "
+                f"{rec['whole'] or '-'} | wall {wall * 1e3:.1f} ms | "
+                f"attn_density {rec['attn_density_launches']} | "
+                f"decode_mqattn {rec['mqattn_launches']} | bits {bits}")
+        run_s = time.perf_counter() - t_run
+        launches = {"quantize": chunk_quant.quantize.launches,
+                    "dequantize": chunk_quant.dequantize.launches,
+                    "decode_mqattn": kmq.decode_mqattn.launches,
+                    "attn_density": kad.attn_density.launches,
+                    "attn_density_with_density":
+                        kad.attn_density.density_launches,
+                    "decode_qattn": kdq.decode_qattn.launches}
+        stats = svc.stats()
+    disk = sorted(r["switch_s"] * 1e3 for r in records if r["disk_restore"])
+    pipes = [p for r in records for p in r["pipelined"]]
+    splits = [s for r in records for s in r["split"]]
+    log(f"{name} {cfg.name} policy {policy}, quant_resident "
+        f"{quant_resident}, split {split if profile is None else 'given'}: "
+        f"{len(records)} calls in {run_s:.2f} s; kernel launches {launches}")
+    log(f"{name} restore profile {used_profile}")
+    if disk:
+        log(f"{name} switch_s over {len(disk)} disk restores: median "
+            f"{disk[len(disk) // 2]:.3f} ms, max {disk[-1]:.3f} ms")
+    if splits:
+        log(f"{name} chunks recomputed / read per restore: "
+            f"{[(len(a), len(b)) for a, b in splits]}")
+    if pipes:
+        walls = sorted(p["wall_s"] * 1e3 for p in pipes)
+        waits = sorted(p["fetch_wait_s"] * 1e3 for p in pipes)
+        log(f"{name} {len(pipes)} pipelined restores: wall median "
+            f"{walls[len(walls) // 2]:.2f} ms (max {walls[-1]:.2f}), host "
+            f"blocked in fetch median {waits[len(waits) // 2]:.2f} ms (max "
+            f"{waits[-1]:.2f})")
+    if "restore" in prof:
+        log(f"{name} a pipelined restore under the profiler: "
+            f"{json.dumps(prof['restore'])}")
+    log(f"{name} stats {json.dumps(stats, default=str)}")
+
+    if stats["total_calls"] != len(trace) or any(
+            len(r["tokens"]) != 8 for r in records):
+        raise AssertionError(f"{name} a call did not complete")
+    if len(disk) < 2 and budget_chunks == SLOT["budget_chunks"]:
+        raise AssertionError(f"{name} {len(disk)} restores from disk (or, "
+                             f"under lmk, recomputes of a killed context), "
+                             f"not >= 2")
+    if on_card and not launches["attn_density"]:
+        raise AssertionError(f"{name} attn_density never ran")
+    if on_card and sc.chunked and not (launches["quantize"]
+                                       and launches["dequantize"]):
+        raise AssertionError(f"{name} a codec kernel never ran: {launches}")
+    if quant_resident and on_card and not launches["decode_mqattn"]:
+        raise AssertionError(f"{name} decode_mqattn never ran on the slot "
+                             "cache")
+    if launches["decode_qattn"]:
+        raise AssertionError(f"{name} decode_qattn ran on the slot cache, "
+                             "which holds no all-int8 layout")
+    if split == "forced" and sc.use_pipeline and budget_chunks == \
+            SLOT["budget_chunks"] and not pipes:
+        raise AssertionError(f"{name} no pipelined restore ran")
+    del svc, exe, res, plan, run_pipe, whole, extend, decode
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"records": records, "launches": launches, "stats": stats,
+            "run_s": run_s, "profile": used_profile, "picks": picks,
+            "restore_profile": prof.get("restore"), "disk_switch_ms": disk,
+            "pipelined": pipes, "splits": splits}
+
+
+def _same_slot_run(a, b, what):
+    """A rerun under the same profile must give the same tokens, bit
+    plans and restore splits, call by call."""
+    for i, (x, y) in enumerate(zip(a["records"], b["records"])):
+        if (x["tokens"], x["bits"], x["split"]) != \
+                (y["tokens"], y["bits"], y["split"]):
+            raise AssertionError(f"{what}: the rerun differs at call {i}: "
+                                 f"{x} vs {y}")
+    log(f"[slot] {what}: the rerun under the same profile gave identical "
+        f"tokens, bit plans and splits over {len(a['records'])} calls")
+
+
+def _slot_divergence(run, base):
+    """``run``'s tokens against the no-pressure run ``base``, call by
+    call: equal calls, calls after an earlier difference on the same
+    context, calls under another bit plan at their start, and for each
+    other call that differs its first differing step, ``base``'s top-2
+    gap there, the runs' largest logit difference there and whether the
+    gap lies within it (a near-tie).  -> (counts, examined calls)."""
+    import torch
+
+    def rows(r):
+        out = {}
+        for i, j, row in r["picks"]:
+            out.setdefault(i, {})[j] = row
+        return out
+
+    ra, rb = rows(run), rows(base)
+    counts = {"calls": 0, "equal": 0, "after_a_difference": 0,
+              "other_bit_plan": 0, "near_tie": 0, "wide": 0}
+    examined, diverged, plan = [], set(), {}
+    for i, (x, y) in enumerate(zip(run["records"], base["records"])):
+        counts["calls"] += 1
+        c = x["ctx"]
+        start_a, start_b = plan.get(("a", c)), plan.get(("b", c))
+        plan["a", c], plan["b", c] = x["bits"], y["bits"]
+        if c in diverged:
+            counts["after_a_difference"] += 1
+            continue
+        if x["tokens"] == y["tokens"]:
+            counts["equal"] += 1
+            continue
+        diverged.add(c)
+        if start_a != start_b:
+            counts["other_bit_plan"] += 1
+            continue
+        j = next(j for j, (p, q) in enumerate(zip(x["tokens"], y["tokens"]))
+                 if p != q)
+        a, b = ra[i][j], rb[i][j]
+        top2 = torch.topk(b, 2).values
+        gap, d = float(top2[0] - top2[1]), float((a - b).abs().max())
+        tie = gap <= d
+        counts["near_tie" if tie else "wide"] += 1
+        examined.append({"call": i, "ctx": c, "step": j,
+                         "tokens_run_base": (x["tokens"][j], y["tokens"][j]),
+                         "top2_gap_base": gap, "max_abs_diff": d,
+                         "near_tie": tie})
+    return counts, examined
+
+
+def pipelined_check(model, params, swap_root, quant_resident=False):
+    """One restore at full width, two ways, from the same prefilled
+    cache (128 tokens; chunk 7 resident, as int8 segments in the mixed
+    cache): chunks SLOT["io"] from chunk files (at SLOT["io_bits"]) and
+    SLOT["recompute"] recomputed.  The layer-pipelined restore
+    (``run_pipelined`` over a ``LayerFeed``) must equal the whole-file
+    inserts followed by ``extend_nod`` bit for bit over every context
+    position, the quant mask and the recomputed rows' hidden state too.  Then the pipelined restore once
+    more under the profiler.  -> its wall time, host wait in fetch,
+    attn_density launches and the profile."""
+    import numpy as np
+    import torch
+    from repro_torch.core.restore import (LayerFeed, read_chunk_file,
+                                          write_chunk_file)
+    from repro_torch.core.service import LLMService, LLMSConfig
+    from repro_torch.kernels import attn_density as kad
+    cfg, device = model.cfg, model.device
+    on_card = device.type == "cuda"
+    what = f"[slot] pipelined restore{' (mixed cache)' if quant_resident else ''}"
+    sc = LLMSConfig(policy="llms", paged_pool=False,
+                    max_ctx_len=SLOT["max_ctx"], memory_budget=1 << 40,
+                    quant_resident=quant_resident,
+                    swap_dir=tempfile.mkdtemp(dir=swap_root))
+    out = {}
+    with LLMService(model, params, sc, device=device) as svc:
+        exe, res = svc.exe, svc.res
+        cs, n = exe.cs, SLOT["n_tokens"]
+        rng = np.random.default_rng(SEED + 7)
+        toks = rng.integers(1, cfg.vocab, n).astype(np.int32)
+        full, _, _ = exe.extend(exe.fresh_cache(0), toks, 0)
+        last = n // cs - 1
+        if quant_resident:
+            qc = res._make_payload(full, last, 8, quant=True)
+            exe.codec.scatter_quant(
+                full, exe._t(exe.chunk_positions([last])),
+                {k: torch.from_numpy(qc.data[k][0]).to(device)
+                 for k in exe.codec.leaves},
+                {k: torch.from_numpy(qc.data[k][1]).to(device)
+                 for k in exe.codec.leaves})
+        io_idx, re_idx = SLOT["io"], SLOT["recompute"]
+        paths = []
+        for i, bits in zip(io_idx, SLOT["io_bits"]):
+            p = os.path.join(sc.swap_dir, f"check{i}.chunk")
+            write_chunk_file(p, res._make_payload(full, i, bits),
+                             exe.n_layers)
+            paths.append(p)
+        restored = exe._t(exe.chunk_positions(io_idx + re_idx))
+        miss_b = exe.bucket_pad(exe.chunk_positions(re_idx), exe.pad_slot)
+        toks_b = exe.bucket_pad(toks[exe.chunk_positions(re_idx)], 0)
+        nio_b = next(x for x in exe.io_buckets if x >= len(io_idx))
+        io_pos_b = np.concatenate(
+            [exe.chunk_positions(io_idx),
+             np.full((nio_b - len(io_idx)) * cs, exe.pad_slot, np.int32)])
+
+        def holes():
+            c = {k: v.clone() for k, v in full.items()}
+            for k in exe.codec.leaves:
+                c[k][:, :, restored] = 0
+            return c
+
+        def pipelined(cache):
+            feed = LayerFeed(paths, exe.codec.leaves, exe.n_layers, cs,
+                             exe.leaf_dims, pad_chunks=nio_b - len(io_idx),
+                             alloc=exe.host_alloc)
+            _, hidden = exe.run_pipelined(feed, toks_b, miss_b, io_pos_b,
+                                          cache, n)
+            feed.close()
+            return cache, hidden
+
+        kad.reset_launches()
+        a = holes()
+        exe.sync()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if on_card:             # report implicit syncs of the loop
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                _, h_a = pipelined(a)
+            finally:
+                if on_card:
+                    torch.cuda.set_sync_debug_mode("default")
+        # each implicit sync the loop made, where (file:line) and how often
+        out["sync_warnings"] = {}
+        for w in caught:
+            key = (f"{os.path.basename(w.filename)}:{w.lineno}: "
+                   f"{str(w.message).splitlines()[0][:60]}")
+            out["sync_warnings"][key] = out["sync_warnings"].get(key, 0) + 1
+        out["attn_density_launches"] = kad.attn_density.launches
+        out.update(exe.last_pipelined)
+        # each side alone: the feed with no compute, then the inserts and
+        # the recompute with no feed (the I/O-then-recompute restore)
+        t0 = time.perf_counter()
+        feed = LayerFeed(paths, exe.codec.leaves, exe.n_layers, cs,
+                         exe.leaf_dims, pad_chunks=nio_b - len(io_idx),
+                         alloc=exe.host_alloc)
+        for layer in range(exe.n_layers):
+            feed.fetch(layer)
+        feed.close()
+        out["feed_alone_s"] = time.perf_counter() - t0
+        b = holes()
+        exe.sync()
+        t0 = time.perf_counter()
+        for i, p in zip(io_idx, paths):
+            exe.codec.insert(b, i * cs, res._payload_blocks(
+                read_chunk_file(p)))
+        exe.sync()
+        out["inserts_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, h_b, _ = exe.extend_nod(toks_b, miss_b, b, n)
+        exe.sync()
+        out["recompute_alone_s"] = time.perf_counter() - t0
+        if not torch.equal(h_a, h_b):
+            raise AssertionError(f"{what}: the recomputed rows' hidden "
+                                 f"state differs from the I/O-then-"
+                                 f"recompute restore's")
+        for k in exe.codec.leaves:
+            if not torch.equal(a[k][:, :, :n], b[k][:, :, :n]):
+                d = float((a[k][:, :, :n].float()
+                           - b[k][:, :, :n].float()).abs().max())
+                raise AssertionError(f"{what}: leaf {k} differs from the "
+                                     f"I/O-then-recompute restore (max "
+                                     f"|diff| {d})")
+        if quant_resident and not torch.equal(a["quant_mask"],
+                                              b["quant_mask"]):
+            raise AssertionError(f"{what}: the quant masks differ")
+        if on_card:
+            c = holes()
+            (c, _), out["profile"] = _profile_round(lambda: pipelined(c))
+            out["profiled_wall_s"] = exe.last_pipelined["wall_s"]
+            if not all(torch.equal(c[k], a[k]) for k in exe.codec.leaves):
+                raise AssertionError(f"{what}: the profiled rerun differs")
+        if on_card and out["attn_density_launches"] != cfg.n_layers:
+            raise AssertionError(f"{what}: {out['attn_density_launches']} "
+                                 f"attn_density launches, not "
+                                 f"{cfg.n_layers}")
+    log(f"{what}: chunks {io_idx} read at {SLOT['io_bits']} bits, "
+        f"{re_idx} recomputed ({len(miss_b)} query rows incl. pads at "
+        f"{exe.pad_slot}), over S = {exe.s_work}: equal to the "
+        f"I/O-then-recompute restore bit for bit; wall "
+        f"{out['wall_s'] * 1e3:.2f} ms, host blocked in fetch "
+        f"{out['fetch_wait_s'] * 1e3:.2f} ms; alone: the feed "
+        f"{out['feed_alone_s'] * 1e3:.2f} ms, the whole-file inserts "
+        f"{out['inserts_s'] * 1e3:.2f} ms, the recompute "
+        f"{out['recompute_alone_s'] * 1e3:.2f} ms; implicit syncs in the "
+        f"restore {out['sync_warnings'] or 'none'}; attn_density launches "
+        f"{out['attn_density_launches']}; under the profiler "
+        f"{json.dumps(out.get('profile'))}")
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------- #
 # 4. reduced model on the card vs the same port on the CPU
 # --------------------------------------------------------------------- #
+def _check_pipelined(name):
+    """The reduced ``name``'s layer-pipelined restore on the card against
+    the same port on the CPU: one prefilled cache (64 tokens) and the
+    same chunk files (chunks 0 and 3 at 8 and 4 bits), chunk 2
+    recomputed through ``run_pipelined``; the restored K/V and the
+    logits of the recomputed rows (the last layer's attention output
+    reaches only these) agree at the check phase's tolerance (2% of the
+    range: bf16 products round differently), and the card launches
+    attn_density once per layer."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.restore import LayerFeed, write_chunk_file
+    from repro_torch.core.service import LLMService, LLMSConfig
+    from repro_torch.kernels import attn_density as kad
+    from repro_torch.models.registry import build_model
+    cfg = reduced(get_config(name))
+    cpu = build_model(cfg, device="cpu")
+    params_cpu = cpu.init(torch.Generator().manual_seed(SEED))
+    gpu = build_model(cfg, device="cuda")
+    params_gpu = {k: ({n: w.cuda() for n, w in v.items()}
+                      if isinstance(v, dict) else v.cuda())
+                  for k, v in params_cpu.items()}
+    io_idx, re_idx, n = [0, 3], [2], 64
+    out, logits, paths = {}, {}, []
+    with tempfile.TemporaryDirectory(prefix="llms_chip_check_") as root:
+        for dev, model, params in (("cpu", cpu, params_cpu),
+                                   ("cuda", gpu, params_gpu)):
+            sc = LLMSConfig(policy="llms", paged_pool=False, max_ctx_len=64,
+                            memory_budget=1 << 40,
+                            swap_dir=tempfile.mkdtemp(dir=root))
+            with LLMService(model, params, sc, device=dev) as svc:
+                exe, res = svc.exe, svc.res
+                if dev == "cpu":
+                    rng = np.random.default_rng(SEED + 9)
+                    toks = rng.integers(1, cfg.vocab, n).astype(np.int32)
+                    full, _, _ = exe.extend(exe.fresh_cache(0), toks, 0)
+                    for i, bits in zip(io_idx, (8, 4)):
+                        p = os.path.join(root, f"check{i}.chunk")
+                        write_chunk_file(p, res._make_payload(full, i, bits),
+                                         exe.n_layers)
+                        paths.append(p)
+                    pos = torch.as_tensor(exe.chunk_positions(io_idx
+                                                              + re_idx))
+                    for k in exe.codec.leaves:
+                        full[k][:, :, pos] = 0
+                cache = {k: v.to(dev, copy=True) for k, v in full.items()}
+                miss = exe.chunk_positions(re_idx)
+                feed = LayerFeed(paths, exe.codec.leaves, exe.n_layers,
+                                 exe.cs, exe.leaf_dims, pad_chunks=0,
+                                 alloc=exe.host_alloc)
+                kad.reset_launches()
+                _, hidden = exe.run_pipelined(
+                    feed, exe.bucket_pad(toks[miss], 0),
+                    exe.bucket_pad(miss, exe.pad_slot),
+                    exe.chunk_positions(io_idx), cache, n)
+                feed.close()
+                exe.sync()
+                launches = kad.attn_density.launches
+                out[dev] = {k: cache[k][:, :, :n].float().cpu()
+                            for k in exe.codec.leaves}
+                logits[dev] = torch.from_numpy(
+                    exe.logits(hidden[0, :len(miss)]))
+    span = max(float(v.abs().max()) for v in out["cpu"].values())
+    worst = max(float((out["cpu"][k] - out["cuda"][k]).abs().max())
+                for k in out["cpu"])
+    if worst > 0.02 * span + 1e-3:
+        raise AssertionError(f"[check] reduced {name} pipelined restore: the "
+                             f"card's K/V differ from the CPU's by {worst} "
+                             f"(range {span})")
+    l_span = float(logits["cpu"].abs().max())
+    l_worst = float((logits["cpu"] - logits["cuda"]).abs().max())
+    if not torch.isfinite(logits["cuda"]).all() or \
+            l_worst > 0.02 * l_span + 1e-3:
+        raise AssertionError(f"[check] reduced {name} pipelined restore: the "
+                             f"card's logits of the recomputed rows differ "
+                             f"from the CPU's by {l_worst} (range {l_span})")
+    if launches != cfg.n_layers:
+        raise AssertionError(f"[check] reduced {name} pipelined restore: "
+                             f"{launches} attn_density launches, not "
+                             f"{cfg.n_layers}")
+    log(f"[check] reduced {name}, layer-pipelined restore (chunks {io_idx} "
+        f"fed, {re_idx} recomputed): card vs CPU max |K/V diff| "
+        f"{worst:.5f} (range {span:.4f}), max |logit diff| of the "
+        f"recomputed rows {l_worst:.5f} (range {l_span:.4f}), tolerance 2% "
+        f"of range; attn_density launches {launches}")
+
+
 def _teacher_forced(model, params, dev, arenas0, mixed):
     """Extend a prompt into row 0's pages, then four decode rounds fed
     fixed tokens.  The bf16 view: one row, pages [3, 7].  The mixed
@@ -1828,6 +2370,7 @@ def _teacher_forced_int8(model, params, dev):
 def check_phase():
     for name in ("llama2-7b", "smollm-360m"):
         _check_config(name)
+    _check_pipelined("llama2-7b")
 
 
 def _check_config(name):
@@ -1929,6 +2472,13 @@ def _router_launches(routed, key):
                                 for label in ("bf16", "quant", "gqa")}}
 
 
+def _slot_launches(slots, key):
+    """A kernel's launches in the slot phase's runs, each counted from 0
+    just before the run and read just after it."""
+    return {"launches_slot": {label: run["launches"][key]
+                              for label, run in slots.items()}}
+
+
 def main() -> int:
     try:
         import torch
@@ -1974,6 +2524,44 @@ def main() -> int:
                 ("serial", dict(decode_batch=1, keep_logits=True))):
             routed[label] = router_phase(model, params, SEED, root, label,
                                          ROUTER["calls"], **kw)
+    t_slot = time.perf_counter()
+    slots = {}
+    with tempfile.TemporaryDirectory(prefix="llms_chip_slot_") as root:
+        slots["no-pressure"] = slot_phase(model, params, SEED, root,
+                                          "no-pressure", split="forced",
+                                          budget_chunks=1 << 20)
+        slots["llms"] = slot_phase(model, params, SEED, root, "llms")
+        slots["llms-rerun"] = slot_phase(model, params, SEED, root,
+                                         "llms-rerun",
+                                         profile=slots["llms"]["profile"])
+        slots["llms-forced"] = slot_phase(model, params, SEED, root,
+                                          "llms-forced", split="forced",
+                                          profile_restore=True)
+        for policy in ("llms_nopipe", "swap", "lmk"):
+            slots[policy] = slot_phase(model, params, SEED, root, policy,
+                                       policy=policy)
+        slots["quant"] = slot_phase(model, params, SEED, root, "quant",
+                                    quant_resident=True, split="forced")
+        checks = [pipelined_check(model, params, root, quant_resident=q)
+                  for q in (False, True)]
+    _same_slot_run(slots["llms"], slots["llms-rerun"],
+                   "llms (the card's profile)")
+    for label, run in slots.items():
+        if label == "no-pressure":
+            continue
+        counts, examined = _slot_divergence(run, slots["no-pressure"])
+        log(f"[slot] {label} against the no-pressure run, call by call: "
+            f"{counts}")
+        for e in examined:
+            log(f"[slot] {label} first divergence: {json.dumps(e)}")
+    for label, run in slots.items():
+        run.pop("picks")
+        d = run["disk_switch_ms"]
+        log(f"[slot] {label}: switch_s over {len(d)} disk restores median "
+            f"{d[len(d) // 2] if d else None} ms, max "
+            f"{d[-1] if d else None} ms; {len(run['pipelined'])} pipelined "
+            f"restores; {run['run_s']:.2f} s for 12 calls")
+    log(f"[slot] the slot phases took {time.perf_counter() - t_slot:.1f} s")
     del model, params
     torch.cuda.empty_cache()
     model, params = build_weights(get_config("smollm-360m"), SEED)
@@ -2020,7 +2608,7 @@ def main() -> int:
         row = times[4][name]
         kernels.append({
             "name": f"chunk_{name}", "route": "cuda", "source": src,
-            **_router_launches(routed, name),
+            **_router_launches(routed, name), **_slot_launches(slots, name),
             "replaces": f"src/repro/kernels/chunk_quant.py:{line}",
             "launches": first["launches"][name], "max_abs_err": max_err,
             "ms": _device_or_call(row, ""),
@@ -2055,6 +2643,7 @@ def main() -> int:
         "name": "decode_mqattn", "route": "cuda",
         "source": "src/repro_torch/csrc/decode_mqattn.cu",
         **_router_launches(routed, "decode_mqattn"),
+        **_slot_launches(slots, "decode_mqattn"),
         "replaces": "src/repro/kernels/decode_qattn.py:183",
         "launches": quant["launches"]["decode_mqattn"],
         "max_abs_err": mq_err["out"], "max_abs_err_mass": mq_err["mass"],
@@ -2085,8 +2674,15 @@ def main() -> int:
             "source": "src/repro_torch/csrc/attn_density.cu",
             **_router_launches(routed, "attn_density" if key == "out"
                                else "attn_density_with_density"),
+            **_slot_launches(slots, "attn_density" if key == "out"
+                             else "attn_density_with_density"),
             "replaces": f"src/repro/kernels/attn_density.py:{line}",
             "launches": launches, "max_abs_err": err,
+            "pipelined_restore_full_width": {
+                k: [c.get(k) for c in checks] for k in (
+                    "wall_s", "fetch_wait_s", "feed_alone_s",
+                    "inserts_s", "recompute_alone_s", "sync_warnings",
+                    "attn_density_launches", "profile")},
             "ms": _device_or_call(row, ""),
             "plain_ms": _device_or_call(row, "plain_"),
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -2105,13 +2701,16 @@ def main() -> int:
                 "shape", "form", "device_ms", "call_ms", "plain_device_ms",
                 "library_device_ms", "bound_ms", "bound_by")}
                for name, src in (("long_append", "long"),
-                                 ("pallas_setting", "pallas"))},
+                                 ("pallas_setting", "pallas"),
+                                 ("slot_recompute_set", "slot"),
+                                 ("lmk_whole_recompute", "lmk"))},
         })
     row, long_row = dq_times
     kernels.append({
         "name": "decode_qattn", "route": "cuda",
         "source": "src/repro_torch/csrc/decode_mqattn.cu",
         "replaces": "src/repro/kernels/decode_qattn.py:84",
+        **_slot_launches(slots, "decode_qattn"),
         "launches": int8[0]["launches"],
         "max_abs_err": dq_err["out"], "max_abs_err_mass": dq_err["mass"],
         "ms": _device_or_call(row, ""),

@@ -1,6 +1,6 @@
 """Chunked view of a context's KV cache (paper §3.1, Fig. 4).
 
-Mirror of the JAX package's core/chunks.py for the paged path.  A chunk
+Mirror of the JAX package's core/chunks.py for the dense family.  A chunk
 covers ``chunk_tokens`` consecutive tokens ACROSS ALL LAYERS.  The codec
 canonicalizes each sequence cache leaf into a (T, F) block — T chunk
 tokens, F = flattened (layers x heads x channels) — the layout the chunk
@@ -83,7 +83,8 @@ class ChunkCodec:
         self.device = resolve_device(device)
         if not self.leaves:
             raise ValueError("cache has no sequence leaves; the whole-state "
-                             "codec is not ported (ROADMAP.md)")
+                             "codec of the recurrent families is not "
+                             "ported (ROADMAP.md)")
 
     # -- canonical (T, F) view ------------------------------------------ #
     def extract(self, cache, lo: int, hi: int) -> Dict[str, torch.Tensor]:
@@ -104,6 +105,57 @@ class ChunkCodec:
             t = blk.reshape(shp).movedim(0, TOKEN_AXIS)
             a[:, :, lo:lo + T] = t.to(a.dtype)
         return cache
+
+    def scatter(self, cache, positions: torch.Tensor,
+                blocks: Dict[str, torch.Tensor]):
+        """Write (T, F) blocks at arbitrary token ``positions`` (T,), IN
+        PLACE; returns ``cache``.  Repeated (pad) positions carry
+        identical rows."""
+        for name, blk in blocks.items():
+            a = cache[name]
+            T = blk.shape[0]
+            shp = [T] + [s for i, s in enumerate(a.shape) if i != TOKEN_AXIS]
+            a[:, :, positions] = blk.reshape(shp).movedim(0, TOKEN_AXIS).to(
+                a.dtype)
+        return cache
+
+    def scatter_quant(self, cache, positions: torch.Tensor,
+                      codes: Dict[str, torch.Tensor],
+                      scales: Dict[str, torch.Tensor]):
+        """Write decode-grid (T, F) code blocks / (T, Fs) scale blocks
+        into the ``<leaf>_q`` / ``<leaf>_scale`` segments of a mixed
+        cache at token ``positions`` (T,) and raise ``quant_mask`` there,
+        IN PLACE; returns ``cache``.  The slot path's switch-in of the
+        quant-resident tier: a copy of the payload's bytes."""
+        for name in codes:
+            self.scatter(cache, positions, {f"{name}_q": codes[name],
+                                            f"{name}_scale": scales[name]})
+        cache["quant_mask"][:, :, positions] = True
+        return cache
+
+    def extract_mixed(self, cache, lo: int, hi: int
+                      ) -> Dict[str, torch.Tensor]:
+        """(T, F) blocks of the TRUE cache values of tokens [lo, hi): the
+        bf16 window where ``quant_mask`` is clear, the dequantized int8
+        segments where it is set.  The only valid re-encode source for a
+        mixed cache: its bf16 array is stale at quant-resident
+        positions."""
+        out = self.extract(cache, lo, hi)
+        if "quant_mask" not in cache:
+            return out
+        qm = cache["quant_mask"]                    # (1, B, S)
+        if qm.shape[1] != 1:
+            raise ValueError("mixed extract expects a batch-1 slot")
+        m = qm[:, :, lo:hi].reshape(-1)[:, None]    # (T, 1)
+        for name in self.leaves:
+            hd = cache[name].shape[-1]
+            cq = cache[f"{name}_q"][:, :, lo:hi].movedim(TOKEN_AXIS, 0)
+            sc = cache[f"{name}_scale"][:, :, lo:hi].movedim(TOKEN_AXIS, 0)
+            T = cq.shape[0]
+            dq = (cq.reshape(T, -1, hd).to(torch.float32)
+                  * sc.reshape(T, -1)[..., None]).to(out[name].dtype)
+            out[name] = torch.where(m, dq.reshape(T, -1), out[name])
+        return out
 
     # -- compression ------------------------------------------------------ #
     def compress_blocks(self, blocks: Dict[str, torch.Tensor],

@@ -1,37 +1,43 @@
 """Model executor — the model entry points of the serving stack.
 
-Mirror of the JAX package's core/executor.py for the paged engine:
-the power-of-two token/batch buckets, ``paged_extend``/``paged_decode``
-over the global page arenas, the page admit/read/zero helpers, and the
-``fresh_cache``/``extend_nod`` pair that ``profile_pipeline`` times.
+Mirror of the JAX package's core/executor.py: the power-of-two
+token/batch/I-O buckets, and two engines over the same model entries.
+
+* **Slot caches** (``paged_pool=False``, and every non-chunked policy):
+  ``fresh_cache`` gives one context's working cache — the window
+  layout, or the mixed layout (bf16 window + int8 segments) with
+  ``quant_resident`` — and ``extend`` / ``decode`` / ``recompute`` /
+  ``extend_nod`` run ``DenseModel.recompute`` and ``decode_step`` on
+  it.  ``run_pipelined`` runs the paper's Fig.-8 restore
+  (``DenseModel.recompute_pipelined``): a Python layer loop that takes
+  layer l of the disk chunks from a ``restore.LayerFeed`` while the
+  feed's I/O thread reads layer l + 1.
+* **The paged pool**: ``paged_extend`` / ``paged_decode`` over the
+  global page arenas, and the page admit/read/zero helpers.
 
 PyTorch runs eagerly, so the reference's process-wide ``_JIT_CACHE``
-has no counterpart.  The buckets stay all the same: prefill positions
-are padded to ``pad_slot``, those padded query rows attend every valid
-key and enter the Eq.-1 density, and the density drives the Eq.-3 bit
-plan — so the port pads exactly as the reference does.
+has no counterpart, and the pipelined restore needs no ``io_callback``
+and no ``_ACTIVE_FEED`` global: the feed is an argument.  The buckets
+stay all the same: prefill positions are padded to ``pad_slot``, those
+padded query rows attend every valid key and enter the Eq.-1 density,
+and the density drives the Eq.-3 bit plan — so the port pads exactly as
+the reference does.
 
-The arenas are updated IN PLACE (each entry returns the same dict the
-caller passed) instead of being rebuilt functionally as in JAX.
-
-With ``quant_resident`` the pool also holds int8 QUANT pages (``<leaf>8``
-codes, ``<leaf>8s`` per-(token, kv-head) scales) that decode attends in
-place through the mixed cache.
-
-Not ported yet (ROADMAP.md): the slot engine with its layer-pipelined
-restore (``paged_pool=False``) and the whole-state codec of non-chunked
-policies.
+Caches and arenas are updated IN PLACE (each entry returns the same
+dict the caller passed, with ``pos`` replaced where it moves) instead
+of being rebuilt functionally as in JAX.
 """
 from __future__ import annotations
 
 import math
-from typing import List, Sequence
+import time
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.chunks import ChunkCodec
-from repro_torch.models.kvspec import LAYOUT_WINDOW
+from repro_torch.models.kvspec import LAYOUT_MIXED, LAYOUT_WINDOW
 
 
 def _pow2_buckets(lo: int, hi: int) -> List[int]:
@@ -72,6 +78,7 @@ class ModelExecutor:
         self.decode_slots = max(1, int(getattr(cfg, "decode_batch", 1) or 1))
         self.can_batch_decode = spec.batched_decode
         self.tok_buckets = _pow2_buckets(self.cs, self.n_slots)
+        self.io_buckets = _pow2_buckets(1, max(self.n_slots // self.cs, 1))
         self.batch_buckets = _pow2_buckets(1, self.decode_slots)
         self.s_work = self.n_slots + self.tok_buckets[-1]
         self.pad_slot = self.s_work - 1
@@ -81,6 +88,10 @@ class ModelExecutor:
             n: (mc.n_layers, 1, self.s_work, *self.leaf_dims[n])
             for n in self.codec.leaves}
         self._zero_cache = None
+        self._pipelining = False
+        # the last pipelined restore: its wall time and the host time it
+        # spent blocked in LayerFeed.fetch
+        self.last_pipelined = {"wall_s": 0.0, "fetch_wait_s": 0.0}
 
         self.paged = (
             bool(getattr(cfg, "paged_pool", False))
@@ -88,21 +99,18 @@ class ModelExecutor:
             and spec.paged
             and self.can_batch_decode
             and self.s_work % self.cs == 0)
-        if not self.paged:
-            raise NotImplementedError(
-                "only the paged-pool engine is ported; the slot engine "
-                "(paged_pool=False) is a later slice (ROADMAP.md)")
         self.pages_per_ctx = self.s_work // self.cs
-        C = self.pages_per_ctx
-        # +1 everywhere: page 0 is the reserved scratch page.  The bf16
-        # arena must at least fit every decode slot's full page row or a
-        # single round could not be satisfied.
-        self.pool_pages16 = max(
-            int(getattr(cfg, "pool_pages_16", 0) or 16 * C + 1),
-            self.decode_slots * C + 1)
-        self.pool_pages8 = (
-            int(getattr(cfg, "pool_pages_8", 0) or 16 * C + 1)
-            if self.quant_resident else 1)
+        if self.paged:
+            C = self.pages_per_ctx
+            # +1 everywhere: page 0 is the reserved scratch page.  The
+            # bf16 arena must at least fit every decode slot's full page
+            # row or a single round could not be satisfied.
+            self.pool_pages16 = max(
+                int(getattr(cfg, "pool_pages_16", 0) or 16 * C + 1),
+                self.decode_slots * C + 1)
+            self.pool_pages8 = (
+                int(getattr(cfg, "pool_pages_8", 0) or 16 * C + 1)
+                if self.quant_resident else 1)
         self._cw = dict(window=cfg.window, n_sinks=cfg.n_sinks)
 
     @property
@@ -131,26 +139,122 @@ class ModelExecutor:
         """Host array -> index tensor on the device."""
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
-    # -- slot-cache entries (profile_pipeline) ------------------------- #
+    def sync(self) -> None:
+        """Wait for the card (a no-op on the CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- slot-cache entries -------------------------------------------- #
     def fresh_cache(self, n_tokens: int):
-        """A zero window cache (1, s_work) with ``pos = n_tokens``.  The
-        zero cache is allocated once, at first use; callers write into
-        a clone."""
+        """A zero working cache (1, s_work) — the mixed layout under
+        ``quant_resident``, else the window layout — with ``pos =
+        n_tokens``.  The zero cache is allocated once, at first use;
+        every caller gets its own clone (the slot engine writes caches
+        in place, so no two slots may share one)."""
         if self._zero_cache is None:
-            self._zero_cache = self.model.init_cache(1, self.s_work,
-                                                     layout=LAYOUT_WINDOW)
+            self._zero_cache = self.model.init_cache(
+                1, self.s_work,
+                layout=LAYOUT_MIXED if self.quant_resident else LAYOUT_WINDOW)
         cache = {k: v.clone() for k, v in self._zero_cache.items()}
+        return self.set_pos(cache, n_tokens)
+
+    def set_pos(self, cache, n_tokens: int):
+        """The reference's ``setpos``: the cache's decode position."""
         cache["pos"] = torch.tensor(n_tokens, dtype=torch.int64,
                                     device=self.device)
         return cache
 
-    def extend_nod(self, toks_b: np.ndarray, pos_b: np.ndarray, cache,
-                   seq_len: int):
-        """``recompute`` without density over a window cache (in place):
-        the recompute cost ``profile_pipeline`` fits."""
+    def recompute(self, toks_b: np.ndarray, pos_b: np.ndarray, cache,
+                  seq_len: int, want_density: bool):
+        """``DenseModel.recompute`` of the tokens ``toks_b`` at positions
+        ``pos_b`` (both bucket-padded by the caller) over a slot cache,
+        in place.  -> (cache, hidden (1, M, d), density (1, S) | None)."""
         return self.model.recompute(
             self.params, self._t(toks_b)[None], self._t(pos_b), cache,
-            int(seq_len), want_density=False, **self._cw)
+            int(seq_len), want_density=want_density, **self._cw)
+
+    def extend_nod(self, toks_b: np.ndarray, pos_b: np.ndarray, cache,
+                   seq_len: int):
+        """``recompute`` without density: the second phase of a restore
+        and the recompute cost ``profile_pipeline`` fits."""
+        return self.recompute(toks_b, pos_b, cache, seq_len, False)
+
+    def extend(self, cache, prompt: np.ndarray, n0: int):
+        """Append ``prompt`` at positions [n0, n0+M) of a slot cache ->
+        (cache, last-token logits, per-position density mass)."""
+        M = len(prompt)
+        pos = np.arange(n0, n0 + M, dtype=np.int32)
+        pos_b = self.bucket_pad(pos, self.pad_slot)
+        toks_b = self.bucket_pad(np.asarray(prompt, np.int32), 0)
+        cache, hidden, dens = self.recompute(toks_b, pos_b, cache, n0 + M,
+                                             True)
+        logits = self.logits(hidden[:, M - 1])[0]
+        self.set_pos(cache, n0 + M)
+        return cache, logits, dens[0].cpu().numpy().astype(np.float64)
+
+    def decode(self, cache, tok: int):
+        """One token on a slot cache at its ``pos`` -> (cache, logits,
+        per-key mass)."""
+        out, mass = self.model.decode_step(
+            self.params, self._t([[tok]]), cache, want_density=True,
+            **self._cw)
+        return (out.cache, out.logits[0].cpu().numpy(),
+                mass[0].cpu().numpy().astype(np.float64))
+
+    def host_alloc(self, shape: Tuple[int, ...]) -> np.ndarray:
+        """A zeroed fp32 host buffer for ``LayerFeed`` to fill: page-
+        locked on the card, so that each layer's copy to the device is
+        asynchronous.  The array keeps its tensor alive (its base)."""
+        if self.device.type != "cuda":
+            return np.zeros(shape, np.float32)
+        return torch.zeros(shape, dtype=torch.float32,
+                           pin_memory=True).numpy()
+
+    def run_pipelined(self, feed, toks_b, miss_b, io_pos_b, cache,
+                      n_total: int):
+        """The Fig.-8 layer-pipelined restore into ``cache`` (in place):
+        recompute ``toks_b`` at ``miss_b`` while ``feed`` streams the
+        disk chunks' layers for ``io_pos_b``.  The host blocks only in
+        ``feed.fetch``; each layer's arrays go to the device from the
+        feed's (page-locked, ``host_alloc``) buffers without blocking,
+        and those buffers stay alive until the restore has synchronized.
+        Not re-entrant.  On failure the feed is closed (its I/O error
+        swallowed: the caller sees the failure that stopped the loop)
+        and the exception propagates; layers before the failing one are
+        already written.  Records wall and fetch-wait seconds in
+        ``last_pipelined``.  -> (cache, hidden (1, M, d) of the
+        recomputed rows)."""
+        if self._pipelining:
+            raise RuntimeError("re-entrant pipelined restore")
+        self._pipelining = True
+        dev = self.device
+        wait = [0.0]
+        held = []                     # each layer's buffers, until sync
+
+        def fetch(layer: int):
+            t0 = time.perf_counter()
+            got = feed.fetch(layer)
+            wait[0] += time.perf_counter() - t0
+            held.append(got)
+            return {n: torch.from_numpy(a).to(dev, non_blocking=True)
+                    for n, a in got.items()}
+
+        t0 = time.perf_counter()
+        try:
+            cache, hidden, _ = self.model.recompute_pipelined(
+                self.params, self._t(toks_b)[None], self._t(miss_b),
+                self._t(io_pos_b), cache, int(n_total), fetch,
+                want_density=False, **self._cw)
+        except BaseException:
+            feed.close(raise_errors=False)
+            raise
+        finally:
+            self.sync()               # no copy may outlive its buffer
+            held.clear()
+            self._pipelining = False
+        self.last_pipelined = {"wall_s": time.perf_counter() - t0,
+                               "fetch_wait_s": wait[0]}
+        return cache, hidden
 
     def logits(self, hidden: torch.Tensor) -> np.ndarray:
         return (hidden @ self.model.head_weight(self.params)

@@ -1,25 +1,27 @@
 """Residency engine — switch-in/switch-out of context state (paper §3).
 
-Mirror of the JAX package's core/residency.py for the paged pool:
-decides where every chunk lives (bf16 pool page / compressed DRAM
-payload / disk) and moves it.  Switch-in is a page-table read plus
-first-admission page faults and the disk restore of missing chunks
-(the timed QoS path).  Switch-out runs the tolerance-aware compression
-(Eq. 1-3) through the chunk codec kernels and the ahead-of-time
-swap-out (§3.4).  Eviction implements the Reclaim primitive over the
-LCTRU order.
+Mirror of the JAX package's core/residency.py: decides where every
+chunk lives (bf16 working cache or pool page / compressed DRAM payload
+/ disk) and moves it.  Switch-in plans the I/O-vs-recompute split
+(Eq. 4, ``_plan_restore``), runs the layer-pipelined restore (Fig. 8,
+``_restore_pipelined``) and assembles resident chunks into a slot cache;
+with the paged pool it is a page-table read plus first-admission page
+faults and the disk restore of missing chunks.  Switch-out runs the
+tolerance-aware compression (Eq. 1-3) through the chunk codec kernels
+and the ahead-of-time swap-out (§3.4).  The whole-state policies
+(``swap``, ``lmk``) snapshot a context's whole KV as one fp16 blob and
+restore it by a read (``swap``) or by recomputing the whole text
+(``lmk``, ``_restore_whole_timed``).  Eviction implements the Reclaim
+primitive over the LCTRU order.
 
 The chunk codec runs here: ``_encode_blocks`` quantizes at every
 switch-out of a compressed chunk, ``_payload_blocks`` dequantizes at
-every admission of one.  With ``quant_resident`` an 8-bit chunk is
-promoted to a decode-grid payload that admits into a QUANT page and is
-attended in place; 4/2-bit chunks are dequantized through the codec
-kernel and re-gridded to int8 (``qmemo``).  The page arenas are updated
-in place.
-
-Not ported yet (ROADMAP.md): the slot engine's assembly and its
-layer-pipelined restore, and whole-state restore for non-chunked
-policies.
+every admission or assembly of one.  With ``quant_resident`` an 8-bit
+chunk is promoted to a decode-grid payload that is attended in place
+(a QUANT page, or the int8 segments of a mixed slot cache); 4/2-bit
+chunks are dequantized through the codec kernel and re-gridded to int8
+(``qmemo``).  Caches and page arenas are updated in place: a restore
+writes into the cache it is given.
 """
 from __future__ import annotations
 
@@ -46,8 +48,9 @@ from repro_torch.core.faults import (FAULTS, ChunkCorruptError, DiskFullError,
                                      SwapTimeoutError, with_retries)
 from repro_torch.core.lifecycle import LCTRUQueue, MemoryManager
 from repro_torch.core.pagepool import BF16, QUANT, PagePool
-from repro_torch.core.pipeline import PipelineProfile, fit_linear
-from repro_torch.core.restore import read_chunk_file, write_chunk_file
+from repro_torch.core.pipeline import PipelineProfile, fit_linear, plan_split
+from repro_torch.core.restore import (LayerFeed, read_chunk_file,
+                                      verify_chunk_file, write_chunk_file)
 from repro_torch.core.swap import AsyncSwapper, DiskStore
 
 
@@ -94,7 +97,7 @@ class SlotAllocator:
 
 
 class ResidencyEngine:
-    """Paged switch-in + chunk admission + compress/AoT swap-out."""
+    """Restore planning + chunk assembly + compress/AoT swap-out."""
 
     def __init__(self, exe: ModelExecutor, ctxs: ContextStore,
                  store: DiskStore, swapper: AsyncSwapper,
@@ -107,8 +110,11 @@ class ResidencyEngine:
         self.mem = mem
         self.cfg = cfg
         self.slots = SlotAllocator(exe.decode_slots)
-        # pages SURVIVE switch-out: the next switch-in is a table read
-        self.pool = PagePool(exe, ctxs)
+        # paged KV pool (dense family, chunked policy, paged_pool=True):
+        # pages SURVIVE switch-out, the next switch-in is a table read.
+        # Without it each context is assembled into a slot cache.
+        self.pool: Optional[PagePool] = (
+            PagePool(exe, ctxs) if exe.paged else None)
         self.profile = PipelineProfile()
         self.profiled = False
         self.epoch = 0                      # bumped on any eviction
@@ -217,10 +223,103 @@ class ResidencyEngine:
         }
 
     # ------------------------------------------------------------------ #
-    # switch-in: a page-table read plus first-admission faults
+    # switch-in: restore every chunk to memory (Load primitive)
     # ------------------------------------------------------------------ #
     @requires_serialized
-    def switch_in(self, ctx: Context) -> Tuple[None, float]:
+    def switch_in(self, ctx: Context):
+        """-> (cache, switch_seconds).  Missing-chunk restore (reclaim +
+        I/O + recompute) is the timed QoS path; resident-chunk assembly
+        into the slot cache is not (see LLMService.callLLM).  With the
+        paged pool the cache is None (``_switch_in_paged``)."""
+        exe = self.exe
+        if self.pool is not None:
+            return self._switch_in_paged(ctx)
+        cache = exe.fresh_cache(ctx.n_tokens)
+        if ctx.n_tokens == 0:
+            return cache, 0.0
+        if not self.cfg.chunked:
+            return self._restore_whole_timed(ctx, cache)
+
+        # ---- assembly of resident chunks (inference-side cost) -------- #
+        # quant mode: compressed chunks go behind the fused decode kernel
+        # (decode-grid codes scattered verbatim, packed 4/2-bit payloads
+        # re-gridded to int8 once, in qmemo); bf16-raw chunks materialize
+        # in the bf16 window
+        quant_mode = exe.quant_resident and not self.force_dequant
+        by_bits: Dict[int, List[int]] = {}
+        q_idxs: List[int] = []
+        for i, m in sorted(ctx.chunks.items()):
+            if m.in_memory:
+                if quant_mode and m.bits != 16:
+                    q_idxs.append(i)
+                else:
+                    by_bits.setdefault(m.bits, []).append(i)
+                self.queue.touch((ctx.cid, i), m.bits)
+                m.last_access = time.time()
+        if q_idxs:
+            codec = exe.codec
+            codes = {n: [] for n in codec.leaves}
+            scales = {n: [] for n in codec.leaves}
+            for i in q_idxs:
+                cc = ctx.payload[i]
+                if not isinstance(cc, QuantResidentChunk):
+                    cc = ctx.qmemo.get(i)
+                    if cc is None:      # re-grid once per (re-)encode
+                        cc = codec.quantize_resident_blocks(
+                            self._payload_blocks(ctx.payload[i]),
+                            self._head_dims())
+                        ctx.qmemo[i] = cc
+                for n in codec.leaves:
+                    codes[n].append(cc.data[n][0])
+                    scales[n].append(cc.data[n][1])
+            pos = exe.chunk_positions(q_idxs)
+            pos_b = exe.bucket_pad(pos, exe.pad_slot)
+            pad = len(pos_b) - len(pos)
+
+            def assemble(parts):
+                # host payloads: concatenate + pad on the host and ship
+                # ONE array per leaf, ONE scatter for the quant tier
+                out = np.concatenate(parts)
+                if pad:
+                    out = np.concatenate(
+                        [out, np.zeros((pad,) + out.shape[1:], out.dtype)])
+                return torch.from_numpy(out).to(exe.device)
+
+            codec.scatter_quant(cache, exe._t(pos_b),
+                                {n: assemble(codes[n]) for n in codec.leaves},
+                                {n: assemble(scales[n])
+                                 for n in codec.leaves})
+        for bits, idxs in by_bits.items():
+            # decode each payload once, not once per leaf
+            chunk_blocks = [self._payload_blocks(ctx.payload[i])
+                            for i in idxs]
+            blocks = {n: torch.cat([cb[n] for cb in chunk_blocks])
+                      for n in exe.codec.leaves}
+            pos = exe.chunk_positions(idxs)
+            pos_b = exe.bucket_pad(pos, exe.pad_slot)
+            if len(pos_b) != len(pos):
+                pad = len(pos_b) - len(pos)
+                blocks = {k: torch.cat([v, v.new_zeros((pad,) + v.shape[1:])])
+                          for k, v in blocks.items()}
+            exe.codec.scatter(cache, exe._t(pos_b), blocks)
+        exe.sync()
+
+        # ---- timed: reclaim + restore of missing chunks ---------------- #
+        t0 = time.perf_counter()
+        missing = sorted(i for i, m in ctx.chunks.items() if not m.in_memory)
+        need = sum(ctx.chunks[i].nbytes for i in missing)
+        self.mem.reclaim(need, self.evict, locked={ctx.cid})
+        if missing:
+            re_idx, io_idx = self._plan_restore(ctx, missing)
+            cache = self._restore_chunks(ctx, cache, re_idx, io_idx)
+            exe.sync()
+        return cache, time.perf_counter() - t0
+
+    # ------------------------------------------------------------------ #
+    # paged switch-in: a page-table read plus first-admission faults
+    # ------------------------------------------------------------------ #
+    @requires_serialized
+    def _switch_in_paged(self, ctx: Context) -> Tuple[None, float]:
         """Pool-mode switch-in.  Chunks whose pages survive cost nothing
         (their table entries are read at decode time); in-memory chunks
         without pages are admitted once (the page fault: payload ->
@@ -274,8 +373,8 @@ class ResidencyEngine:
                         self._admit_chunk(ctx, i, quant_mode)
                 else:
                     self._recover_chunk_paged(ctx, i, quant_mode)
-        if (admitted or missing) and exe.device.type == "cuda":
-            torch.cuda.synchronize(exe.device)
+        if admitted or missing:
+            exe.sync()
         return None, time.perf_counter() - t0
 
     def _admit_chunk(self, ctx: Context, i: int, quant_mode: bool):
@@ -415,6 +514,187 @@ class ResidencyEngine:
         with self._flags_lock:
             self.chunks_recovered_recompute += 1
 
+    def _plan_restore(self, ctx, missing: List[int]
+                      ) -> Tuple[List[int], List[int]]:
+        """Eq.-4 split of the missing chunks into (recompute, I/O) from
+        the §3.3.i profile; unprofiled, the heaviest half recomputes."""
+        if not (self.cfg.use_pipeline and self.exe.recomputable):
+            return [], missing
+        plan_in = [(i, ctx.chunks[i].nbytes, True) for i in missing]
+        if self.profiled:
+            re_idx, io_idx, _ = plan_split(plan_in, self.profile, True)
+        else:
+            order = sorted(missing, key=lambda i: -ctx.chunks[i].nbytes)
+            re_idx = order[:len(order) // 2]
+            io_idx = [i for i in missing if i not in set(re_idx)]
+        return sorted(re_idx), sorted(io_idx)
+
+    @requires_serialized
+    def _restore_chunks(self, ctx: Context, cache, re_idx: List[int],
+                        io_idx: List[int]):
+        """Fig. 8 restore into the slot cache (in place).  A recompute
+        set runs the layer-pipelined restore; otherwise (and as its
+        fallback) async whole-chunk reads, then a second-phase recompute.
+
+        Chunks whose disk copy is missing/corrupt/unreadable after
+        retries are DEMOTED to the recompute set (recovery ladder,
+        DESIGN.md §6).  A pipelined restore that fails mid-feed has
+        already written layers before the failing one; the fallback
+        rewrites every position it touched (the I/O chunks by whole-file
+        inserts, the recompute set in the second phase, each layer's
+        rows before that layer attends) and the loop leaves the quant
+        mask untouched, so the fallback restores what it would have from
+        an untouched cache."""
+        exe = self.exe
+        quant_mode = exe.quant_resident and not self.force_dequant
+        recovered: List[int] = []            # unreadable -> recomputed
+        pending_io = list(io_idx)
+        did_recompute = False
+        if re_idx and exe.spec.pipelined_restore:
+            # pre-validate the feed's files: a corrupt header would stop
+            # the layer loop; route guaranteed-bad chunks to recompute
+            ok_io: List[int] = []
+            for i in pending_io:
+                if not ctx.chunks[i].on_disk:    # degraded-mode drop
+                    recovered.append(i)
+                    continue
+                try:
+                    self.swapper.wait((ctx.cid, i), timeout=self._deadline)
+                    verify_chunk_file(self.store._path((ctx.cid, i)))
+                    ok_io.append(i)
+                except SwapTimeoutError:
+                    raise
+                except (ChunkCorruptError, OSError) as err:
+                    self._note_read_failure(err)
+                    recovered.append(i)
+            re_all = sorted(set(re_idx) | set(recovered))
+            try:
+                cache = self._restore_pipelined(ctx, cache, re_all, ok_io)
+                for i in ok_io:
+                    self._mark_loaded(ctx, i, payload=None)
+                pending_io = []
+                did_recompute = True
+            except SwapTimeoutError:
+                raise
+            except Exception as err:
+                # passed header validation but failed mid-feed (e.g. a
+                # flipped byte inside a layer segment): fall back to
+                # whole-file reads, which verify per-layer CRCs up front
+                self._note_read_failure(err)
+                pending_io = ok_io
+        if pending_io:
+            # async whole-chunk reads, insert as they land
+            futs = {i: self._read_chunk_async((ctx.cid, i))
+                    for i in pending_io if ctx.chunks[i].on_disk}
+            for i in pending_io:
+                cc = None
+                if i in futs:
+                    try:
+                        cc = self._fut_result(futs[i])
+                    except SwapTimeoutError:
+                        raise
+                    except (ChunkCorruptError, OSError) as err:
+                        self._note_read_failure(err)
+                if cc is None:
+                    if i not in recovered:
+                        recovered.append(i)
+                    continue
+                if quant_mode and isinstance(cc, QuantResidentChunk):
+                    # decode-grid bytes go straight back behind the fused
+                    # kernel: the read IS the restore
+                    dev = exe.device
+                    exe.codec.scatter_quant(
+                        cache, exe._t(exe.chunk_positions([i])),
+                        {n: torch.from_numpy(cc.data[n][0]).to(dev)
+                         for n in exe.codec.leaves},
+                        {n: torch.from_numpy(cc.data[n][1]).to(dev)
+                         for n in exe.codec.leaves})
+                else:
+                    exe.codec.insert(cache, i * exe.cs,
+                                     self._payload_blocks(cc))
+                self._mark_loaded(ctx, i, payload=cc)
+
+        re_all = sorted(set(re_idx) | set(recovered))
+        if re_all and not did_recompute:
+            if recovered and not exe.recomputable:
+                with self._flags_lock:
+                    self.recover_failed += 1
+                raise ChunkCorruptError(
+                    f"ctx {ctx.cid} chunks {recovered}: disk copies "
+                    f"unreadable and family "
+                    f"{exe.model.cfg.family!r} cannot recompute")
+            # second phase (exact: the I/O chunks are now resident)
+            miss_pos = self._feed_positions(ctx, re_all)
+            miss_b = exe.bucket_pad(miss_pos, exe.pad_slot)
+            toks_b = exe.bucket_pad(ctx.tokens[miss_pos], 0)
+            exe.extend_nod(toks_b, miss_b, cache, ctx.n_tokens)
+
+        # recomputed chunks: re-encode each payload at its assigned level
+        rec = set(recovered)
+        for i in re_all:
+            m = ctx.chunks[i]
+            want_quant = exe.quant_resident and m.bits == 8
+            ctx.payload[i] = self._make_payload(cache, i, m.bits,
+                                                quant=want_quant)
+            ctx.qmemo.pop(i, None)
+            m.quant = want_quant
+            m.in_memory = True
+            if i in rec:
+                m.nbytes = ctx.payload[i].nbytes
+                # rewrite the repaired chunk so the next restore is a
+                # plain read again (unless writes are failing: leave it
+                # dirty for the post-degraded flush)
+                if (self.cfg.use_disk and self.aot_enabled
+                        and self._write_chunk_async(ctx.cid, i,
+                                                    ctx.payload[i])):
+                    m.dirty, m.on_disk = False, True
+                else:
+                    m.dirty, m.on_disk = True, False
+                    self._dirty_cids.add(ctx.cid)
+                with self._flags_lock:
+                    self.chunks_recovered_recompute += 1
+            else:
+                m.dirty = False               # already on disk
+            self.mem.register((ctx.cid, i), m.nbytes, m.bits)
+        return cache
+
+    def _restore_pipelined(self, ctx: Context, cache, re_idx: List[int],
+                           io_idx: List[int]):
+        """The Fig. 8 layer-pipelined restore over a validated I/O set:
+        the feed's thread reads layer l + 1 of every I/O chunk (into
+        ``exe.host_alloc`` buffers) while layer l recomputes
+        ``re_idx``."""
+        exe = self.exe
+        nio_b = next(x for x in exe.io_buckets
+                     if x >= max(len(io_idx), 1))
+        pad_chunks = nio_b - len(io_idx)
+        io_pos_b = np.concatenate(
+            [exe.chunk_positions(io_idx),
+             np.full(pad_chunks * exe.cs, exe.pad_slot, np.int32)])
+        paths = [self.store._path((ctx.cid, i)) for i in io_idx]
+        miss_pos = self._feed_positions(ctx, re_idx)
+        miss_b = exe.bucket_pad(miss_pos, exe.pad_slot)
+        toks_b = exe.bucket_pad(ctx.tokens[miss_pos], 0)
+        feed = LayerFeed(paths, exe.codec.leaves, exe.n_layers,
+                         exe.cs, exe.leaf_dims, pad_chunks=pad_chunks,
+                         pool=self.swapper.pool, alloc=exe.host_alloc)
+        out, _ = exe.run_pipelined(feed, toks_b, miss_b, io_pos_b, cache,
+                                   ctx.n_tokens)  # closes feed on failure
+        feed.close()
+        return out
+
+    def _feed_positions(self, ctx: Context, idxs: List[int]) -> np.ndarray:
+        """Chunk positions to FEED through recompute: every position of
+        the given chunks except KV holes (each call's final emitted
+        token, never run through the model: its rows stay zero, as the
+        canonical payload stores them)."""
+        pos = self.exe.chunk_positions(idxs)
+        if not ctx.kv_holes:
+            return pos
+        keep = np.asarray([p for p in pos if int(p) not in ctx.kv_holes],
+                          np.int32)
+        return keep if len(keep) else pos[:0]
+
     def _read_chunk_async(self, key):
         """Read a chunk file on the I/O pool, ORDERED AFTER any in-flight
         same-key AoT write (``flush_dirty`` marks ``on_disk`` at submit
@@ -446,6 +726,74 @@ class ResidencyEngine:
         m.quant = isinstance(payload, QuantResidentChunk)
         self.mem.register((ctx.cid, i), m.nbytes, m.bits)
 
+    # -- whole-context policies (swap / lmk) ----------------------------- #
+    @requires_serialized
+    def _restore_whole_timed(self, ctx: Context, cache):
+        """Whole-state switch-in into ``cache`` (in place): the resident
+        snapshot, or its ``(cid, -1)`` file (``swap``), or — killed or
+        unreadable — a recompute of the whole text (``lmk``), which also
+        re-takes the snapshot.  -> (cache, switch_seconds)."""
+        exe = self.exe
+        t_switch = 0.0
+        if ctx.whole is None and self.cfg.use_disk and \
+                self.store.nbytes((ctx.cid, -1)):
+            t0 = time.perf_counter()
+            self.mem.reclaim(self.store.nbytes((ctx.cid, -1)) or 0,
+                             self.evict, locked={ctx.cid})
+            try:
+                ctx.whole = self.swapper.read((ctx.cid, -1),
+                                              timeout=self._deadline)
+                t_switch = time.perf_counter() - t0
+                ctx.whole_tokens = ctx.n_tokens
+                self.mem.register((ctx.cid, -1),
+                                  self._whole_bytes(ctx), 16)
+                self.queue.touch((ctx.cid, -1), 16)
+            except SwapTimeoutError:
+                raise
+            except (ChunkCorruptError, OSError) as err:
+                # unreadable snapshot: drop the stale accounting entry and
+                # fall through to the recompute from the resident text
+                self._note_read_failure(err)
+                self.store.drop_bytes((ctx.cid, -1))
+                with self._flags_lock:
+                    self.chunks_recovered_recompute += 1
+        if ctx.whole is None:
+            # LMK: killed — recompute the whole context from its text
+            t0 = time.perf_counter()
+            self.mem.reclaim(0, self.evict, locked={ctx.cid})
+            pos_b = exe.bucket_pad(np.arange(ctx.n_tokens, dtype=np.int32),
+                                   exe.pad_slot)
+            toks_b = exe.bucket_pad(ctx.tokens[:ctx.n_tokens], 0)
+            cache, _, dens = exe.recompute(toks_b, pos_b,
+                                           exe.set_pos(cache, 0),
+                                           ctx.n_tokens, True)
+            exe.sync()
+            t_switch = time.perf_counter() - t0
+            self.ctxs.acc_density(
+                ctx, dens[0].cpu().numpy().astype(np.float64), ctx.n_tokens)
+            ctx.whole = self._extract_whole(cache, ctx.n_tokens)
+            ctx.whole_tokens = ctx.n_tokens
+            ctx.alive = True
+            self.mem.register((ctx.cid, -1), self._whole_bytes(ctx), 16)
+            return exe.set_pos(cache, ctx.n_tokens), t_switch
+        dev = exe.device
+        exe.codec.insert(cache, 0, {k: torch.from_numpy(v).to(dev)
+                                    for k, v in ctx.whole.items()})
+        self.queue.touch((ctx.cid, -1), 16)
+        return exe.set_pos(cache, ctx.n_tokens), t_switch
+
+    def _extract_whole(self, cache, n_tokens: int) -> Dict[str, np.ndarray]:
+        """The whole-state snapshot: tokens [0, bucket_len(n)) of the
+        bf16 K/V as (T, F) fp16 host arrays (bf16 -> fp32 -> fp16: the
+        reference's bytes).  The reference's fp32 branch serves the
+        recurrent families' state, which the port does not serve."""
+        hi = self.exe.bucket_len(max(n_tokens, 1))
+        return {k: v.to(torch.float32).cpu().numpy().astype(np.float16)
+                for k, v in self.exe.codec.extract(cache, 0, hi).items()}
+
+    def _whole_bytes(self, ctx) -> int:
+        return sum(v.nbytes for v in (ctx.whole or {}).values())
+
     # -- payload codecs ------------------------------------------------- #
     def _payload_blocks(self, cc) -> Dict[str, torch.Tensor]:
         """Payload -> (T, F) bf16 blocks on the device."""
@@ -474,11 +822,15 @@ class ResidencyEngine:
                 shapes=block_shapes(blocks))
         return self.exe.codec.compress_blocks(blocks, bits)
 
-    def _make_payload(self, cache, i: int, bits: int) -> CompressedChunk:
-        """Encode chunk i from a window cache (``profile_pipeline``)."""
-        cs = self.exe.cs
-        return self._encode_blocks(
-            self.exe.codec.extract(cache, i * cs, (i + 1) * cs), bits)
+    def _make_payload(self, cache, i: int, bits: int, quant: bool = False):
+        """Encode chunk i from a slot cache.  A mixed cache is read
+        through ``extract_mixed``: its bf16 array is stale at
+        quant-resident positions."""
+        cs, codec = self.exe.cs, self.exe.codec
+        lo, hi = i * cs, (i + 1) * cs
+        blocks = (codec.extract_mixed(cache, lo, hi)
+                  if self.exe.quant_resident else codec.extract(cache, lo, hi))
+        return self._encode_blocks(blocks, bits, quant)
 
     def _make_payload_paged(self, ctx: Context, i: int, bits: int,
                             quant: bool = False):
@@ -515,7 +867,16 @@ class ResidencyEngine:
     # ------------------------------------------------------------------ #
     @requires_serialized
     def compress_and_swap_out(self, ctx: Context, cache=None):
+        """Switch-out: the whole-state snapshot (non-chunked policies),
+        or the Eq.-3 bit plan and each changed chunk's payload — from
+        the pool's pages, or from the slot ``cache`` — then the AoT
+        swap-out of the dirty chunks."""
         cfg = self.cfg
+        if not cfg.chunked:
+            ctx.whole = self._extract_whole(cache, ctx.n_tokens)
+            ctx.whole_tokens = ctx.n_tokens
+            self.mem.register((ctx.cid, -1), self._whole_bytes(ctx), 16)
+            return
         cs = self.exe.cs
         n_chunks = math.ceil(ctx.n_tokens / cs)
         if cfg.compression == "tolerance":
@@ -546,26 +907,30 @@ class ResidencyEngine:
             covered = min(ctx.n_tokens - i * cs, cs)
             if (m.dirty or want != m.bits or i not in ctx.payload
                     or covered != m.n_covered or m.quant != want_quant):
-                try:
-                    cc = self._make_payload_paged(ctx, i, want,
-                                                  quant=want_quant)
-                except (ChunkCorruptError, OSError) as err:
-                    # the encode needed an unreadable disk copy: leave the
-                    # chunk MISSING; the next switch-in recovers it with
-                    # the prefix resident (recovery ladder §6)
-                    self._note_read_failure(err)
-                    m.bits, m.n_covered = want, covered
-                    m.density = float(D[i])
-                    m.quant = want_quant
-                    m.dirty, m.in_memory, m.on_disk = False, False, False
-                    ctx.payload.pop(i, None)
-                    ctx.qmemo.pop(i, None)
+                if self.pool is not None:
+                    try:
+                        cc = self._make_payload_paged(ctx, i, want,
+                                                      quant=want_quant)
+                    except (ChunkCorruptError, OSError) as err:
+                        # the encode needed an unreadable disk copy:
+                        # leave the chunk MISSING; the next switch-in
+                        # recovers it with the prefix resident (§6)
+                        self._note_read_failure(err)
+                        m.bits, m.n_covered = want, covered
+                        m.density = float(D[i])
+                        m.quant = want_quant
+                        m.dirty, m.in_memory, m.on_disk = \
+                            False, False, False
+                        ctx.payload.pop(i, None)
+                        ctx.qmemo.pop(i, None)
+                        self.pool.free_chunk(ctx.cid, i)
+                        self.mem.unregister((ctx.cid, i))
+                        continue
+                    # drop-on-encode: the page now disagrees with the
+                    # canonical payload (re-encoding is lossy): free it
                     self.pool.free_chunk(ctx.cid, i)
-                    self.mem.unregister((ctx.cid, i))
-                    continue
-                # drop-on-encode: the page now disagrees with the
-                # canonical payload (re-encoding is lossy), so free it
-                self.pool.free_chunk(ctx.cid, i)
+                else:
+                    cc = self._make_payload(cache, i, want, quant=want_quant)
                 ctx.payload[i] = cc
                 ctx.qmemo.pop(i, None)
                 m.bits, m.nbytes, m.n_covered = want, cc.nbytes, covered
@@ -576,7 +941,7 @@ class ResidencyEngine:
                 # the next switch-in is a pure page-table read of exactly
                 # the payload-roundtrip values.  Best-effort: an
                 # exhausted pool leaves the chunk for a later fault.
-                if not self.force_dequant:
+                if self.pool is not None and not self.force_dequant:
                     try:
                         self._admit_chunk(ctx, i, self.exe.quant_resident)
                     except RuntimeError:
@@ -594,7 +959,7 @@ class ResidencyEngine:
 
         # the force_dequant control: pages die with the residency, so
         # every switch-in pays the full (bf16) re-admission
-        if self.force_dequant:
+        if self.pool is not None and self.force_dequant:
             self.pool.free_ctx(ctx.cid)
 
         if cfg.use_aot and cfg.use_disk:
@@ -629,6 +994,8 @@ class ResidencyEngine:
             for i, m in pred.chunks.items():
                 if m.in_memory:
                     self.queue.touch((pred.cid, i), m.bits)
+            if pred.whole is not None:
+                self.queue.touch((pred.cid, -1), 16)
         if not (self.cfg.use_disk and self.cfg.chunked):
             return 0
         flushed = 0
@@ -671,6 +1038,21 @@ class ResidencyEngine:
         ctx = self.ctxs.contexts.get(cid)
         if ctx is None:
             return
+        if idx == -1:
+            if self.cfg.use_disk and ctx.whole is not None:
+                try:                            # sync: the paper's
+                    self.store.write((cid, -1), ctx.whole)  # reclaim cost
+                except OSError as err:
+                    # can't persist: degrade on ENOSPC and drop — an older
+                    # on-disk copy covers fewer tokens, so its accounting
+                    # entry goes too (the next restore recomputes, LMK)
+                    if getattr(err, "errno", None) == errno.ENOSPC:
+                        self._enter_degraded()
+                    self.evict_dropped += 1
+                    self.store.drop_bytes((cid, -1))
+            ctx.whole = None
+            ctx.alive = False
+            return
         m = ctx.chunks.get(idx)
         if m is None:
             return
@@ -696,7 +1078,7 @@ class ResidencyEngine:
                 m.dirty, m.on_disk, m.in_memory = False, False, False
                 ctx.payload.pop(idx, None)
                 ctx.qmemo.pop(idx, None)
-                if not ctx.busy:
+                if self.pool is not None and not ctx.busy:
                     self.pool.free_chunk(cid, idx)
                 return
             m.dirty = False
@@ -705,7 +1087,7 @@ class ResidencyEngine:
         ctx.qmemo.pop(idx, None)
         # a busy context's pages are its authoritative state: its own
         # swap-out re-encodes and drops them
-        if not ctx.busy:
+        if self.pool is not None and not ctx.busy:
             self.pool.free_chunk(cid, idx)
 
     # ------------------------------------------------------------------ #

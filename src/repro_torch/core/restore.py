@@ -7,8 +7,8 @@ whole-chunk-then-compute), chunk files are written in a **layer-major
 segmented format**: a pickled header + per-layer raw segments, so the
 I/O thread can stream layer l of every swapped chunk, dequantize it in
 numpy, and publish it while layer l-1 is still being recomputed.  The
-jitted recompute scan pulls layer l's I/O data through an ordered
-``jax.experimental.io_callback`` (``LayerFeed.fetch``).
+recompute's layer loop (``DenseModel.recompute_pipelined``) takes layer
+l's I/O data from ``LayerFeed.fetch``.
 
 Layout per chunk file:
     [preamble][u64 header_len][pickle header][layer 0 segment]...
@@ -29,7 +29,7 @@ import struct
 import threading
 import zlib
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -319,20 +319,26 @@ class LayerFeed:
     """Streams layer-l KV of every I/O chunk, one layer ahead of compute.
 
     paths: chunk files in POSITION order; pad_chunks: extra zero chunks
-    appended so the assembled arrays match the jit bucket size.
+    appended so the assembled arrays match the I/O bucket size; alloc:
+    ``shape -> zeroed fp32 array`` for each layer's assembled arrays
+    (default ``np.zeros``; the executor passes page-locked buffers on
+    the card so that each layer's copy to the device is asynchronous).
     """
 
     def __init__(self, paths: Sequence[str], leaves: Sequence[str],
                  n_layers: int, chunk_tokens: int,
                  leaf_dims: Dict[str, Tuple[int, ...]],
                  pad_chunks: int = 0,
-                 pool: Optional[ThreadPoolExecutor] = None):
+                 pool: Optional[ThreadPoolExecutor] = None,
+                 alloc: Optional[Callable[[Tuple[int, ...]],
+                                          np.ndarray]] = None):
         self.paths = list(paths)
         self.leaves = list(leaves)
         self.n_layers = n_layers
         self.cs = chunk_tokens
         self.leaf_dims = leaf_dims          # leaf -> per-token dims e.g. (KV, hd)
         self.pad = pad_chunks
+        self._alloc = alloc or (lambda shape: np.zeros(shape, np.float32))
         self._ready: List[Optional[Dict[str, np.ndarray]]] = \
             [None] * n_layers
         self._events = [threading.Event() for _ in range(n_layers)]
@@ -354,8 +360,8 @@ class LayerFeed:
             n_tok = (len(self.paths) + self.pad) * self.cs
             for l in range(self.n_layers):
                 assembled = {
-                    name: np.zeros((n_tok,) + tuple(np.atleast_1d(
-                        self.leaf_dims[name])), np.float32)
+                    name: self._alloc((n_tok,) + tuple(np.atleast_1d(
+                        self.leaf_dims[name])))
                     for name in self.leaves}
                 for ci, (f, h, b) in enumerate(zip(files, headers, bases)):
                     got = read_chunk_layer(f, h, b, l)

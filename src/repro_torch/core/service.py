@@ -1,11 +1,12 @@
 """LLMService — the LLMaaS system service (paper Table 1, §3).
 
-Mirror of the JAX package's core/service.py over the paged pool:
-``executor.ModelExecutor`` (model entries + buckets),
-``context_store.ContextStore`` (persistent contexts, Fig. 4) and
-``residency.ResidencyEngine`` (switch-in/out, compression, AoT,
-eviction).  The measured *context switching latency* (Fig. 9) is the
-time of ``ResidencyEngine.switch_in``.
+Mirror of the JAX package's core/service.py: ``executor.ModelExecutor``
+(model entries + buckets), ``context_store.ContextStore`` (persistent
+contexts, Fig. 4) and ``residency.ResidencyEngine`` (switch-in/out,
+compression, AoT, eviction).  The paper's design and every baseline it
+compares against (VLLM-S/SQ, whole-context swapping, LMK and the three
+ablations) are POLICIES of this one facade.  The measured *context
+switching latency* (Fig. 9) is the time of ``ResidencyEngine.switch_in``.
 
 The request path is stepwise as in the reference: ``begin_call``
 switches the context in and prefills the prompt, ``decode_step`` /
@@ -13,13 +14,21 @@ switches the context in and prefills the prompt, ``decode_step`` /
 ``finish_call`` compresses/AoT-swaps the result out.  ``callLLM`` is
 the Table-1 shim over that path.
 
+Two engines, as in the reference.  With the paged pool (the default
+for the chunked policies) generations are page-table views into one
+page arena and a decode round is one batched step.  Without it
+(``paged_pool=False``, and always under ``swap`` / ``lmk``) each
+resident context owns a slot cache: a parked slot keeps its cache for
+exact reuse, members of a round decode one after another, and a
+switch-in restores missing chunks by the layer-pipelined I/O +
+recompute of Fig. 8.
+
 The service runs on the card (``device="cuda"``) unless the caller
-asks for the CPU.  ``quant_resident=True`` keeps 8-bit chunks in the
-pool as int8 QUANT pages that decode attends in place (the
-``decode_mqattn`` kernel on the card).  Refused at construction, each
-with a pointer to ``ROADMAP.md``: ``paged_pool=False`` (the slot
-engine), the non-chunked policies (``swap``, ``lmk``) and any family
-but dense.
+asks for the CPU.  ``quant_resident=True`` keeps 8-bit chunks as int8
+(QUANT pages, or the int8 segments of a mixed slot cache) that decode
+attends in place (the ``decode_mqattn`` kernel on the card).  Families
+other than dense are refused at construction, with a pointer to
+``ROADMAP.md``.
 """
 from __future__ import annotations
 
@@ -63,7 +72,7 @@ class LLMSConfig:
     policy: str = "llms"
     decode_batch: int = 1                  # decode slots (B)
     quant_resident: bool = False           # int8 QUANT pages attended in place
-    paged_pool: bool = True                # only the paged engine is ported
+    paged_pool: bool = True                # False: per-slot caches
     pool_pages_16: int = 0
     pool_pages_8: int = 0
     chunk_tokens: int = 16
@@ -102,17 +111,9 @@ class LLMSConfig:
             self.paged_pool = False     # pages ARE chunks
 
 
-def _refuse_unported(model: ModelBase, cfg: LLMSConfig) -> None:
-    """Configurations this slice of the port does not run: refused
-    before anything is built, never quietly run as something else."""
-    if not cfg.chunked:
-        raise NotImplementedError(
-            f"policy {cfg.policy!r} keeps whole-context state; the "
-            "whole-state policies are not ported yet (ROADMAP.md)")
-    if not cfg.paged_pool:
-        raise NotImplementedError(
-            "paged_pool=False runs the slot engine with the layer-"
-            "pipelined restore, which is not ported yet (ROADMAP.md)")
+def _refuse_unported(model: ModelBase) -> None:
+    """Families this port does not run yet: refused before anything is
+    built, never quietly run as something else."""
     if model.cfg.family != "dense":
         raise NotImplementedError(
             f"family {model.cfg.family!r} is not ported yet (ROADMAP.md)")
@@ -150,7 +151,7 @@ class LLMService:
     def __init__(self, model: ModelBase, params, cfg: LLMSConfig, *,
                  device="cuda", store: Optional[DiskStore] = None):
         self.device = resolve_device(device)
-        _refuse_unported(model, cfg)
+        _refuse_unported(model)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, service on "
                              f"{self.device}")
@@ -172,9 +173,12 @@ class LLMService:
                              if cfg.record_limit else [])
         self.total_calls = 0
         self._t_switch_sum = 0.0
-        # cid -> (None, epoch): parked contexts whose pages stay warm
+        # cid -> (cache, epoch) of parked decode slots: the slot cache
+        # itself (exact reuse), or None with the paged pool (its pages
+        # stay warm).  Mirrors ``res.slots.idle``: the SlotAllocator
+        # decides WHICH parked slot to reclaim, this holds WHAT it kept.
         self._reuse: "OrderedDict[int, Tuple[Any, int]]" = OrderedDict()
-        self.paged = True
+        self.paged = self.exe.paged
         self._closed = False
 
     @property
@@ -206,7 +210,8 @@ class LLMService:
         self.ctxs.delete(stub.ctx_id)   # raises on busy: nothing changed
         self._drop_reuse(stub.ctx_id)
         self.res.slots.release(stub.ctx_id)
-        self.res.pool.drop(stub.ctx_id)
+        if self.paged:                  # return its pages + page table
+            self.res.pool.drop(stub.ctx_id)
 
     def bindLLMService(self, app: Any = None) -> "LLMService":
         return self
@@ -242,13 +247,17 @@ class LLMService:
             t1 = time.perf_counter()
             n0 = ctx.n_tokens
             ctx.tokens[n0:n0 + len(prompt)] = prompt
-            pool = self.res.pool
-            cs = self.exe.cs
-            self.res.ensure_extend_range(
-                ctx, n0 // cs, (n0 + len(prompt) - 1) // cs)
-            pt16, pt8, qmask = pool.rows([ctx.cid])
-            pool.arenas, logits, dens = self.exe.paged_extend(
-                pool.arenas, prompt, n0, pt16, pt8, qmask)
+            if self.paged:
+                pool = self.res.pool
+                cs = self.exe.cs
+                self.res.ensure_extend_range(
+                    ctx, n0 // cs, (n0 + len(prompt) - 1) // cs)
+                pt16, pt8, qmask = pool.rows([ctx.cid])
+                pool.arenas, logits, dens = self.exe.paged_extend(
+                    pool.arenas, prompt, n0, pt16, pt8, qmask)
+            else:
+                st.cache, logits, dens = self.exe.extend(st.cache, prompt,
+                                                         n0)
             self.ctxs.acc_density(ctx, dens, n0 + len(prompt))
             ctx.n_tokens += len(prompt)
             if request.max_new_tokens > 0:
@@ -271,7 +280,9 @@ class LLMService:
     def decode_step_batch(self, sts: Sequence[GenerationState]
                           ) -> List[Optional[int]]:
         """One decode round over up to ``decode_batch`` resident
-        generations.  -> emitted tokens parallel to ``sts``."""
+        generations: one batched step over the pool, or (slot caches)
+        each member's own step in turn.  -> emitted tokens parallel to
+        ``sts``."""
         t1 = time.perf_counter()
         out: List[Optional[int]] = []
         live: List[GenerationState] = []
@@ -297,7 +308,13 @@ class LLMService:
                 live.append(st)
                 fed.append(tok)
         if live:
-            self._decode_round_paged(live, fed)
+            if self.paged:
+                self._decode_round_paged(live, fed)
+            else:
+                for st, tok in zip(live, fed):
+                    st.cache, logits, mass = self.exe.decode(st.cache, tok)
+                    self.ctxs.acc_density(st.ctx, mass, st.ctx.n_tokens)
+                    st.next_tok = st.sampler(logits)
         n_stepped = sum(tok is not None for tok in out)
         if n_stepped:
             share = (time.perf_counter() - t1) / n_stepped
@@ -332,7 +349,7 @@ class LLMService:
         if st.suspended or st.done:
             raise RuntimeError("generation is not running")
         t2 = time.perf_counter()
-        self.res.compress_and_swap_out(st.ctx)
+        self.res.compress_and_swap_out(st.ctx, st.cache)
         self.mem.reclaim(0, self.res.evict, locked=set())
         st.t_swapout += time.perf_counter() - t2
         self._park(st)
@@ -341,10 +358,14 @@ class LLMService:
 
     @requires_serialized
     def _park(self, st: GenerationState):
-        """Slot held -> idle; the pages stay in the pool, the entry marks
-        the context warm until an eviction invalidates it (not under the
+        """Slot held -> idle.  A slot cache is kept for exact reuse;
+        with the pool, the pages stay and the entry marks the context
+        warm until an eviction invalidates it (not under the
         force_dequant control, whose pages die at switch-out)."""
-        if not self.res.force_dequant:
+        if not self.paged:
+            self._reuse[st.ctx.cid] = (st.cache, self.res.epoch)
+            self._reuse.move_to_end(st.ctx.cid)
+        elif not self.res.force_dequant:
             self._reuse[st.ctx.cid] = (None, self.res.epoch)
             self._reuse.move_to_end(st.ctx.cid)
         self.res.slots.park(st.ctx.cid)
@@ -371,7 +392,7 @@ class LLMService:
         try:
             if not st.suspended:
                 t2 = time.perf_counter()
-                self.res.compress_and_swap_out(ctx)
+                self.res.compress_and_swap_out(ctx, st.cache)
                 self.mem.reclaim(0, self.res.evict, locked=set())
                 st.t_swapout += time.perf_counter() - t2
                 self._park(st)
@@ -398,13 +419,20 @@ class LLMService:
     @requires_serialized
     def _switch_in(self, st: GenerationState):
         """Claim a decode slot and switch the context in: missing-state
-        restore is timed (the QoS metric); resident admission is
-        inference.  The paged engine never short-circuits: switch_in is
-        where dropped pages are re-admitted."""
+        restore is timed (the QoS metric); resident assembly or admission
+        is inference.  A parked slot cache of this context that no
+        eviction has touched since (epoch match) is the zero-restore
+        fast path; the paged engine never short-circuits (switch_in is
+        where dropped pages are re-admitted)."""
         ctx = st.ctx
         t0 = time.perf_counter()
-        self._reuse.pop(ctx.cid, None)
+        entry = self._reuse.pop(ctx.cid, None)
         st.slot = self.res.slots.acquire(ctx.cid, self._drop_reuse)
+        if (not self.paged and entry is not None
+                and entry[1] == self.res.epoch):
+            st.cache = entry[0]
+            st.t_switch += time.perf_counter() - t0
+            return
         try:
             cache, t_sw = self.res.switch_in(ctx)
         except BaseException:
@@ -443,15 +471,23 @@ class LLMService:
         self._drop_reuse(ctx.cid)
         self.res.slots.release(ctx.cid)
         ctx.tokens[:len(tail)] = tail
-        pool = self.res.pool
-        pool.drop(ctx.cid)
-        self.res.ensure_extend_range(ctx, 0, (len(tail) - 1) // self.exe.cs)
-        pt16, pt8, qmask = pool.rows([ctx.cid])
-        pool.arenas, _, dens = self.exe.paged_extend(
-            pool.arenas, np.asarray(tail, np.int32), 0, pt16, pt8, qmask)
+        tail = np.asarray(tail, np.int32)
+        cache = None
+        if self.paged:
+            # the rebuilt state invalidates every page this ctx held
+            pool = self.res.pool
+            pool.drop(ctx.cid)
+            self.res.ensure_extend_range(ctx, 0,
+                                         (len(tail) - 1) // self.exe.cs)
+            pt16, pt8, qmask = pool.rows([ctx.cid])
+            pool.arenas, _, dens = self.exe.paged_extend(
+                pool.arenas, tail, 0, pt16, pt8, qmask)
+        else:
+            cache, _, dens = self.exe.extend(self.exe.fresh_cache(0), tail,
+                                             0)
         self.ctxs.acc_density(ctx, dens, len(tail))
         ctx.n_tokens = len(tail)
-        self.res.compress_and_swap_out(ctx)
+        self.res.compress_and_swap_out(ctx, cache)
 
     @requires_serialized
     def profile_pipeline(self, n_points: Tuple[int, ...] = (1, 2, 4)):
@@ -498,10 +534,11 @@ class LLMService:
             "slots_held": len(self.res.slots.held),
             "decode_ready_contexts": self.decode_ready_contexts(),
             "quant_resident_chunks": n_quant,
-            "paged_pool": True,
+            "paged_pool": bool(self.paged),
             "device": str(self.device),
         }
-        out.update(self.res.pool.stats())
+        if self.paged:
+            out.update(self.res.pool.stats())
         out.update(self.res.fault_stats())
         return out
 

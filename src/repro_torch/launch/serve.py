@@ -153,7 +153,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     default=True,
                     help="decode over the unified paged KV pool "
                          "(switch-in = a page-table read; "
-                         "--no-paged-pool asks for per-slot caches)")
+                         "--no-paged-pool serves from per-slot caches, "
+                         "restored by the layer-pipelined I/O + "
+                         "recompute of Fig. 8; swap and lmk always do)")
     ap.add_argument("--quant-resident", action="store_true",
                     help="attend over quantized chunks in place: 8-bit "
                          "chunks stay int8 in the pool behind the fused "

@@ -3,7 +3,8 @@
 Mirror of the JAX package's models/dense.py for what serving runs:
 ``init``, ``head_weight``, ``decode_step`` (window, mixed and all-int8
 caches), the interleaved-chunk ``recompute`` (paper Fig. 7; also the
-chunked prefill-append) and the paged-pool entries ``decode_paged`` /
+chunked prefill-append), the layer-pipelined ``recompute_pipelined``
+(paper Fig. 8) and the paged-pool entries ``decode_paged`` /
 ``extend_paged``.  Layer parameters are stacked (L, ...) as in the
 reference; its ``lax.scan`` over layers is a Python loop here.
 
@@ -269,18 +270,39 @@ class DenseModel(ModelBase):
         padding repeats one pad position with token 0; those rows write
         identical K/V, and as queries they enter the density exactly as
         in the reference."""
+        return self._recompute_layers(params, miss_tokens, miss_pos, cache,
+                                      seq_len, window, n_sinks, want_density)
+
+    def _recompute_layers(self, params, miss_tokens, miss_pos, cache,
+                          seq_len, window, n_sinks, want_density,
+                          io_pos=None, fetch=None):
+        """The layer loop of ``recompute`` and ``recompute_pipelined``.
+        With ``fetch``, layer l first writes ``fetch(l)``'s rows at
+        ``io_pos`` into its K/V; restored positions (recomputed and, with
+        ``fetch``, read) leave the quant mask of a mixed cache, which is
+        replaced only after the last layer — a loop that stops early
+        leaves it as it was."""
         cfg = self.cfg
         x = params["embed"][miss_tokens].to(torch.bfloat16)      # (B, M, d)
         mixed = "k_q" in cache
         if mixed:
             k_pos_all = torch.arange(cache["k"].shape[2], device=x.device)
-            # recomputed positions land in the bf16 window
+            # recomputed (and disk-restored) positions land in the bf16
+            # window; surviving quant segments are read through
             hit = (k_pos_all[None, :] == miss_pos[:, None]).any(dim=0)
+            if fetch is not None:
+                hit = hit | (k_pos_all[None, :] == io_pos[:, None]).any(dim=0)
             qm = cache["quant_mask"] & ~hit[None, None]
         dens = []
         for l in range(cfg.n_layers):
             pl = _layer(params, l)
             k_c, v_c = cache["k"][l], cache["v"][l]
+            if fetch is not None:
+                io = fetch(l)
+                k_c[:, io_pos] = torch.as_tensor(
+                    io["k"], device=k_c.device)[None].to(k_c.dtype)
+                v_c[:, io_pos] = torch.as_tensor(
+                    io["v"], device=v_c.device)[None].to(v_c.dtype)
             h = C.rms_norm(x, pl["ln_attn"], cfg.norm_eps)
             q, k, v = self._qkv(pl, h)
             q, k = self._rope(q, k, miss_pos)
@@ -304,6 +326,27 @@ class DenseModel(ModelBase):
         if mixed:
             cache["quant_mask"] = qm
         return cache, x, density
+
+    # ------------------------------------------------------------------ #
+    # Paper Fig. 8: swapping-recompute PIPELINED restore.  Layer l takes
+    # the disk chunks' K/V from ``fetch(l)`` (the I/O thread of
+    # core/restore.py LayerFeed runs a layer ahead) while recomputing
+    # the complementary chunk set.
+    # ------------------------------------------------------------------ #
+    def recompute_pipelined(self, params, miss_tokens: torch.Tensor,
+                            miss_pos: torch.Tensor, io_pos: torch.Tensor,
+                            cache, seq_len, fetch, window: int = 0,
+                            n_sinks: int = 0, want_density: bool = False):
+        """``recompute`` of ``miss_*`` whose layer l first writes the rows
+        of the chunks arriving from disk: ``fetch(l) -> {leaf: (Mio, KV,
+        hd) fp32}`` (numpy arrays or tensors) at ``io_pos`` (Mio,), cast
+        to the cache dtype, in place.  The reference pulls the same rows
+        through an ordered ``io_callback`` inside its layer scan; here
+        the loop calls ``fetch`` directly, so the host blocks only
+        there.  -> (cache, hidden (B, M, d), density (B, S) | None)."""
+        return self._recompute_layers(params, miss_tokens, miss_pos, cache,
+                                      seq_len, window, n_sinks, want_density,
+                                      io_pos=io_pos, fetch=fetch)
 
     # ------------------------------------------------------------------ #
     # Paged KV pool entries: decode/prefill over the page arenas.  Both

@@ -707,3 +707,115 @@ def test_cuda_serve_main_on_the_card(card, capsys):
     assert printed["device"].startswith("cuda")
     assert printed["router"]["foreground"]["calls"] \
         + printed["router"]["background"]["calls"] == 8
+
+
+# --------------------------------------------------------------------- #
+# the slot engine (paged_pool=False): the Fig.-8 pipelined restore
+# --------------------------------------------------------------------- #
+def _slot_service(policy="llms", **kw):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.service import LLMService, LLMSConfig
+    from repro_torch.models.registry import build_model
+    cfg = reduced(get_config("llama2-7b"))
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    sc = LLMSConfig(policy=policy, paged_pool=False, max_ctx_len=64,
+                    swap_dir=tempfile.mkdtemp(), **kw)
+    return LLMService(model, params, sc, device="cuda"), cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["llms", "swap", "lmk"])
+def test_cuda_slot_policies_restore_on_the_card(card, policy):
+    """The reduced llama2-7b on slot caches under a tight budget: under
+    ``llms`` (unprofiled: the heaviest half of each restore recomputes)
+    at least one switch-in runs the layer-pipelined restore, with
+    attn_density launched while it runs; ``swap`` reads whole-state
+    snapshots back and ``lmk`` recomputes killed contexts.  A rerun
+    gives the same tokens."""
+    from repro_torch.kernels import attn_density as kad
+    runs = []
+    for _ in range(2):
+        svc, cfg = _slot_service(policy, memory_budget=12_000)
+        exe, pipes = svc.exe, []
+        run_pipe = exe.run_pipelined
+
+        def counted(*a, **k):
+            ad0 = kad.attn_density.launches
+            out = run_pipe(*a, **k)
+            pipes.append((kad.attn_density.launches - ad0,
+                          dict(exe.last_pipelined)))
+            return out
+
+        exe.run_pipelined = counted
+        rng = np.random.default_rng(0)
+        with svc:
+            stubs = [svc.newLLMCtx() for _ in range(3)]
+            toks = [svc.callLLM(stubs[i % 3], rng.integers(1, 512, 14)
+                                .tolist(), 4)[1] for i in range(9)]
+            st = svc.stats()
+        assert all(len(t) == 4 for t in toks) and not st["paged_pool"]
+        if policy == "llms":
+            assert pipes and all(n == cfg.n_layers for n, _ in pipes)
+            assert all(p["wall_s"] >= p["fetch_wait_s"] >= 0
+                       for _, p in pipes)
+        if policy != "lmk":
+            assert st["disk_bytes_read"] > 0
+        runs.append(toks)
+    assert runs[0] == runs[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["window", "mixed"])
+def test_cuda_pipelined_equals_io_then_recompute(card, quant, tmp_path):
+    """On the card, from one prefilled cache: chunks 0 and 3 read from
+    chunk files (8 and 16 bits) and chunk 2 recomputed give the same K/V
+    bit for bit through the layer-pipelined restore (page-locked feed
+    buffers, copies without blocking) and through whole-file inserts
+    followed by ``extend_nod``."""
+    from repro_torch.core.restore import (LayerFeed, read_chunk_file,
+                                          write_chunk_file)
+    svc, cfg = _slot_service(quant_resident=quant, memory_budget=1 << 30)
+    with svc:
+        exe, res, cs = svc.exe, svc.res, svc.exe.cs
+        toks = np.random.default_rng(3).integers(1, 512, 64).astype(np.int32)
+        full, _, _ = exe.extend(exe.fresh_cache(0), toks, 0)
+        if quant:
+            qc = res._make_payload(full, 1, 8, quant=True)
+            exe.codec.scatter_quant(
+                full, exe._t(exe.chunk_positions([1])),
+                {n: torch.from_numpy(qc.data[n][0]).cuda() for n in "kv"},
+                {n: torch.from_numpy(qc.data[n][1]).cuda() for n in "kv"})
+        io_idx, re_idx, paths = [0, 3], [2], []
+        for i, bits in zip(io_idx, (8, 16)):
+            p = str(tmp_path / f"c{i}")
+            write_chunk_file(p, res._make_payload(full, i, bits),
+                             exe.n_layers)
+            paths.append(p)
+        hole = exe._t(exe.chunk_positions(io_idx + re_idx))
+        miss_b = exe.bucket_pad(exe.chunk_positions(re_idx), exe.pad_slot)
+        toks_b = exe.bucket_pad(toks[exe.chunk_positions(re_idx)], 0)
+
+        def holes():
+            c = {k: v.clone() for k, v in full.items()}
+            for n in "kv":
+                c[n][:, :, hole] = 0
+            return c
+
+        a = holes()
+        feed = LayerFeed(paths, exe.codec.leaves, exe.n_layers, cs,
+                         exe.leaf_dims, alloc=exe.host_alloc)
+        _, h_a = exe.run_pipelined(feed, toks_b, miss_b,
+                                   exe.chunk_positions(io_idx), a, 64)
+        feed.close()
+        b = holes()
+        for i, p in zip(io_idx, paths):
+            exe.codec.insert(b, i * cs, res._payload_blocks(
+                read_chunk_file(p)))
+        _, h_b, _ = exe.extend_nod(toks_b, miss_b, b, 64)
+        torch.cuda.synchronize()
+        assert torch.equal(h_a, h_b)
+        for n in "kv":
+            assert torch.equal(a[n][:, :, :64], b[n][:, :, :64]), n
+        if quant:
+            assert torch.equal(a["quant_mask"], b["quant_mask"])

@@ -7,6 +7,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -139,15 +140,24 @@ def test_llmservice_defaults_to_the_card(monkeypatch, tmp_path):
     (dict(policy="swap"), "whole-state"),
     (dict(policy="lmk"), "whole-state"),
 ])
-def test_unported_configurations_are_refused(kw, what, tmp_path):
-    from repro_torch.configs import get_config, reduced
-    from repro_torch.core.service import LLMService, LLMSConfig
-    from repro_torch.models.registry import build_model
-    cfg = reduced(get_config("llama2-7b"))
-    model = build_model(cfg, device="cpu")
-    sc = LLMSConfig(max_ctx_len=64, swap_dir=str(tmp_path), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LLMService(model, {}, sc, device="cpu")
+def test_slot_and_whole_state_configurations_serve(kw, what):
+    """The configurations once refused here (the slot engine, the
+    whole-state policies ``swap`` and ``lmk``) serve on the CPU: two
+    contexts, three calls each, with the same tokens as the JAX
+    package's service on the same weights, and no paged pool."""
+    from _torch_parity import services
+    js, ts, cfg = services(budget=12_000, **kw)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab, 10).tolist() for _ in range(6)]
+    with js, ts:
+        out = []
+        for svc in (js, ts):
+            stubs = [svc.newLLMCtx() for _ in range(2)]
+            out.append([svc.callLLM(stubs[i % 2], p, 3)[1]
+                        for i, p in enumerate(prompts)])
+        assert not ts.paged and not ts.stats()["paged_pool"], what
+    assert out[1] == out[0]
+    assert all(len(t) == 3 for t in out[1])
 
 
 def test_other_families_are_refused():

@@ -96,9 +96,9 @@ def _first_difference(a, b):
 
 
 def _run_both(policy="llms", quant=False, seed=2, n_ctx=6, n_calls=16,
-              budget_chunks=3):
+              budget_chunks=3, paged_pool=True):
     js, ts, tcfg = services(policy=policy, decode_batch=4,
-                            quant_resident=quant,
+                            quant_resident=quant, paged_pool=paged_pool,
                             budget=budget_chunks * RAW_CHUNK)
     events_j = jsynthesize(n_ctx, n_calls, tcfg.vocab, pattern="markov",
                            scale=SCALE, seed=seed)
@@ -293,9 +293,25 @@ def test_serve_main_refuses_without_a_card(monkeypatch):
 @pytest.mark.parametrize("argv,what", [
     (["--no-paged-pool"], "slot engine"), (["--policy", "swap"], "whole"),
     (["--arch", "llama2-7b", "--policy", "lmk"], "whole")])
-def test_serve_main_refuses_unported_configurations(argv, what):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.main(["--reduced", "--device", "cpu", "--calls", "2"] + argv)
+def test_serve_main_serves_slot_and_whole_state(argv, what, capsys):
+    """``launch.serve.main`` serves the configurations it once refused
+    (the slot engine, ``swap``, ``lmk``) on the CPU with no failed call
+    and no paged pool; and the same policy and engine through both
+    packages' routers on one trace give the same completions, evictions
+    and counts (``_run_both``, decode_batch 4)."""
+    import json
+    tserve.main(["--reduced", "--device", "cpu", "--calls", "6",
+                 "--contexts", "3", "--max-ctx", "512"] + argv)
+    out = capsys.readouterr().out
+    printed = json.loads(out[out.index("{"):])
+    assert printed["failed_calls"] == 0 and not printed["paged_pool"], what
+    policy = argv[argv.index("--policy") + 1] if "--policy" in argv \
+        else "llms"
+    (log_j, st_j, _), (log_t, st_t, _) = _run_both(
+        policy=policy, paged_pool=False, n_calls=10)
+    assert log_t == log_j, _first_difference(log_j, log_t)
+    assert _counts(st_t) == _counts(st_j)
+    assert len([e for e in log_t if e[0] == "done"]) == 10
 
 
 def test_parse_priority_mix_matches_reference():
