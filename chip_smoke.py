@@ -25,7 +25,13 @@ result line):
              kernel's own setting and the edge cases of its tile plan
              (ragged tiles, hd 16/20/80, G 64), the slot engine's
              shapes (a non-contiguous recompute set, lmk's whole-context
-             recompute), causal, windowed and with rows that see no key; decode_qattn in both forms, with
+             recompute), MLA's recompute (H = KV = 16, query/key head
+             dim 192 beside value head dim 128, over S = 512 and 256 at
+             the 64-row bucket, over 512 at the 16-, 32-, 128- and
+             256-row buckets, 640 rows over 1024 on the kernel's 64-row
+             tiles, and the reduced model's 24 / 16), causal, windowed and with
+             rows that see no key; the codec at MLA's chunk leaves (16,
+             13,824) and (16, 1,728), 8-bit; decode_qattn in both forms, with
              and without the mass, at two shapes and two (window, sinks)
              settings, over MQ_EDGE with every position quant and at the
              GQA shapes.  Time
@@ -92,14 +98,35 @@ result line):
              switch_s over disk restores, the splits and each pipelined
              restore's wall time and wait in LayerFeed.fetch reported.
              Kernel launch counts are zeroed just before each run and
-             read just after.  Then one full-width restore two ways
+             read just after.  The first attn_density call of each shape
+             and mask in a run is kept (inputs and result) and held
+             against the plain version after the run (_SlotHooks, which
+             the MLA phase shares).  Then one full-width restore two ways
              (pipelined against whole-file inserts + extend_nod), which
              must agree bit for bit, window and mixed cache;
+3d. mla   — the earlier models freed, deepseek-v2-lite-16b at full
+             width (27 layers, d 2048, 16 heads, rank 512 + rope 64, 64
+             experts top-6 + 2 shared, vocab 102,400; random bf16
+             weights from SEED drawn on the card) through
+             launch.serve.serve (MLA: the serve phase's trace, one app,
+             decode_batch 1, slot caches, 12 raw latent chunks): a
+             no-pressure llms run, llms under the card's profile (one
+             decode token and one recompute profiled) and its rerun
+             under that profile (identical tokens, bit plans and splits
+             required), llms + quant_resident (the mixed latent layout),
+             swap and lmk, each against the no-pressure run call by
+             call; every recompute launches attn_density once a layer,
+             and each shape it ran at is held against the plain version
+             on that call's own inputs.
+             Kernel launch counts are zeroed just before each replay and
+             read just after;
 4. check   — the reduced llama2-7b and the reduced smollm-360m (G = 2,
              tied head) served teacher-forced on the card agree with the
              same port on the CPU (plain PyTorch), over the bf16 page
              view, a mixed (quant-resident) view and an all-int8 decode
-             cache; and the reduced llama2-7b's pipelined restore.
+             cache; the reduced llama2-7b's pipelined restore; and the
+             reduced deepseek-v2-lite's recompute (latents, density) and
+             absorbed decode (logits, masses), window and mixed cache.
 
 The last lines are the kernel record ({"kernels": [...]}), the card's
 ``nvidia-smi`` name and power limit, and {"ok": true, "device": ...}.
@@ -171,6 +198,16 @@ ROUTER = dict(contexts=6, calls=16, gqa_calls=8, max_new=8,
 # (64 query rows with the bucket pads) of a 128-token context
 SLOT = dict(budget_chunks=8, max_ctx=256, n_tokens=128, io=[0, 2, 3, 6],
             io_bits=[8, 4, 2, 16], recompute=[1, 4, 5])
+# the MLA phase: deepseek-v2-lite-16b at full width on the serve phase's
+# trace, slot caches (its KVSpec declares no paged pool), a budget of 12
+# raw latent chunks (16 x 576 x 27 bf16 = 0.47 MiB each), so that every
+# policy restores at least twice
+MLA = dict(arch="deepseek-v2-lite-16b", budget_chunks=12, max_ctx=256)
+# its chunk leaves (T, layers x width): ckv (16, 27 x 512), kpe (16, 27 x 64)
+MLA_CODEC_SHAPES = ((16, 27 * 512), (16, 27 * 64))
+# attn_density at MLA's recompute: H = KV = 16, Dqk 128 + 64, Dv 128, a
+# 64-row bucket over the slot cache of max_ctx_len 256 (S = 512) and 256
+AD_MLA = dict(H=16, dqk=192, dv=128, S=(512, 256))
 
 
 def log(*a):
@@ -350,10 +387,11 @@ def _device_ms(fn, match=None, iters=50, by_kernel=None, flush=None):
     return total_us / iters / 1e3 if total_us > 0 else None
 
 
-def _profile_round(fn):
+def _profile_round(fn, top=0):
     """Run ``fn`` once under the profiler (CUDA activity only): its host
     wall time, the device time of its kernels by category, and the
-    device's idle share of the wall time (profiler overhead included)."""
+    device's idle share of the wall time (profiler overhead included);
+    with ``top``, also the ``top`` kernels with the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -375,9 +413,14 @@ def _profile_round(fn):
         cats[cat] = cats.get(cat, 0.0) + _device_us(ev) / 1e3
         n_kernels += ev.count
     busy = sum(cats.values())
-    return out, {"wall_ms": wall_ms, "device_ms": busy,
-                 "idle_share": 1.0 - busy / wall_ms, "kernels": n_kernels,
-                 "by_category_ms": cats}
+    info = {"wall_ms": wall_ms, "device_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms, "kernels": n_kernels,
+            "by_category_ms": cats}
+    if top:
+        evs = sorted(prof.key_averages(), key=_device_us, reverse=True)
+        info["top_kernels_ms"] = [(ev.key[:80], _device_us(ev) / 1e3,
+                                   ev.count) for ev in evs[:top]]
+    return out, info
 
 
 def _codec_bound_ms(T, F, bits, in_bytes):
@@ -507,6 +550,55 @@ def kernel_phase():
         f"one launch and one copy, {per_leaf_ms:.4f} ms as a launch and two "
         f"copies per leaf")
     return max_err, times
+
+
+def mla_codec_phase():
+    """The chunk codec at deepseek-v2-lite's chunk leaves and its 8-bit
+    floor: ckv (16, 13,824) and kpe (16, 1,728) quantized in one launch
+    (as a switch-out runs them) and each dequantized, bit for bit
+    against the plain versions; timings of both beside their plain
+    versions and bounds.  -> {"quantize_two_leaves": row, "dequantize":
+    {shape: row}}."""
+    import torch
+    from repro_torch.kernels import chunk_quant, ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    xs = [(torch.randn(shape, generator=g, device=dev) * 3).bfloat16()
+          for shape in MLA_CODEC_SHAPES]
+    _, leaves = chunk_quant.quantize_leaves(xs, 8)
+    torch.cuda.synchronize()
+    for x, (p, s) in zip(xs, leaves):
+        p_r, s_r = ref.quantize_ref(x, 8)
+        d_k = chunk_quant.dequantize(p_r, s_r, 8, x.shape[0])
+        d_r = ref.dequantize_ref(p_r, s_r, 8, x.shape[0])
+        torch.cuda.synchronize()
+        if not (torch.equal(p, p_r) and torch.equal(s, s_r)
+                and torch.equal(d_k.view(torch.int16),
+                                d_r.view(torch.int16))):
+            raise AssertionError(f"the codec at MLA's leaf {tuple(x.shape)} "
+                                 "differs from its plain version")
+    bounds = [_codec_bound_ms(T, F, 8, 2) for T, F in MLA_CODEC_SHAPES]
+    two = lambda: chunk_quant.quantize_leaves(xs, 8)          # noqa: E731
+    plain = lambda: [ref.quantize_ref(x, 8) for x in xs]      # noqa: E731
+    out = {"quantize_two_leaves": {
+        "shape": f"{MLA_CODEC_SHAPES} bf16 8-bit, one launch",
+        "call_ms": _time_ms(two), "device_ms": _device_ms(two, QUANT_KERNEL),
+        "plain_call_ms": _time_ms(plain, iters=50),
+        "plain_device_ms": _device_ms(plain),
+        "bound_ms": sum(b for b, _ in bounds), "bound_by": bounds[0][1]},
+        "dequantize": {}}
+    for x, (p, s), (bound, by) in zip(xs, leaves, bounds):
+        T = x.shape[0]
+        d = lambda: chunk_quant.dequantize(p, s, 8, T)        # noqa: E731
+        d_ref = lambda: ref.dequantize_ref(p, s, 8, T)        # noqa: E731
+        out["dequantize"][str(tuple(x.shape))] = {
+            "call_ms": _time_ms(d), "device_ms": _device_ms(d, "dequant_kernel<"),
+            "plain_call_ms": _time_ms(d_ref, iters=50),
+            "plain_device_ms": _device_ms(d_ref), "bound_ms": bound,
+            "bound_by": by}
+    log(f"[kernels] the codec at MLA's chunk leaves {MLA_CODEC_SHAPES}, "
+        f"8-bit: bit-exact vs the plain versions; {json.dumps(out)}")
+    return out
 
 
 def _mq_case(B, S, H, KV, hd, quant_share, g, dev, full=False, cs=16,
@@ -716,14 +808,14 @@ def _log_library(kernel, row, what):
         f"{row['library_kernels']}, L2 cold {row['library_kernels_l2_cold']}")
 
 
-def _ad_case(B, Sq, Sk, H, KV, hd, q_pos, g, dev):
-    """q (B,Sq,H,hd), k/v (B,Sk,KV,hd) bf16 on the card and the (Sq,)
-    int32 query positions."""
+def _ad_case(B, Sq, Sk, H, KV, hd, q_pos, g, dev, dv=None):
+    """q (B,Sq,H,hd), k (B,Sk,KV,hd), v (B,Sk,KV,dv (default hd)) bf16 on
+    the card and the (Sq,) int32 query positions."""
     import torch
     r = lambda *s: torch.randn(s, generator=g, device=dev)   # noqa: E731
     qp = torch.as_tensor(q_pos, dtype=torch.int32, device=dev)
     return [r(B, Sq, H, hd).bfloat16(), r(B, Sk, KV, hd).bfloat16(),
-            r(B, Sk, KV, hd).bfloat16(), qp]
+            r(B, Sk, KV, hd if dv is None else dv).bfloat16(), qp]
 
 
 def _serve_positions(seq_len):
@@ -736,21 +828,32 @@ def _serve_positions(seq_len):
 
 
 def _ad_bound_ms(args, seq_len, window, n_sinks, want_density):
-    """Least time for one call: q, the K/V rows some query sees, out
-    (and the density) once over the HBM rate, or 4 hd FLOPs per visible
-    (query-head, key) pair (QK and PV) over the bf16 tensor-core rate,
-    the larger."""
+    """Least time for one call: q, the K (Dqk) and V (Dv) rows some query
+    sees, out (Dv; and the density) once over the HBM rate, or 2 (Dqk +
+    Dv) FLOPs per visible (query-head, key) pair (QK and PV) over the
+    bf16 tensor-core rate, the larger (Dqk = Dv = hd: 4 hd)."""
     from repro_torch.kernels import ref
-    q, k, _, qp = args
-    B, Sq, H, hd = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
+    q, k, v, qp = args
+    B, Sq, H, dqk = q.shape
+    Sk, KV, dv = k.shape[1], k.shape[2], v.shape[-1]
     vis = ref.extend_visibility(qp.long(), Sk, seq_len, window, n_sinks)
     n_pairs = int(vis.sum()) * H * B
     n_keys = int(vis.any(dim=0).sum())
-    nbytes = B * (2 * Sq * H * hd * 2 + n_keys * KV * hd * 2 * 2) + 4 * Sq \
-        + (4 * B * Sk if want_density else 0)
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, 4 * hd * n_pairs / BF16_OPS_PER_S
+    nbytes = B * (Sq * H * (dqk + dv) * 2 + n_keys * KV * (dqk + dv) * 2) \
+        + 4 * Sq + (4 * B * Sk if want_density else 0)
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_o = 2 * (dqk + dv) * n_pairs / BF16_OPS_PER_S
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def _mla_positions(S):
+    """MLA's bucket-padded recompute positions over a slot cache of S
+    positions: S = 512 (max_ctx_len 256) as ``_serve_positions(200)``,
+    S = 256 an append of 40 at [108, 148) and 24 pads at 255.
+    -> (positions, seq_len)."""
+    if S == AD_SERVE["S"]:
+        return _serve_positions(200), 200
+    return list(range(108, 148)) + [S - 1] * 24, 148
 
 
 def attn_phase():
@@ -790,6 +893,42 @@ def attn_phase():
                         list(range(200)) + [AD_SERVE["pad"]] * 56, g, dev)
     cases.append(("slot recompute set", slot_args, SLOT["n_tokens"],
                   ((0, 0), (512, 4), (16, 0))))
+    # MLA's recompute: Dqk 192 (nope 128 + rope 64) beside Dv 128, H = KV
+    # = 16, over S = 512 and 256; and the reduced model's Dqk 24 / Dv 16
+    mla_args = {}
+    for S_m in AD_MLA["S"]:
+        pos_m, seq_m = _mla_positions(S_m)
+        mla_args[S_m] = _ad_case(1, 64, S_m, AD_MLA["H"], AD_MLA["H"],
+                                 AD_MLA["dqk"], pos_m, g, dev,
+                                 dv=AD_MLA["dv"])
+        cases.append((f"MLA recompute over {S_m} (Dqk {AD_MLA['dqk']}, Dv "
+                      f"{AD_MLA['dv']})", mla_args[S_m], seq_m,
+                      ((0, 0), (512, 4), (16, 0))))
+    # the other token buckets MLA's recompute fills over S = 512: one
+    # restored chunk (16 rows), a first prompt of 32, a whole recompute
+    # of 100 tokens (128 rows, 28 pads) and lmk's of 200 (256 rows, 56
+    # pads); then 640 rows over 1024, where the plan takes 64-row tiles
+    mh, mq, mv = AD_MLA["H"], AD_MLA["dqk"], AD_MLA["dv"]
+    pad = AD_SERVE["pad"]
+    for rows, pos_m, seq_m in (
+            (16, list(range(32, 48)), 128), (32, list(range(32)), 32),
+            (128, list(range(100)) + [pad] * 28, 100),
+            (256, list(range(200)) + [pad] * 56, 200)):
+        mla_args[rows] = _ad_case(1, rows, S, mh, mh, mq, pos_m, g, dev,
+                                  dv=mv)
+        cases.append((f"MLA recompute, {rows}-row bucket over {S}",
+                      mla_args[rows], seq_m, ((0, 0), (512, 4), (16, 0))))
+    if kad.plan(1, 640, mh, mh)[0] != 64:
+        raise AssertionError("attn_density's plan keeps 16-row tiles at "
+                             "640 MLA rows")
+    cases.append((f"MLA 640 rows over 1024 (64-row tiles, Dqk {mq}, Dv {mv})",
+                  _ad_case(1, 640, 1024, mh, mh, mq, list(range(360, 1000)),
+                           g, dev, dv=mv), 1000,
+                  ((0, 0), (512, 4), (16, 0))))
+    cases.append(("reduced MLA (Dqk 24, Dv 16)",
+                  _ad_case(1, 32, 64, 4, 4, 24, list(range(20, 48))
+                           + [63] * 4, g, dev, dv=16), 48,
+                  ((0, 0), (8, 0), (16, 2))))
     cases.append(("lmk whole recompute", lmk_args, 200,
                   ((0, 0), (512, 4), (16, 0))))
     long_args = _ad_case(1, 512, 4096, H, 32, hd, list(range(3584, 4096)),
@@ -858,7 +997,8 @@ def attn_phase():
     log(f"[kernels] attn_density: {n_cases} cases (the GQA shapes "
         f"{[(H, KV, hd) for _, H, KV, hd in GQA_SHAPES]} at serving's "
         f"extend, the slot recompute set {SLOT['recompute']} and lmk's "
-        f"whole recompute among them) x (with, without density) "
+        f"whole recompute, MLA's 192/128 at every token bucket and at "
+        f"64-row tiles among them) x (with, without density) "
         f"within tolerance of the plain version ({n_empty} rows that see no "
         f"key among them): max |d out| {worst['out']} ({worst['out_rel']} "
         f"of max|out|, tolerance {MQ_OUT_TOL}), max |d density| "
@@ -915,6 +1055,15 @@ def attn_phase():
         "lmk": timed("(1,256,32,32,128) at [0,200) + 56 pads over 512, "
                      "seq_len 200", lmk_args, 200, "served", True),
     }
+    for S_m in AD_MLA["S"]:
+        pos_m, seq_m = _mla_positions(S_m)
+        for want in (False, True):
+            times[f"mla_{S_m}{'_density' if want else ''}"] = timed(
+                f"(1,64,16,16,{AD_MLA['dqk']}/{AD_MLA['dv']}) over {S_m}, "
+                f"seq_len {seq_m}", mla_args[S_m], seq_m, "served", want)
+    times["mla_lmk_density"] = timed(
+        f"(1,256,16,16,{mq}/{mv}) at [0,200) + 56 pads over {S}, seq_len "
+        f"200", mla_args[256], 200, "served", True)
     return worst, times
 
 
@@ -1103,7 +1252,7 @@ def serve_phase(model, params, seed, swap_root, label,
             torch.cuda.synchronize()
 
     cs = 16
-    raw_chunk = 2 * cfg.n_layers * cs * cfg.n_kv_heads * cfg.head_dim * 2
+    raw_chunk = _raw_chunk_bytes(model, cs)
     budget = 2 * 4 * raw_chunk        # two contexts' raw KV after 1 call
     sc = LLMSConfig(policy="llms", paged_pool=True, decode_batch=1,
                     max_ctx_len=256, chunk_tokens=cs, memory_budget=budget,
@@ -1196,9 +1345,7 @@ def serve_phase(model, params, seed, swap_root, label,
     records = []
     with svc:
         stubs = [svc.newLLMCtx() for _ in range(4)]
-        chunk_quant.reset_launches()
-        kmq.reset_launches()
-        kad.reset_launches()
+        _zero_launches()
         t_run = time.perf_counter()
         for i, (c, prompt, max_new) in enumerate(trace):
             read0 = restore.io_counters()["read"]
@@ -1233,12 +1380,7 @@ def serve_phase(model, params, seed, swap_root, label,
                 f"decode_mqattn launches {mq} | attn_density launches {ad} "
                 f"| bits {bits}")
         run_s = time.perf_counter() - t_run
-        launches = {"quantize": chunk_quant.quantize.launches,
-                    "dequantize": chunk_quant.dequantize.launches,
-                    "decode_mqattn": kmq.decode_mqattn.launches,
-                    "attn_density": kad.attn_density.launches,
-                    "attn_density_with_density":
-                        kad.attn_density.density_launches}
+        launches = _read_launches()
         stats = svc.stats()
         widths = {}
         for ctx in svc.contexts.values():
@@ -1396,15 +1538,13 @@ def router_phase(model, params, seed, swap_root, label, n_calls,
     import numpy as np
     import torch
     from repro_torch.core import restore
-    from repro_torch.kernels import attn_density as kad
-    from repro_torch.kernels import chunk_quant
     from repro_torch.kernels import decode_mqattn as kmq
     from repro_torch.launch.serve import parse_args, serve
 
     cfg, device = model.cfg, model.device
     on_card = device.type == "cuda"
     B = ROUTER["decode_batch"] if decode_batch is None else decode_batch
-    raw_chunk = 2 * cfg.n_layers * 16 * cfg.n_kv_heads * cfg.head_dim * 2
+    raw_chunk = _raw_chunk_bytes(model)
     args = parse_args([
         "--policy", policy, "--pattern", "markov",
         "--contexts", str(ROUTER["contexts"]), "--calls", str(n_calls),
@@ -1502,9 +1642,7 @@ def router_phase(model, params, seed, swap_root, label, n_calls,
 
         router.on_complete = done
         run["read0"] = restore.io_counters()["read"]
-        chunk_quant.reset_launches()
-        kmq.reset_launches()
-        kad.reset_launches()
+        _zero_launches()
         run["t0"] = time.perf_counter()
 
     def on_end(svc, router, events):
@@ -1514,12 +1652,7 @@ def router_phase(model, params, seed, swap_root, label, n_calls,
         if on_card:
             torch.cuda.synchronize()
         run["run_s"] = time.perf_counter() - run["t0"]
-        run["launches"] = {
-            "quantize": chunk_quant.quantize.launches,
-            "dequantize": chunk_quant.dequantize.launches,
-            "attn_density": kad.attn_density.launches,
-            "attn_density_with_density": kad.attn_density.density_launches,
-            "decode_mqattn": kmq.decode_mqattn.launches}
+        run["launches"] = _read_launches()
         run["restored"] = restore.io_counters()["read"] - run["read0"]
         run["calls"] = list(router.call_records)
         run["router"] = router.stats()
@@ -1668,9 +1801,6 @@ def entry_point_phase(swap_root):
     import io
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import attn_density as kad
-    from repro_torch.kernels import chunk_quant
-    from repro_torch.kernels import decode_mqattn as kmq
     from repro_torch.launch import serve
     cfg = get_config("smollm-360m")
     raw_chunk = 2 * cfg.n_layers * 16 * cfg.n_kv_heads * cfg.head_dim * 2
@@ -1683,9 +1813,7 @@ def entry_point_phase(swap_root):
             "--slice-steps", str(ROUTER["slice_steps"]),
             "--decode-batch", str(ROUTER["decode_batch"]),
             "--seed", str(SEED), "--swap-dir", tempfile.mkdtemp(dir=swap_root)]
-    chunk_quant.reset_launches()
-    kmq.reset_launches()
-    kad.reset_launches()
+    _zero_launches()
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
@@ -1696,10 +1824,7 @@ def entry_point_phase(swap_root):
     printed = json.loads(text[re.search(r"^\{", text, re.M).start():])
     r = printed["router"]
     n = sum(r[p]["calls"] for p in ("foreground", "background") if p in r)
-    launches = {"quantize": chunk_quant.quantize.launches,
-                "dequantize": chunk_quant.dequantize.launches,
-                "attn_density": kad.attn_density.launches,
-                "decode_mqattn": kmq.decode_mqattn.launches}
+    launches = _read_launches()
     log(f"[entry] python -m repro_torch.launch.serve {' '.join(argv[:-2])}: "
         f"{n} calls, failed {printed['failed_calls']}, device "
         f"{printed['device']}, wall {wall:.2f} s (model build included), "
@@ -1815,6 +1940,239 @@ def _batch_divergence(batched, serial):
 # 3c. the slot engine: paged_pool=False, the Fig.-8 pipelined restore and
 #     the whole-state baselines
 # --------------------------------------------------------------------- #
+def _zero_launches():
+    """Every kernel wrapper's launch count to 0."""
+    from repro_torch.kernels import attn_density as kad
+    from repro_torch.kernels import chunk_quant
+    from repro_torch.kernels import decode_mqattn as kmq
+    from repro_torch.kernels import decode_qattn as kdq
+    for k in (chunk_quant, kmq, kad, kdq):
+        k.reset_launches()
+
+
+def _read_launches():
+    from repro_torch.kernels import attn_density as kad
+    from repro_torch.kernels import chunk_quant
+    from repro_torch.kernels import decode_mqattn as kmq
+    from repro_torch.kernels import decode_qattn as kdq
+    return {"quantize": chunk_quant.quantize.launches,
+            "dequantize": chunk_quant.dequantize.launches,
+            "decode_mqattn": kmq.decode_mqattn.launches,
+            "attn_density": kad.attn_density.launches,
+            "attn_density_with_density": kad.attn_density.density_launches,
+            "decode_qattn": kdq.decode_qattn.launches}
+
+
+class _SlotHooks:
+    """Hooks on one slot-engine ``LLMService`` that the slot and MLA
+    phases share.  Per call (``begin``, then ``record``): the restore
+    splits (chunks recomputed, read), each whole-state restore
+    (resident, read or recompute), each pipelined restore's wall and
+    fetch wait, the bytes read, and every greedy pick's logits row (on
+    the CPU).  Over the run: the recomputes, the steps named in
+    ``profile`` ("restore", "decode token", "recompute") each run once
+    under the profiler after call ``profile_from``, and the first
+    ``attn_density`` call of each shape and mask setting kept (inputs
+    and result, cloned), which ``check_attn`` holds against the plain
+    version.  ``close`` takes the hooks off."""
+
+    def __init__(self, svc, name, on_card, profile=(), profile_from=0,
+                 top=0):
+        import numpy as np
+        import torch
+        from repro_torch.kernels import ops
+        exe, res = svc.exe, svc.res
+        self.name, self.on_card = name, on_card
+        self.now = {"split": [], "pipelined": [], "whole": [], "rows": []}
+        self.records, self.picks, self.prof, self.attn = [], [], {}, {}
+        self.calls = self.n_recompute = self.read0 = 0
+        plan, pipe = res._plan_restore, exe.run_pipelined
+        whole, attn = res._restore_whole_timed, ops.attn_density
+        extend, decode, recompute = exe.extend, exe.decode, exe.recompute
+        self._undo = [(res, "_plan_restore", plan),
+                      (res, "_restore_whole_timed", whole),
+                      (exe, "run_pipelined", pipe), (exe, "extend", extend),
+                      (exe, "decode", decode), (exe, "recompute", recompute),
+                      (ops, "attn_density", attn)]
+        now = self.now
+
+        def profiled(kind, fn):
+            if on_card and kind in profile and kind not in self.prof \
+                    and self.calls > profile_from:
+                out, self.prof[kind] = _profile_round(fn, top=top)
+                self.prof[kind]["call"] = self.calls - 1
+                return out
+            return fn()
+
+        def logged_plan(ctx, missing):
+            re_idx, io_idx = plan(ctx, missing)
+            now["split"].append((list(map(int, re_idx)),
+                                 list(map(int, io_idx))))
+            return re_idx, io_idx
+
+        def logged_pipe(*a, **k):
+            out = profiled("restore", lambda: pipe(*a, **k))
+            now["pipelined"].append(dict(exe.last_pipelined))
+            return out
+
+        def logged_whole(ctx, cache):
+            now["whole"].append(
+                "resident" if ctx.whole is not None
+                else "read" if svc.cfg.use_disk
+                and res.store.nbytes((ctx.cid, -1)) else "recompute")
+            return whole(ctx, cache)
+
+        def kept(fn, kind):
+            def run(*a, **k):
+                out = profiled(kind, lambda: fn(*a, **k))
+                row = torch.as_tensor(np.asarray(out[1], np.float32)
+                                      ).reshape(-1)
+                if not torch.isfinite(row).all():
+                    raise AssertionError(f"{name} non-finite logits")
+                now["rows"].append(row.clone())
+                return out
+            return run
+
+        def counted_recompute(*a, **k):
+            self.n_recompute += 1
+            return profiled("recompute", lambda: recompute(*a, **k))
+
+        def kept_attn(q, k, v, q_pos, seq_len, window=0, n_sinks=0,
+                      want_density=True, form="served"):
+            out = attn(q, k, v, q_pos, seq_len, window, n_sinks,
+                       want_density, form)
+            key = (tuple(q.shape), tuple(k.shape), tuple(v.shape),
+                   int(seq_len), int(window), int(n_sinks),
+                   bool(want_density), form)
+            if key not in self.attn:
+                self.attn[key] = ([t.clone() for t in (q, k, v, q_pos)],
+                                  [None if t is None else t.clone()
+                                   for t in out])
+            return out
+
+        res._plan_restore, exe.run_pipelined = logged_plan, logged_pipe
+        if not svc.cfg.chunked:
+            res._restore_whole_timed = logged_whole
+        exe.extend = kept(extend, None)
+        exe.decode = kept(decode, "decode token")
+        exe.recompute, ops.attn_density = counted_recompute, kept_attn
+
+    def begin(self):
+        from repro_torch.core import restore
+        for v in self.now.values():
+            v.clear()
+        self.calls += 1
+        self.read0 = restore.io_counters()["read"]
+
+    def record(self, context, toks, **extra):
+        """The call that just ended on the service's ``context``."""
+        from repro_torch.core import restore
+        i, now = len(self.records), self.now
+        if len(now["rows"]) != len(toks):
+            raise AssertionError(f"{self.name} call {i}: {len(now['rows'])} "
+                                 f"logits rows for {len(toks)} tokens")
+        self.picks.extend((i, j, row) for j, row in enumerate(now["rows"]))
+        metas = [m for _, m in sorted(context.chunks.items())]
+        rec = {**extra, "tokens": list(map(int, toks)),
+               "bits": [m.bits for m in metas],
+               "quant": [m.quant for m in metas],
+               "restored_bytes": restore.io_counters()["read"] - self.read0,
+               "split": list(now["split"]),
+               "pipelined": list(now["pipelined"]),
+               "whole": list(now["whole"])}
+        rec["disk_restore"] = bool(rec["restored_bytes"] > 0 or any(
+            w in ("read", "recompute") for w in rec["whole"]))
+        self.records.append(rec)
+        return rec
+
+    def close(self):
+        for obj, attr, fn in self._undo:
+            setattr(obj, attr, fn)
+        self._undo = []
+
+    def check_attn(self):
+        """Each kept ``attn_density`` call of the run against the plain
+        version on its own inputs, with ``attn_phase``'s tolerances.
+        -> one (Sq, Sk, seq_len, window, n_sinks, density, |d out| /
+        range, |d density| / range) row a kept call."""
+        from repro_torch.kernels import ref
+        rows = []
+        for key, (args, (o_k, d_k)) in self.attn.items():
+            sq, sk = key[0][1], key[1][1]
+            seq_len, window, n_sinks, want, form = key[3:]
+            o_r, d_r = ref.attn_density_plain(*args, seq_len, window,
+                                              n_sinks, want, form)
+            span = float(o_r.float().abs().max())
+            d_o = float((o_k.float() - o_r.float()).abs().max())
+            d_d = (float((d_k - d_r).abs().max()) / float(d_r.abs().max())
+                   if want else 0.0)
+            if not (d_o <= MQ_OUT_TOL * span and d_d <= AD_DENS_TOL):
+                raise AssertionError(
+                    f"{self.name} attn_density on the main path at Sq {sq} "
+                    f"over {sk}, seq_len {seq_len}, window {window}, sinks "
+                    f"{n_sinks}, density {want}: |d out| {d_o} (range "
+                    f"{span}), |d density| {d_d} of its range")
+            rows.append((sq, sk, seq_len, window, n_sinks, want,
+                         d_o / span, d_d))
+        return rows
+
+    def summary(self, launches, run_s, profile_used):
+        """Log the run's restores, profiles and the check of its own
+        attn_density calls.  -> (disk-restore switch_s in ms, sorted;
+        the splits; the pipelined restores; the checked calls)."""
+        recs, name = self.records, self.name
+        disk = sorted(r["switch_s"] * 1e3 for r in recs if r["disk_restore"])
+        pipes = [p for r in recs for p in r["pipelined"]]
+        splits = [s for r in recs for s in r["split"]]
+        log(f"{name} {len(recs)} calls in {run_s:.2f} s; kernel launches "
+            f"{launches} over {self.n_recompute} recomputes")
+        log(f"{name} restore profile {profile_used}")
+        if disk:
+            log(f"{name} switch_s over {len(disk)} disk restores: median "
+                f"{disk[len(disk) // 2]:.3f} ms, max {disk[-1]:.3f} ms")
+        if splits:
+            log(f"{name} chunks recomputed / read per restore: "
+                f"{[(len(a), len(b)) for a, b in splits]}")
+        if pipes:
+            walls = sorted(p["wall_s"] * 1e3 for p in pipes)
+            waits = sorted(p["fetch_wait_s"] * 1e3 for p in pipes)
+            log(f"{name} {len(pipes)} pipelined restores: wall median "
+                f"{walls[len(walls) // 2]:.2f} ms (max {walls[-1]:.2f}), "
+                f"host blocked in fetch median {waits[len(waits) // 2]:.2f} "
+                f"ms (max {waits[-1]:.2f})")
+        for kind, p in self.prof.items():
+            log(f"{name} one {kind} under the profiler: {json.dumps(p)}")
+        checked = self.check_attn()
+        log(f"{name} its own attn_density calls against the plain version, "
+            f"one of each shape and mask (Sq, Sk, seq_len, window, sinks, "
+            f"density, |d out| / range, |d density| / range): {checked}")
+        return disk, splits, pipes, checked
+
+
+def _slot_gates(name, hooks, launches, on_card, full_budget, codec):
+    """The gates the slot and MLA phases share: every call gave its 8
+    tokens; at the phase's own budget at least two restores read the
+    disk (or, under lmk, recomputed a killed context); attn_density ran,
+    and each shape it ran at was checked; where ``codec``, both codec
+    kernels ran; decode_qattn never ran (a slot cache holds no all-int8
+    layout)."""
+    if any(len(r["tokens"]) != 8 for r in hooks.records):
+        raise AssertionError(f"{name} a call did not complete")
+    n_disk = sum(r["disk_restore"] for r in hooks.records)
+    if full_budget and n_disk < 2:
+        raise AssertionError(f"{name} {n_disk} restores from disk (or, "
+                             f"under lmk, recomputes of a killed context), "
+                             f"not >= 2")
+    if on_card and not (launches["attn_density"] and hooks.attn):
+        raise AssertionError(f"{name} attn_density never ran")
+    if on_card and codec and not (launches["quantize"]
+                                  and launches["dequantize"]):
+        raise AssertionError(f"{name} a codec kernel never ran: {launches}")
+    if launches["decode_qattn"]:
+        raise AssertionError(f"{name} decode_qattn ran on the slot cache, "
+                             "which holds no all-int8 layout")
+
+
 def slot_phase(model, params, seed, swap_root, label, policy="llms",
                quant_resident=False, split="profiled", profile=None,
                budget_chunks=SLOT["budget_chunks"], profile_restore=False):
@@ -1827,28 +2185,25 @@ def slot_phase(model, params, seed, swap_root, label, policy="llms",
     every restore is recomputed (the Fig.-8 loop surely runs); a given
     ``profile`` (a rerun) is injected instead.  The kernel launch counts
     are zeroed just before the calls and read just after.  Every greedy
-    pick keeps its logits row (on the CPU).  With ``profile_restore``,
-    the first pipelined restore runs under the profiler."""
-    import numpy as np
+    pick keeps its logits row (on the CPU), and the run's own
+    attn_density calls are held against the plain version
+    (``_SlotHooks``).  With ``profile_restore``, the first pipelined
+    restore runs under the profiler."""
     import torch
-    from repro_torch.core import restore
     from repro_torch.core.service import LLMService, LLMSConfig
     from repro_torch.kernels import attn_density as kad
-    from repro_torch.kernels import chunk_quant
     from repro_torch.kernels import decode_mqattn as kmq
-    from repro_torch.kernels import decode_qattn as kdq
 
     cfg, device = model.cfg, model.device
     on_card = device.type == "cuda"
     name = f"[slot:{label}]"
     sc = LLMSConfig(policy=policy, paged_pool=False, decode_batch=1,
                     max_ctx_len=SLOT["max_ctx"], chunk_tokens=16,
-                    memory_budget=budget_chunks * 2 * cfg.n_layers * 16
-                    * cfg.n_kv_heads * cfg.head_dim * 2,   # raw chunks
+                    memory_budget=budget_chunks * _raw_chunk_bytes(model),
                     quant_resident=quant_resident,
                     swap_dir=tempfile.mkdtemp(dir=swap_root))
     svc = LLMService(model, params, sc, device=device)
-    exe, res = svc.exe, svc.res
+    res = svc.res
     if sc.use_pipeline:
         if profile is not None:
             for k, v in profile.items():
@@ -1857,79 +2212,25 @@ def slot_phase(model, params, seed, swap_root, label, policy="llms",
         elif split == "profiled":
             svc.profile_pipeline()
     used_profile = dataclasses.asdict(res.profile) if res.profiled else None
-    now = {"split": [], "pipelined": [], "whole": [], "rows": []}
-    prof = {}
-    plan, run_pipe = res._plan_restore, exe.run_pipelined
-    whole, extend, decode = res._restore_whole_timed, exe.extend, exe.decode
-
-    def logged_plan(ctx, missing):
-        re_idx, io_idx = plan(ctx, missing)
-        now["split"].append((list(map(int, re_idx)), list(map(int, io_idx))))
-        return re_idx, io_idx
-
-    def logged_pipe(*a, **k):
-        if on_card and profile_restore and "restore" not in prof:
-            out, prof["restore"] = _profile_round(lambda: run_pipe(*a, **k))
-        else:
-            out = run_pipe(*a, **k)
-        now["pipelined"].append(dict(exe.last_pipelined))
-        return out
-
-    def logged_whole(ctx, cache):
-        now["whole"].append(
-            "resident" if ctx.whole is not None
-            else "read" if sc.use_disk and res.store.nbytes((ctx.cid, -1))
-            else "recompute")
-        return whole(ctx, cache)
-
-    def kept(fn):
-        def run(*a, **k):
-            out = fn(*a, **k)
-            row = torch.as_tensor(np.asarray(out[1], np.float32)).reshape(-1)
-            if not torch.isfinite(row).all():
-                raise AssertionError(f"{name} non-finite logits")
-            now["rows"].append(row.clone())
-            return out
-        return run
-
-    res._plan_restore, exe.run_pipelined = logged_plan, logged_pipe
-    res._restore_whole_timed = whole if sc.chunked else logged_whole
-    exe.extend, exe.decode = kept(extend), kept(decode)
+    hooks = _SlotHooks(svc, name, on_card,
+                       profile=("restore",) if profile_restore else ())
     trace = _trace(cfg.vocab, seed)
-    records, picks = [], []
     with svc:
         stubs = [svc.newLLMCtx() for _ in range(4)]
-        chunk_quant.reset_launches()
-        kmq.reset_launches()
-        kad.reset_launches()
-        kdq.reset_launches()
+        _zero_launches()
         t_run = time.perf_counter()
         for i, (c, prompt, max_new) in enumerate(trace):
-            for v in now.values():
-                v.clear()
-            read0 = restore.io_counters()["read"]
+            hooks.begin()
             ad0, mq0 = kad.attn_density.launches, kmq.decode_mqattn.launches
             t1 = time.perf_counter()
             _, toks = svc.callLLM(stubs[c], prompt, max_new)
-            exe.sync()
+            svc.exe.sync()
             wall = time.perf_counter() - t1
-            ctx = svc.contexts[stubs[c].ctx_id]
-            bits = [m.bits for _, m in sorted(ctx.chunks.items())]
-            rec = {"ctx": c, "tokens": list(map(int, toks)), "bits": bits,
-                   "switch_s": svc.records[-1]["switch_s"], "wall_s": wall,
-                   "restored_bytes": restore.io_counters()["read"] - read0,
-                   "split": list(now["split"]),
-                   "pipelined": list(now["pipelined"]),
-                   "whole": list(now["whole"]),
-                   "attn_density_launches": kad.attn_density.launches - ad0,
-                   "mqattn_launches": kmq.decode_mqattn.launches - mq0}
-            rec["disk_restore"] = bool(rec["restored_bytes"] > 0 or any(
-                w in ("read", "recompute") for w in rec["whole"]))
-            if len(now["rows"]) != len(toks):
-                raise AssertionError(f"{name} call {i}: {len(now['rows'])} "
-                                     f"logits rows for {len(toks)} tokens")
-            picks.extend((i, j, row) for j, row in enumerate(now["rows"]))
-            records.append(rec)
+            rec = hooks.record(
+                svc.contexts[stubs[c].ctx_id], toks, ctx=c,
+                switch_s=svc.records[-1]["switch_s"], wall_s=wall,
+                attn_density_launches=kad.attn_density.launches - ad0,
+                mqattn_launches=kmq.decode_mqattn.launches - mq0)
             pl = ", ".join(f"{p['wall_s'] * 1e3:.1f} ms (fetch wait "
                            f"{p['fetch_wait_s'] * 1e3:.1f} ms)"
                            for p in rec["pipelined"])
@@ -1939,70 +2240,38 @@ def slot_phase(model, params, seed, swap_root, label, policy="llms",
                 f"{rec['split']} | pipelined {pl or '-'} | whole "
                 f"{rec['whole'] or '-'} | wall {wall * 1e3:.1f} ms | "
                 f"attn_density {rec['attn_density_launches']} | "
-                f"decode_mqattn {rec['mqattn_launches']} | bits {bits}")
+                f"decode_mqattn {rec['mqattn_launches']} | bits "
+                f"{rec['bits']}")
         run_s = time.perf_counter() - t_run
-        launches = {"quantize": chunk_quant.quantize.launches,
-                    "dequantize": chunk_quant.dequantize.launches,
-                    "decode_mqattn": kmq.decode_mqattn.launches,
-                    "attn_density": kad.attn_density.launches,
-                    "attn_density_with_density":
-                        kad.attn_density.density_launches,
-                    "decode_qattn": kdq.decode_qattn.launches}
+        launches = _read_launches()
         stats = svc.stats()
-    disk = sorted(r["switch_s"] * 1e3 for r in records if r["disk_restore"])
-    pipes = [p for r in records for p in r["pipelined"]]
-    splits = [s for r in records for s in r["split"]]
+    hooks.close()
     log(f"{name} {cfg.name} policy {policy}, quant_resident "
-        f"{quant_resident}, split {split if profile is None else 'given'}: "
-        f"{len(records)} calls in {run_s:.2f} s; kernel launches {launches}")
-    log(f"{name} restore profile {used_profile}")
-    if disk:
-        log(f"{name} switch_s over {len(disk)} disk restores: median "
-            f"{disk[len(disk) // 2]:.3f} ms, max {disk[-1]:.3f} ms")
-    if splits:
-        log(f"{name} chunks recomputed / read per restore: "
-            f"{[(len(a), len(b)) for a, b in splits]}")
-    if pipes:
-        walls = sorted(p["wall_s"] * 1e3 for p in pipes)
-        waits = sorted(p["fetch_wait_s"] * 1e3 for p in pipes)
-        log(f"{name} {len(pipes)} pipelined restores: wall median "
-            f"{walls[len(walls) // 2]:.2f} ms (max {walls[-1]:.2f}), host "
-            f"blocked in fetch median {waits[len(waits) // 2]:.2f} ms (max "
-            f"{waits[-1]:.2f})")
-    if "restore" in prof:
-        log(f"{name} a pipelined restore under the profiler: "
-            f"{json.dumps(prof['restore'])}")
+        f"{quant_resident}, split {split if profile is None else 'given'}")
+    disk, splits, pipes, checked = hooks.summary(launches, run_s,
+                                                 used_profile)
     log(f"{name} stats {json.dumps(stats, default=str)}")
 
-    if stats["total_calls"] != len(trace) or any(
-            len(r["tokens"]) != 8 for r in records):
+    if stats["total_calls"] != len(trace):
         raise AssertionError(f"{name} a call did not complete")
-    if len(disk) < 2 and budget_chunks == SLOT["budget_chunks"]:
-        raise AssertionError(f"{name} {len(disk)} restores from disk (or, "
-                             f"under lmk, recomputes of a killed context), "
-                             f"not >= 2")
-    if on_card and not launches["attn_density"]:
-        raise AssertionError(f"{name} attn_density never ran")
-    if on_card and sc.chunked and not (launches["quantize"]
-                                       and launches["dequantize"]):
-        raise AssertionError(f"{name} a codec kernel never ran: {launches}")
+    _slot_gates(name, hooks, launches, on_card,
+                budget_chunks == SLOT["budget_chunks"], sc.chunked)
     if quant_resident and on_card and not launches["decode_mqattn"]:
         raise AssertionError(f"{name} decode_mqattn never ran on the slot "
                              "cache")
-    if launches["decode_qattn"]:
-        raise AssertionError(f"{name} decode_qattn ran on the slot cache, "
-                             "which holds no all-int8 layout")
     if split == "forced" and sc.use_pipeline and budget_chunks == \
             SLOT["budget_chunks"] and not pipes:
         raise AssertionError(f"{name} no pipelined restore ran")
-    del svc, exe, res, plan, run_pipe, whole, extend, decode
+    out = {"records": hooks.records, "launches": launches, "stats": stats,
+           "run_s": run_s, "profile": used_profile, "picks": hooks.picks,
+           "restore_profile": hooks.prof.get("restore"),
+           "disk_switch_ms": disk, "pipelined": pipes, "splits": splits,
+           "attn_checked": checked}
+    del svc, res, hooks
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    return {"records": records, "launches": launches, "stats": stats,
-            "run_s": run_s, "profile": used_profile, "picks": picks,
-            "restore_profile": prof.get("restore"), "disk_switch_ms": disk,
-            "pipelined": pipes, "splits": splits}
+    return out
 
 
 def _same_slot_run(a, b, what):
@@ -2219,6 +2488,220 @@ def pipelined_check(model, params, swap_root, quant_resident=False):
 
 
 # --------------------------------------------------------------------- #
+# 3d. the MLA + MoE family: deepseek-v2-lite-16b at full width
+# --------------------------------------------------------------------- #
+def _raw_chunk_bytes(model, cs=16):
+    """One raw (bf16) chunk of ``model``'s cache: ``cs`` tokens of every
+    sequence leaf in every layer (llama2-7b: 8 MiB; deepseek-v2-lite's
+    576-value latent: 0.47 MiB)."""
+    import numpy as np
+    spec = model.kv_spec()
+    per_token = sum(int(np.prod(spec.leaf_dims[n])) for n in spec.seq_leaves)
+    return cs * model.cfg.n_layers * per_token * 2
+
+
+def mla_phase(model, params, seed, swap_root, label, policy="llms",
+              quant_resident=False, profile=None,
+              budget_chunks=MLA["budget_chunks"], profiled=False):
+    """deepseek-v2-lite-16b through the normal entry point: the port's
+    ``launch.serve.serve`` replays the serve phase's trace (4 contexts x
+    3 rounds, prompts 32-64, 8 new, ``decode_batch`` 1, ``max_ctx_len``
+    256) through an inline ``ServiceRouter`` (one app) over
+    ``LLMService``, which serves the family on slot caches (its KVSpec
+    declares no paged pool).  Under ``llms`` ``serve`` measures the
+    card's §3.3.i profile; a given ``profile`` (a rerun) replaces it
+    just before the replay.  The kernel launch counts are zeroed just
+    before the replay and read just after; every recompute (extend and
+    restore) must launch ``attn_density`` once a layer.  The calls are
+    logged by ``_SlotHooks``, as in the slot phase: every greedy pick
+    keeps its logits row (on the CPU), and the run's own attn_density
+    calls, one of each bucket, are held against the plain version.  With
+    ``profiled``, one decode token and one recompute of the fifth call
+    or later run under the profiler."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import parse_args, serve
+    from repro_torch.trace.synth import TraceEvent
+
+    cfg, device = model.cfg, model.device
+    on_card = device.type == "cuda"
+    name = f"[mla:{label}]"
+    raw = _raw_chunk_bytes(model)
+    args = parse_args([
+        "--arch", cfg.name, "--policy", policy,
+        "--max-ctx", str(MLA["max_ctx"]),
+        "--budget-mib", repr(budget_chunks * raw / 2**20),
+        "--max-new", "8", "--seed", str(seed), "--concurrency", "1",
+        "--decode-batch", "1", "--swap-dir", tempfile.mkdtemp(dir=swap_root)]
+        + (["--quant-resident"] if quant_resident else []))
+    trace = _trace(cfg.vocab, seed)
+    events = [TraceEvent(time=float(i), ctx_id=c,
+                         prompt=np.asarray(p, np.int32),
+                         ground_truth=np.zeros(0, np.int32), dataset="smoke",
+                         max_new=n) for i, (c, p, n) in enumerate(trace)]
+    run = {}
+
+    def on_start(svc, router):
+        res = svc.res
+        if profile is not None:
+            for k, v in profile.items():
+                setattr(res.profile, k, v)
+            res.profiled = True
+        run["profile"] = (dataclasses.asdict(res.profile) if res.profiled
+                          else None)
+        hooks = run["hooks"] = _SlotHooks(
+            svc, name, on_card, top=8, profile_from=4,
+            profile=("decode token", "recompute") if profiled else ())
+        begin = svc.begin_call
+
+        def begun(stub, request):
+            hooks.begin()
+            return begin(stub, request)
+
+        def done(job, cancelled):
+            cid = job["stub"].ctx_id
+            hooks.record(svc.contexts[cid], job["stream"].tokens,
+                         ctx=trace[len(hooks.records)][0], cid=cid,
+                         cancelled=bool(cancelled))
+
+        svc.begin_call, router.on_complete = begun, done
+        run["chunked"] = svc.cfg.chunked
+        _zero_launches()
+        run["t0"] = time.perf_counter()
+
+    def on_end(svc, router, events):
+        if on_card:
+            torch.cuda.synchronize()
+        run["run_s"] = time.perf_counter() - run["t0"]
+        run["launches"] = _read_launches()
+        run["router_calls"] = list(router.call_records)
+        run["paged"] = svc.paged
+        run["stats"] = svc.stats()
+        run["hooks"].close()
+
+    stats = serve(model, params, args, threaded=False, on_start=on_start,
+                  on_end=on_end, verbose=False, events=events)
+    hooks, launches = run.pop("hooks"), run["launches"]
+    records = hooks.records
+    for rec, c in zip(records, run["router_calls"]):
+        rec["switch_s"], rec["wall_s"] = c["switch_s"], c["service_s"]
+    for i, r in enumerate(records):
+        log(f"{name} call {i:2d} ctx {r['ctx']} prompt {len(trace[i][1])} -> "
+            f"{len(r['tokens'])} tokens | switch {r['switch_s'] * 1e3:.3f} "
+            f"ms | read {r['restored_bytes']} B | split (recompute, io) "
+            f"{r['split']} | whole {r['whole'] or '-'} | wall "
+            f"{r['wall_s'] * 1e3:.1f} ms | bits {r['bits']}"
+            f"{' | quant ' + str(r['quant']) if quant_resident else ''}")
+    walls = sorted(r["wall_s"] * 1e3 for r in records)
+    log(f"{name} {cfg.name} policy {policy}, quant_resident "
+        f"{quant_resident}, budget {budget_chunks} raw chunks of "
+        f"{raw / 2**20:.3f} MiB: per-call wall median "
+        f"{walls[len(walls) // 2]:.1f} ms (max {walls[-1]:.1f})")
+    disk, splits, _, checked = hooks.summary(launches, run["run_s"],
+                                             run["profile"])
+    log(f"{name} stats {json.dumps(run['stats'], default=str)}")
+
+    if stats["failed_calls"] or len(records) != len(trace) or any(
+            r["cancelled"] for r in records):
+        raise AssertionError(f"{name} a call did not complete")
+    # under quant_resident every latent chunk is 8-bit and kept on the
+    # decode grid (per (token, layer) scales, plain PyTorch as in the
+    # reference), so the storage codec has no work there
+    _slot_gates(name, hooks, launches, on_card,
+                budget_chunks == MLA["budget_chunks"],
+                run["chunked"] and not quant_resident)
+    cid_of = {}
+    for r in records:
+        cid_of.setdefault(r["ctx"], r["cid"])
+    if len(set(cid_of.values())) != 4 or any(
+            cid_of[r["ctx"]] != r["cid"] for r in records):
+        raise AssertionError(f"{name} the calls did not run in trace order")
+    if run["paged"]:
+        raise AssertionError(f"{name} the family ran on the paged pool")
+    if any(b < 8 for r in records for b in r["bits"]):
+        raise AssertionError(f"{name} a latent chunk went below the "
+                             "family's 8-bit floor")
+    if on_card and launches["attn_density"] != \
+            cfg.n_layers * hooks.n_recompute:
+        raise AssertionError(f"{name} {launches['attn_density']} "
+                             f"attn_density launches for "
+                             f"{hooks.n_recompute} recomputes of "
+                             f"{cfg.n_layers} layers")
+    if launches["decode_mqattn"]:
+        raise AssertionError(f"{name} a dense decode kernel ran: {launches}")
+    if quant_resident and budget_chunks == MLA["budget_chunks"] and not any(
+            q for r in records for q in r["quant"]):
+        raise AssertionError(f"{name} no chunk stayed quant-resident")
+    if profiled and on_card and len(hooks.prof) != 2:
+        raise AssertionError(f"{name} profiled {sorted(hooks.prof)}, not a "
+                             "decode token and a recompute")
+    out = {"records": records, "launches": launches, "stats": run["stats"],
+           "run_s": run["run_s"], "profile": run["profile"],
+           "picks": hooks.picks, "prof": hooks.prof, "disk_switch_ms": disk,
+           "splits": splits, "n_recompute": hooks.n_recompute,
+           "wall_ms": walls, "attn_checked": checked}
+    del hooks
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def mla_runs(swap_root):
+    """deepseek-v2-lite-16b at full width (27 layers, d 2048, 16 heads,
+    rank 512 + rope 64, 64 experts top-6 + 2 shared, vocab 102,400;
+    random bf16 weights from SEED drawn on the card): a no-pressure
+    ``llms`` run, ``llms`` under the card's profile (a decode token and
+    a recompute profiled) and a rerun under that same profile, ``llms``
+    + ``quant_resident`` (the mixed latent layout), ``swap`` and
+    ``lmk``; each run's tokens against the no-pressure run's.  The
+    weights are freed before returning.  -> the runs by label."""
+    import torch
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    model, params = build_weights(get_config(MLA["arch"]), SEED)
+    runs = {}
+    runs["no-pressure"] = mla_phase(model, params, SEED, swap_root,
+                                    "no-pressure", budget_chunks=1 << 20)
+    runs["llms"] = mla_phase(model, params, SEED, swap_root, "llms",
+                             profiled=True)
+    runs["llms-rerun"] = mla_phase(model, params, SEED, swap_root,
+                                   "llms-rerun",
+                                   profile=runs["llms"]["profile"])
+    runs["quant"] = mla_phase(model, params, SEED, swap_root, "quant",
+                              quant_resident=True)
+    for policy in ("swap", "lmk"):
+        runs[policy] = mla_phase(model, params, SEED, swap_root, policy,
+                                 policy=policy)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    _same_slot_run(runs["llms"], runs["llms-rerun"],
+                   "MLA llms (the card's profile)")
+    for label, run in runs.items():
+        if label == "no-pressure":
+            continue
+        counts, examined = _slot_divergence(run, runs["no-pressure"])
+        log(f"[mla] {label} against the no-pressure run, call by call: "
+            f"{counts}")
+        for e in examined:
+            log(f"[mla] {label} first divergence: {json.dumps(e)}")
+    for label, run in runs.items():
+        run.pop("picks")
+        d = run["disk_switch_ms"]
+        log(f"[mla] {label}: wall {run['run_s']:.2f} s for 12 calls; "
+            f"switch_s over {len(d)} disk restores median "
+            f"{d[len(d) // 2] if d else None} ms, max "
+            f"{d[-1] if d else None} ms; splits (recomputed, read) "
+            f"{[(len(a), len(b)) for a, b in run['splits']]}; launches "
+            f"quantize {run['launches']['quantize']}, dequantize "
+            f"{run['launches']['dequantize']}, attn_density "
+            f"{run['launches']['attn_density']}")
+    log(f"[mla] the MLA phases took {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+# --------------------------------------------------------------------- #
 # 4. reduced model on the card vs the same port on the CPU
 # --------------------------------------------------------------------- #
 def _check_pipelined(name):
@@ -2371,6 +2854,100 @@ def check_phase():
     for name in ("llama2-7b", "smollm-360m"):
         _check_config(name)
     _check_pipelined("llama2-7b")
+    _check_mla()
+
+
+def _mla_teacher_forced(model, params, dev, layout):
+    """The reduced deepseek-v2-lite on a (1, 64) cache: a 12-token
+    prompt recomputed with the density (padded to 16 rows at 63), then
+    four decode steps fed fixed tokens.  The window layout starts at 0;
+    the mixed one holds int8 latents at [0, 16) and appends at 16.
+    -> (logits, latents of [0, 32), density, masses), on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(SEED + 6)
+    vocab, m, L = model.cfg.vocab, model.cfg.mla, model.cfg.n_layers
+    cache = model.init_cache(1, 64, layout=layout)
+    lo = 0
+    if layout == "mixed":
+        g = torch.Generator().manual_seed(SEED + 7)
+        for n, w in (("ckv", m.kv_lora_rank), ("kpe", m.qk_rope_head_dim)):
+            codes, sc = ref.quantize_token_head_ref(
+                torch.randn((L, 1, 16, w), generator=g))
+            cache[n + "_q"][:, :, :16] = codes.to(dev)
+            cache[n + "_scale"][:, :, :16] = sc.to(dev)
+        cache["quant_mask"][..., :16] = True
+        lo = 16
+    n = 12
+    t = lambda a: torch.as_tensor(a, dtype=torch.long, device=dev)  # noqa: E731
+    toks = t(rng.integers(1, vocab, n).tolist() + [0] * 4)[None]
+    pos = t(list(range(lo, lo + n)) + [63] * 4)
+    cache, x, dens = model.recompute(params, toks, pos, cache, lo + n,
+                                     want_density=True)
+    logits = [(x[:, n - 1] @ model.head_weight(params)).float().cpu()]
+    cache["pos"] = torch.tensor(lo + n, device=dev)
+    masses = []
+    for _ in range(4):
+        out, mass = model.decode_step(
+            params, t(rng.integers(1, vocab, (1, 1))), cache,
+            want_density=True)
+        cache = out.cache
+        logits.append(out.logits.float().cpu())
+        masses.append(mass.float().cpu())
+    latents = torch.cat([cache[n][:, :, :32].float().reshape(-1).cpu()
+                         for n in ("ckv", "kpe")])
+    return (torch.cat(logits), latents, dens.float().cpu(),
+            torch.cat(masses))
+
+
+def _check_mla(layouts=("window", "mixed")):
+    """The reduced deepseek-v2-lite teacher-forced on the card (the
+    attn_density kernel at Dqk 24 / Dv 16 in each recompute) against the
+    same port on the CPU (the plain version): recomputed latents,
+    logits, the density and the decode masses, over each of ``layouts``
+    (``tests/test_torch_cuda.py::test_cuda_mla_matches_cpu`` runs this
+    check too).  -> {layout: {what: (max |diff|, range)}}."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import attn_density as kad
+    from repro_torch.models.registry import build_model
+    cfg = reduced(get_config(MLA["arch"]))
+    cpu = build_model(cfg, device="cpu")
+    params_cpu = cpu.init(torch.Generator().manual_seed(SEED))
+    gpu = build_model(cfg, device="cuda")
+    params_gpu = {k: ({n: w.cuda() for n, w in v.items()}
+                      if isinstance(v, dict) else v.cuda())
+                  for k, v in params_cpu.items()}
+    out = {}
+    for layout in layouts:
+        kad.reset_launches()
+        ref_out = _mla_teacher_forced(cpu, params_cpu, "cpu", layout)
+        card_out = _mla_teacher_forced(gpu, params_gpu, "cuda", layout)
+        diffs = {}
+        for what, a, b in zip(("logits", "latents", "density", "mass"),
+                              ref_out, card_out):
+            if not torch.isfinite(b).all():
+                raise AssertionError(f"[check] reduced MLA {layout}: "
+                                     f"non-finite {what} on the card")
+            diffs[what] = (float((a - b).abs().max()), float(a.abs().max()))
+        worst = {k: d / max(s, 1e-30) for k, (d, s) in diffs.items()}
+        if worst["logits"] > 0.02 or worst["latents"] > 0.02 or \
+                diffs["density"][0] > 1e-3 or diffs["mass"][0] > 1e-3:
+            raise AssertionError(f"[check] reduced MLA {layout}: card vs CPU "
+                                 f"(max |diff|, range) {diffs}")
+        if kad.attn_density.launches != cfg.n_layers:
+            raise AssertionError(f"[check] reduced MLA {layout}: "
+                                 f"{kad.attn_density.launches} attn_density "
+                                 f"launches, not {cfg.n_layers}")
+        log(f"[check] reduced {MLA['arch']} ({cfg.mla.qk_nope_head_dim} + "
+            f"{cfg.mla.qk_rope_head_dim} / {cfg.mla.v_head_dim} head dims, "
+            f"{cfg.moe.n_experts} experts), {layout} cache, teacher-forced "
+            f"recompute (attn_density on the card) + 4 absorbed decode "
+            f"steps: card vs CPU (max |diff|, range) {diffs}; tolerance 2% "
+            f"of range (logits, latents), 1e-3 (density, mass)")
+        out[layout] = diffs
+    return out
 
 
 def _check_config(name):
@@ -2479,6 +3056,14 @@ def _slot_launches(slots, key):
                               for label, run in slots.items()}}
 
 
+def _mla_launches(mla, key):
+    """A kernel's launches in the MLA phase's runs (deepseek-v2-lite-16b
+    at full width), each counted from 0 just before the run and read
+    just after it."""
+    return {"launches_mla": {label: run["launches"][key]
+                             for label, run in mla.items()}}
+
+
 def main() -> int:
     try:
         import torch
@@ -2498,6 +3083,7 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     smi = build_phase()
     max_err, times = kernel_phase()
+    mla_codec = mla_codec_phase()
     mq_err, mq_times = mqattn_phase()
     ad_err, ad_times = attn_phase()
     dq_err, dq_times = qattn_phase()
@@ -2572,6 +3158,8 @@ def main() -> int:
         entry_point_phase(root)
     del model, params
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="llms_chip_mla_") as root:
+        mla = mla_runs(root)
     for a, b in (("bf16", "bf16-rerun"), ("quant", "quant-rerun"),
                  ("gqa", "gqa-rerun")):
         _same_run(routed[a], routed[b], f"{a} (llama2-7b)" if a != "gqa"
@@ -2622,6 +3210,9 @@ def main() -> int:
             "bound_ms_by_bits": {b: times[b][name]["bound_ms"]
                                  for b in (8, 4, 2)},
             "launches_quant_resident": quant["launches"][name],
+            **_mla_launches(mla, name),
+            "mla_8bit": (mla_codec["quantize_two_leaves"] if name ==
+                         "quantize" else mla_codec["dequantize"]),
         })
     kernels[0].update({
         "two_leaves_ms_by_bits": {
@@ -2644,6 +3235,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/decode_mqattn.cu",
         **_router_launches(routed, "decode_mqattn"),
         **_slot_launches(slots, "decode_mqattn"),
+        **_mla_launches(mla, "decode_mqattn"),
         "replaces": "src/repro/kernels/decode_qattn.py:183",
         "launches": quant["launches"]["decode_mqattn"],
         "max_abs_err": mq_err["out"], "max_abs_err_mass": mq_err["mass"],
@@ -2663,6 +3255,14 @@ def main() -> int:
             "plain_call_ms", "library_device_ms", "library_call_ms",
             "bound_ms", "bound_by", *COLD_KEYS)},
     })
+    mla_keys = ("shape", "form", "density", "device_ms", "call_ms",
+                "plain_device_ms", "plain_call_ms", "library_device_ms",
+                "library_call_ms", "bound_ms", "bound_by")
+    mla_rows = {"out": [(f"over {S_m}", f"mla_{S_m}")
+                        for S_m in AD_MLA["S"]],
+                "density": [(f"over {S_m}", f"mla_{S_m}_density")
+                            for S_m in AD_MLA["S"]]
+                + [("lmk whole recompute", "mla_lmk_density")]}
     for name, line, key, launches, err in (
             ("attn_density_out", 128, "out", first["launches"]
              ["attn_density"], ad_err["out"]),
@@ -2697,6 +3297,10 @@ def main() -> int:
             "launches_quant_resident": quant["launches"][
                 "attn_density" if key == "out"
                 else "attn_density_with_density"],
+            **_mla_launches(mla, "attn_density" if key == "out"
+                            else "attn_density_with_density"),
+            "mla_shapes": {label: {k: ad_times[src][k] for k in mla_keys}
+                           for label, src in mla_rows[key]},
             **{name: {k: ad_times[src][k] for k in (
                 "shape", "form", "device_ms", "call_ms", "plain_device_ms",
                 "library_device_ms", "bound_ms", "bound_by")}
@@ -2711,6 +3315,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/decode_mqattn.cu",
         "replaces": "src/repro/kernels/decode_qattn.py:84",
         **_slot_launches(slots, "decode_qattn"),
+        **_mla_launches(mla, "decode_qattn"),
         "launches": int8[0]["launches"],
         "max_abs_err": dq_err["out"], "max_abs_err_mass": dq_err["mass"],
         "ms": _device_or_call(row, ""),

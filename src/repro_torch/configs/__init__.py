@@ -1,17 +1,19 @@
-"""Architecture registry of the port: the dense configurations.
+"""Architecture registry of the port: the ported configurations.
 
 ``REGISTRY`` holds every dense configuration of the JAX package's
 registry (the paper's llama2-7b and opt-6.7b, and smollm-360m,
-qwen2.5-14b, qwen3-32b and deepseek-67b), with the same fields.
-``reduced(cfg)`` derives the CPU-sized config the tests use, with the
-same numbers as the JAX package's ``reduced`` for a dense model, so
-both packages build identical shapes.  The other families join as they
-are ported (``ROADMAP.md``).
+qwen2.5-14b, qwen3-32b and deepseek-67b) and the MLA + MoE
+deepseek-v2-lite-16b, with the same fields.  ``reduced(cfg)`` derives
+the CPU-sized config the tests use, with the same numbers as the JAX
+package's ``reduced`` for these families, so both packages build
+identical shapes.  The other families join as they are ported
+(``ROADMAP.md``).
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig
 from repro_torch.configs.deepseek_67b import CONFIG as _ds67
+from repro_torch.configs.deepseek_v2_lite import CONFIG as _dsv2lite
 from repro_torch.configs.llama2_7b import CONFIG as _llama2
 from repro_torch.configs.opt_6_7b import CONFIG as _opt
 from repro_torch.configs.qwen2_5_14b import CONFIG as _qwen25
@@ -19,7 +21,7 @@ from repro_torch.configs.qwen3_32b import CONFIG as _qwen3
 from repro_torch.configs.smollm_360m import CONFIG as _smollm
 
 REGISTRY = {c.name: c for c in (_llama2, _opt, _smollm, _qwen25, _qwen3,
-                                _ds67)}
+                                _ds67, _dsv2lite)}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -30,7 +32,14 @@ def get_config(name: str) -> ModelConfig:
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
-    """A tiny same-family config for CPU tests (dense families)."""
+    """A tiny same-family config for CPU tests (dense and MLA + MoE)."""
+    kw = {}
+    if cfg.family == "mla_moe":
+        kw["moe"] = MoEConfig(n_experts=4, top_k=2, d_expert=96, n_shared=2,
+                              d_shared=96, capacity_factor=2.0, group_size=32)
+        kw["mla"] = MLAConfig(kv_lora_rank=32, q_lora_rank=0,
+                              qk_nope_head_dim=16, qk_rope_head_dim=8,
+                              v_head_dim=16)
     return cfg.with_overrides(
         name=cfg.name + "-reduced",
         n_layers=min(cfg.n_layers, 4),
@@ -41,6 +50,7 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         vocab=512,
         head_dim=16,
         max_seq=256,
+        **kw,
     )
 
 

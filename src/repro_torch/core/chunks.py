@@ -1,6 +1,7 @@
 """Chunked view of a context's KV cache (paper §3.1, Fig. 4).
 
-Mirror of the JAX package's core/chunks.py for the dense family.  A chunk
+Mirror of the JAX package's core/chunks.py for the families with
+sequence leaves (dense ``k``/``v``, MLA's latent ``ckv``/``kpe``).  A chunk
 covers ``chunk_tokens`` consecutive tokens ACROSS ALL LAYERS.  The codec
 canonicalizes each sequence cache leaf into a (T, F) block — T chunk
 tokens, F = flattened (layers x heads x channels) — the layout the chunk
@@ -9,7 +10,8 @@ codec kernels (kernels/chunk_quant.py) operate on.  Two grids:
   * storage (``CompressedChunk``): per-channel scales, 8/4/2 bits,
     through the chunk codec kernels;
   * decode (``QuantResidentChunk``): int8 with one scale per (token,
-    kv-head), the grid quant-resident decode attends in place
+    kv-head; for MLA's latents, per (token, layer) over the whole rank
+    vector), the grid quant-resident decode attends in place
     (``kernels/ref.py::quantize_token_head_ref``, plain PyTorch on the
     device: the reference computes it in jnp, with no Pallas kernel).
 

@@ -7,7 +7,7 @@ token/batch/I-O buckets, and two engines over the same model entries.
   ``fresh_cache`` gives one context's working cache — the window
   layout, or the mixed layout (bf16 window + int8 segments) with
   ``quant_resident`` — and ``extend`` / ``decode`` / ``recompute`` /
-  ``extend_nod`` run ``DenseModel.recompute`` and ``decode_step`` on
+  ``extend_nod`` run the model's ``recompute`` and ``decode_step`` on
   it.  ``run_pipelined`` runs the paper's Fig.-8 restore
   (``DenseModel.recompute_pipelined``): a Python layer loop that takes
   layer l of the disk chunks from a ``restore.LayerFeed`` while the
@@ -166,7 +166,7 @@ class ModelExecutor:
 
     def recompute(self, toks_b: np.ndarray, pos_b: np.ndarray, cache,
                   seq_len: int, want_density: bool):
-        """``DenseModel.recompute`` of the tokens ``toks_b`` at positions
+        """The model's ``recompute`` of the tokens ``toks_b`` at positions
         ``pos_b`` (both bucket-padded by the caller) over a slot cache,
         in place.  -> (cache, hidden (1, M, d), density (1, S) | None)."""
         return self.model.recompute(

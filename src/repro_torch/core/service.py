@@ -26,9 +26,10 @@ recompute of Fig. 8.
 The service runs on the card (``device="cuda"``) unless the caller
 asks for the CPU.  ``quant_resident=True`` keeps 8-bit chunks as int8
 (QUANT pages, or the int8 segments of a mixed slot cache) that decode
-attends in place (the ``decode_mqattn`` kernel on the card).  Families
-other than dense are refused at construction, with a pointer to
-``ROADMAP.md``.
+attends in place (the ``decode_mqattn`` kernel on the card).  The dense
+and the MLA + MoE families serve (MLA only on slot caches: its KVSpec
+declares no paged pool); other families are refused at construction,
+with a pointer to ``ROADMAP.md``.
 """
 from __future__ import annotations
 
@@ -114,7 +115,7 @@ class LLMSConfig:
 def _refuse_unported(model: ModelBase) -> None:
     """Families this port does not run yet: refused before anything is
     built, never quietly run as something else."""
-    if model.cfg.family != "dense":
+    if model.cfg.family not in ("dense", "mla_moe"):
         raise NotImplementedError(
             f"family {model.cfg.family!r} is not ported yet (ROADMAP.md)")
 

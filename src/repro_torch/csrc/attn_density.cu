@@ -12,10 +12,12 @@
 // causal_window_mask(miss_pos, k) & (k < seq_len)).  The plain PyTorch
 // version is src/repro_torch/kernels/ref.py attn_density_plain.
 //
-// The function.  q (B,Sq,H,hd) bf16; k, v (B,Sk,KV,hd) bf16; q_pos (Sq,)
-// int32.  Key j is visible to query i when j <= q_pos[i], j < seq_len
-// and, with a window, j > q_pos[i] - window or j < n_sinks.  Scores are
-// fp32 dot products times 1/sqrt(hd); invisible keys take the finite
+// The function.  q (B,Sq,H,Dqk) bf16; k (B,Sk,KV,Dqk) bf16; v
+// (B,Sk,KV,Dv) bf16; q_pos (Sq,) int32; out (B,Sq,H,Dv).  Dqk <= 192
+// and Dv <= 128 (MLA's recompute: 128 + 64 and 128; the dense family:
+// Dqk = Dv = hd).  Key j is visible to query i when j <= q_pos[i],
+// j < seq_len and, with a window, j > q_pos[i] - window or j < n_sinks.
+// Scores are fp32 dot products times 1/sqrt(Dqk); invisible keys take the finite
 // NEG_INF = -0.7 FLT_MAX, so a query with no visible key is uniform over
 // all Sk keys.  Query head h reads kv-head h / G, G = H / KV.  Two forms
 // (template SERVED):
@@ -37,9 +39,11 @@
 // With 16 rows the 4 warps split every 64-key tile into four 16-key
 // slices; with 64 rows each warp owns 16 rows and all 64 keys.  Keys go
 // through shared memory as bf16 in double-buffered 64-key tiles filled
-// with cp.async (16 B a thread; zero-filled past Sk and past hd, which is
-// padded to 64 or 128); Q is loaded once, into registers, through V's
-// second stage.  A tile every row sees whole skips the per-key mask.  QK and PV run on the tensor
+// with cp.async (16 B a thread; zero-filled past Sk and past the head
+// dims: Dqk padded to HDQ = 64, 128 or 192 (the QK k-steps), Dv to HDV =
+// min(HDQ, 128) (the PV fragments); K rows HDQ wide, V rows HDV wide);
+// Q is loaded once, into registers, through K's first stage.  A tile
+// every row sees whole skips the per-key mask.  QK and PV run on the tensor
 // cores, mma.sync.m16n8k16 bf16 -> fp32 with ldmatrix (.trans for V).
 // The served form's bf16 p is exactly PV's A operand.  Passes:
 //   served: (1) QK, online row max m and sum l; (2) QK again, p =
@@ -60,11 +64,15 @@
 // sinks) are skipped, unless a row of the block sees no key at all (then
 // every tile counts, as its uniform p covers all Sk keys).
 //
+// Shared memory: 2 stages of 64 keys of K (HDQ + 8) and V (HDV + 8)
+// bf16 and the reduction buffers — 71,440 B a 64-row block at 128/128
+// (three blocks fit an SM), 87,824 B at MLA's 192/128 (two fit).
+//
 // Bound.  Bytes: q, the visible K/V rows and out once, about
-// (Sq H + 2 n_keys KV + Sq H) hd * 2 bytes; operations: 4 hd per visible
-// (row, key) pair (QK and PV multiply-adds) at the bf16 tensor-core rate
-// — the served form and the density do 2 hd more per pair for the
-// second QK.  At serving's extend both are about a microsecond: 128
+// (Sq H Dqk + n_keys KV (Dqk + Dv) + Sq H Dv) * 2 bytes; operations:
+// 2 (Dqk + Dv) per visible (row, key) pair (QK and PV multiply-adds) at
+// the bf16 tensor-core rate — the served form and the density do 2 Dqk
+// more per pair for the second QK.  At serving's extend both are about a microsecond: 128
 // blocks of 4 warps each walk at most 4 key tiles twice, so the kernel is
 // latency-bound (load, mma, shuffle chains) well above the bound.
 //
@@ -79,7 +87,8 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kKeys = 64;        // keys of a tile
-constexpr int kMaxHd = 128;
+constexpr int kMaxDqk = 192;
+constexpr int kMaxDv = 128;
 constexpr int kMaxGroup = 64;
 constexpr int kWaveBlocks = 132;  // SMs of an H100 SXM
 // the port's NEG_INF: -0.7 * float32 max computed in double, then cast
@@ -92,7 +101,7 @@ struct Args {
   const int* q_pos;
   __nv_bfloat16* out;
   float* part;  // (B, KV, n_tiles, Sk) per-tile key mass, or null
-  int Sq, Sk, H, KV, G, hd, seq_len, window, n_sinks, n_tiles, vec;
+  int Sq, Sk, H, KV, G, dqk, dv, seq_len, window, n_sinks, n_tiles, vec;
   float scale;
 };
 
@@ -166,42 +175,46 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// Q's rows share V's second stage: Q is in registers before any V tile
-// is loaded
-template <int RW, int HDP>
+// Q's rows share K's first stage: Q is in registers before any K tile
+// is loaded (16 RW <= 2 kKeys rows of HDQ + 8)
+template <int RW, int HDQ, int HDV>
 constexpr size_t smem_bytes() {
-  return sizeof(__nv_bfloat16) * (size_t)(4 * kKeys) * (HDP + 8) +
+  return sizeof(__nv_bfloat16) * (size_t)(2 * kKeys) * (HDQ + 8 + HDV + 8) +
          sizeof(float) * (kWarps * kKeys + 16 * RW) +
          sizeof(int) * (2 * 16 * RW + 4);
 }
 
 // RW row groups of 16 rows per block, 4 / RW warps sharing each one;
-// HDP = hd padded to 64 or 128.
-// The flash form's 64-row variants are held to 168 registers so that
-// three blocks share an SM (measured faster at the Pallas setting); the
-// served form's spill at that bound and gain nothing.
-template <int RW, int HDP, bool SERVED, bool MASS>
-__global__ void __launch_bounds__(kThreads, RW == 4 && !SERVED ? 3 : 1)
+// HDQ = Dqk padded to 64, 128 or 192, HDV = Dv padded to min(HDQ, 128).
+// The flash form's 64-row variants at HDQ <= 128 are held to 168
+// registers so that three blocks share an SM (measured faster at the
+// Pallas setting); the served form's spill at that bound and gain
+// nothing, and at HDQ 192 shared memory allows two blocks anyway.
+template <int RW, int HDQ, int HDV, bool SERVED, bool MASS>
+__global__ void __launch_bounds__(kThreads,
+                                  RW == 4 && !SERVED && HDQ <= 128 ? 3 : 1)
     attn_density_tc_kernel(const Args a) {
   constexpr int KW = kWarps / RW;  // key slices of a tile
   constexpr int ROWS = 16 * RW;
   constexpr int WK = kKeys / KW;   // keys of a warp's slice
   constexpr int NT = WK / 8;       // score fragments (n = 8) of a warp
-  constexpr int KS = HDP / 16;     // QK k-steps
-  constexpr int NO = HDP / 8;      // out fragments
-  constexpr int LD = HDP + 8;      // bf16 row stride: ldmatrix clash-free
+  constexpr int KS = HDQ / 16;     // QK k-steps
+  constexpr int NO = HDV / 8;      // out fragments
+  // bf16 row strides: ldmatrix clash-free
+  constexpr int LDQ = HDQ + 8, LDV = HDV + 8;
+  static_assert(16 * RW <= 2 * kKeys, "Q's rows fit K's stages");
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][kKeys][LD]
-  __nv_bfloat16* Vs = Ks + 2 * kKeys * LD;                     // [2][kKeys][LD]
-  __nv_bfloat16* Qs = Vs + kKeys * LD;  // [ROWS][LD], V's second stage
-  float* red = reinterpret_cast<float*>(Vs + 2 * kKeys * LD);  // [4][kKeys]
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][kKeys][LDQ]
+  __nv_bfloat16* Vs = Ks + 2 * kKeys * LDQ;                    // [2][kKeys][LDV]
+  __nv_bfloat16* Qs = Ks;  // [ROWS][LDQ], K's first stage
+  float* red = reinterpret_cast<float*>(Vs + 2 * kKeys * LDV);  // [4][kKeys]
   float* l_row = red + kWarps * kKeys;                    // [ROWS]
   int* qp_s = reinterpret_cast<int*>(l_row + ROWS);
   int* act_s = qp_s + ROWS;
   int* blk = act_s + ROWS;  // any row empty, key end, min qp, max qp
-  float* obuf = reinterpret_cast<float*>(smem);  // [kWarps][16][HDP], at end
+  float* obuf = reinterpret_cast<float*>(smem);  // [kWarps][16][HDV], at end
 
-  const int Sk = a.Sk, hd = a.hd, G = a.G;
+  const int Sk = a.Sk, dqk = a.dqk, dv = a.dv, G = a.G;
   const int tile = blockIdx.x % a.n_tiles;
   const int kvh = (blockIdx.x / a.n_tiles) % a.KV;
   const int b = blockIdx.x / (a.n_tiles * a.KV);
@@ -216,20 +229,20 @@ __global__ void __launch_bounds__(kThreads, RW == 4 && !SERVED ? 3 : 1)
     act_s[tid] = act;
     qp_s[tid] = act ? a.q_pos[gr / G] : 0;
   }
-  for (int e = tid; e < ROWS * (HDP / 8); e += kThreads) {
-    const int r = e / (HDP / 8), c = (e % (HDP / 8)) * 8, gr = row0 + r;
-    __nv_bfloat16* dst = Qs + r * LD + c;
+  for (int e = tid; e < ROWS * (HDQ / 8); e += kThreads) {
+    const int r = e / (HDQ / 8), c = (e % (HDQ / 8)) * 8, gr = row0 + r;
+    __nv_bfloat16* dst = Qs + r * LDQ + c;
     const size_t base =
         gr < n_rows
-            ? (((size_t)b * a.Sq + gr / G) * a.H + kvh * G + gr % G) * hd
+            ? (((size_t)b * a.Sq + gr / G) * a.H + kvh * G + gr % G) * dqk
             : 0;
-    if (gr < n_rows && a.vec && c < hd) {
+    if (gr < n_rows && a.vec && c < dqk) {
       *reinterpret_cast<uint4*>(dst) =
           *reinterpret_cast<const uint4*>(a.q + base + c);
     } else {
 #pragma unroll
       for (int i = 0; i < 8; ++i)
-        dst[i] = (gr < n_rows && c + i < hd) ? a.q[base + c + i] : zero;
+        dst[i] = (gr < n_rows && c + i < dqk) ? a.q[base + c + i] : zero;
     }
   }
   __syncthreads();
@@ -271,29 +284,32 @@ __global__ void __launch_bounds__(kThreads, RW == 4 && !SERVED ? 3 : 1)
   uint32_t qf[KS][4];
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk)
-    ldsm_x4(qf[kk], Qs + (rg * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8);
-  __syncthreads();  // Q's rows are V's second stage
+    ldsm_x4(qf[kk], Qs + (rg * 16 + lane % 16) * LDQ + kk * 16 + (lane / 16) * 8);
+  __syncthreads();  // Q's rows are K's first stage
 
-  // K (and V) tile k0 into stage st, zero past Sk and past hd; one
-  // cp.async group per call
+  // K (and V) tile k0 into stage st, zero past Sk and past each operand's
+  // head dim; one pass over K's 16-byte columns that also moves V's (V's
+  // rows are no wider: HDV <= HDQ); one cp.async group per call
   auto load_tile = [&](int k0, int st, bool with_v) {
-    __nv_bfloat16* kd = Ks + st * kKeys * LD;
-    __nv_bfloat16* vd = Vs + st * kKeys * LD;
-    for (int e = tid; e < kKeys * (HDP / 8); e += kThreads) {
-      const int j = e / (HDP / 8), c = (e % (HDP / 8)) * 8, key = k0 + j;
-      const size_t row =
-          key < Sk ? (((size_t)b * Sk + key) * a.KV + kvh) * hd : 0;
+    __nv_bfloat16* kd = Ks + st * kKeys * LDQ;
+    __nv_bfloat16* vd = Vs + st * kKeys * LDV;
+    for (int e = tid; e < kKeys * (HDQ / 8); e += kThreads) {
+      const int j = e / (HDQ / 8), c = (e % (HDQ / 8)) * 8, key = k0 + j;
+      const size_t row = key < Sk ? ((size_t)b * Sk + key) * a.KV + kvh : 0;
+      const bool v_too = with_v && (HDV == HDQ || c < HDV);
       if (a.vec) {
-        const bool in = key < Sk && c < hd;
-        cp_async16(kd + j * LD + c, a.k + (in ? row + c : 0), in ? 16 : 0);
-        if (with_v)
-          cp_async16(vd + j * LD + c, a.v + (in ? row + c : 0), in ? 16 : 0);
+        const bool ik = key < Sk && c < dqk, iv = key < Sk && c < dv;
+        cp_async16(kd + j * LDQ + c, a.k + (ik ? row * dqk + c : 0),
+                   ik ? 16 : 0);
+        if (v_too)
+          cp_async16(vd + j * LDV + c, a.v + (iv ? row * dv + c : 0),
+                     iv ? 16 : 0);
       } else {
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
-          const bool in = key < Sk && c + i < hd;
-          kd[j * LD + c + i] = in ? a.k[row + c + i] : zero;
-          if (with_v) vd[j * LD + c + i] = in ? a.v[row + c + i] : zero;
+          const bool ik = key < Sk && c + i < dqk, iv = key < Sk && c + i < dv;
+          kd[j * LDQ + c + i] = ik ? a.k[row * dqk + c + i] : zero;
+          if (v_too) vd[j * LDV + c + i] = iv ? a.v[row * dv + c + i] : zero;
         }
       }
     }
@@ -324,7 +340,7 @@ __global__ void __launch_bounds__(kThreads, RW == 4 && !SERVED ? 3 : 1)
   // masked scores of this warp's key slice of tile k0: rows (rl, rl + 8)
   // in elements (0, 1) and (2, 3), keys past Sk at -inf
   auto scores = [&](int st, int k0, float (&s)[NT][4]) {
-    const __nv_bfloat16* kt = Ks + (st * kKeys + ks * WK) * LD;
+    const __nv_bfloat16* kt = Ks + (st * kKeys + ks * WK) * LDQ;
     const bool whole = full(k0);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
@@ -333,7 +349,7 @@ __global__ void __launch_bounds__(kThreads, RW == 4 && !SERVED ? 3 : 1)
 #pragma unroll
       for (int kk = 0; kk < KS / 2; ++kk) {
         uint32_t bk[4];
-        ldsm_x4(bk, kt + (j * 8 + lane % 8) * LD + kk * 32 + (lane / 8) * 8);
+        ldsm_x4(bk, kt + (j * 8 + lane % 8) * LDQ + kk * 32 + (lane / 8) * 8);
         mma16816(s[j], qf[2 * kk], bk[0], bk[1]);
         mma16816(s[j], qf[2 * kk + 1], bk[2], bk[3]);
       }
@@ -355,7 +371,7 @@ __global__ void __launch_bounds__(kThreads, RW == 4 && !SERVED ? 3 : 1)
     for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
   // o += bf16(p) V over this warp's key slice
   auto pv = [&](int st, const float (&p)[NT][4]) {
-    const __nv_bfloat16* vt = Vs + (st * kKeys + ks * WK) * LD;
+    const __nv_bfloat16* vt = Vs + (st * kKeys + ks * WK) * LDV;
 #pragma unroll
     for (int kk = 0; kk < WK / 16; ++kk) {
       const uint32_t pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
@@ -365,7 +381,7 @@ __global__ void __launch_bounds__(kThreads, RW == 4 && !SERVED ? 3 : 1)
 #pragma unroll
       for (int np = 0; np < NO / 2; ++np) {
         uint32_t bv[4];
-        ldsm_x4_t(bv, vt + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD +
+        ldsm_x4_t(bv, vt + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LDV +
                           np * 16 + (lane / 16) * 8);
         mma16816(o[2 * np], pa, bv[0], bv[1]);
         mma16816(o[2 * np + 1], pa, bv[2], bv[3]);
@@ -495,7 +511,7 @@ __global__ void __launch_bounds__(kThreads, RW == 4 && !SERVED ? 3 : 1)
   // ---- store: sum the slices' PV in order, normalise ----------------- //
   auto store = [&](int r, int d, float x) {
     const int gr = row0 + r;
-    a.out[(((size_t)b * a.Sq + gr / G) * a.H + kvh * G + gr % G) * hd + d] =
+    a.out[(((size_t)b * a.Sq + gr / G) * a.H + kvh * G + gr % G) * dv + d] =
         __float2bfloat16_rn(SERVED ? x : x / l_row[r]);
   };
   if (KW == 1) {
@@ -504,7 +520,7 @@ __global__ void __launch_bounds__(kThreads, RW == 4 && !SERVED ? 3 : 1)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = rl + 8 * (e / 2), d = n * 8 + 2 * (lane % 4) + (e & 1);
-        if (act2[e / 2] && d < hd) store(r, d, o[n][e]);
+        if (act2[e / 2] && d < dv) store(r, d, o[n][e]);
       }
   } else {
     // the tiles' buffers are free: the last walk ended with a barrier
@@ -514,16 +530,16 @@ __global__ void __launch_bounds__(kThreads, RW == 4 && !SERVED ? 3 : 1)
       for (int e = 0; e < 4; ++e) {
         const int r = lane / 4 + 8 * (e / 2);
         const int d = n * 8 + 2 * (lane % 4) + (e & 1);
-        obuf[(warp * 16 + r) * HDP + d] =
+        obuf[(warp * 16 + r) * HDV + d] =
             SERVED ? o[n][e] : o[n][e] * f_w[e / 2];
       }
     __syncthreads();
-    for (int e = tid; e < ROWS * hd; e += kThreads) {
-      const int r = e / hd, d = e % hd;
+    for (int e = tid; e < ROWS * dv; e += kThreads) {
+      const int r = e / dv, d = e % dv;
       if (!act_s[r]) continue;
       const int g0 = (r / 16) * KW;
       float x = 0.0f;
-      for (int w = 0; w < KW; ++w) x += obuf[((g0 + w) * 16 + r % 16) * HDP + d];
+      for (int w = 0; w < KW; ++w) x += obuf[((g0 + w) * 16 + r % 16) * HDV + d];
       store(r, d, x);
     }
   }
@@ -565,10 +581,10 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <int RW, int HDP, bool SERVED, bool MASS>
+template <int RW, int HDQ, int HDV, bool SERVED, bool MASS>
 cudaError_t launch(const Args& a, int B, cudaStream_t st) {
-  constexpr size_t smem = smem_bytes<RW, HDP>();
-  auto* kern = attn_density_tc_kernel<RW, HDP, SERVED, MASS>;
+  constexpr size_t smem = smem_bytes<RW, HDQ, HDV>();
+  auto* kern = attn_density_tc_kernel<RW, HDQ, HDV, SERVED, MASS>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -576,13 +592,29 @@ cudaError_t launch(const Args& a, int B, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <int RW, int HDP>
+template <int RW, int HDQ, int HDV>
 cudaError_t launch_form(const Args& a, int B, bool served, bool mass,
                         cudaStream_t st) {
-  if (served && mass) return launch<RW, HDP, true, true>(a, B, st);
-  if (served) return launch<RW, HDP, true, false>(a, B, st);
-  if (mass) return launch<RW, HDP, false, true>(a, B, st);
-  return launch<RW, HDP, false, false>(a, B, st);
+  if (served && mass) return launch<RW, HDQ, HDV, true, true>(a, B, st);
+  if (served) return launch<RW, HDQ, HDV, true, false>(a, B, st);
+  if (mass) return launch<RW, HDQ, HDV, false, true>(a, B, st);
+  return launch<RW, HDQ, HDV, false, false>(a, B, st);
+}
+
+template <int RW>
+cudaError_t launch_dims(const Args& a, int B, int hdq, bool served,
+                        bool mass, cudaStream_t st) {
+  if (hdq == 64) return launch_form<RW, 64, 64>(a, B, served, mass, st);
+  if (hdq == 128) return launch_form<RW, 128, 128>(a, B, served, mass, st);
+  return launch_form<RW, 192, 128>(a, B, served, mass, st);
+}
+
+// the padded head dims: HDQ = max(Dqk, Dv) rounded up to 64, 128 or 192,
+// HDV = min(HDQ, 128); 0 for dims the kernel does not take
+int padded_dqk(int dqk, int dv) {
+  if (dqk <= 0 || dv <= 0 || dqk > kMaxDqk || dv > kMaxDv) return 0;
+  const int w = max(dqk, dv);
+  return w <= 64 ? 64 : w <= 128 ? 128 : 192;
 }
 
 }  // namespace
@@ -601,16 +633,18 @@ extern "C" int attn_density_rows(int B, int Sq, int H, int KV) {
 
 // C interface (loaded with ctypes).  Returns the CUDA error of the
 // launches (0 = launched), or -1 for shapes the kernel does not take
-// (hd > 128, H not a multiple of KV, G = H / KV > 64).  `density` may be
-// null: then no mass is summed and `part` is not touched.
+// (Dqk > 192, Dv > 128, H not a multiple of KV, G = H / KV > 64).
+// `density` may be null: then no mass is summed and `part` is not
+// touched.
 extern "C" int attn_density(const void* q, const void* k, const void* v,
                             const void* q_pos, void* out, void* part,
                             void* density, int B, int Sq, int Sk, int H,
-                            int KV, int hd, int seq_len, int window,
-                            int n_sinks, float scale, int served,
-                            void* stream) {
+                            int KV, int dqk, int dv, int seq_len,
+                            int window, int n_sinks, float scale,
+                            int served, void* stream) {
   const int rows = attn_density_rows(B, Sq, H, KV);
-  if (rows < 0 || Sk <= 0 || hd <= 0 || hd > kMaxHd) return -1;
+  const int hdq = padded_dqk(dqk, dv);
+  if (rows < 0 || Sk <= 0 || hdq == 0) return -1;
   Args a;
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.k = static_cast<const __nv_bfloat16*>(k);
@@ -623,12 +657,13 @@ extern "C" int attn_density(const void* q, const void* k, const void* v,
   a.H = H;
   a.KV = KV;
   a.G = H / KV;
-  a.hd = hd;
+  a.dqk = dqk;
+  a.dv = dv;
   a.seq_len = seq_len;
   a.window = window;
   a.n_sinks = n_sinks;
   a.n_tiles = (Sq * a.G + rows - 1) / rows;
-  a.vec = hd % 8 == 0;
+  a.vec = dqk % 8 == 0 && dv % 8 == 0;
   a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool want = density != nullptr;
@@ -639,13 +674,9 @@ extern "C" int attn_density(const void* q, const void* k, const void* v,
                           st);
     if (err != cudaSuccess) return (int)err;
   }
-  const bool wide = rows == 64, small = hd <= 64, sv = served != 0;
-  if (wide)
-    err = small ? launch_form<4, 64>(a, B, sv, want, st)
-                : launch_form<4, 128>(a, B, sv, want, st);
-  else
-    err = small ? launch_form<1, 64>(a, B, sv, want, st)
-                : launch_form<1, 128>(a, B, sv, want, st);
+  const bool sv = served != 0;
+  err = rows == 64 ? launch_dims<4>(a, B, hdq, sv, want, st)
+                   : launch_dims<1>(a, B, hdq, sv, want, st);
   if (err != cudaSuccess || !want) return (int)err;
   attn_density_reduce_kernel<<<dim3((Sk + 31) / 32, B), 256, 0, st>>>(
       static_cast<const float*>(part), a.q_pos, static_cast<float*>(density),

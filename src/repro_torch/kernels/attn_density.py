@@ -11,7 +11,10 @@ Design and bound are in the CUDA source's note: (query, head) rows in
 blocks of 4 warps, 16 or 64 rows a block (``plan``), bf16 K/V tiles
 double-buffered through shared memory, QK and PV on the tensor cores
 (``mma.sync`` m16n8k16), the key mass summed from the score fragments
-and reduced by a second fixed-order launch.
+and reduced by a second fixed-order launch.  Queries and keys have head
+dim Dqk <= 192 and values Dv <= 128, padded to the kernel's tile widths
+(``head_plan``): the dense family's Dqk = Dv = hd, MLA's recompute
+128 + 64 and 128.
 
 The wrapper checks device, dtype, shape and contiguity, allocates the
 output, the density and the (B, KV, n_tiles, Sk) fp32 scratch with
@@ -30,7 +33,8 @@ import torch
 
 from repro_torch.kernels import build
 
-MAX_HEAD_DIM = 128
+MAX_DQK = 192
+MAX_DV = 128
 MAX_GROUP = 64
 WAVE_BLOCKS = 132                  # SMs of an H100 SXM
 _LIB = None
@@ -47,12 +51,26 @@ def plan(B: int, Sq: int, H: int, KV: int):
     return rows, n_tiles, B * KV * n_tiles
 
 
+def head_plan(dqk: int, dv: int):
+    """The kernel's head-dim plan (``padded_dqk`` in the CUDA source):
+    Dqk and Dv padded to the tile widths HDQ = max(Dqk, Dv) rounded up
+    to 64, 128 or 192 (the QK k-steps) and HDV = min(HDQ, 128) (the PV
+    fragments).  -> (HDQ, HDV); ValueError for dims the kernel does not
+    take."""
+    if not (0 < dqk <= MAX_DQK and 0 < dv <= MAX_DV):
+        raise ValueError(f"attn_density takes head dims Dqk <= {MAX_DQK} "
+                         f"and Dv <= {MAX_DV}, not {dqk} and {dv}")
+    w = max(dqk, dv)
+    hdq = 64 if w <= 64 else 128 if w <= 128 else 192
+    return hdq, min(hdq, 128)
+
+
 def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = build.load("attn_density")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.attn_density.argtypes = ([vp] * 7 + [ci] * 9
+        lib.attn_density.argtypes = ([vp] * 7 + [ci] * 10
                                      + [ctypes.c_float, ci, vp])
         lib.attn_density.restype = ci
         lib.attn_density_rows.argtypes = [ci] * 4
@@ -74,29 +92,30 @@ def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
 def attn_density(q, k, v, q_pos, seq_len: int, window: int = 0,
                  n_sinks: int = 0, want_density: bool = True,
                  form: str = "served"):
-    """q (B,Sq,H,hd) bf16; k/v (B,Sk,KV,hd) bf16; q_pos (Sq,) int32, all
-    CUDA.  ``form`` is "served" (bf16-rounded p, the mass of every
-    query) or "flash" (the Pallas kernel).  -> (out (B,Sq,H,hd) bf16,
-    density (B,Sk) fp32 | None)."""
+    """q (B,Sq,H,Dqk) bf16; k (B,Sk,KV,Dqk) bf16; v (B,Sk,KV,Dv) bf16;
+    q_pos (Sq,) int32, all CUDA.  Scores are scaled by 1/sqrt(Dqk).
+    ``form`` is "served" (bf16-rounded p, the mass of every query) or
+    "flash" (the Pallas kernel).  -> (out (B,Sq,H,Dv) bf16, density
+    (B,Sk) fp32 | None)."""
     if form not in ("served", "flash"):
         raise ValueError(f"form must be 'served' or 'flash', not {form!r}")
-    B, Sq, H, hd = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
-    _check("q", q, torch.bfloat16, (B, Sq, H, hd))
-    for name, t in (("k", k), ("v", v)):
-        _check(name, t, torch.bfloat16, (B, Sk, KV, hd))
+    B, Sq, H, dqk = q.shape
+    Sk, KV, dv = k.shape[1], k.shape[2], v.shape[-1]
+    head_plan(dqk, dv)                  # ValueError for dims it refuses
+    _check("q", q, torch.bfloat16, (B, Sq, H, dqk))
+    _check("k", k, torch.bfloat16, (B, Sk, KV, dqk))
+    _check("v", v, torch.bfloat16, (B, Sk, KV, dv))
     _check("q_pos", q_pos, torch.int32, (Sq,))
-    if H % KV or H // KV > MAX_GROUP or hd > MAX_HEAD_DIM:
+    if H % KV or H // KV > MAX_GROUP:
         raise ValueError(f"attn_density takes H a multiple of KV with "
-                         f"H/KV <= {MAX_GROUP} and hd <= {MAX_HEAD_DIM}, "
-                         f"not H={H} KV={KV} hd={hd}")
+                         f"H/KV <= {MAX_GROUP}, not H={H} KV={KV}")
     dev = q.device
     lib = _lib()
     rows, n_tiles, _ = plan(B, Sq, H, KV)
     if lib.attn_density_rows(B, Sq, H, KV) != rows:
         raise RuntimeError("attn_density: the kernel's tile plan differs "
                            "from plan()")
-    out = torch.empty((B, Sq, H, hd), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((B, Sq, H, dv), dtype=torch.bfloat16, device=dev)
     part = dens = None
     if want_density:
         part = torch.empty((B, KV, n_tiles, Sk), dtype=torch.float32,
@@ -107,8 +126,8 @@ def attn_density(q, k, v, q_pos, seq_len: int, window: int = 0,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
             out.data_ptr(), None if part is None else part.data_ptr(),
             None if dens is None else dens.data_ptr(),
-            B, Sq, Sk, H, KV, hd, int(seq_len), int(window),
-            int(n_sinks), float(np.float32(1.0 / np.sqrt(hd))),
+            B, Sq, Sk, H, KV, dqk, dv, int(seq_len), int(window),
+            int(n_sinks), float(np.float32(1.0 / np.sqrt(dqk))),
             int(form == "served"), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"attn_density launch failed (error {err})")

@@ -101,9 +101,9 @@ def decode_qattn(q, k_q, v_q, k_scale, v_scale, n_valid, window: int = 0,
 def attn_density(q, k, v, q_pos, seq_len, window: int = 0, n_sinks: int = 0,
                  want_density: bool = True, form: str = "served"):
     """Attention of queries at positions ``q_pos`` (Sq,) over a cache
-    bounded by ``seq_len``, with the Eq.-1 key density.  q (B,Sq,H,hd);
-    k/v (B,Sk,KV,hd).  -> (out (B,Sq,H,hd), density (B,Sk) | None)
-    (forms: ``kernels/ref.py::attn_density_plain``)."""
+    bounded by ``seq_len``, with the Eq.-1 key density.  q (B,Sq,H,Dqk);
+    k (B,Sk,KV,Dqk); v (B,Sk,KV,Dv).  -> (out (B,Sq,H,Dv), density
+    (B,Sk) | None) (forms: ``kernels/ref.py::attn_density_plain``)."""
     if _route(q) == "cpu":
         return ref.attn_density_plain(q, k, v, q_pos, seq_len, window,
                                       n_sinks, want_density, form)

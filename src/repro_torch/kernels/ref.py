@@ -265,11 +265,12 @@ def attn_density_plain(q, k, v, q_pos=None, seq_len=None, window: int = 0,
                        n_sinks: int = 0, want_density: bool = True,
                        form: str = "served"):
     """Plain version of the CUDA kernel (``kernels/attn_density.py``),
-    both of its forms.  q (B,Sq,H,hd); k/v (B,Sk,KV,hd), bf16 or fp32;
+    both of its forms.  q (B,Sq,H,Dqk); k (B,Sk,KV,Dqk); v (B,Sk,KV,Dv)
+    (Dv may differ from Dqk, as in MLA's recompute), bf16 or fp32;
     q_pos (Sq,) int (default ``arange(Sq)``); seq_len (default Sk).
     Visibility is ``extend_visibility``; invisible scores take the
     finite NEG_INF, so a query with no visible key is uniform over all
-    Sk keys.  Scores fp32 times 1/sqrt(hd).
+    Sk keys.  Scores fp32 times 1/sqrt(Dqk).
 
       * ``form="served"``: what serving's extend computes
         (``models/common.gqa_attention``, op for op): softmax in fp32,
@@ -281,7 +282,7 @@ def attn_density_plain(q, k, v, q_pos=None, seq_len=None, window: int = 0,
         out = acc / max(l, 1e-30); the mass sums p / max(l, 1e-30) over
         visible (query, key) pairs only.
 
-    -> (out (B,Sq,H,hd) in q's dtype, density (B,Sk) fp32 | None)."""
+    -> (out (B,Sq,H,Dv) in q's dtype, density (B,Sk) fp32 | None)."""
     if form not in ("served", "flash"):
         raise ValueError(f"form must be 'served' or 'flash', not {form!r}")
     B, Sq, H, hd = q.shape

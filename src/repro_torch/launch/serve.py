@@ -24,6 +24,11 @@ bounded K-step slices and a newly arrived foreground request preempts
 an in-flight background stream mid-generation.  A/B the flag (0 =
 whole-generation dispatch) to see foreground TTFT drop.
 
+``--arch deepseek-v2-lite-16b`` (the MLA + MoE family) serves on slot
+caches: its KVSpec declares no paged pool and no batched decode, so the
+pool stays off whatever ``--paged-pool`` says, and ``--decode-batch >
+1`` decodes a round's members one after another, as in the reference.
+
 The port's copy of the JAX package's ``launch/serve.py``: weights come
 from ``model.init`` with a seeded ``torch.Generator`` on the device,
 and ``main`` takes ``argv`` so that a caller can run it in-process.
@@ -158,9 +163,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "recompute of Fig. 8; swap and lmk always do)")
     ap.add_argument("--quant-resident", action="store_true",
                     help="attend over quantized chunks in place: 8-bit "
-                         "chunks stay int8 in the pool behind the fused "
-                         "decode kernel, 4/2-bit re-grid at admission "
-                         "(requires a chunked policy + dense family)")
+                         "chunks stay int8 (QUANT pages of the pool, or "
+                         "the int8 segments of a slot cache) behind the "
+                         "decode attention, 4/2-bit re-grid at admission "
+                         "(requires a chunked policy and a family whose "
+                         "KVSpec declares quant_resident: dense, MLA)")
     ap.add_argument("--pace", type=float, default=0.0,
                     help="wall seconds per trace second when replaying "
                          "arrival gaps (0 = compressed time)")
@@ -171,7 +178,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def serve(model, params, args: argparse.Namespace, threaded=None,
-          on_start=None, on_end=None, verbose=True):
+          on_start=None, on_end=None, verbose=True, events=None):
     """The serving step of ``main`` on built weights: the service config
     from ``args``, the §3.3.i pipeline profile where the policy pipelines
     restores, a synthesized trace, the router and its replay.  The
@@ -180,7 +187,8 @@ def serve(model, params, args: argparse.Namespace, threaded=None,
     app's share from a thread of its own; ``False`` replays inline,
     deterministically.  ``on_start(svc, router)`` runs just before the
     replay and ``on_end(svc, router, events)`` just after it, on the
-    same router.  -> run_trace's stats, with ``wall_s``."""
+    same router.  ``events`` (``trace.synth.TraceEvent``s) replaces the
+    synthesized trace.  -> run_trace's stats, with ``wall_s``."""
     sc = LLMSConfig(policy=args.policy, max_ctx_len=args.max_ctx,
                     memory_budget=int(args.budget_mib * 2**20),
                     decode_batch=args.decode_batch,
@@ -188,8 +196,9 @@ def serve(model, params, args: argparse.Namespace, threaded=None,
                     paged_pool=args.paged_pool,
                     swap_dir=args.swap_dir or tempfile.mkdtemp(
                         prefix="llms_serve_"))
-    events = synthesize(args.contexts, args.calls, model.cfg.vocab,
-                        pattern=args.pattern, scale=0.1, seed=args.seed)
+    if events is None:
+        events = synthesize(args.contexts, args.calls, model.cfg.vocab,
+                            pattern=args.pattern, scale=0.1, seed=args.seed)
     if threaded is None:
         threaded = args.concurrency > 1
     with LLMService(model, params, sc, device=model.device) as svc:

@@ -133,10 +133,11 @@ def extend_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      q_pos: torch.Tensor, seq_len, window: int = 0,
                      n_sinks: int = 0, want_density: bool = False
                      ) -> AttnOut:
-    """The attention of serving's extend (``DenseModel.recompute``):
-    queries at positions ``q_pos`` (Sq,) over the whole cache k/v
-    (B,Sk,KV,hd), under ``causal_window_mask(q_pos, k) & (k <
-    seq_len)``, with the Eq.-1 key density.  It computes what
+    """The attention of serving's extend (``DenseModel.recompute``,
+    ``MLAModel.recompute``): queries q (B,Sq,H,Dqk) at positions
+    ``q_pos`` (Sq,) over the whole cache, k (B,Sk,KV,Dqk) and v
+    (B,Sk,KV,Dv), under ``causal_window_mask(q_pos, k) & (k <
+    seq_len)``, with the Eq.-1 key density; out (B,Sq,H,Dv).  It computes what
     ``gqa_attention`` computes under that mask (``form="served"``): on
     the card through the ``attn_density`` CUDA kernel, on the CPU
     through its plain version."""

@@ -1,9 +1,11 @@
 """Weights carried across from the JAX package.
 
-``params_from_jax`` takes the reference ``DenseModel.init`` pytree as
-numpy arrays (nested dicts, layers stacked on axis 0, bf16 arrays as
-``ml_dtypes.bfloat16``) and returns the port's parameter dict on
-``device``, bit for bit, so both packages compute the same model.
+``params_from_jax`` takes the reference ``DenseModel.init`` or
+``MLAModel.init`` pytree as numpy arrays (nested dicts, layers stacked
+on axis 0, bf16 arrays as ``ml_dtypes.bfloat16``) and returns the
+port's parameter dict on ``device``, bit for bit, so both packages
+compute the same model.  For ``mla_moe`` the router stays fp32 (L, d,
+E) and the expert weights are (L, E, d, fe) and (L, E, fe, d).
 """
 from __future__ import annotations
 
@@ -27,8 +29,9 @@ def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
 
 def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig,
                     device) -> Dict[str, Any]:
-    """Reference dense params (numpy) -> port params on ``device``."""
-    if cfg.family != "dense":
+    """Reference dense or MLA + MoE params (numpy) -> port params on
+    ``device``."""
+    if cfg.family not in ("dense", "mla_moe"):
         raise NotImplementedError(
             f"weight conversion for family {cfg.family!r} is not ported "
             "(ROADMAP.md)")
@@ -44,4 +47,22 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig,
         if w.shape[0] != L:
             raise ValueError(f"layer param {name!r} is not stacked over "
                              f"{L} layers: {tuple(w.shape)}")
+    if cfg.family == "mla_moe":
+        _check_moe(out["layers"], cfg)
     return out
+
+
+def _check_moe(layers: Dict[str, torch.Tensor], cfg: ModelConfig) -> None:
+    """The MoE leaves' layout: the router fp32 (L, d, E), the experts
+    (L, E, d, fe) / (L, E, fe, d) in bf16."""
+    L, d, moe = cfg.n_layers, cfg.d_model, cfg.moe
+    E, fe = moe.n_experts, moe.d_expert
+    want = {"router": ((L, d, E), torch.float32),
+            "w_gate": ((L, E, d, fe), torch.bfloat16),
+            "w_up": ((L, E, d, fe), torch.bfloat16),
+            "w_down": ((L, E, fe, d), torch.bfloat16)}
+    for name, (shape, dtype) in want.items():
+        w = layers[name]
+        if tuple(w.shape) != shape or w.dtype != dtype:
+            raise ValueError(f"MoE param {name!r} is {tuple(w.shape)} "
+                             f"{w.dtype}, not {shape} {dtype}")

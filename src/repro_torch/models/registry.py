@@ -1,7 +1,8 @@
 """Family -> model-class registry of the port.  ``build_model(cfg)`` is
 the single construction point and ``family_spec(cfg)`` the capability
-query, as in the JAX package.  Only the dense family is ported; every
-other family raises ``NotImplementedError`` (see ``ROADMAP.md``)."""
+query, as in the JAX package.  The dense and the MLA + MoE (``mla_moe``)
+families are ported; every other family raises ``NotImplementedError``
+(see ``ROADMAP.md``)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
@@ -9,8 +10,9 @@ from repro_torch.models.api import ModelBase
 from repro_torch.models.common import configure_numerics
 from repro_torch.models.dense import DenseModel
 from repro_torch.models.kvspec import KVSpec
+from repro_torch.models.mla import MLAModel
 
-FAMILY_CLASSES = {"dense": DenseModel}
+FAMILY_CLASSES = {"dense": DenseModel, "mla_moe": MLAModel}
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> ModelBase:
@@ -18,7 +20,8 @@ def build_model(cfg: ModelConfig, device="cuda") -> ModelBase:
     if cls is None:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to PyTorch yet; the "
-            "port covers dense models (other families: ROADMAP.md)")
+            f"port covers {sorted(FAMILY_CLASSES)} (other families: "
+            "ROADMAP.md)")
     model = cls(cfg, device)
     configure_numerics(model.device)
     return model

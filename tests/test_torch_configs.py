@@ -52,8 +52,14 @@ def _close_bf16(a, b, frac=0.02):
 
 
 def test_registry_holds_every_dense_config_of_the_reference():
+    """Every dense config of the reference, and beside them the configs
+    of the other ported families (MLA + MoE: deepseek-v2-lite-16b)."""
     dense = sorted(n for n, c in JREGISTRY.items() if c.family == "dense")
-    assert sorted(REGISTRY) == dense
+    ported = sorted(n for n, c in JREGISTRY.items()
+                    if c.family in ("dense", "mla_moe"))
+    assert sorted(REGISTRY) == ported
+    assert sorted(n for n, c in REGISTRY.items()
+                  if c.family == "dense") == dense
     assert set(NEW_CONFIGS) | {"llama2-7b"} == set(dense)
 
 

@@ -217,10 +217,10 @@ def test_llmservice_quant_resident_on_card_runs_decode_mqattn(card):
 # another order).  Reruns are bit-identical (no atomics).
 # --------------------------------------------------------------------- #
 def _extend_case(B, Sq, Sk, H, KV, hd, seq_len, n_pad, device, seed=0,
-                 pad_pos=None):
-    """q (B,Sq,H,hd), k/v (B,Sk,KV,hd) bf16 and q_pos: the Sq - n_pad
-    positions just below seq_len, then n_pad bucket-pad rows at
-    ``pad_pos`` (default Sk - 1)."""
+                 pad_pos=None, dv=None):
+    """q (B,Sq,H,hd), k (B,Sk,KV,hd), v (B,Sk,KV,dv (default hd)) bf16
+    and q_pos: the Sq - n_pad positions just below seq_len, then n_pad
+    bucket-pad rows at ``pad_pos`` (default Sk - 1)."""
     g = torch.Generator().manual_seed(seed)
     r = lambda *s: torch.randn(s, generator=g).bfloat16()   # noqa: E731
     n = Sq - n_pad
@@ -228,7 +228,8 @@ def _extend_case(B, Sq, Sk, H, KV, hd, seq_len, n_pad, device, seed=0,
     qp = torch.tensor(list(range(seq_len - n, seq_len)) + [pad] * n_pad,
                       dtype=torch.int32)
     return [t.to(device) for t in (r(B, Sq, H, hd), r(B, Sk, KV, hd),
-                                   r(B, Sk, KV, hd), qp)]
+                                   r(B, Sk, KV, hd if dv is None else dv),
+                                   qp)]
 
 
 def _check_extend(args, seq_len, window, n_sinks, form):
@@ -270,6 +271,33 @@ def test_cuda_attn_density_matches_plain_version(card, B, Sq, Sk, H, KV, hd,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", ["served", "flash"])
+@pytest.mark.parametrize("window,n_sinks", [(0, 0), (512, 4), (16, 0)])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,dqk,dv,seq_len,n_pad", [
+    (1, 64, 512, 16, 16, 192, 128, 200, 24),  # MLA's recompute, S = 512
+    (1, 64, 256, 16, 16, 192, 128, 148, 24),  # and over 256
+    (1, 256, 512, 16, 16, 192, 128, 200, 56),  # lmk's whole recompute
+    (1, 128, 512, 16, 16, 192, 128, 100, 28),  # the 128-row bucket
+    (1, 16, 512, 16, 16, 192, 128, 48, 0),     # one restored chunk
+    (1, 640, 1024, 16, 16, 192, 128, 1000, 0),  # 64-row tiles at 192/128
+    (2, 37, 100, 4, 4, 24, 16, 90, 4),        # the reduced MLA, ragged
+    (1, 50, 200, 16, 2, 150, 64, 180, 8),     # G 8, V padded to 128
+])
+def test_cuda_attn_density_at_mla_head_dims(card, B, Sq, Sk, H, KV, dqk,
+                                            dv, seq_len, n_pad, window,
+                                            n_sinks, form):
+    """Query/key head dim Dqk beside value head dim Dv (MLA's recompute:
+    128 + 64 and 128) against the plain version, both forms, with and
+    without the density; out (B, Sq, H, Dv).  The 640-row case runs the
+    kernel's 64-row tiles, the others its 16-row ones."""
+    from repro_torch.kernels import attn_density as kad
+    assert kad.plan(B, Sq, H, KV)[0] == (64 if Sq == 640 else 16)
+    args = _extend_case(B, Sq, Sk, H, KV, dqk, seq_len, n_pad, card,
+                        seed=Sq + dqk, dv=dv)
+    _check_extend(args, seq_len, window, n_sinks, form)
+
+
+@pytest.mark.cuda
 def test_cuda_attn_density_pallas_form_at_width(card):
     """The Pallas kernel's own setting (q_pos = arange, seq_len = Sk) at
     (1, 1024, 32, 32, 128), causal and windowed."""
@@ -289,6 +317,12 @@ def test_cuda_attn_density_counts_launches_and_refuses_bad_input(card):
         kad.attn_density(q.float(), k, v, qp, 20)
     with pytest.raises(ValueError):
         kad.attn_density(q, k, v, qp.long(), 20)
+    for dqk, dv in ((200, 16), (16, 136)):        # beyond 192 / 128
+        qb, kb, vb, _ = _extend_case(1, 8, 32, 4, 2, dqk, 20, 2, card, dv=dv)
+        with pytest.raises(ValueError, match="head dims"):
+            kad.attn_density(qb, kb, vb, qp, 20)
+    with pytest.raises(ValueError):               # k and v disagree on Sk
+        kad.attn_density(q, k, v[:, :16].contiguous(), qp, 20)
     assert kad.attn_density.launches == 1
 
 
@@ -707,6 +741,51 @@ def test_cuda_serve_main_on_the_card(card, capsys):
     assert printed["device"].startswith("cuda")
     assert printed["router"]["foreground"]["calls"] \
         + printed["router"]["background"]["calls"] == 8
+
+
+# --------------------------------------------------------------------- #
+# the MLA + MoE family (deepseek-v2-lite-16b)
+# --------------------------------------------------------------------- #
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["window", "mixed"])
+def test_cuda_mla_matches_cpu(card, layout):
+    """The reduced deepseek-v2-lite on the card (``attn_density`` at Dqk
+    24 / Dv 16, one launch a layer of each recompute) against the same
+    port on the CPU: a recompute with the density, then four absorbed
+    decode steps; logits and latents at bf16 level (2% of range), the
+    density and the masses within 1e-3.  The check is
+    ``chip_smoke.py``'s ``_check_mla``, which raises where they
+    differ."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    diffs = smoke._check_mla((layout,))[layout]
+    assert set(diffs) == {"logits", "latents", "density", "mass"}
+
+
+@pytest.mark.cuda
+def test_cuda_serve_main_serves_mla_at_full_width(card, capsys):
+    """``launch.serve.main --arch deepseek-v2-lite-16b`` on the card at
+    full width (27 layers, 64 experts, vocab 102,400; ~32 GB of random
+    bf16 weights): slot caches, every call served, attn_density in every
+    recompute."""
+    import json
+    from repro_torch.kernels import attn_density as kad
+    from repro_torch.launch import serve
+    kad.reset_launches()
+    stats = serve.main(["--arch", "deepseek-v2-lite-16b", "--calls", "4",
+                        "--contexts", "2", "--max-ctx", "512",
+                        "--max-new", "4", "--decode-batch", "2"])
+    out = capsys.readouterr().out
+    printed = json.loads(out[out.index("{"):])
+    assert printed["failed_calls"] == stats["failed_calls"] == 0
+    assert printed["device"].startswith("cuda") and not printed["paged_pool"]
+    assert kad.attn_density.launches > 0
+    assert kad.attn_density.launches % 27 == 0
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------- #

@@ -52,27 +52,33 @@ ROUTER_SLICE = (
     "repro_torch.configs.qwen3_32b", "repro_torch.configs.deepseek_67b")
 
 
+# the modules of the MLA + MoE slice (deepseek-v2-lite-16b)
+MLA_SLICE = ("repro_torch.models.mla", "repro_torch.models.moe_layer",
+             "repro_torch.configs.deepseek_v2_lite",
+             "repro_torch.models.registry")
+
+
 def _module_path(mod: str) -> pathlib.Path:
     rel = pathlib.Path(*mod.split(".")[1:])
     path = PORT / rel.with_suffix(".py")
     return path if path.exists() else PORT / rel / "__init__.py"
 
 
-@pytest.mark.parametrize("mod", ROUTER_SLICE)
+@pytest.mark.parametrize("mod", ROUTER_SLICE + MLA_SLICE)
 def test_router_slice_modules_are_scanned(mod):
     assert _module_path(mod) in _sources()
 
 
-def test_router_slice_imports_without_triton_or_card():
+def _imports_cleanly(mods) -> None:
     """A fresh interpreter with ``triton`` unimportable and no card
-    imports every module of the slice, and neither JAX nor the JAX
+    imports every module of ``mods``, and neither JAX nor the JAX
     package is loaded by it."""
     code = (
         "import sys\n"
         "sys.modules['triton'] = None\n"
         "import torch\n"
         "torch.cuda.is_available = lambda: False\n"
-        f"for m in {ROUTER_SLICE!r}:\n"
+        f"for m in {tuple(mods)!r}:\n"
         "    __import__(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton') and sys.modules[m])\n"
@@ -81,6 +87,17 @@ def test_router_slice_imports_without_triton_or_card():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+
+
+def test_router_slice_imports_without_triton_or_card():
+    _imports_cleanly(ROUTER_SLICE)
+
+
+def test_mla_slice_imports_without_triton_or_card():
+    """``mla.py``, ``moe_layer.py`` and the config import as the router
+    slice does, and ``build_model`` builds the family on the CPU only
+    when asked."""
+    _imports_cleanly(MLA_SLICE)
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -101,11 +118,12 @@ def _no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_build_model_defaults_to_the_card(monkeypatch):
+@pytest.mark.parametrize("arch", ["llama2-7b", "deepseek-v2-lite-16b"])
+def test_build_model_defaults_to_the_card(monkeypatch, arch):
     from repro_torch.configs import get_config, reduced
     from repro_torch.models.registry import build_model
     _no_card(monkeypatch)
-    cfg = reduced(get_config("llama2-7b"))
+    cfg = reduced(get_config(arch))
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model(cfg)
     assert build_model(cfg, device="cpu").device.type == "cpu"

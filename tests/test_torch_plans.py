@@ -43,6 +43,41 @@ def test_attn_density_plan_rows_and_scratch(B, Sq, H, KV, rows):
     assert (n_tiles - 1) * r < Sq * G <= n_tiles * r
 
 
+@pytest.mark.parametrize("dqk,dv,expect", [
+    (128, 128, (128, 128)),     # the dense family at hd 128
+    (64, 64, (64, 64)),         # smollm-360m
+    (192, 128, (192, 128)),     # MLA's recompute: nope 128 + rope 64, v 128
+    (24, 16, (64, 64)),         # the reduced MLA
+    (80, 80, (128, 128)),       # hd 80
+    (150, 64, (192, 128)),      # V padded to 128 beside a 192 QK tile
+    (16, 100, (128, 128)),      # V wider than Q and K
+])
+def test_attn_density_head_plan(dqk, dv, expect):
+    """The head dims pad to the kernel's tile widths: QK k-steps of 64,
+    128 or 192, PV fragments of min(that, 128)."""
+    from repro_torch.kernels import attn_density as kad
+    hdq, hdv = kad.head_plan(dqk, dv)
+    assert (hdq, hdv) == expect
+    assert hdq >= max(dqk, dv) and hdv >= dv and hdq % 64 == 0
+
+
+@pytest.mark.parametrize("dqk,dv", [(200, 128), (192, 160), (0, 16),
+                                    (16, 0), (256, 256)])
+def test_attn_density_head_plan_refuses(dqk, dv):
+    """The plan and the wrapper refuse head dims beyond 192 / 128 (the
+    wrapper before it looks at the tensors' device)."""
+    import torch
+    from repro_torch.kernels import attn_density as kad
+    with pytest.raises(ValueError, match="head dims"):
+        kad.head_plan(dqk, dv)
+    qp = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="head dims"):
+        kad.attn_density(torch.zeros(1, 2, 2, dqk, dtype=torch.bfloat16),
+                         torch.zeros(1, 4, 2, dqk, dtype=torch.bfloat16),
+                         torch.zeros(1, 4, 2, dv, dtype=torch.bfloat16),
+                         qp, 4)
+
+
 def test_decode_mqattn_plan_fills_the_card_at_serving_decode():
     """llama2-7b's quant-resident decode at batch 1 over 512 positions:
     8 splits of 64 keys, 256 blocks (two per SM), not 32; over 4096
