@@ -119,14 +119,44 @@ result line):
              and each shape it ran at is held against the plain version
              on that call's own inputs.
              Kernel launch counts are zeroed just before each replay and
-             read just after;
+             read just after; the weights stay for the zoo;
+3e. rwkv  — rwkv6-1.6b at full width (24 layers, d 2048, 32 heads of 64,
+             d_ff 7168, vocab 65,536; random weights from SEED drawn on
+             the card) through launch.serve.serve on the serve phase's
+             trace (RWKV: one app, decode_batch 1, slot caches, a budget
+             of two whole-state snapshots of 12,779,520 B: wkv fp32,
+             tm / cm fp16): no pressure, llms and its rerun, swap and lmk.
+             llms, its rerun and swap must give the no-pressure tokens
+             call for call; lmk's first divergence in a call must be a
+             near-tie; every snapshot keeps wkv in fp32; >= 2 disk
+             restores a run; no kernel of the port may launch.  Then one
+             decode token and one 64-token recompute profiled, the
+             token's matmuls against the bytes floor; the weights stay;
+3f. zoo   — the mixed_zoo scenario at full width: dense llama2-7b (drawn
+             again), deepseek-v2-lite-16b and rwkv6-1.6b behind one
+             router, one byte budget (ZOO) and one swap tier, built by
+             the port's build_zoo_service and driven by run_scenario,
+             one all-I/O restore profile in every member.  mixed twice
+             (equal deterministic views), each family solo on its app's
+             share of the events (equal tokens), the MLA quant-resident
+             A/B (identical to force_dequant, fewer resident bytes than
+             16-bit llms_nocomp).  Every family serves 6 calls and
+             restores from disk; an eviction crosses families; mem_used
+             stays within the budget; the mixed runs launch the codec,
+             attn_density and decode_mqattn, never decode_qattn, and
+             each run's first attn_density and decode_mqattn call of
+             every shape is held against the plain version.  Kernel
+             launch counts are zeroed just before each run and read
+             just after;
 4. check   — the reduced llama2-7b and the reduced smollm-360m (G = 2,
              tied head) served teacher-forced on the card agree with the
              same port on the CPU (plain PyTorch), over the bf16 page
              view, a mixed (quant-resident) view and an all-int8 decode
-             cache; the reduced llama2-7b's pipelined restore; and the
+             cache; the reduced llama2-7b's pipelined restore; the
              reduced deepseek-v2-lite's recompute (latents, density) and
-             absorbed decode (logits, masses), window and mixed cache.
+             absorbed decode (logits, masses), window and mixed cache;
+             and the reduced rwkv6's prefill, decode steps and
+             recompute (logits, wkv state, _check_rwkv6).
 
 The last lines are the kernel record ({"kernels": [...]}), the card's
 ``nvidia-smi`` name and power limit, and {"ok": true, "device": ...}.
@@ -208,6 +238,18 @@ MLA_CODEC_SHAPES = ((16, 27 * 512), (16, 27 * 64))
 # attn_density at MLA's recompute: H = KV = 16, Dqk 128 + 64, Dv 128, a
 # 64-row bucket over the slot cache of max_ctx_len 256 (S = 512) and 256
 AD_MLA = dict(H=16, dqk=192, dv=128, S=(512, 256))
+# 3e: rwkv6-1.6b at full width (one whole-state snapshot a context:
+# wkv 24 x 32 x 64 x 64 fp32 + tm / cm 2 x 24 x 2048 fp16 = 12,779,520 B)
+RWKV = dict(arch="rwkv6-1.6b", budget_snapshots=2, max_ctx=256)
+# 3f: the mixed_zoo scenario at full width, its budget raised from the
+# reduced models' 60,000 B to 16 MiB (1.3 whole-state snapshots): at 32
+# MiB the level-16 snapshots absorbed every reclaim and no dense or MLA
+# chunk left memory (PERF.md); one all-I/O restore profile in every member
+ZOO = dict(archs={"dense": "llama2-7b", "mla_moe": "deepseek-v2-lite-16b",
+                  "rwkv6": "rwkv6-1.6b"},
+           budget_mib=16,
+           profile=dict(re_base=1.0, re_per_chunk=1.0, io_base=0.0,
+                        io_per_byte=0.0))
 
 
 def log(*a):
@@ -408,7 +450,8 @@ def _profile_round(fn, top=0):
                else "attn_density" if any(t in name for t in AD_KERNELS)
                else "indexing (page gather, scatter)" if "index" in name
                else "matmul" if any(t in name for t in
-                                    ("gemm", "gemv", "xmma", "cutlass"))
+                                    ("gemm", "gemv", "xmma", "cutlass",
+                                     "nvjet"))
                else "other")
         cats[cat] = cats.get(cat, 0.0) + _device_us(ev) / 1e3
         n_kernels += ev.count
@@ -1963,6 +2006,85 @@ def _read_launches():
             "decode_qattn": kdq.decode_qattn.launches}
 
 
+class _KernelCalls:
+    """While installed, keeps the first ``attn_density`` and
+    ``decode_mqattn`` call of each shape and setting that the main path
+    makes (inputs and results, cloned); ``check`` holds each against its
+    plain version on its own inputs.  ``close`` takes the hooks off."""
+
+    def __init__(self, name):
+        from repro_torch.kernels import ops
+        self.name, self.kept = name, {}
+        attn, mq = ops.attn_density, ops.decode_mqattn
+        self._undo = [(ops, "attn_density", attn), (ops, "decode_mqattn", mq)]
+
+        def kept_attn(q, k, v, q_pos, seq_len, window=0, n_sinks=0,
+                      want_density=True, form="served"):
+            args = (q, k, v, q_pos, int(seq_len), int(window), int(n_sinks),
+                    bool(want_density), form)
+            out = attn(*args)
+            self._keep("attn_density", args, out)
+            return out
+
+        def kept_mq(q, k, v, k_q, v_q, k_scale, v_scale, quant_mask,
+                    n_valid, window=0, n_sinks=0, want_mass=False,
+                    select=False):
+            args = (q, k, v, k_q, v_q, k_scale, v_scale, quant_mask,
+                    n_valid, window, n_sinks, want_mass, select)
+            out = mq(*args)
+            self._keep("decode_mqattn", args, out)
+            return out
+
+        ops.attn_density, ops.decode_mqattn = kept_attn, kept_mq
+
+    def _keep(self, kind, args, out):
+        key = (kind,) + tuple(tuple(a.shape) if hasattr(a, "shape") else a
+                              for a in args)
+        if key not in self.kept:
+            self.kept[key] = (
+                [a.clone() if hasattr(a, "clone") else a for a in args],
+                [None if t is None else t.clone() for t in
+                 (out if isinstance(out, tuple) else (out,))])
+
+    def ran(self, kind):
+        return any(key[0] == kind for key in self.kept)
+
+    def close(self):
+        for obj, attr, fn in self._undo:
+            setattr(obj, attr, fn)
+        self._undo = []
+
+    def check(self):
+        """Each kept call against its plain version: out within
+        MQ_OUT_TOL of its range, density within AD_DENS_TOL of its range,
+        mass within MQ_MASS_TOL.  -> one (kind, q shape, k shape, the
+        call's other settings, |d out| / range, |d density or mass|) row
+        a kept call."""
+        from repro_torch.kernels import ref
+        rows = []
+        for key, (args, outs) in self.kept.items():
+            kind = key[0]
+            plain = (ref.attn_density_plain(*args) if kind == "attn_density"
+                     else ref.decode_mqattn_plain(*args))
+            plain = plain if isinstance(plain, tuple) else (plain,)
+            span = float(plain[0].float().abs().max())
+            d_o = float((outs[0].float() - plain[0].float()).abs().max())
+            d_x = 0.0
+            if len(plain) > 1 and plain[1] is not None:
+                d_x = float((outs[1] - plain[1]).abs().max())
+                if kind == "attn_density":
+                    d_x /= float(plain[1].abs().max())
+            tol_x = AD_DENS_TOL if kind == "attn_density" else MQ_MASS_TOL
+            settings = [a for a in args if not hasattr(a, "shape")]
+            if not (d_o <= MQ_OUT_TOL * span and d_x <= tol_x):
+                raise AssertionError(
+                    f"{self.name} {kind} on the main path at {key[1:3]}, "
+                    f"{settings}: |d out| {d_o} (range {span}), |d density "
+                    f"or mass| {d_x}")
+            rows.append((kind, key[1], key[2], settings, d_o / span, d_x))
+        return rows
+
+
 class _SlotHooks:
     """Hooks on one slot-engine ``LLMService`` that the slot and MLA
     phases share.  Per call (``begin``, then ``record``): the restore
@@ -1971,29 +2093,26 @@ class _SlotHooks:
     fetch wait, the bytes read, and every greedy pick's logits row (on
     the CPU).  Over the run: the recomputes, the steps named in
     ``profile`` ("restore", "decode token", "recompute") each run once
-    under the profiler after call ``profile_from``, and the first
-    ``attn_density`` call of each shape and mask setting kept (inputs
-    and result, cloned), which ``check_attn`` holds against the plain
-    version.  ``close`` takes the hooks off."""
+    under the profiler after call ``profile_from``, and the kernel calls
+    that ``kernels`` (``_KernelCalls``) keeps and checks.  ``close``
+    takes the hooks off."""
 
     def __init__(self, svc, name, on_card, profile=(), profile_from=0,
                  top=0):
         import numpy as np
         import torch
-        from repro_torch.kernels import ops
         exe, res = svc.exe, svc.res
         self.name, self.on_card = name, on_card
         self.now = {"split": [], "pipelined": [], "whole": [], "rows": []}
-        self.records, self.picks, self.prof, self.attn = [], [], {}, {}
+        self.records, self.picks, self.prof = [], [], {}
         self.calls = self.n_recompute = self.read0 = 0
         plan, pipe = res._plan_restore, exe.run_pipelined
-        whole, attn = res._restore_whole_timed, ops.attn_density
+        whole = res._restore_whole_timed
         extend, decode, recompute = exe.extend, exe.decode, exe.recompute
         self._undo = [(res, "_plan_restore", plan),
                       (res, "_restore_whole_timed", whole),
                       (exe, "run_pipelined", pipe), (exe, "extend", extend),
-                      (exe, "decode", decode), (exe, "recompute", recompute),
-                      (ops, "attn_density", attn)]
+                      (exe, "decode", decode), (exe, "recompute", recompute)]
         now = self.now
 
         def profiled(kind, fn):
@@ -2037,25 +2156,13 @@ class _SlotHooks:
             self.n_recompute += 1
             return profiled("recompute", lambda: recompute(*a, **k))
 
-        def kept_attn(q, k, v, q_pos, seq_len, window=0, n_sinks=0,
-                      want_density=True, form="served"):
-            out = attn(q, k, v, q_pos, seq_len, window, n_sinks,
-                       want_density, form)
-            key = (tuple(q.shape), tuple(k.shape), tuple(v.shape),
-                   int(seq_len), int(window), int(n_sinks),
-                   bool(want_density), form)
-            if key not in self.attn:
-                self.attn[key] = ([t.clone() for t in (q, k, v, q_pos)],
-                                  [None if t is None else t.clone()
-                                   for t in out])
-            return out
-
         res._plan_restore, exe.run_pipelined = logged_plan, logged_pipe
-        if not svc.cfg.chunked:
+        if not svc.cfg.chunked or not exe.chunked_cache:
             res._restore_whole_timed = logged_whole
         exe.extend = kept(extend, None)
         exe.decode = kept(decode, "decode token")
-        exe.recompute, ops.attn_density = counted_recompute, kept_attn
+        exe.recompute = counted_recompute
+        self.kernels = _KernelCalls(name)
 
     def begin(self):
         from repro_torch.core import restore
@@ -2089,36 +2196,11 @@ class _SlotHooks:
         for obj, attr, fn in self._undo:
             setattr(obj, attr, fn)
         self._undo = []
-
-    def check_attn(self):
-        """Each kept ``attn_density`` call of the run against the plain
-        version on its own inputs, with ``attn_phase``'s tolerances.
-        -> one (Sq, Sk, seq_len, window, n_sinks, density, |d out| /
-        range, |d density| / range) row a kept call."""
-        from repro_torch.kernels import ref
-        rows = []
-        for key, (args, (o_k, d_k)) in self.attn.items():
-            sq, sk = key[0][1], key[1][1]
-            seq_len, window, n_sinks, want, form = key[3:]
-            o_r, d_r = ref.attn_density_plain(*args, seq_len, window,
-                                              n_sinks, want, form)
-            span = float(o_r.float().abs().max())
-            d_o = float((o_k.float() - o_r.float()).abs().max())
-            d_d = (float((d_k - d_r).abs().max()) / float(d_r.abs().max())
-                   if want else 0.0)
-            if not (d_o <= MQ_OUT_TOL * span and d_d <= AD_DENS_TOL):
-                raise AssertionError(
-                    f"{self.name} attn_density on the main path at Sq {sq} "
-                    f"over {sk}, seq_len {seq_len}, window {window}, sinks "
-                    f"{n_sinks}, density {want}: |d out| {d_o} (range "
-                    f"{span}), |d density| {d_d} of its range")
-            rows.append((sq, sk, seq_len, window, n_sinks, want,
-                         d_o / span, d_d))
-        return rows
+        self.kernels.close()
 
     def summary(self, launches, run_s, profile_used):
         """Log the run's restores, profiles and the check of its own
-        attn_density calls.  -> (disk-restore switch_s in ms, sorted;
+        kernel calls.  -> (disk-restore switch_s in ms, sorted;
         the splits; the pipelined restores; the checked calls)."""
         recs, name = self.records, self.name
         disk = sorted(r["switch_s"] * 1e3 for r in recs if r["disk_restore"])
@@ -2142,10 +2224,10 @@ class _SlotHooks:
                 f"ms (max {waits[-1]:.2f})")
         for kind, p in self.prof.items():
             log(f"{name} one {kind} under the profiler: {json.dumps(p)}")
-        checked = self.check_attn()
-        log(f"{name} its own attn_density calls against the plain version, "
-            f"one of each shape and mask (Sq, Sk, seq_len, window, sinks, "
-            f"density, |d out| / range, |d density| / range): {checked}")
+        checked = self.kernels.check()
+        log(f"{name} its own kernel calls against the plain versions, one "
+            f"of each shape and setting (kind, q shape, k shape, settings, "
+            f"|d out| / range, |d density or mass|): {checked}")
         return disk, splits, pipes, checked
 
 
@@ -2163,7 +2245,8 @@ def _slot_gates(name, hooks, launches, on_card, full_budget, codec):
         raise AssertionError(f"{name} {n_disk} restores from disk (or, "
                              f"under lmk, recomputes of a killed context), "
                              f"not >= 2")
-    if on_card and not (launches["attn_density"] and hooks.attn):
+    if on_card and not (launches["attn_density"]
+                        and hooks.kernels.ran("attn_density")):
         raise AssertionError(f"{name} attn_density never ran")
     if on_card and codec and not (launches["quantize"]
                                   and launches["dequantize"]):
@@ -2500,6 +2583,67 @@ def _raw_chunk_bytes(model, cs=16):
     return cs * model.cfg.n_layers * per_token * 2
 
 
+def _logged_replay(model, params, args, name, seed, hooks_kw,
+                   prepare=None, record_extra=None):
+    """``launch.serve.serve`` of ``args`` over ``model`` replaying the
+    serve phase's trace (4 contexts x 3 rounds, prompts 32-64, 8 new)
+    inline, logged by ``_SlotHooks(**hooks_kw)`` call by call (each
+    record with its trace context, cid, cancel flag and, with
+    ``record_extra(context)``, more keys; its ``switch_s`` and wall from
+    the router).  ``prepare(svc, run)`` runs first in the replay's
+    ``on_start``.  The kernel launch counts are zeroed just before the
+    replay and read just after.  -> (serve's stats, the run: launches,
+    run_s, stats, paged, ...; the hooks, taken off)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import serve
+    from repro_torch.trace.synth import TraceEvent
+    on_card = model.device.type == "cuda"
+    trace = _trace(model.cfg.vocab, seed)
+    events = [TraceEvent(time=float(i), ctx_id=c,
+                         prompt=np.asarray(p, np.int32),
+                         ground_truth=np.zeros(0, np.int32), dataset="smoke",
+                         max_new=n) for i, (c, p, n) in enumerate(trace)]
+    run = {"trace": trace}
+
+    def on_start(svc, router):
+        if prepare is not None:
+            prepare(svc, run)
+        hooks = run["hooks"] = _SlotHooks(svc, name, on_card, **hooks_kw)
+        begin = svc.begin_call
+
+        def begun(stub, request):
+            hooks.begin()
+            return begin(stub, request)
+
+        def done(job, cancelled):
+            cid = job["stub"].ctx_id
+            ctx = svc.contexts[cid]
+            hooks.record(ctx, job["stream"].tokens,
+                         ctx=trace[len(hooks.records)][0], cid=cid,
+                         cancelled=bool(cancelled),
+                         **(record_extra(ctx) if record_extra else {}))
+
+        svc.begin_call, router.on_complete = begun, done
+        _zero_launches()
+        run["t0"] = time.perf_counter()
+
+    def on_end(svc, router, events):
+        if on_card:
+            torch.cuda.synchronize()
+        run["run_s"] = time.perf_counter() - run["t0"]
+        run["launches"] = _read_launches()
+        run["paged"] = svc.paged
+        run["stats"] = svc.stats()
+        run["hooks"].close()
+        for rec, c in zip(run["hooks"].records, router.call_records):
+            rec["switch_s"], rec["wall_s"] = c["switch_s"], c["service_s"]
+
+    stats = serve(model, params, args, threaded=False, on_start=on_start,
+                  on_end=on_end, verbose=False, events=events)
+    return stats, run, run.pop("hooks")
+
+
 def mla_phase(model, params, seed, swap_root, label, policy="llms",
               quant_resident=False, profile=None,
               budget_chunks=MLA["budget_chunks"], profiled=False):
@@ -2518,10 +2662,8 @@ def mla_phase(model, params, seed, swap_root, label, policy="llms",
     calls, one of each bucket, are held against the plain version.  With
     ``profiled``, one decode token and one recompute of the fifth call
     or later run under the profiler."""
-    import numpy as np
     import torch
-    from repro_torch.launch.serve import parse_args, serve
-    from repro_torch.trace.synth import TraceEvent
+    from repro_torch.launch.serve import parse_args
 
     cfg, device = model.cfg, model.device
     on_card = device.type == "cuda"
@@ -2534,14 +2676,8 @@ def mla_phase(model, params, seed, swap_root, label, policy="llms",
         "--max-new", "8", "--seed", str(seed), "--concurrency", "1",
         "--decode-batch", "1", "--swap-dir", tempfile.mkdtemp(dir=swap_root)]
         + (["--quant-resident"] if quant_resident else []))
-    trace = _trace(cfg.vocab, seed)
-    events = [TraceEvent(time=float(i), ctx_id=c,
-                         prompt=np.asarray(p, np.int32),
-                         ground_truth=np.zeros(0, np.int32), dataset="smoke",
-                         max_new=n) for i, (c, p, n) in enumerate(trace)]
-    run = {}
 
-    def on_start(svc, router):
+    def prepare(svc, run):
         res = svc.res
         if profile is not None:
             for k, v in profile.items():
@@ -2549,42 +2685,14 @@ def mla_phase(model, params, seed, swap_root, label, policy="llms",
             res.profiled = True
         run["profile"] = (dataclasses.asdict(res.profile) if res.profiled
                           else None)
-        hooks = run["hooks"] = _SlotHooks(
-            svc, name, on_card, top=8, profile_from=4,
-            profile=("decode token", "recompute") if profiled else ())
-        begin = svc.begin_call
-
-        def begun(stub, request):
-            hooks.begin()
-            return begin(stub, request)
-
-        def done(job, cancelled):
-            cid = job["stub"].ctx_id
-            hooks.record(svc.contexts[cid], job["stream"].tokens,
-                         ctx=trace[len(hooks.records)][0], cid=cid,
-                         cancelled=bool(cancelled))
-
-        svc.begin_call, router.on_complete = begun, done
         run["chunked"] = svc.cfg.chunked
-        _zero_launches()
-        run["t0"] = time.perf_counter()
 
-    def on_end(svc, router, events):
-        if on_card:
-            torch.cuda.synchronize()
-        run["run_s"] = time.perf_counter() - run["t0"]
-        run["launches"] = _read_launches()
-        run["router_calls"] = list(router.call_records)
-        run["paged"] = svc.paged
-        run["stats"] = svc.stats()
-        run["hooks"].close()
-
-    stats = serve(model, params, args, threaded=False, on_start=on_start,
-                  on_end=on_end, verbose=False, events=events)
-    hooks, launches = run.pop("hooks"), run["launches"]
-    records = hooks.records
-    for rec, c in zip(records, run["router_calls"]):
-        rec["switch_s"], rec["wall_s"] = c["switch_s"], c["service_s"]
+    stats, run, hooks = _logged_replay(
+        model, params, args, name, seed,
+        dict(top=8, profile_from=4,
+             profile=("decode token", "recompute") if profiled else ()),
+        prepare)
+    launches, records, trace = run["launches"], hooks.records, run["trace"]
     for i, r in enumerate(records):
         log(f"{name} call {i:2d} ctx {r['ctx']} prompt {len(trace[i][1])} -> "
             f"{len(r['tokens'])} tokens | switch {r['switch_s'] * 1e3:.3f} "
@@ -2654,9 +2762,9 @@ def mla_runs(swap_root):
     ``llms`` run, ``llms`` under the card's profile (a decode token and
     a recompute profiled) and a rerun under that same profile, ``llms``
     + ``quant_resident`` (the mixed latent layout), ``swap`` and
-    ``lmk``; each run's tokens against the no-pressure run's.  The
-    weights are freed before returning.  -> the runs by label."""
-    import torch
+    ``lmk``; each run's tokens against the no-pressure run's.  -> (the
+    runs by label, (model, params)): the zoo phase serves the same
+    weights."""
     from repro_torch.configs import get_config
     t0 = time.perf_counter()
     model, params = build_weights(get_config(MLA["arch"]), SEED)
@@ -2673,9 +2781,6 @@ def mla_runs(swap_root):
     for policy in ("swap", "lmk"):
         runs[policy] = mla_phase(model, params, SEED, swap_root, policy,
                                  policy=policy)
-    del model, params
-    gc.collect()
-    torch.cuda.empty_cache()
     _same_slot_run(runs["llms"], runs["llms-rerun"],
                    "MLA llms (the card's profile)")
     for label, run in runs.items():
@@ -2698,6 +2803,402 @@ def mla_runs(swap_root):
             f"{run['launches']['dequantize']}, attn_density "
             f"{run['launches']['attn_density']}")
     log(f"[mla] the MLA phases took {time.perf_counter() - t0:.1f} s")
+    return runs, (model, params)
+
+
+# --------------------------------------------------------------------- #
+# 3e. the RWKV6 family: rwkv6-1.6b at full width
+# --------------------------------------------------------------------- #
+def _snapshot_bytes(model):
+    """One whole-state snapshot of ``model``'s context: every fp32 state
+    leaf exact, every 16-bit leaf as fp16 (rwkv6-1.6b: 12,779,520 B)."""
+    import torch
+    cache = model.init_cache(1, 0)
+    return sum(cache[n].numel() * (4 if cache[n].dtype == torch.float32
+                                   else 2)
+               for n in model.kv_spec().state_leaves)
+
+
+def rwkv_phase(model, params, seed, swap_root, label, policy="llms",
+               budget_snapshots=RWKV["budget_snapshots"]):
+    """rwkv6-1.6b through the normal entry point: ``launch.serve.serve``
+    replays the serve phase's trace (4 contexts x 3 rounds, prompts
+    32-64, 8 new, ``decode_batch`` 1) through an inline ``ServiceRouter``
+    over ``LLMService``, which serves the family on slot caches and
+    moves each context's state as one whole-state snapshot (wkv fp32,
+    tm / cm fp16) under every policy, at a budget of
+    ``budget_snapshots`` snapshots.  The kernel launch counts are zeroed
+    just before the replay and read just after: no kernel of the port
+    may run (the family is attention-free).  The calls are logged by
+    ``_SlotHooks``: whole-state restores (resident, read, recompute) and
+    every greedy pick's logits row.  -> the run."""
+    import torch
+    from repro_torch.launch.serve import parse_args
+
+    cfg, device = model.cfg, model.device
+    on_card = device.type == "cuda"
+    name = f"[rwkv:{label}]"
+    snap = _snapshot_bytes(model)
+    args = parse_args([
+        "--arch", cfg.name, "--policy", policy,
+        "--max-ctx", str(RWKV["max_ctx"]),
+        "--budget-mib", repr(budget_snapshots * snap / 2**20),
+        "--max-new", "8", "--seed", str(seed), "--concurrency", "1",
+        "--decode-batch", "1", "--swap-dir", tempfile.mkdtemp(dir=swap_root)])
+
+    def prepare(svc, run):
+        run["codec"] = type(svc.exe.codec).__name__
+
+    def snapshot(ctx):
+        return {"snapshot": {k: str(v.dtype)
+                             for k, v in (ctx.whole or {}).items()}}
+
+    stats, run, hooks = _logged_replay(model, params, args, name, seed, {},
+                                       prepare, snapshot)
+    launches, records, trace = run["launches"], hooks.records, run["trace"]
+    for i, r in enumerate(records):
+        log(f"{name} call {i:2d} ctx {r['ctx']} prompt {len(trace[i][1])} -> "
+            f"{len(r['tokens'])} tokens | switch {r['switch_s'] * 1e3:.3f} "
+            f"ms | read {r['restored_bytes']} B | whole {r['whole'] or '-'} "
+            f"| snapshot {r['snapshot'] or '-'} | wall "
+            f"{r['wall_s'] * 1e3:.1f} ms")
+    walls = sorted(r["wall_s"] * 1e3 for r in records)
+    log(f"{name} {cfg.name} policy {policy}, {run['codec']}, budget "
+        f"{budget_snapshots} snapshots of {snap} B: per-call wall median "
+        f"{walls[len(walls) // 2]:.1f} ms (max {walls[-1]:.1f})")
+    disk, _, _, _ = hooks.summary(launches, run["run_s"], None)
+    log(f"{name} stats {json.dumps(run['stats'], default=str)}")
+
+    if stats["failed_calls"] or len(records) != len(trace) or any(
+            r["cancelled"] or len(r["tokens"]) != 8 for r in records):
+        raise AssertionError(f"{name} a call did not complete")
+    if run["paged"] or run["codec"] != "WholeStateCodec":
+        raise AssertionError(f"{name} served on the pool or by chunks")
+    if any(launches.values()):
+        raise AssertionError(f"{name} a kernel of the port ran: {launches}")
+    if any(r["bits"] for r in records):
+        raise AssertionError(f"{name} a context was chunked")
+    snaps = [r["snapshot"] for r in records if r["snapshot"]]
+    if not snaps or any(s != {"wkv": "float32", "tm": "float16",
+                              "cm": "float16"} for s in snaps):
+        raise AssertionError(f"{name} a snapshot went below 16 bits or "
+                             f"lost its fp32 state: {snaps}")
+    n_disk = sum(r["disk_restore"] for r in records)
+    if budget_snapshots == RWKV["budget_snapshots"] and n_disk < 2:
+        raise AssertionError(f"{name} {n_disk} restores from disk (or, "
+                             "under lmk, recomputes), not >= 2")
+    out = {"records": records, "launches": launches, "stats": run["stats"],
+           "run_s": run["run_s"], "picks": hooks.picks,
+           "disk_switch_ms": disk, "n_disk": n_disk, "wall_ms": walls}
+    del hooks
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rwkv_profiles(model, params):
+    """One decode token and one 64-token recompute of rwkv6-1.6b under
+    the profiler (after a warm-up of each), and the matmuls' device time
+    of the token against the bytes floor: every layer weight and the
+    head read once at the HBM rate (the embedding gives one row),
+    logged."""
+    import torch
+    dev = model.device
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    toks = torch.randint(1, model.cfg.vocab, (1, 64), generator=g,
+                         device=dev)
+    pos = torch.arange(64, device=dev)
+
+    def recompute():
+        return model.recompute(params, toks, pos, model.init_cache(1, 0), 64)
+
+    cache = recompute()[0]
+    cache["pos"] = torch.tensor(64, device=dev)
+    tok = toks[:, :1]
+    model.decode_step(params, tok, {k: v.clone() for k, v in cache.items()})
+    _, rec = _profile_round(recompute, top=8)
+    _, dec = _profile_round(lambda: model.decode_step(params, tok, cache),
+                            top=8)
+    weight_bytes = sum(w.numel() * w.element_size()
+                       for w in _leaves(params["layers"])) \
+        + params["head"].numel() * params["head"].element_size()
+    floor_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    gemm_ms = dec["by_category_ms"].get("matmul", 0.0)
+    log(f"[rwkv] one decode token under the profiler: {json.dumps(dec)}")
+    log(f"[rwkv] one 64-token recompute under the profiler: "
+        f"{json.dumps(rec)}")
+    log(f"[rwkv] decode token: matmuls {gemm_ms:.3f} ms of device time "
+        f"against the bytes floor {floor_ms:.3f} ms ({weight_bytes} B of "
+        f"layer weights and head at {HBM_BYTES_PER_S:.3g} B/s); wall "
+        f"{dec['wall_ms']:.1f} ms, idle share {dec['idle_share']:.3f}, "
+        f"{dec['kernels']} kernels")
+
+
+def rwkv_runs(swap_root, model, params):
+    """rwkv6-1.6b (``model``, ``params``: at full width, 24 layers, d
+    2048, 32 heads of 64, d_ff 7168, vocab 65,536, random weights from
+    SEED drawn on the card): a no-pressure ``llms`` run, ``llms`` at two
+    snapshots' budget and a rerun, ``swap`` and ``lmk``.  ``llms``, its rerun and ``swap`` must
+    give the no-pressure tokens call for call (the fp32 wkv snapshot is
+    exact); ``lmk``'s first divergence in each call must be a near-tie
+    (its recompute runs the chunked-parallel form where the no-pressure
+    run carried the state token by token).  Then one decode token and
+    one 64-token recompute profiled (on the card).  -> the runs by
+    label."""
+    t0 = time.perf_counter()
+    runs = {"no-pressure": rwkv_phase(model, params, SEED, swap_root,
+                                      "no-pressure", budget_snapshots=64)}
+    runs["llms"] = rwkv_phase(model, params, SEED, swap_root, "llms")
+    runs["llms-rerun"] = rwkv_phase(model, params, SEED, swap_root,
+                                    "llms-rerun")
+    for policy in ("swap", "lmk"):
+        runs[policy] = rwkv_phase(model, params, SEED, swap_root, policy,
+                                  policy=policy)
+    base = runs["no-pressure"]
+    for label in ("llms", "llms-rerun", "swap"):
+        for i, (x, y) in enumerate(zip(runs[label]["records"],
+                                       base["records"])):
+            if x["tokens"] != y["tokens"]:
+                raise AssertionError(f"[rwkv] {label} differs from the "
+                                     f"no-pressure run at call {i}: {x} "
+                                     f"vs {y}")
+        log(f"[rwkv] {label}: the no-pressure tokens over "
+            f"{len(base['records'])} calls, {runs[label]['n_disk']} "
+            "restores from disk")
+    counts, examined = _slot_divergence(runs["lmk"], base)
+    log(f"[rwkv] lmk against the no-pressure run, call by call: {counts}")
+    for e in examined:
+        log(f"[rwkv] lmk first divergence: {json.dumps(e)}")
+    if counts["wide"] or counts["other_bit_plan"]:
+        raise AssertionError(f"[rwkv] lmk diverged beyond a near-tie: "
+                             f"{counts}")
+    for label, run in runs.items():
+        run.pop("picks")
+        d = run["disk_switch_ms"]
+        log(f"[rwkv] {label}: wall {run['run_s']:.2f} s for 12 calls; "
+            f"switch_s over {len(d)} disk restores median "
+            f"{d[len(d) // 2] if d else None} ms, max "
+            f"{d[-1] if d else None} ms")
+    if model.device.type == "cuda":
+        _rwkv_profiles(model, params)
+    log(f"[rwkv] the RWKV6 phases took {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+# --------------------------------------------------------------------- #
+# 3f. the model zoo: dense + MLA + RWKV6 behind one router
+# --------------------------------------------------------------------- #
+class _ZooHooks:
+    """Hooks on one ``ZooService`` for a run: per member, each call's
+    switch-in (its ``switch_s`` and the bytes it read from disk); every
+    key a member's reclaim routed to its owner (``route_evict``); the
+    zoo's ``mem_used`` after every call; and the kernel calls that
+    ``kernels`` (``_KernelCalls``) keeps and checks.  ``close`` takes the
+    hooks off."""
+
+    def __init__(self, zoo, name):
+        from repro_torch.core import restore
+        self.name, self.zoo = name, zoo
+        self.calls = {fam: [] for fam in zoo.members}
+        self.routed, self.mem = [], []
+        self._undo = []
+        for fam, svc in zoo.members.items():
+            begin, finish = svc.begin_call, svc.finish_call
+            route = svc.res.route_evict
+
+            def begun(stub, request, _begin=begin, _fam=fam):
+                read0 = restore.io_counters()["read"]
+                st = _begin(stub, request)
+                self.calls[_fam].append(
+                    {"switch_s": st.t_switch,
+                     "read": restore.io_counters()["read"] - read0})
+                return st
+
+            def finished(st, _finish=finish):
+                out = _finish(st)
+                self.mem.append(zoo.mem.used)
+                return out
+
+            def routed(key, _route=route, _fam=fam):
+                owner = zoo._owner_fam.get(int(key[0]))
+                self.routed.append((_fam, owner, tuple(map(int, key))))
+                return _route(key)
+
+            svc.begin_call, svc.finish_call = begun, finished
+            svc.res.route_evict = routed
+            self._undo += [(svc, "begin_call", begin),
+                           (svc, "finish_call", finish),
+                           (svc.res, "route_evict", route)]
+        self.kernels = _KernelCalls(name)
+
+    def close(self):
+        for obj, attr, fn in self._undo:
+            setattr(obj, attr, fn)
+        self._undo = []
+        self.kernels.close()
+
+
+def zoo_phase(spec, members, events, vocab, label, fams=None,
+              force_dequant=False):
+    """One ``mixed_zoo`` run at full width: the port's
+    ``build_zoo_service`` over ``members`` (family -> (model, params);
+    ``fams`` of them, all by default) on the card, one all-I/O restore
+    profile injected into every member, ``run_scenario`` on ``events``;
+    its swap directory is removed after the run.
+    The kernel launch counts are zeroed just before the run and read
+    just after; ``_ZooHooks`` logs switch-ins, routed evictions, memory
+    and the kernels' calls, which are held against the plain versions
+    after the run.  -> the run."""
+    import shutil
+    import torch
+    from repro_torch.loadgen import build_zoo_service, run_scenario
+    name = f"[zoo:{label}]"
+    fams = list(fams or members)
+    device = members[fams[0]][0].device
+    zoo = build_zoo_service(spec, {f: members[f] for f in fams},
+                            device=device)
+    hooks = _ZooHooks(zoo, name)
+    with zoo:
+        for svc in zoo.members.values():
+            for k, v in ZOO["profile"].items():
+                setattr(svc.res.profile, k, v)
+            svc.res.profiled = True
+            svc.res.force_dequant = force_dequant
+        _zero_launches()
+        t0 = time.perf_counter()
+        rep = run_scenario(spec, zoo, vocab, events=events)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = _read_launches()
+        stats = zoo.stats()
+    hooks.close()
+    shutil.rmtree(zoo.store.root, ignore_errors=True)
+    checked = hooks.kernels.check()
+    per_fam = {}
+    for fam, calls in hooks.calls.items():
+        disk = sorted(c["switch_s"] * 1e3 for c in calls if c["read"])
+        per_fam[fam] = {
+            "calls": len(calls), "disk_restores": len(disk),
+            "switch_ms_median": (sorted(c["switch_s"] * 1e3 for c in calls)
+                                 [len(calls) // 2] if calls else None),
+            "disk_switch_ms_median": disk[len(disk) // 2] if disk else None,
+            "disk_switch_ms_max": disk[-1] if disk else None,
+            "bytes_read": sum(c["read"] for c in calls)}
+    crossing = [r for r in hooks.routed if r[1] is not None and r[0] != r[1]]
+    log(f"{name} families {fams}, force_dequant {force_dequant}: wall "
+        f"{run_s:.2f} s, {stats['total_calls']} calls; kernel launches "
+        f"{launches}; per family {json.dumps(per_fam)}; {len(crossing)} "
+        f"evictions routed across families "
+        f"{sorted(set((a, b) for a, b, _ in crossing))}; mem_used max "
+        f"{max(hooks.mem) if hooks.mem else 0} B of {spec.memory_budget}")
+    log(f"{name} its own kernel calls against the plain versions (kind, "
+        f"q shape, k shape, settings, |d out| / range, |d density or "
+        f"mass|): {checked}")
+    log(f"{name} tokens by app {rep['tokens_sha_by_app']}")
+    if launches["decode_qattn"]:
+        raise AssertionError(f"{name} decode_qattn ran: {launches}")
+    if max(hooks.mem or [0]) > spec.memory_budget:
+        raise AssertionError(f"{name} mem_used {max(hooks.mem)} over the "
+                             f"budget {spec.memory_budget}")
+    if fams == ["rwkv6"] and any(launches.values()):
+        raise AssertionError(f"{name} a kernel ran for RWKV6: {launches}")
+    return {"rep": rep, "stats": stats, "launches": launches,
+            "run_s": run_s, "per_family": per_fam, "crossing": crossing,
+            "checked": checked}
+
+
+def zoo_runs(members):
+    """The ``mixed_zoo`` scenario at full width: dense llama2-7b, MLA +
+    MoE deepseek-v2-lite-16b and RWKV6 rwkv6-1.6b (``members``: family ->
+    (model, params)) behind one router, one byte budget (ZOO) and one
+    swap tier, the spec otherwise as it stands (seed 91, 9 contexts, 18
+    calls, sweep, prompts 4-8, 3 new tokens, decode_batch 2,
+    slice_steps 8, quant_resident, slot caches, max_ctx_len 64).  Runs,
+    as the reference's benchmark does: mixed twice (equal
+    deterministic views), each family solo on its app's share of the
+    same bound events (equal tokens), and the MLA quant-resident A/B
+    (token-identical to force_dequant; resident bytes below the 16-bit
+    llms_nocomp run's).  Gates: every family serves its 6 calls and
+    restores from disk at least once, at least one eviction crosses
+    families, the budget holds, the mixed runs launch the codec,
+    attn_density and decode_mqattn and never decode_qattn, each kept
+    kernel call agrees with its plain version.  On the CPU (a rehearsal
+    with the reduced models and ZOO's budget cut to match) no kernel
+    runs, and the launch gates are left out.  -> the runs by label."""
+    from repro_torch.loadgen import (bind_apps_by_ctx, get_scenario,
+                                     make_events)
+    from repro_torch.loadgen.metrics import deterministic_view
+    t0 = time.perf_counter()
+    spec = get_scenario("mixed_zoo").override(
+        memory_budget=int(ZOO["budget_mib"] * 2**20))
+    on_card = next(iter(members.values()))[0].device.type == "cuda"
+    vocab = min(m.cfg.vocab for m, _ in members.values())
+    events = bind_apps_by_ctx(make_events(spec, vocab), spec)
+    fam_by_app = {a["name"]: a["family"] for a in spec.apps}
+    runs = {"mixed": zoo_phase(spec, members, events, vocab, "mixed"),
+            "mixed-rerun": zoo_phase(spec, members, events, vocab,
+                                     "mixed-rerun")}
+    a, b = runs["mixed"], runs["mixed-rerun"]
+    if deterministic_view(a["rep"]) != deterministic_view(b["rep"]):
+        raise AssertionError("[zoo] the rerun's deterministic view differs")
+    served = {f: s["total_calls"] for f, s in a["stats"]["families"].items()}
+    if served != {"dense": 6, "mla_moe": 6, "rwkv6": 6}:
+        raise AssertionError(f"[zoo] families served {served}")
+    for label in ("mixed", "mixed-rerun"):
+        run = runs[label]
+        if not run["crossing"]:
+            raise AssertionError(f"[zoo] {label}: no eviction crossed "
+                                 "families")
+        missing = [f for f, p in run["per_family"].items()
+                   if not p["disk_restores"]]
+        if missing:
+            raise AssertionError(f"[zoo] {label}: no disk restore for "
+                                 f"{missing}")
+        gone = [k for k in ("quantize", "dequantize", "attn_density",
+                            "decode_mqattn") if not run["launches"][k]]
+        if on_card and gone:
+            raise AssertionError(f"[zoo] {label}: {gone} never launched")
+    log(f"[zoo] mixed_zoo twice: equal deterministic views; families "
+        f"served {served}")
+    solo = {}
+    for app, fam in fam_by_app.items():
+        sub = [ev for ev in events if ev.app == app]
+        solo[app] = zoo_phase(spec, members, sub, vocab, f"solo-{fam}",
+                              fams=[fam])
+        same = (solo[app]["rep"]["tokens_sha_by_app"][app]
+                == a["rep"]["tokens_sha_by_app"][app])
+        log(f"[zoo] {fam} solo against mixed: tokens identical {same}")
+        if not same:
+            raise AssertionError(f"[zoo] {fam}: solo tokens differ from "
+                                 "the mixed run's")
+        runs[f"solo-{fam}"] = solo[app]
+    mla_app = next(app for app, f in fam_by_app.items() if f == "mla_moe")
+    sub = [ev for ev in events if ev.app == mla_app]
+    q = solo[mla_app]
+    d = zoo_phase(spec, members, sub, vocab, "mla-dequant",
+                  fams=["mla_moe"], force_dequant=True)
+    bf = zoo_phase(spec.override(policy="llms_nocomp", quant_resident=False),
+                   members, sub, vocab, "mla-bf16", fams=["mla_moe"])
+    rb_q = q["stats"]["families"]["mla_moe"]["resident_bytes"]
+    rb_bf = bf["stats"]["families"]["mla_moe"]["resident_bytes"]
+    same = (q["rep"]["tokens_sha_by_app"][mla_app]
+            == d["rep"]["tokens_sha_by_app"][mla_app])
+    log(f"[zoo] MLA quant-resident A/B: tokens identical to force_dequant "
+        f"{same}; resident bytes {rb_q} (quant) against {rb_bf} (16-bit "
+        f"llms_nocomp)")
+    if not same or not rb_q < rb_bf:
+        raise AssertionError("[zoo] the MLA quant-resident A/B failed")
+    runs["mla-dequant"], runs["mla-bf16"] = d, bf
+    for label, run in runs.items():
+        log(f"[zoo] {label}: wall {run['run_s']:.2f} s; switch_s by family "
+            + json.dumps({f: (p["switch_ms_median"],
+                              p["disk_switch_ms_median"],
+                              p["disk_switch_ms_max"])
+                          for f, p in run["per_family"].items()})
+            + " (median, disk median, disk max; ms)")
+    log(f"[zoo] the zoo phases took {time.perf_counter() - t0:.1f} s")
     return runs
 
 
@@ -2855,6 +3356,115 @@ def check_phase():
         _check_config(name)
     _check_pipelined("llama2-7b")
     _check_mla()
+    _check_rwkv6()
+
+
+def _rwkv6_teacher_forced(model, params, dev):
+    """The reduced rwkv6, two rows: a 21-token prefill, 8 decode steps
+    fed fixed tokens, a 12-token recompute continuing the carried state.
+    -> (logits of every step, the wkv state after each phase), on the
+    CPU."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 8)
+    toks = torch.as_tensor(rng.integers(1, model.cfg.vocab, (2, 41)),
+                           dtype=torch.long, device=dev)
+    out = model.prefill(params, {"tokens": toks[:, :21]})
+    cache, logits, states = out.cache, [out.logits], [out.cache["wkv"]]
+    for i in range(21, 29):
+        step = model.decode_step(params, toks[:, i:i + 1], cache)
+        logits.append(step.logits)
+    states.append(cache["wkv"])
+    pos = torch.arange(29, 41, device=dev)
+    cache, x, _ = model.recompute(params, toks[:, 29:], pos, cache, 41)
+    logits.append((x[:, -1] @ model.head_weight(params)).float())
+    states.append(cache["wkv"])
+    return (torch.cat([t.float().cpu() for t in logits]),
+            torch.cat([t.float().cpu().reshape(-1) for t in states]))
+
+
+def _check_rwkv6():
+    """The reduced rwkv6 on the card against the same port on the CPU
+    from the same weights: the chunked-parallel prefill, 8 sequential
+    decode steps and a recompute continuing the carried state, logits
+    within 2% of their range and the fp32 wkv state within 1% (bf16
+    level: the projections that make r / k / v are bf16 products, which
+    round differently on the card, one bf16 ulp being 2^-8 of a value);
+    and the fp32 recurrence alone, ``_wkv_chunked`` on the same fp32
+    inputs at the full width's heads (two rows, 32 heads of 64, a
+    carried state, 37 steps: two chunks and a padded third), out and
+    state within 1e-5 of their range.  A control runs that recurrence
+    again with TF32 allowed in its fp32 products, the rounding
+    ``configure_numerics`` keeps out: it must break the 1e-5 limit, or
+    the limit could not catch it (at the reduced 16-wide heads cuBLAS's
+    batched products take no TF32 path even where it is allowed)
+    (``tests/test_torch_cuda.py::test_cuda_rwkv6_matches_cpu`` runs
+    this check too).  No kernel of the port may launch.  -> {what:
+    (max |diff|, range)}."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.registry import build_model
+    cfg = reduced(get_config(RWKV["arch"]))
+    cpu = build_model(cfg, device="cpu")
+    params_cpu = cpu.init(torch.Generator().manual_seed(SEED))
+    gpu = build_model(cfg, device="cuda")
+    params_gpu = {k: ({n: w.cuda() for n, w in v.items()}
+                      if isinstance(v, dict) else v.cuda())
+                  for k, v in params_cpu.items()}
+    _zero_launches()
+    ref_out = _rwkv6_teacher_forced(cpu, params_cpu, "cpu")
+    card_out = _rwkv6_teacher_forced(gpu, params_gpu, "cuda")
+    g = torch.Generator().manual_seed(SEED + 10)
+    full = get_config(RWKV["arch"])
+    H, hd = full.n_heads, full.rwkv.head_dim
+    args = [torch.randn((2, 37, H, hd), generator=g) for _ in range(3)]
+    args.append(torch.clamp_min(-torch.exp(torch.randn((2, 37, H, hd),
+                                                       generator=g) - 0.5),
+                                -5.0))
+    args += [0.3 * torch.randn((H, hd), generator=g),
+             0.1 * torch.randn((2, H, hd, hd), generator=g)]
+    ref_out += cpu._wkv_chunked(*args)
+    card_out += tuple(t.cpu() for t in gpu._wkv_chunked(
+        *[a.cuda() for a in args]))
+    launches = _read_launches()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32_out = ref_out[:2] + tuple(t.cpu() for t in gpu._wkv_chunked(
+            *[a.cuda() for a in args]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    names = ("logits", "wkv", "wkv_chunked_out", "wkv_chunked_state")
+    tol = {"logits": 0.02, "wkv": 0.01, "wkv_chunked_out": 1e-5,
+           "wkv_chunked_state": 1e-5}
+
+    def against_cpu(outs):
+        diffs = {}
+        for what, a, b in zip(names, ref_out, outs):
+            if not torch.isfinite(b).all():
+                raise AssertionError(f"[check] reduced rwkv6: non-finite "
+                                     f"{what} on the card")
+            diffs[what] = (float((a - b).abs().max()), float(a.abs().max()))
+        rel = {k: d / max(s, 1e-30) for k, (d, s) in diffs.items()}
+        return diffs, [k for k in tol if rel[k] > tol[k]]
+
+    diffs, over = against_cpu(card_out)
+    if over or any(launches.values()):
+        raise AssertionError(f"[check] reduced rwkv6: card vs CPU (max "
+                             f"|diff|, range) {diffs}, over the tolerance "
+                             f"{over}, launches {launches}")
+    tf32_diffs, tf32_over = against_cpu(tf32_out)
+    if not tf32_over:
+        raise AssertionError(f"[check] reduced rwkv6: the TF32 control "
+                             f"stays within the tolerance {tol}: "
+                             f"{tf32_diffs}")
+    log(f"[check] reduced {RWKV['arch']} ({cfg.n_heads} heads of "
+        f"{cfg.rwkv.head_dim}), 21-token prefill + 8 decode steps + a "
+        f"12-token recompute, teacher-forced, and _wkv_chunked on the same "
+        f"fp32 inputs ({H} heads of {hd}): card vs CPU (max |diff|, range) {diffs}; tolerance "
+        f"(of range) {tol}; the TF32 control {tf32_diffs} breaks "
+        f"{tf32_over}")
+    return diffs
 
 
 def _mla_teacher_forced(model, params, dev, layout):
@@ -3056,6 +3666,16 @@ def _slot_launches(slots, key):
                               for label, run in slots.items()}}
 
 
+def _rwkv_zoo_launches(rwkv, zoo, key):
+    """A kernel's launches in the RWKV6 phase's runs (rwkv6-1.6b at full
+    width: none may launch) and in the zoo phase's runs, each counted
+    from 0 just before the run and read just after it."""
+    return {"launches_rwkv": {label: run["launches"][key]
+                              for label, run in rwkv.items()},
+            "launches_zoo": {label: run["launches"][key]
+                             for label, run in zoo.items()}}
+
+
 def _mla_launches(mla, key):
     """A kernel's launches in the MLA phase's runs (deepseek-v2-lite-16b
     at full width), each counted from 0 just before the run and read
@@ -3159,7 +3779,15 @@ def main() -> int:
     del model, params
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="llms_chip_mla_") as root:
-        mla = mla_runs(root)
+        mla, mla_weights = mla_runs(root)
+    rwkv_weights = build_weights(get_config(RWKV["arch"]), SEED)
+    with tempfile.TemporaryDirectory(prefix="llms_chip_rwkv_") as root:
+        rwkv = rwkv_runs(root, *rwkv_weights)
+    zoo = zoo_runs({"dense": build_weights(get_config("llama2-7b"), SEED),
+                    "mla_moe": mla_weights, "rwkv6": rwkv_weights})
+    del mla_weights, rwkv_weights
+    gc.collect()
+    torch.cuda.empty_cache()
     for a, b in (("bf16", "bf16-rerun"), ("quant", "quant-rerun"),
                  ("gqa", "gqa-rerun")):
         _same_run(routed[a], routed[b], f"{a} (llama2-7b)" if a != "gqa"
@@ -3211,6 +3839,7 @@ def main() -> int:
                                  for b in (8, 4, 2)},
             "launches_quant_resident": quant["launches"][name],
             **_mla_launches(mla, name),
+            **_rwkv_zoo_launches(rwkv, zoo, name),
             "mla_8bit": (mla_codec["quantize_two_leaves"] if name ==
                          "quantize" else mla_codec["dequantize"]),
         })
@@ -3236,6 +3865,7 @@ def main() -> int:
         **_router_launches(routed, "decode_mqattn"),
         **_slot_launches(slots, "decode_mqattn"),
         **_mla_launches(mla, "decode_mqattn"),
+        **_rwkv_zoo_launches(rwkv, zoo, "decode_mqattn"),
         "replaces": "src/repro/kernels/decode_qattn.py:183",
         "launches": quant["launches"]["decode_mqattn"],
         "max_abs_err": mq_err["out"], "max_abs_err_mass": mq_err["mass"],
@@ -3299,6 +3929,8 @@ def main() -> int:
                 else "attn_density_with_density"],
             **_mla_launches(mla, "attn_density" if key == "out"
                             else "attn_density_with_density"),
+            **_rwkv_zoo_launches(rwkv, zoo, "attn_density" if key == "out"
+                                 else "attn_density_with_density"),
             "mla_shapes": {label: {k: ad_times[src][k] for k in mla_keys}
                            for label, src in mla_rows[key]},
             **{name: {k: ad_times[src][k] for k in (
@@ -3316,6 +3948,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/decode_qattn.py:84",
         **_slot_launches(slots, "decode_qattn"),
         **_mla_launches(mla, "decode_qattn"),
+        **_rwkv_zoo_launches(rwkv, zoo, "decode_qattn"),
         "launches": int8[0]["launches"],
         "max_abs_err": dq_err["out"], "max_abs_err_mass": dq_err["mass"],
         "ms": _device_or_call(row, ""),

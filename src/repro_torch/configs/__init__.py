@@ -2,26 +2,28 @@
 
 ``REGISTRY`` holds every dense configuration of the JAX package's
 registry (the paper's llama2-7b and opt-6.7b, and smollm-360m,
-qwen2.5-14b, qwen3-32b and deepseek-67b) and the MLA + MoE
-deepseek-v2-lite-16b, with the same fields.  ``reduced(cfg)`` derives
-the CPU-sized config the tests use, with the same numbers as the JAX
-package's ``reduced`` for these families, so both packages build
-identical shapes.  The other families join as they are ported
-(``ROADMAP.md``).
+qwen2.5-14b, qwen3-32b and deepseek-67b), the MLA + MoE
+deepseek-v2-lite-16b and the RWKV6 rwkv6-1.6b, with the same fields.
+``reduced(cfg)`` derives the CPU-sized config the tests use, with the
+same numbers as the JAX package's ``reduced`` for these families, so
+both packages build identical shapes.  The other families join as
+they are ported (``ROADMAP.md``).
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig
+from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
+                                      RWKV6Config)
 from repro_torch.configs.deepseek_67b import CONFIG as _ds67
 from repro_torch.configs.deepseek_v2_lite import CONFIG as _dsv2lite
 from repro_torch.configs.llama2_7b import CONFIG as _llama2
 from repro_torch.configs.opt_6_7b import CONFIG as _opt
 from repro_torch.configs.qwen2_5_14b import CONFIG as _qwen25
 from repro_torch.configs.qwen3_32b import CONFIG as _qwen3
+from repro_torch.configs.rwkv6_1p6b import CONFIG as _rwkv6
 from repro_torch.configs.smollm_360m import CONFIG as _smollm
 
 REGISTRY = {c.name: c for c in (_llama2, _opt, _smollm, _qwen25, _qwen3,
-                                _ds67, _dsv2lite)}
+                                _ds67, _dsv2lite, _rwkv6)}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -32,20 +34,24 @@ def get_config(name: str) -> ModelConfig:
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
-    """A tiny same-family config for CPU tests (dense and MLA + MoE)."""
-    kw = {}
+    """A tiny same-family config for CPU tests (dense, MLA + MoE and
+    RWKV6)."""
+    kw = dict(n_kv_heads=2 if cfg.n_kv_heads < cfg.n_heads else 4)
     if cfg.family == "mla_moe":
         kw["moe"] = MoEConfig(n_experts=4, top_k=2, d_expert=96, n_shared=2,
                               d_shared=96, capacity_factor=2.0, group_size=32)
         kw["mla"] = MLAConfig(kv_lora_rank=32, q_lora_rank=0,
                               qk_nope_head_dim=16, qk_rope_head_dim=8,
                               v_head_dim=16)
+    if cfg.family == "rwkv6":
+        kw["n_kv_heads"] = 4
+        kw["rwkv"] = RWKV6Config(head_dim=16, decay_lora=8, mix_lora=4,
+                                 chunk_len=16)
     return cfg.with_overrides(
         name=cfg.name + "-reduced",
         n_layers=min(cfg.n_layers, 4),
         d_model=64,
         n_heads=4,
-        n_kv_heads=2 if cfg.n_kv_heads < cfg.n_heads else 4,
         d_ff=128,
         vocab=512,
         head_dim=16,

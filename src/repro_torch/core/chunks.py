@@ -1,7 +1,9 @@
 """Chunked view of a context's KV cache (paper §3.1, Fig. 4).
 
-Mirror of the JAX package's core/chunks.py for the families with
-sequence leaves (dense ``k``/``v``, MLA's latent ``ckv``/``kpe``).  A chunk
+Mirror of the JAX package's core/chunks.py: ``ChunkCodec`` for the
+families with sequence leaves (dense ``k``/``v``, MLA's latent
+``ckv``/``kpe``), ``WholeStateCodec`` for constant-size recurrent state
+(RWKV6's ``wkv``/``tm``/``cm``: one blob a context).  A chunk
 covers ``chunk_tokens`` consecutive tokens ACROSS ALL LAYERS.  The codec
 canonicalizes each sequence cache leaf into a (T, F) block — T chunk
 tokens, F = flattened (layers x heads x channels) — the layout the chunk
@@ -84,9 +86,8 @@ class ChunkCodec:
         self.cs = chunk_tokens
         self.device = resolve_device(device)
         if not self.leaves:
-            raise ValueError("cache has no sequence leaves; the whole-state "
-                             "codec of the recurrent families is not "
-                             "ported (ROADMAP.md)")
+            raise ValueError("cache has no sequence leaves; constant-size "
+                             "state takes WholeStateCodec")
 
     # -- canonical (T, F) view ------------------------------------------ #
     def extract(self, cache, lo: int, hi: int) -> Dict[str, torch.Tensor]:
@@ -228,6 +229,42 @@ class ChunkCodec:
                                                    CompressedChunk) \
             else cc_or_shapes
         return sum(int(np.prod(s)) * bytes_per_elem for s in shapes.values())
+
+
+class WholeStateCodec:
+    """Whole-state 'chunk' codec for constant-size recurrent caches
+    (``KVSpec.state_leaves`` with no ``seq_leaves``: RWKV6's ``wkv`` /
+    ``tm`` / ``cm``).  The context degenerates to a single blob: extract
+    and insert move the full state whatever token range is asked, so
+    the layers above treat the blob as one chunk covering every token.
+    No token scatter and no quant segments: those are sequence-cache
+    notions."""
+
+    def __init__(self, leaves, chunk_tokens: int = 16):
+        self.leaves = tuple(leaves)
+        self.cs = chunk_tokens
+        if not self.leaves:
+            raise ValueError("whole-state codec needs state leaves")
+
+    def extract(self, cache, lo: int = 0, hi: int = 0
+                ) -> Dict[str, torch.Tensor]:
+        """Every state leaf, whole (the cache's own tensors, not
+        copies)."""
+        return {name: cache[name] for name in self.leaves}
+
+    def insert(self, cache, lo, blocks: Dict[str, torch.Tensor]):
+        """Write whole state leaves back, IN PLACE, cast to each leaf's
+        dtype (an fp16 snapshot of a bf16 leaf); returns ``cache``."""
+        for name, blk in blocks.items():
+            a = cache[name]
+            a.copy_(blk.reshape(a.shape).to(device=a.device, dtype=a.dtype))
+        return cache
+
+    def scatter(self, cache, positions, blocks):
+        raise NotImplementedError("whole-state cache has no token scatter")
+
+    def scatter_quant(self, cache, positions, codes, scales):
+        raise NotImplementedError("whole-state cache has no quant segments")
 
 
 @dataclass

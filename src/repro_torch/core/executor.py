@@ -3,13 +3,14 @@
 Mirror of the JAX package's core/executor.py: the power-of-two
 token/batch/I-O buckets, and two engines over the same model entries.
 
-* **Slot caches** (``paged_pool=False``, and every non-chunked policy):
-  ``fresh_cache`` gives one context's working cache — the window
-  layout, or the mixed layout (bf16 window + int8 segments) with
-  ``quant_resident`` — and ``extend`` / ``decode`` / ``recompute`` /
-  ``extend_nod`` run the model's ``recompute`` and ``decode_step`` on
-  it.  ``run_pipelined`` runs the paper's Fig.-8 restore
-  (``DenseModel.recompute_pipelined``): a Python layer loop that takes
+* **Slot caches** (``paged_pool=False``, every non-chunked policy and
+  every family without a paged pool): ``fresh_cache`` gives one
+  context's working cache — the window layout, or the mixed layout
+  (bf16 window + int8 segments) with ``quant_resident``, or a state
+  family's constant-size state — and ``extend`` / ``decode`` /
+  ``recompute`` / ``extend_nod`` run the model's ``recompute`` and
+  ``decode_step`` on it.  ``run_pipelined`` runs the paper's Fig.-8
+  restore (``DenseModel.recompute_pipelined``): a Python layer loop that takes
   layer l of the disk chunks from a ``restore.LayerFeed`` while the
   feed's I/O thread reads layer l + 1.
 * **The paged pool**: ``paged_extend`` / ``paged_decode`` over the
@@ -21,7 +22,9 @@ and no ``_ACTIVE_FEED`` global: the feed is an argument.  The buckets
 stay all the same: prefill positions are padded to ``pad_slot``, those
 padded query rows attend every valid key and enter the Eq.-1 density,
 and the density drives the Eq.-3 bit plan — so the port pads exactly as
-the reference does.
+the reference does.  A family that is not ``pad_safe`` (RWKV6: a pad
+token would fold into the carried state) extends at exact length, and
+a family whose cache is not chunkable takes ``WholeStateCodec``.
 
 Caches and arenas are updated IN PLACE (each entry returns the same
 dict the caller passed, with ``pos`` replaced where it moves) instead
@@ -36,7 +39,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.chunks import ChunkCodec
+from repro_torch.core.chunks import ChunkCodec, WholeStateCodec
 from repro_torch.models.kvspec import LAYOUT_MIXED, LAYOUT_WINDOW
 
 
@@ -67,8 +70,12 @@ class ModelExecutor:
         self.cs = cfg.chunk_tokens
         self.n_slots = math.ceil(cfg.max_ctx_len / self.cs) * self.cs
         self.chunked_cache = spec.chunkable
-        self.codec = ChunkCodec(spec.seq_leaves, self.cs, self.device)
+        if spec.chunkable:
+            self.codec = ChunkCodec(spec.seq_leaves, self.cs, self.device)
+        else:
+            self.codec = WholeStateCodec(spec.state_leaves, self.cs)
         self.recomputable = spec.recomputable
+        self.pad_safe = spec.pad_safe
         self.quant_resident = bool(getattr(cfg, "quant_resident", False))
         if self.quant_resident and not spec.quant_resident:
             raise ValueError(
@@ -84,10 +91,16 @@ class ModelExecutor:
         self.pad_slot = self.s_work - 1
         self.n_layers = mc.n_layers
         self.leaf_dims = dict(spec.leaf_dims)
-        self.leaf_shapes = {
-            n: (mc.n_layers, 1, self.s_work, *self.leaf_dims[n])
-            for n in self.codec.leaves}
         self._zero_cache = None
+        if spec.chunkable:
+            self.leaf_shapes = {
+                n: (mc.n_layers, 1, self.s_work, *self.leaf_dims[n])
+                for n in self.codec.leaves}
+        else:
+            # a state cache is small and sequence-independent: its
+            # shapes are those of the zero cache itself
+            self.leaf_shapes = {n: tuple(self._zero()[n].shape)
+                                for n in self.codec.leaves}
         self._pipelining = False
         # the last pipelined restore: its wall time and the host time it
         # spent blocked in LayerFeed.fetch
@@ -145,21 +158,26 @@ class ModelExecutor:
             torch.cuda.synchronize(self.device)
 
     # -- slot-cache entries -------------------------------------------- #
-    def fresh_cache(self, n_tokens: int):
-        """A zero working cache (1, s_work) — the mixed layout under
-        ``quant_resident``, else the window layout — with ``pos =
-        n_tokens``.  The zero cache is allocated once, at first use;
-        every caller gets its own clone (the slot engine writes caches
-        in place, so no two slots may share one)."""
+    def _zero(self):
+        """The zero working cache (1, s_work), allocated at first use —
+        the mixed layout under ``quant_resident``, else the window
+        layout; a state family's constant-size state."""
         if self._zero_cache is None:
             self._zero_cache = self.model.init_cache(
                 1, self.s_work,
                 layout=LAYOUT_MIXED if self.quant_resident else LAYOUT_WINDOW)
-        cache = {k: v.clone() for k, v in self._zero_cache.items()}
+        return self._zero_cache
+
+    def fresh_cache(self, n_tokens: int):
+        """A zero working cache with ``pos = n_tokens``.  Every caller
+        gets its own clone (the slot engine writes caches in place, so
+        no two slots may share one)."""
+        cache = {k: v.clone() for k, v in self._zero().items()}
         return self.set_pos(cache, n_tokens)
 
     def set_pos(self, cache, n_tokens: int):
-        """The reference's ``setpos``: the cache's decode position."""
+        """The reference's ``setpos``: the cache's decode position (a
+        state family's recurrence ignores it)."""
         cache["pos"] = torch.tensor(n_tokens, dtype=torch.int64,
                                     device=self.device)
         return cache
@@ -179,13 +197,21 @@ class ModelExecutor:
         and the recompute cost ``profile_pipeline`` fits."""
         return self.recompute(toks_b, pos_b, cache, seq_len, False)
 
+    def exact_or_padded(self, pos: np.ndarray, toks: np.ndarray):
+        """Positions and tokens of an extend: bucket-padded where the
+        family is ``pad_safe``; at exact length where a pad token would
+        fold into a carried recurrent state.  -> (pos_b, toks_b)."""
+        toks = np.asarray(toks, np.int32)
+        if not self.pad_safe:
+            return pos, toks
+        return self.bucket_pad(pos, self.pad_slot), self.bucket_pad(toks, 0)
+
     def extend(self, cache, prompt: np.ndarray, n0: int):
         """Append ``prompt`` at positions [n0, n0+M) of a slot cache ->
         (cache, last-token logits, per-position density mass)."""
         M = len(prompt)
         pos = np.arange(n0, n0 + M, dtype=np.int32)
-        pos_b = self.bucket_pad(pos, self.pad_slot)
-        toks_b = self.bucket_pad(np.asarray(prompt, np.int32), 0)
+        pos_b, toks_b = self.exact_or_padded(pos, prompt)
         cache, hidden, dens = self.recompute(toks_b, pos_b, cache, n0 + M,
                                              True)
         logits = self.logits(hidden[:, M - 1])[0]

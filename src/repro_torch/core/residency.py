@@ -9,10 +9,13 @@ with the paged pool it is a page-table read plus first-admission page
 faults and the disk restore of missing chunks.  Switch-out runs the
 tolerance-aware compression (Eq. 1-3) through the chunk codec kernels
 and the ahead-of-time swap-out (§3.4).  The whole-state policies
-(``swap``, ``lmk``) snapshot a context's whole KV as one fp16 blob and
-restore it by a read (``swap``) or by recomputing the whole text
-(``lmk``, ``_restore_whole_timed``).  Eviction implements the Reclaim
-primitive over the LCTRU order.
+(``swap``, ``lmk``), and every policy over a constant-size recurrent
+state (RWKV6: ``WholeStateCodec``), snapshot a context's whole state as
+one blob (16-bit leaves as fp16, fp32 leaves exact) and restore it by a
+read (``swap``) or by recomputing the whole text (``lmk``,
+``_restore_whole_timed``).  Eviction implements the Reclaim primitive
+over the LCTRU order; under a zoo's shared budget a key another member
+owns goes to that member (``route_evict``).
 
 The chunk codec runs here: ``_encode_blocks`` quantizes at every
 switch-out of a compressed chunk, ``_payload_blocks`` dequantizes at
@@ -118,6 +121,11 @@ class ResidencyEngine:
         self.profile = PipelineProfile()
         self.profiled = False
         self.epoch = 0                      # bumped on any eviction
+        # several engines over one MemoryManager / LCTRUQueue (a zoo,
+        # core/zoo.py): a reclaim started here may pick a key another
+        # member owns; keys of contexts unknown here go to the owner
+        # through this callable instead of being dropped
+        self.route_evict: Optional[Callable[[Tuple[int, int]], None]] = None
         # contexts that may hold dirty (unflushed) chunks (§3.4 hook)
         self._dirty_cids: set = set()
         # A/B control for the quant-resident tier: with the flag set,
@@ -237,7 +245,9 @@ class ResidencyEngine:
         cache = exe.fresh_cache(ctx.n_tokens)
         if ctx.n_tokens == 0:
             return cache, 0.0
-        if not self.cfg.chunked:
+        if not self.cfg.chunked or not exe.chunked_cache:
+            # whole-state policies, and constant-size recurrent caches
+            # under every policy: snapshot / restore
             return self._restore_whole_timed(ctx, cache)
 
         # ---- assembly of resident chunks (inference-side cost) -------- #
@@ -761,9 +771,9 @@ class ResidencyEngine:
             # LMK: killed — recompute the whole context from its text
             t0 = time.perf_counter()
             self.mem.reclaim(0, self.evict, locked={ctx.cid})
-            pos_b = exe.bucket_pad(np.arange(ctx.n_tokens, dtype=np.int32),
-                                   exe.pad_slot)
-            toks_b = exe.bucket_pad(ctx.tokens[:ctx.n_tokens], 0)
+            pos_b, toks_b = exe.exact_or_padded(
+                np.arange(ctx.n_tokens, dtype=np.int32),
+                ctx.tokens[:ctx.n_tokens])
             cache, _, dens = exe.recompute(toks_b, pos_b,
                                            exe.set_pos(cache, 0),
                                            ctx.n_tokens, True)
@@ -783,13 +793,18 @@ class ResidencyEngine:
         return exe.set_pos(cache, ctx.n_tokens), t_switch
 
     def _extract_whole(self, cache, n_tokens: int) -> Dict[str, np.ndarray]:
-        """The whole-state snapshot: tokens [0, bucket_len(n)) of the
-        bf16 K/V as (T, F) fp16 host arrays (bf16 -> fp32 -> fp16: the
-        reference's bytes).  The reference's fp32 branch serves the
-        recurrent families' state, which the port does not serve."""
+        """The whole-state snapshot as host arrays (copies): tokens [0,
+        bucket_len(n)) of the K/V as (T, F) blocks, or a state family's
+        whole leaves.  16-bit leaves go bf16 -> fp32 -> fp16 (the
+        reference's bytes); fp32 leaves stay exact — RWKV6's wkv
+        recurrence is fp32 by design, and halving it would perturb
+        every continued decode."""
         hi = self.exe.bucket_len(max(n_tokens, 1))
-        return {k: v.to(torch.float32).cpu().numpy().astype(np.float16)
-                for k, v in self.exe.codec.extract(cache, 0, hi).items()}
+        out = {}
+        for k, v in self.exe.codec.extract(cache, 0, hi).items():
+            dt = np.float32 if v.dtype == torch.float32 else np.float16
+            out[k] = v.to(torch.float32).cpu().numpy().astype(dt, copy=True)
+        return out
 
     def _whole_bytes(self, ctx) -> int:
         return sum(v.nbytes for v in (ctx.whole or {}).values())
@@ -867,12 +882,12 @@ class ResidencyEngine:
     # ------------------------------------------------------------------ #
     @requires_serialized
     def compress_and_swap_out(self, ctx: Context, cache=None):
-        """Switch-out: the whole-state snapshot (non-chunked policies),
-        or the Eq.-3 bit plan and each changed chunk's payload — from
-        the pool's pages, or from the slot ``cache`` — then the AoT
-        swap-out of the dirty chunks."""
+        """Switch-out: the whole-state snapshot (non-chunked policies
+        and constant-size state), or the Eq.-3 bit plan and each changed
+        chunk's payload — from the pool's pages, or from the slot
+        ``cache`` — then the AoT swap-out of the dirty chunks."""
         cfg = self.cfg
-        if not cfg.chunked:
+        if not cfg.chunked or not self.exe.chunked_cache:
             ctx.whole = self._extract_whole(cache, ctx.n_tokens)
             ctx.whole_tokens = ctx.n_tokens
             self.mem.register((ctx.cid, -1), self._whole_bytes(ctx), 16)
@@ -1034,6 +1049,11 @@ class ResidencyEngine:
     @requires_serialized
     def evict(self, key):
         cid, idx = key
+        if self.route_evict is not None and cid not in self.ctxs.contexts:
+            # shared-budget reclaim picked another member's key: its
+            # owning engine evicts it (and bumps ITS epoch)
+            self.route_evict(key)
+            return
         self.epoch += 1
         ctx = self.ctxs.contexts.get(cid)
         if ctx is None:

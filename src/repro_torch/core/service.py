@@ -26,10 +26,20 @@ recompute of Fig. 8.
 The service runs on the card (``device="cuda"``) unless the caller
 asks for the CPU.  ``quant_resident=True`` keeps 8-bit chunks as int8
 (QUANT pages, or the int8 segments of a mixed slot cache) that decode
-attends in place (the ``decode_mqattn`` kernel on the card).  The dense
-and the MLA + MoE families serve (MLA only on slot caches: its KVSpec
-declares no paged pool); other families are refused at construction,
-with a pointer to ``ROADMAP.md``.
+attends in place (the ``decode_mqattn`` kernel on the card).  The
+dense, the MLA + MoE and the RWKV6 families serve (MLA and RWKV6 only
+on slot caches: their KVSpecs declare no paged pool; RWKV6's constant-
+size state moves as one whole-state snapshot under every policy).
+Families without batched decode decode a round's members one after
+another.  Other families are refused at construction, with a pointer
+to ``ROADMAP.md``.
+
+The keyword-only substrate arguments (``swapper``, ``queue``, ``mem``,
+``cid_alloc``, ``records``) let a ``core.zoo.ZooService`` run several
+families' services over ONE disk store, swapper, LCTRU queue, byte
+budget, context-id space and records stream; a standalone service
+builds private ones, and only a service that built its swapper shuts
+it down.
 """
 from __future__ import annotations
 
@@ -37,7 +47,7 @@ import tempfile
 import time
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -115,7 +125,7 @@ class LLMSConfig:
 def _refuse_unported(model: ModelBase) -> None:
     """Families this port does not run yet: refused before anything is
     built, never quietly run as something else."""
-    if model.cfg.family not in ("dense", "mla_moe"):
+    if model.cfg.family not in ("dense", "mla_moe", "rwkv6"):
         raise NotImplementedError(
             f"family {model.cfg.family!r} is not ported yet (ROADMAP.md)")
 
@@ -150,7 +160,12 @@ class LLMService:
     """One shared model + per-app persistent contexts (LLMaaS)."""
 
     def __init__(self, model: ModelBase, params, cfg: LLMSConfig, *,
-                 device="cuda", store: Optional[DiskStore] = None):
+                 device="cuda", store: Optional[DiskStore] = None,
+                 swapper: Optional[AsyncSwapper] = None,
+                 queue: Optional[LCTRUQueue] = None,
+                 mem: Optional[MemoryManager] = None,
+                 cid_alloc: Optional[Callable[[], int]] = None,
+                 records: Any = None):
         self.device = resolve_device(device)
         _refuse_unported(model)
         if model.device != self.device:
@@ -163,14 +178,20 @@ class LLMService:
             root = cfg.swap_dir or tempfile.mkdtemp(prefix="llms_swap_")
             store = DiskStore(root)
         self.store = store
-        self.swapper = AsyncSwapper(self.store, retries=cfg.io_retries,
-                                    retry_base_s=cfg.io_retry_base_s)
-        self.queue = LCTRUQueue(lru_only=not cfg.use_lctru)
-        self.mem = MemoryManager(cfg.memory_budget, self.queue)
-        self.ctxs = ContextStore(self.mem, self.store, self.exe.s_work)
+        self._owns_swapper = swapper is None
+        self.swapper = swapper if swapper is not None else AsyncSwapper(
+            self.store, retries=cfg.io_retries,
+            retry_base_s=cfg.io_retry_base_s)
+        self.queue = (queue if queue is not None
+                      else LCTRUQueue(lru_only=not cfg.use_lctru))
+        self.mem = (mem if mem is not None
+                    else MemoryManager(cfg.memory_budget, self.queue))
+        self.ctxs = ContextStore(self.mem, self.store, self.exe.s_work,
+                                 cid_alloc=cid_alloc)
         self.res = ResidencyEngine(self.exe, self.ctxs, self.store,
                                    self.swapper, self.queue, self.mem, cfg)
-        self.records: Any = (deque(maxlen=cfg.record_limit)
+        self.records: Any = (records if records is not None
+                             else deque(maxlen=cfg.record_limit)
                              if cfg.record_limit else [])
         self.total_calls = 0
         self._t_switch_sum = 0.0
@@ -312,6 +333,9 @@ class LLMService:
             if self.paged:
                 self._decode_round_paged(live, fed)
             else:
+                # slot caches decode members one after another: the pool
+                # carries the batched path, and families without batched
+                # decode (MLA, RWKV6) never take the pool
                 for st, tok in zip(live, fed):
                     st.cache, logits, mass = self.exe.decode(st.cache, tok)
                     self.ctxs.acc_density(st.ctx, mass, st.ctx.n_tokens)
@@ -544,11 +568,13 @@ class LLMService:
         return out
 
     def close(self):
-        """Idempotent; flushes pending AoT writes before shutdown."""
+        """Idempotent; flushes pending AoT writes before shutdown.  A
+        shared swapper (a zoo's) is left to its owner."""
         if self._closed:
             return
         self._closed = True
-        self.swapper.shutdown(timeout=self.cfg.swap_deadline_s)
+        if self._owns_swapper:
+            self.swapper.shutdown(timeout=self.cfg.swap_deadline_s)
 
     def __enter__(self) -> "LLMService":
         return self

@@ -24,10 +24,13 @@ bounded K-step slices and a newly arrived foreground request preempts
 an in-flight background stream mid-generation.  A/B the flag (0 =
 whole-generation dispatch) to see foreground TTFT drop.
 
-``--arch deepseek-v2-lite-16b`` (the MLA + MoE family) serves on slot
-caches: its KVSpec declares no paged pool and no batched decode, so the
-pool stays off whatever ``--paged-pool`` says, and ``--decode-batch >
-1`` decodes a round's members one after another, as in the reference.
+``--arch deepseek-v2-lite-16b`` (the MLA + MoE family) and ``--arch
+rwkv6-1.6b`` (the RWKV6 family) serve on slot caches: their KVSpecs
+declare no paged pool and no batched decode, so the pool stays off
+whatever ``--paged-pool`` says, and ``--decode-batch > 1`` decodes a
+round's members one after another, as in the reference.  RWKV6's
+constant-size state moves as one whole-state snapshot under every
+policy (no quant-resident tier: ``--quant-resident`` is refused).
 
 The port's copy of the JAX package's ``launch/serve.py``: weights come
 from ``model.init`` with a seeded ``torch.Generator`` on the device,
@@ -129,7 +132,10 @@ def run_trace(router: ServiceRouter, events, n_apps: int = 1,
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--arch", default="smollm-360m",
+                    help="a ported configuration: the dense ones, "
+                         "deepseek-v2-lite-16b (MLA + MoE) or rwkv6-1.6b "
+                         "(RWKV6)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the model and the service run (cpu: the "
@@ -160,14 +166,17 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "(switch-in = a page-table read; "
                          "--no-paged-pool serves from per-slot caches, "
                          "restored by the layer-pipelined I/O + "
-                         "recompute of Fig. 8; swap and lmk always do)")
+                         "recompute of Fig. 8; swap and lmk always do, "
+                         "and so do the families without a pool: MLA, "
+                         "RWKV6)")
     ap.add_argument("--quant-resident", action="store_true",
                     help="attend over quantized chunks in place: 8-bit "
                          "chunks stay int8 (QUANT pages of the pool, or "
                          "the int8 segments of a slot cache) behind the "
                          "decode attention, 4/2-bit re-grid at admission "
                          "(requires a chunked policy and a family whose "
-                         "KVSpec declares quant_resident: dense, MLA)")
+                         "KVSpec declares quant_resident: dense, MLA; "
+                         "not RWKV6)")
     ap.add_argument("--pace", type=float, default=0.0,
                     help="wall seconds per trace second when replaying "
                          "arrival gaps (0 = compressed time)")

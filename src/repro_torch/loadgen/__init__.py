@@ -4,8 +4,8 @@ driver + metrics/report layer, copies of the JAX package's ``loadgen``.
   spec       ScenarioSpec dataclass + YAML-ish dict loader
   scenarios  named scenario library (steady_poisson ... scale_10k)
   driver     VirtualClock, run_scenario, and the wall-clock trace replay
-             (replay_trace); ``build_zoo_service`` is refused until the
-             other families are ported (ROADMAP.md)
+             (replay_trace); ``build_zoo_service`` builds the
+             multi-family zoo (dense + MLA + RWKV6, ``mixed_zoo``)
   metrics    deterministic EventLog (sha256 probe) + report/gate JSON
 """
 from repro_torch.loadgen.driver import (  # noqa: F401

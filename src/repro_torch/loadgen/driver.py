@@ -21,9 +21,8 @@ split).  A warm pass first keeps one-time costs (kernel builds, first
 launches) out of the measured pass.
 
 The port's copy of the JAX package's ``loadgen/driver.py``: the same
-contract, with the service on ``device`` (``build_service``), and the
-multi-family ``build_zoo_service`` refused until ``core/zoo.py`` is
-ported (``ROADMAP.md``).
+contract, with the service (``build_service``) and the multi-family
+zoo (``build_zoo_service``) on ``device``.
 """
 from __future__ import annotations
 
@@ -39,6 +38,7 @@ from repro_torch.core.restore import io_counters, set_disk_throttle
 from repro_torch.core.requests import FOREGROUND
 from repro_torch.core.scheduler import ServiceRouter, parse_priority
 from repro_torch.core.service import LLMSConfig, LLMService
+from repro_torch.core.zoo import ZooService
 from repro_torch.loadgen.metrics import EventLog, build_report
 from repro_torch.loadgen.spec import ScenarioSpec
 from repro_torch.trace.synth import TraceEvent, synthesize_mixed
@@ -113,14 +113,34 @@ def build_service(spec: ScenarioSpec, model, params,
 
 
 def build_zoo_service(spec: ScenarioSpec,
-                      models: Dict[str, Tuple[Any, Any]]):
-    """The multi-family ``ZooService`` (the ``mixed_zoo`` scenario) needs
-    ``core/zoo.py`` and the MLA and RWKV6 families, which are not ported
-    yet (``ROADMAP.md``, Queue 1): refused, never run as something
-    else."""
-    raise NotImplementedError(
-        f"scenario {spec.name!r}: the multi-family ZooService "
-        "(core/zoo.py) is not ported yet (ROADMAP.md)")
+                      models: Dict[str, Tuple[Any, Any]],
+                      device="cuda") -> ZooService:
+    """A multi-family ``ZooService`` under test, on ``device``: one
+    member per entry of ``models`` (family -> (model, params)), every
+    member configured from the spec but sharing ONE byte budget / swap
+    tier / eviction order.  Per-member capability knobs derive from
+    each family's KVSpec — ``quant_resident`` only lands on families
+    that declare it."""
+    if spec.disk_bw is None:
+        set_disk_throttle(None)
+    else:
+        set_disk_throttle(spec.disk_bw, spec.disk_lat)
+    dl = spec.faults.get("swap_deadline_s") if spec.faults else None
+    members: Dict[str, Tuple[Any, Any, LLMSConfig]] = {}
+    for fam, (model, params) in models.items():
+        sc = LLMSConfig(
+            policy=spec.policy, max_ctx_len=spec.max_ctx_len,
+            chunk_tokens=spec.chunk_tokens,
+            memory_budget=spec.memory_budget,
+            decode_batch=spec.decode_batch,
+            quant_resident=(spec.quant_resident
+                            and model.kv_spec().quant_resident),
+            paged_pool=spec.paged_pool,
+            swap_deadline_s=None if dl is None else float(dl))
+        members[fam] = (model, params, sc)
+    return ZooService(members, memory_budget=spec.memory_budget,
+                      swap_dir=tempfile.mkdtemp(
+                          prefix=f"loadgen_{spec.name}_"), device=device)
 
 
 def bind_apps_by_ctx(events: List[TraceEvent],

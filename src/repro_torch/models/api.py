@@ -4,6 +4,7 @@ Every family implements:
 
   init(generator) -> params                  (dict of stacked-layer tensors)
   decode_step(params, tokens, cache, ...) -> DecodeOut
+  prefill(params, batch) -> PrefillOut       (RWKV6; dense/MLA: ROADMAP.md)
   kv_spec() -> KVSpec                        (declarative cache adapter)
   _build_cache(batch, seq, dtype, layout) -> cache  (dict incl. 'pos')
 
@@ -41,6 +42,12 @@ def resolve_device(device) -> torch.device:
 class DecodeOut(NamedTuple):
     logits: torch.Tensor           # (B, vocab) fp32
     cache: Cache
+
+
+class PrefillOut(NamedTuple):
+    logits: torch.Tensor           # (B, vocab) fp32, last position
+    cache: Cache
+    key_density: Any               # (B, S) fp32, or None
 
 
 class ModelBase:

@@ -1,5 +1,5 @@
-"""Shared model primitives for dense serving (mirror of the JAX
-package's models/common.py: the functions dense serving runs).
+"""Shared model primitives of the served families (mirror of the JAX
+package's models/common.py: the functions serving runs).
 
 These stay plain PyTorch, as the JAX package computes them outside any
 Pallas kernel too — except the attention of serving's extend
@@ -25,7 +25,6 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 
@@ -51,6 +50,47 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     x = x.to(torch.float32)
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * scale.to(torch.float32)).to(dt)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(dt)
+
+
+def group_norm_heads(x: torch.Tensor, scale: torch.Tensor,
+                     bias: torch.Tensor, n_heads: int, eps: float = 1e-5
+                     ) -> torch.Tensor:
+    """GroupNorm with one group per head over the last dim (RWKV ln_x)."""
+    dt = x.dtype
+    *lead, d = x.shape
+    x = x.to(torch.float32).reshape(*lead, n_heads, d // n_heads)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = ((x - mu) * torch.rsqrt(var + eps)).reshape(*lead, d)
+    return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(dt)
+
+
+# --------------------------------------------------------------------- #
+# Activations, rounded as the reference's jax.nn ones
+# --------------------------------------------------------------------- #
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as the reference computes it: 1 / (1 +
+    exp(-x)) with every op rounded to x's dtype (bf16 here), where
+    ``torch.sigmoid`` rounds once."""
+    return 1 / (1 + torch.exp(-x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the reference computes it: x * sigmoid(x), every
+    op rounded to x's dtype, where ``F.silu`` rounds once; on bf16 inputs
+    the two differ by an ulp in about one value in twenty
+    (``tests/test_torch_models.py``)."""
+    return x * sigmoid(x)
 
 
 # --------------------------------------------------------------------- #
@@ -339,7 +379,7 @@ def paged_cache_view(arenas, leaves, pt16: torch.Tensor, pt8=None,
 # --------------------------------------------------------------------- #
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    return (silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
 # --------------------------------------------------------------------- #

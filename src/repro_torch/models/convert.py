@@ -1,11 +1,13 @@
 """Weights carried across from the JAX package.
 
-``params_from_jax`` takes the reference ``DenseModel.init`` or
-``MLAModel.init`` pytree as numpy arrays (nested dicts, layers stacked
-on axis 0, bf16 arrays as ``ml_dtypes.bfloat16``) and returns the
-port's parameter dict on ``device``, bit for bit, so both packages
-compute the same model.  For ``mla_moe`` the router stays fp32 (L, d,
-E) and the expert weights are (L, E, d, fe) and (L, E, fe, d).
+``params_from_jax`` takes the reference ``DenseModel.init``,
+``MLAModel.init`` or ``RWKV6Model.init`` pytree as numpy arrays
+(nested dicts, layers stacked on axis 0, bf16 arrays as
+``ml_dtypes.bfloat16``) and returns the port's parameter dict on
+``device``, bit for bit, so both packages compute the same model.  For
+``mla_moe`` the router stays fp32 (L, d, E) and the expert weights are
+(L, E, d, fe) and (L, E, fe, d); for ``rwkv6`` the norms, mixes and
+decay base stay fp32 and the projections bf16 (``_check_rwkv6``).
 """
 from __future__ import annotations
 
@@ -29,9 +31,9 @@ def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
 
 def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig,
                     device) -> Dict[str, Any]:
-    """Reference dense or MLA + MoE params (numpy) -> port params on
-    ``device``."""
-    if cfg.family not in ("dense", "mla_moe"):
+    """Reference dense, MLA + MoE or RWKV6 params (numpy) -> port params
+    on ``device``."""
+    if cfg.family not in ("dense", "mla_moe", "rwkv6"):
         raise NotImplementedError(
             f"weight conversion for family {cfg.family!r} is not ported "
             "(ROADMAP.md)")
@@ -49,6 +51,8 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig,
                              f"{L} layers: {tuple(w.shape)}")
     if cfg.family == "mla_moe":
         _check_moe(out["layers"], cfg)
+    if cfg.family == "rwkv6":
+        _check_rwkv6(out, cfg)
     return out
 
 
@@ -65,4 +69,34 @@ def _check_moe(layers: Dict[str, torch.Tensor], cfg: ModelConfig) -> None:
         w = layers[name]
         if tuple(w.shape) != shape or w.dtype != dtype:
             raise ValueError(f"MoE param {name!r} is {tuple(w.shape)} "
+                             f"{w.dtype}, not {shape} {dtype}")
+
+
+def _check_rwkv6(params: Dict[str, Any], cfg: ModelConfig) -> None:
+    """The RWKV6 leaves' layout: every leaf of ``RWKV6Model.init`` with
+    its shape and dtype (norms, token-shift mixes and the decay base
+    fp32; projections, LoRAs, ``u``, embedding and head bf16)."""
+    L, d, ff, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
+    r, H = cfg.rwkv, cfg.n_heads
+    f32, bf16 = torch.float32, torch.bfloat16
+    want = {"ln1": (L, d), "ln1_b": (L, d), "ln2": (L, d), "ln2_b": (L, d),
+            "mu_x": (L, d), "mu_rkvgw": (L, 5, d), "w0": (L, d),
+            "lnx": (L, d), "lnx_b": (L, d), "mu_ck": (L, d), "mu_cr": (L, d)}
+    want = {k: (s, f32) for k, s in want.items()}
+    want.update({k: (s, bf16) for k, s in {
+        "mix_w1": (L, d, 5 * r.mix_lora), "mix_w2": (L, 5, r.mix_lora, d),
+        "w_a": (L, d, r.decay_lora), "w_b": (L, r.decay_lora, d),
+        "u": (L, H, r.head_dim), "wr": (L, d, d), "wk": (L, d, d),
+        "wv": (L, d, d), "wg": (L, d, d), "wo": (L, d, d),
+        "wck": (L, d, ff), "wcv": (L, ff, d), "wcr": (L, d, d)}.items()})
+    got = params["layers"]
+    if set(got) != set(want):
+        raise ValueError(f"RWKV6 layer params {sorted(got)} are not "
+                         f"{sorted(want)}")
+    top = {"embed": ((V, d), bf16), "head": ((d, V), bf16),
+           "ln_f": ((d,), f32), "ln_f_b": ((d,), f32)}
+    for name, (shape, dtype) in [*want.items(), *top.items()]:
+        w = got[name] if name in want else params[name]
+        if tuple(w.shape) != shape or w.dtype != dtype:
+            raise ValueError(f"RWKV6 param {name!r} is {tuple(w.shape)} "
                              f"{w.dtype}, not {shape} {dtype}")

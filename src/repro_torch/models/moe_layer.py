@@ -8,7 +8,7 @@ softmax), an iterated argmax picks each token's top-k experts, running
 Mesh-TF/GShard discipline), and one-hot dispatch / combine einsums in
 x's dtype move the tokens to the experts and back.  The fused shared
 expert is a SwiGLU beside it.  SiLU rounds each of its ops to bf16, as
-``jax.nn.silu`` does (``silu``).
+``jax.nn.silu`` does (``common.silu``).
 
 Capacity C = max(4, min(ceil(group_size * top_k * capacity_factor /
 n_experts), group_size)).  The Switch-Transformer auxiliary loss
@@ -31,16 +31,6 @@ from repro_torch.configs.base import MoEConfig
 from repro_torch.models import common as C
 
 
-def silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu`` as the reference computes it: x * (1 / (1 +
-    exp(-x))) with every op rounded to x's dtype (bf16 here), where
-    ``F.silu`` rounds once; the two differ by an ulp in ~40% of bf16
-    inputs."""
-    return x * (1 / (1 + torch.exp(-x)))
-
-
-def _swiglu(x, w_gate, w_up, w_down):
-    return (silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
 def capacity(gs: int, moe: MoEConfig) -> int:
@@ -109,7 +99,7 @@ def moe_ffn(x: torch.Tensor, p: Dict[str, torch.Tensor], moe: MoEConfig
     dispatch, combine, aux = moe_dispatch(gates, moe.top_k, cap)
 
     expert_in = torch.einsum("gsec,gsd->gecd", dispatch.to(x.dtype), xg)
-    h = silu(torch.einsum("gecd,edf->gecf", expert_in, p["w_gate"])) \
+    h = C.silu(torch.einsum("gecd,edf->gecf", expert_in, p["w_gate"])) \
         * torch.einsum("gecd,edf->gecf", expert_in, p["w_up"])
     out_e = torch.einsum("gecf,efd->gecd", h, p["w_down"])
     y = torch.einsum("gsec,gecd->gsd", combine.to(x.dtype), out_e)
@@ -118,7 +108,7 @@ def moe_ffn(x: torch.Tensor, p: Dict[str, torch.Tensor], moe: MoEConfig
         y = y[:T]
     y = y.reshape(orig_shape)
     if "s_gate" in p:
-        y = y + _swiglu(x, p["s_gate"], p["s_up"], p["s_down"])
+        y = y + C.swiglu(x, p["s_gate"], p["s_up"], p["s_down"])
     return y, {"moe_aux": aux}
 
 

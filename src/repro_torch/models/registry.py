@@ -1,8 +1,9 @@
 """Family -> model-class registry of the port.  ``build_model(cfg)`` is
 the single construction point and ``family_spec(cfg)`` the capability
-query, as in the JAX package.  The dense and the MLA + MoE (``mla_moe``)
-families are ported; every other family raises ``NotImplementedError``
-(see ``ROADMAP.md``)."""
+query, as in the JAX package.  The dense, the MLA + MoE (``mla_moe``)
+and the RWKV6 (``rwkv6``) families are ported; every other family
+(``moe``, ``vlm``, ``encdec``, ``rglru_hybrid``) raises
+``NotImplementedError`` by name (see ``ROADMAP.md``)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
@@ -11,8 +12,10 @@ from repro_torch.models.common import configure_numerics
 from repro_torch.models.dense import DenseModel
 from repro_torch.models.kvspec import KVSpec
 from repro_torch.models.mla import MLAModel
+from repro_torch.models.rwkv6 import RWKV6Model
 
-FAMILY_CLASSES = {"dense": DenseModel, "mla_moe": MLAModel}
+FAMILY_CLASSES = {"dense": DenseModel, "mla_moe": MLAModel,
+                  "rwkv6": RWKV6Model}
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> ModelBase:

@@ -53,10 +53,11 @@ def _close_bf16(a, b, frac=0.02):
 
 def test_registry_holds_every_dense_config_of_the_reference():
     """Every dense config of the reference, and beside them the configs
-    of the other ported families (MLA + MoE: deepseek-v2-lite-16b)."""
+    of the other ported families (MLA + MoE: deepseek-v2-lite-16b;
+    RWKV6: rwkv6-1.6b)."""
     dense = sorted(n for n, c in JREGISTRY.items() if c.family == "dense")
     ported = sorted(n for n, c in JREGISTRY.items()
-                    if c.family in ("dense", "mla_moe"))
+                    if c.family in ("dense", "mla_moe", "rwkv6"))
     assert sorted(REGISTRY) == ported
     assert sorted(n for n, c in REGISTRY.items()
                   if c.family == "dense") == dense

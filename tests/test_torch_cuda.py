@@ -767,6 +767,27 @@ def test_cuda_mla_matches_cpu(card, layout):
 
 
 @pytest.mark.cuda
+def test_cuda_rwkv6_matches_cpu(card):
+    """The reduced rwkv6 on the card against the same port on the CPU
+    from the same weights: the chunked-parallel prefill, 8 sequential
+    decode steps and a recompute continuing the carried state (logits
+    within 2% of their range and the wkv state within 1%: bf16
+    projections feed the state), and ``_wkv_chunked`` on the same fp32
+    inputs at the full width's heads (within 1e-5 of the range; with
+    TF32 allowed, a control that must break that limit); no kernel of the port launched.  The
+    check is ``chip_smoke.py``'s ``_check_rwkv6``, which raises where
+    they differ."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert set(smoke._check_rwkv6()) == {"logits", "wkv", "wkv_chunked_out",
+                                         "wkv_chunked_state"}
+
+
+@pytest.mark.cuda
 def test_cuda_serve_main_serves_mla_at_full_width(card, capsys):
     """``launch.serve.main --arch deepseek-v2-lite-16b`` on the card at
     full width (27 layers, 64 experts, vocab 102,400; ~32 GB of random

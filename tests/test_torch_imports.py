@@ -58,13 +58,19 @@ MLA_SLICE = ("repro_torch.models.mla", "repro_torch.models.moe_layer",
              "repro_torch.models.registry")
 
 
+# the modules of the RWKV6 + zoo slice (rwkv6-1.6b, ZooService)
+RWKV6_SLICE = ("repro_torch.models.rwkv6", "repro_torch.configs.rwkv6_1p6b",
+               "repro_torch.core.zoo", "repro_torch.core.chunks",
+               "repro_torch.core")
+
+
 def _module_path(mod: str) -> pathlib.Path:
     rel = pathlib.Path(*mod.split(".")[1:])
     path = PORT / rel.with_suffix(".py")
     return path if path.exists() else PORT / rel / "__init__.py"
 
 
-@pytest.mark.parametrize("mod", ROUTER_SLICE + MLA_SLICE)
+@pytest.mark.parametrize("mod", ROUTER_SLICE + MLA_SLICE + RWKV6_SLICE)
 def test_router_slice_modules_are_scanned(mod):
     assert _module_path(mod) in _sources()
 
@@ -100,6 +106,12 @@ def test_mla_slice_imports_without_triton_or_card():
     _imports_cleanly(MLA_SLICE)
 
 
+def test_rwkv6_slice_imports_without_triton_or_card():
+    """``rwkv6.py``, its config, ``zoo.py`` (and the core package that
+    exports it) import as the router slice does."""
+    _imports_cleanly(RWKV6_SLICE)
+
+
 @pytest.mark.parametrize("path", _sources(),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_jax_or_reference_imports(path):
@@ -118,7 +130,8 @@ def _no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-@pytest.mark.parametrize("arch", ["llama2-7b", "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("arch", ["llama2-7b", "deepseek-v2-lite-16b",
+                                  "rwkv6-1.6b"])
 def test_build_model_defaults_to_the_card(monkeypatch, arch):
     from repro_torch.configs import get_config, reduced
     from repro_torch.models.registry import build_model

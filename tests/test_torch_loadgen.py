@@ -10,8 +10,9 @@ package's.
   virtual-clock driver's determinism, an end-to-end mixed scenario,
   preemption under bursts, the wall-clock replay in both modes).
   ``run_scenario`` against the reference: tests/test_torch_scenarios.py.
-* ``mixed_zoo`` needs the multi-family ZooService, which the port
-  refuses by name until it is ported.
+* ``build_zoo_service`` configures the multi-family zoo of
+  ``mixed_zoo``; the scenario itself runs against the reference in
+  tests/test_torch_zoo.py.
 """
 import numpy as np
 import pytest
@@ -271,8 +272,30 @@ def test_replay_trace_contract(mode):
     assert st["switch_mean_s"] >= 0.0 and st["calls"] == 12
 
 
-def test_mixed_zoo_is_refused():
+def test_build_zoo_service_configures_members():
+    """``build_zoo_service`` on the ``mixed_zoo`` spec: one member per
+    family, all over ONE store, swapper, queue and byte budget (the
+    spec's); ``quant_resident`` only where the family's KVSpec declares
+    it (dense, MLA; not RWKV6), no member on the paged pool (the spec
+    says so); the members on the device asked for, and on the card by
+    default, which fails where there is none."""
     spec = tloadgen.SCENARIOS["mixed_zoo"]
-    _, _, _, _, tmodel, tparams = scaled_head_pair("llama2-7b", HEAD_SCALE)
-    with pytest.raises(NotImplementedError, match="zoo.py"):
-        tloadgen.build_zoo_service(spec, {"dense": (tmodel, tparams)})
+    models = {}
+    for fam, arch in (("dense", "llama2-7b"),
+                      ("mla_moe", "deepseek-v2-lite-16b"),
+                      ("rwkv6", "rwkv6-1.6b")):
+        _, _, _, _, m, p = scaled_head_pair(arch, HEAD_SCALE)
+        models[fam] = (m, p)
+    with tloadgen.build_zoo_service(spec, models, device="cpu") as zoo:
+        assert list(zoo.members) == ["dense", "mla_moe", "rwkv6"]
+        assert zoo.mem.budget == spec.memory_budget
+        for fam, svc in zoo.members.items():
+            assert (svc.store, svc.swapper, svc.queue, svc.mem) == \
+                (zoo.store, zoo.swapper, zoo.queue, zoo.mem)
+            assert svc.records is zoo.records
+            assert svc.cfg.quant_resident == (fam != "rwkv6")
+            assert not svc.paged and str(svc.device) == "cpu"
+        assert not zoo.paged and zoo.decode_batch == spec.decode_batch
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tloadgen.build_zoo_service(spec, models)

@@ -72,19 +72,35 @@ def _assert_near_tie(ref_vals, port_vals, ref_pick, port_pick, what):
     assert 0.0 <= gap <= err, (what, gap, err)
 
 
-def _force_ties(js, ts):
+def _assert_bf16_tie(ref_vals, port_vals, ref_pick, port_pick):
+    """The port's logits at both picks are the same bf16 value (argmax
+    breaks the tie by the lower id), and the reference's, rounded to
+    bf16 as its model declares them (``x @ head`` of bf16 operands; XLA
+    on the CPU hands them back unrounded), lie at most one bf16 ulp
+    apart: the smallest gap two different bf16 logits can have."""
+    assert port_vals[ref_pick] == port_vals[port_pick], (
+        port_vals[ref_pick], port_vals[port_pick])
+    pair = torch.tensor([ref_vals[ref_pick], ref_vals[port_pick]])
+    hi, lo = pair.to(torch.bfloat16).double().tolist()
+    assert 0.0 <= hi - lo <= _bf16_ulp(abs(port_vals[port_pick])), (hi, lo)
+
+
+def _force_ties(js, ts, bf16_ties=(), entries=("extend", "decode")):
     """Teacher-force the port's service at near-ties: the reference's
-    ``exe.extend`` / ``exe.decode`` record their logits in call order;
-    where the port's call of the same index picks another greedy token,
-    that must be a near-tie, and the port's logits are raised at the
-    reference's pick so that both go on from the same token.  Run the
-    reference first.  -> the indices of the forced calls."""
+    executor ``entries`` (which return (cache, logits, extra), the logits
+    one row) record their logits in call order; where the port's call of
+    the same index picks another greedy token, that must be a near-tie,
+    and the port's logits are raised at the reference's pick so that
+    both go on from the same token.  At the call indices in
+    ``bf16_ties`` the pick must instead be an exact bf16 tie
+    (``_assert_bf16_tie``).  Run the reference first.
+    -> the indices of the forced calls."""
     seq, forced, at = [], [], [0]
 
     def record(f):
         def run(*a):
             out = f(*a)
-            seq.append(np.asarray(out[1], np.float64))
+            seq.append(np.asarray(out[1], np.float64).reshape(-1))
             return out
         return run
 
@@ -93,16 +109,20 @@ def _force_ties(js, ts):
             cache, logits, extra = f(*a)
             ref = seq[at[0]]
             at[0] += 1
-            a_ref, a_port = int(np.argmax(ref)), int(np.argmax(logits))
+            row = np.asarray(logits, np.float64).reshape(-1)
+            a_ref, a_port = int(np.argmax(ref)), int(np.argmax(row))
             if a_ref != a_port:
-                _assert_near_tie(ref, logits, a_ref, a_port, "token")
+                if at[0] - 1 in bf16_ties:
+                    _assert_bf16_tie(ref, row, a_ref, a_port)
+                else:
+                    _assert_near_tie(ref, row, a_ref, a_port, "token")
                 logits = np.array(logits)
-                logits[a_ref] = logits[a_port] + 1.0
+                logits.reshape(-1)[a_ref] = row[a_port] + 1.0
                 forced.append(at[0] - 1)
             return cache, logits, extra
         return run
 
-    for name in ("extend", "decode"):
+    for name in entries:
         setattr(js.exe, name, record(getattr(js.exe, name)))
         setattr(ts.exe, name, force(getattr(ts.exe, name)))
     return forced

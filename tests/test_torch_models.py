@@ -120,6 +120,51 @@ def test_swiglu():
     _close_bf16(oj, ot, 0.03)
 
 
+def _all_bf16(lo: float, hi: float) -> np.ndarray:
+    """Every finite bf16 value in [lo, hi] whose magnitude is 0 or at
+    least 2^-120, as bf16 bit patterns (int16).  XLA on the CPU flushes
+    subnormal inputs and results to zero, PyTorch does not, so values
+    near the subnormal range (where x / 2 is subnormal) are left out."""
+    bits = np.arange(-32768, 32768, dtype=np.int64).astype(np.int16)
+    x = (bits.astype(np.int32) << 16).view(np.float32)
+    keep = np.isfinite(x) & (np.abs(x) <= hi) & (x >= lo) & (
+        (np.abs(x) >= 2.0 ** -120) | (x == 0))
+    return bits[keep]
+
+
+@pytest.mark.parametrize("what", ["silu", "sigmoid", "swiglu"])
+def test_activations_round_as_the_reference(what):
+    """``jax.nn.silu`` and ``jax.nn.sigmoid`` jitted, and the jitted
+    ``common.swiglu`` (weights that make its SiLU the output, exactly:
+    x @ [[1], [0]] = x, x @ [[0], [1]] = 1), on every finite bf16 value
+    in [-16, 16]: the port's op-by-op ``silu`` / ``sigmoid`` / ``swiglu``
+    give the same bits, where ``F.silu`` / ``torch.sigmoid``, which
+    round once, differ in some."""
+    import torch.nn.functional as F
+    bits = _all_bf16(-16.0, 16.0)
+    xt = torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    xj = jnp.asarray(to_np(xt)).astype(jnp.bfloat16)
+    if what == "swiglu":
+        one, zero = jnp.ones_like(xj), jnp.zeros_like(xj)
+        xj = jnp.stack([xj, one], axis=-1)
+        wj = [jnp.asarray(w, jnp.bfloat16) for w in
+              ([[1.0], [0.0]], [[0.0], [1.0]], [[1.0]])]
+        ref = jax.jit(JC.swiglu)(xj, *wj)[:, 0]
+        xs = torch.stack([xt, torch.ones_like(xt)], dim=-1)
+        ws = [to_torch(np.asarray(w)) for w in wj]
+        port = TC.swiglu(xs, *ws)[:, 0]
+        fused = ((F.silu(xs @ ws[0]) * (xs @ ws[1])) @ ws[2])[:, 0]
+    else:
+        ref = jax.jit(getattr(jax.nn, what))(xj)
+        port = getattr(TC, what)(xt)
+        fused = (F.silu if what == "silu" else torch.sigmoid)(xt)
+    ref_bits = np.asarray(ref).view(np.int16)
+    assert len(ref_bits) == len(bits) > 30_000
+    np.testing.assert_array_equal(port.view(torch.int16).numpy(), ref_bits)
+    n_diff = int((fused.view(torch.int16).numpy() != ref_bits).sum())
+    assert n_diff > 0
+
+
 @pytest.mark.parametrize("pos", [np.int64(5), np.array([2, 9])])
 def test_ring_update(pos):
     rng = np.random.default_rng(5)
