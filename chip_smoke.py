@@ -148,6 +148,32 @@ result line):
              every shape is held against the plain version.  Kernel
              launch counts are zeroed just before each run and read
              just after;
+3g. prefill — the serve phase's llama2-7b: ``prefill`` of 512 and 4096
+             random tokens with the density (the served form, where the
+             reference takes gqa_attention, and the flash form, where it
+             takes its blocked flash functions) against the port's
+             extend of the same tokens, one attn_density launch a layer,
+             the prefill's own calls held against the plain version;
+             attn_density at the prefill's shapes (H 32 and the VLM's
+             H 64 / KV 8, 512 served and 4096 flash) against its plain
+             version and timed beside it, its bound and
+             scaled_dot_product_attention(is_causal=True);
+3h. vlm   — every earlier model freed, llama-3.2-vision-90b at full width
+             and depth 10 (two blocks of 4 self layers + a gated cross
+             layer over 1601 image tokens; random weights, gates and
+             patches from SEED): prefill of a 512-token prompt, 32
+             greedy decode steps, twice (identical), against a prefill
+             of the 544 tokens; one prefill and one token profiled;
+3i. moe   — llama4-maverick-400b-a17b at full width and depth 2 (the one
+             cut; 64.6 GiB of random bf16 weights drawn one expert at a
+             time after the card's free memory is logged) through
+             launch.serve.serve on the serve phase's trace (MOE: slot
+             caches, 8 raw chunks): no pressure, llms (a decode token
+             and a recompute profiled, the token's products against the
+             weights' bytes floor) + rerun, quant_resident (its
+             decode_mqattn calls held against the plain version), swap,
+             lmk, each against the no-pressure run; every restore by
+             I/O; then decode_batch 2 against 1 (_batch_divergence);
 4. check   — the reduced llama2-7b and the reduced smollm-360m (G = 2,
              tied head) served teacher-forced on the card agree with the
              same port on the CPU (plain PyTorch), over the bf16 page
@@ -156,7 +182,13 @@ result line):
              reduced deepseek-v2-lite's recompute (latents, density) and
              absorbed decode (logits, masses), window and mixed cache;
              and the reduced rwkv6's prefill, decode steps and
-             recompute (logits, wkv state, _check_rwkv6).
+             recompute (logits, wkv state, _check_rwkv6); the reduced
+             dense and MLA prefill in the reference's three branches
+             (_check_prefill), the reduced llama4-maverick's recompute
+             and decode over window and mixed caches (_check_moe) and
+             the reduced VLM's prefills and decode (_check_vlm), MoE
+             routing held to the CPU's at expert near-ties
+             (_ExpertTies).
 
 The last lines are the kernel record ({"kernels": [...]}), the card's
 ``nvidia-smi`` name and power limit, and {"ok": true, "device": ...}.
@@ -202,6 +234,10 @@ MQ_MASS_TOL = 1e-6
 # another order) within 1e-5 of the largest density
 AD_DENS_TOL = 1e-5
 AD_SERVE = dict(S=512, H=32, hd=128, bucket=64, pad=511)
+# MoE routing on the card against the CPU: the router's fp32 softmax
+# gates of inputs that differ at bf16 level may differ by this much
+# (absolute) at a token whose expert choice is a near-tie
+GATE_TOL = 1e-2
 # the kernels' names, as the profiler reports them
 AD_KERNELS = ("attn_density_tc_kernel", "attn_density_reduce_kernel")
 MQ_KERNELS = ("mq_split_kernel", "mq_split_pv_kernel", "mq_combine_kernel")
@@ -232,12 +268,31 @@ SLOT = dict(budget_chunks=8, max_ctx=256, n_tokens=128, io=[0, 2, 3, 6],
 # trace, slot caches (its KVSpec declares no paged pool), a budget of 12
 # raw latent chunks (16 x 576 x 27 bf16 = 0.47 MiB each), so that every
 # policy restores at least twice
-MLA = dict(arch="deepseek-v2-lite-16b", budget_chunks=12, max_ctx=256)
+MLA = dict(tag="mla", arch="deepseek-v2-lite-16b", budget_chunks=12,
+           max_ctx=256, min_bits=8, mixed_decode_kernel=False)
 # its chunk leaves (T, layers x width): ckv (16, 27 x 512), kpe (16, 27 x 64)
 MLA_CODEC_SHAPES = ((16, 27 * 512), (16, 27 * 64))
 # attn_density at MLA's recompute: H = KV = 16, Dqk 128 + 64, Dv 128, a
 # 64-row bucket over the slot cache of max_ctx_len 256 (S = 512) and 256
 AD_MLA = dict(H=16, dqk=192, dv=128, S=(512, 256))
+# 3g: the full-sequence prefill on the serve phase's llama2-7b: 512
+# tokens (the served form: the reference's gqa_attention branch) and
+# 4096 (the flash form: its flash / blocked branches), each against the
+# port's extend of the same tokens
+PREFILL = dict(S=(512, 4096))
+# 3h: llama-3.2-vision-90b at full width and the reference's reduced
+# depth of 10 (two blocks of 4 self layers + 1 cross layer; 1601 image
+# tokens of 7680): a 512-token prompt with patches, 32 greedy tokens
+VLM = dict(arch="llama-3.2-vision-90b", n_layers=10, prompt=512, new=32)
+# 3i: llama4-maverick-400b-a17b at full width and depth 2 (its one cut:
+# one layer's 128 experts are 32.2 GB, so two fit one card) on the serve
+# phase's trace, slot caches (no pool in its KVSpec), a budget of 8 raw
+# chunks (2 layers x 16 tokens x k+v x 8 x 128 x bf16 = 128 KiB each)
+MOE = dict(tag="moe", arch="llama4-maverick-400b-a17b", n_layers=2,
+           budget_chunks=8, max_ctx=256, min_bits=2,
+           mixed_decode_kernel=True)
+# its chunk leaves (T, layers x KV x hd): k and v (16, 2 x 8 x 128)
+MOE_CODEC_SHAPES = ((16, 2 * 8 * 128), (16, 2 * 8 * 128))
 # 3e: rwkv6-1.6b at full width (one whole-state snapshot a context:
 # wkv 24 x 32 x 64 x 64 fp32 + tm / cm 2 x 24 x 2048 fp16 = 12,779,520 B)
 RWKV = dict(arch="rwkv6-1.6b", budget_snapshots=2, max_ctx=256)
@@ -595,36 +650,37 @@ def kernel_phase():
     return max_err, times
 
 
-def mla_codec_phase():
-    """The chunk codec at deepseek-v2-lite's chunk leaves and its 8-bit
-    floor: ckv (16, 13,824) and kpe (16, 1,728) quantized in one launch
-    (as a switch-out runs them) and each dequantized, bit for bit
-    against the plain versions; timings of both beside their plain
-    versions and bounds.  -> {"quantize_two_leaves": row, "dequantize":
-    {shape: row}}."""
+def codec_leaves_phase(tag, shapes, bits):
+    """The chunk codec at a family's chunk leaves (``shapes``, (T,
+    layers x width) each): the leaves quantized in one launch (as a
+    switch-out runs them) and each dequantized, bit for bit against the
+    plain versions; timings of both beside their plain versions and
+    bounds.  -> {"quantize_two_leaves": row, "dequantize": {shape:
+    row}}."""
     import torch
     from repro_torch.kernels import chunk_quant, ref
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
     xs = [(torch.randn(shape, generator=g, device=dev) * 3).bfloat16()
-          for shape in MLA_CODEC_SHAPES]
-    _, leaves = chunk_quant.quantize_leaves(xs, 8)
+          for shape in shapes]
+    _, leaves = chunk_quant.quantize_leaves(xs, bits)
     torch.cuda.synchronize()
     for x, (p, s) in zip(xs, leaves):
-        p_r, s_r = ref.quantize_ref(x, 8)
-        d_k = chunk_quant.dequantize(p_r, s_r, 8, x.shape[0])
-        d_r = ref.dequantize_ref(p_r, s_r, 8, x.shape[0])
+        p_r, s_r = ref.quantize_ref(x, bits)
+        d_k = chunk_quant.dequantize(p_r, s_r, bits, x.shape[0])
+        d_r = ref.dequantize_ref(p_r, s_r, bits, x.shape[0])
         torch.cuda.synchronize()
         if not (torch.equal(p, p_r) and torch.equal(s, s_r)
                 and torch.equal(d_k.view(torch.int16),
                                 d_r.view(torch.int16))):
-            raise AssertionError(f"the codec at MLA's leaf {tuple(x.shape)} "
-                                 "differs from its plain version")
-    bounds = [_codec_bound_ms(T, F, 8, 2) for T, F in MLA_CODEC_SHAPES]
-    two = lambda: chunk_quant.quantize_leaves(xs, 8)          # noqa: E731
-    plain = lambda: [ref.quantize_ref(x, 8) for x in xs]      # noqa: E731
+            raise AssertionError(f"the codec at {tag}'s leaf "
+                                 f"{tuple(x.shape)}, {bits}-bit, differs "
+                                 "from its plain version")
+    bounds = [_codec_bound_ms(T, F, bits, 2) for T, F in shapes]
+    two = lambda: chunk_quant.quantize_leaves(xs, bits)       # noqa: E731
+    plain = lambda: [ref.quantize_ref(x, bits) for x in xs]   # noqa: E731
     out = {"quantize_two_leaves": {
-        "shape": f"{MLA_CODEC_SHAPES} bf16 8-bit, one launch",
+        "shape": f"{shapes} bf16 {bits}-bit, one launch",
         "call_ms": _time_ms(two), "device_ms": _device_ms(two, QUANT_KERNEL),
         "plain_call_ms": _time_ms(plain, iters=50),
         "plain_device_ms": _device_ms(plain),
@@ -632,15 +688,15 @@ def mla_codec_phase():
         "dequantize": {}}
     for x, (p, s), (bound, by) in zip(xs, leaves, bounds):
         T = x.shape[0]
-        d = lambda: chunk_quant.dequantize(p, s, 8, T)        # noqa: E731
-        d_ref = lambda: ref.dequantize_ref(p, s, 8, T)        # noqa: E731
+        d = lambda: chunk_quant.dequantize(p, s, bits, T)     # noqa: E731
+        d_ref = lambda: ref.dequantize_ref(p, s, bits, T)     # noqa: E731
         out["dequantize"][str(tuple(x.shape))] = {
             "call_ms": _time_ms(d), "device_ms": _device_ms(d, "dequant_kernel<"),
             "plain_call_ms": _time_ms(d_ref, iters=50),
             "plain_device_ms": _device_ms(d_ref), "bound_ms": bound,
             "bound_by": by}
-    log(f"[kernels] the codec at MLA's chunk leaves {MLA_CODEC_SHAPES}, "
-        f"8-bit: bit-exact vs the plain versions; {json.dumps(out)}")
+    log(f"[kernels] the codec at {tag}'s chunk leaves {shapes}, {bits}-bit: "
+        f"bit-exact vs the plain versions; {json.dumps(out)}")
     return out
 
 
@@ -2644,34 +2700,38 @@ def _logged_replay(model, params, args, name, seed, hooks_kw,
     return stats, run, run.pop("hooks")
 
 
-def mla_phase(model, params, seed, swap_root, label, policy="llms",
-              quant_resident=False, profile=None,
-              budget_chunks=MLA["budget_chunks"], profiled=False):
-    """deepseek-v2-lite-16b through the normal entry point: the port's
-    ``launch.serve.serve`` replays the serve phase's trace (4 contexts x
-    3 rounds, prompts 32-64, 8 new, ``decode_batch`` 1, ``max_ctx_len``
-    256) through an inline ``ServiceRouter`` (one app) over
-    ``LLMService``, which serves the family on slot caches (its KVSpec
-    declares no paged pool).  Under ``llms`` ``serve`` measures the
-    card's §3.3.i profile; a given ``profile`` (a rerun) replaces it
-    just before the replay.  The kernel launch counts are zeroed just
-    before the replay and read just after; every recompute (extend and
-    restore) must launch ``attn_density`` once a layer.  The calls are
-    logged by ``_SlotHooks``, as in the slot phase: every greedy pick
-    keeps its logits row (on the CPU), and the run's own attn_density
-    calls, one of each bucket, are held against the plain version.  With
-    ``profiled``, one decode token and one recompute of the fifth call
-    or later run under the profiler."""
+def family_phase(model, params, seed, swap_root, label, fam=MLA,
+                 policy="llms", quant_resident=False, profile=None,
+                 budget_chunks=None, profiled=False):
+    """A slot-only family (``fam``: MLA, deepseek-v2-lite-16b, or MOE,
+    llama4-maverick at depth 2) through the normal entry point: the
+    port's ``launch.serve.serve`` replays the serve phase's trace (4
+    contexts x 3 rounds, prompts 32-64, 8 new, ``decode_batch`` 1,
+    ``max_ctx_len`` 256) through an inline ``ServiceRouter`` (one app)
+    over ``LLMService``, which serves the family on slot caches (its
+    KVSpec declares no paged pool).  Where the policy pipelines restores
+    ``serve`` measures the card's §3.3.i profile (MLA; MoE declares no
+    restore recompute and gets none); a given ``profile`` (a rerun)
+    replaces it just before the replay.  The kernel launch counts are
+    zeroed just before the replay and read just after; every recompute
+    (extend and restore) must launch ``attn_density`` once a layer.
+    The calls are logged by ``_SlotHooks``, as in the slot phase: every
+    greedy pick keeps its logits row (on the CPU), and the run's own
+    attn_density and decode_mqattn calls, one of each shape, are held
+    against the plain versions.  With ``profiled``, one decode token and
+    one recompute of the fifth call or later run under the profiler."""
     import torch
     from repro_torch.launch.serve import parse_args
 
     cfg, device = model.cfg, model.device
     on_card = device.type == "cuda"
-    name = f"[mla:{label}]"
+    name = f"[{fam['tag']}:{label}]"
+    if budget_chunks is None:
+        budget_chunks = fam["budget_chunks"]
     raw = _raw_chunk_bytes(model)
     args = parse_args([
         "--arch", cfg.name, "--policy", policy,
-        "--max-ctx", str(MLA["max_ctx"]),
+        "--max-ctx", str(fam["max_ctx"]),
         "--budget-mib", repr(budget_chunks * raw / 2**20),
         "--max-new", "8", "--seed", str(seed), "--concurrency", "1",
         "--decode-batch", "1", "--swap-dir", tempfile.mkdtemp(dir=swap_root)]
@@ -2712,11 +2772,11 @@ def mla_phase(model, params, seed, swap_root, label, policy="llms",
     if stats["failed_calls"] or len(records) != len(trace) or any(
             r["cancelled"] for r in records):
         raise AssertionError(f"{name} a call did not complete")
-    # under quant_resident every latent chunk is 8-bit and kept on the
-    # decode grid (per (token, layer) scales, plain PyTorch as in the
-    # reference), so the storage codec has no work there
+    # under quant_resident every 8-bit chunk is kept on the decode grid
+    # (per (token, layer) or (token, kv-head) scales, plain PyTorch as in
+    # the reference), so the storage codec may have no work there
     _slot_gates(name, hooks, launches, on_card,
-                budget_chunks == MLA["budget_chunks"],
+                budget_chunks == fam["budget_chunks"],
                 run["chunked"] and not quant_resident)
     cid_of = {}
     for r in records:
@@ -2726,18 +2786,27 @@ def mla_phase(model, params, seed, swap_root, label, policy="llms",
         raise AssertionError(f"{name} the calls did not run in trace order")
     if run["paged"]:
         raise AssertionError(f"{name} the family ran on the paged pool")
-    if any(b < 8 for r in records for b in r["bits"]):
-        raise AssertionError(f"{name} a latent chunk went below the "
-                             "family's 8-bit floor")
+    if any(b < fam["min_bits"] for r in records for b in r["bits"]):
+        raise AssertionError(f"{name} a chunk went below the family's "
+                             f"{fam['min_bits']}-bit floor")
+    if not model.kv_spec().recomputable and any(re for re, _ in splits):
+        raise AssertionError(f"{name} a restore recomputed chunks of a "
+                             "family that declares no restore recompute")
     if on_card and launches["attn_density"] != \
             cfg.n_layers * hooks.n_recompute:
         raise AssertionError(f"{name} {launches['attn_density']} "
                              f"attn_density launches for "
                              f"{hooks.n_recompute} recomputes of "
                              f"{cfg.n_layers} layers")
-    if launches["decode_mqattn"]:
-        raise AssertionError(f"{name} a dense decode kernel ran: {launches}")
-    if quant_resident and budget_chunks == MLA["budget_chunks"] and not any(
+    # the dense decode over the mixed slot cache runs decode_mqattn; MLA's
+    # absorbed decode is einsums, as in the reference
+    mq_expected = quant_resident and fam["mixed_decode_kernel"]
+    if on_card and (bool(launches["decode_mqattn"]) != mq_expected or (
+            mq_expected and not hooks.kernels.ran("decode_mqattn"))):
+        raise AssertionError(f"{name} decode_mqattn launches "
+                             f"{launches['decode_mqattn']}, expected "
+                             f"{'some' if mq_expected else 'none'}")
+    if quant_resident and budget_chunks == fam["budget_chunks"] and not any(
             q for r in records for q in r["quant"]):
         raise AssertionError(f"{name} no chunk stayed quant-resident")
     if profiled and on_card and len(hooks.prof) != 2:
@@ -2755,53 +2824,59 @@ def mla_phase(model, params, seed, swap_root, label, policy="llms",
     return out
 
 
-def mla_runs(swap_root):
-    """deepseek-v2-lite-16b at full width (27 layers, d 2048, 16 heads,
-    rank 512 + rope 64, 64 experts top-6 + 2 shared, vocab 102,400;
-    random bf16 weights from SEED drawn on the card): a no-pressure
-    ``llms`` run, ``llms`` under the card's profile (a decode token and
-    a recompute profiled) and a rerun under that same profile, ``llms``
-    + ``quant_resident`` (the mixed latent layout), ``swap`` and
-    ``lmk``; each run's tokens against the no-pressure run's.  -> (the
-    runs by label, (model, params)): the zoo phase serves the same
-    weights."""
-    from repro_torch.configs import get_config
-    t0 = time.perf_counter()
-    model, params = build_weights(get_config(MLA["arch"]), SEED)
-    runs = {}
-    runs["no-pressure"] = mla_phase(model, params, SEED, swap_root,
-                                    "no-pressure", budget_chunks=1 << 20)
-    runs["llms"] = mla_phase(model, params, SEED, swap_root, "llms",
-                             profiled=True)
-    runs["llms-rerun"] = mla_phase(model, params, SEED, swap_root,
-                                   "llms-rerun",
-                                   profile=runs["llms"]["profile"])
-    runs["quant"] = mla_phase(model, params, SEED, swap_root, "quant",
-                              quant_resident=True)
+def _family_runs(fam, model, params, swap_root):
+    """The slot-only family's runs on one set of weights: a no-pressure
+    ``llms`` run, ``llms`` (under the card's profile where the family
+    pipelines restores; a decode token and a recompute profiled) and a
+    rerun under that same profile, ``llms`` + ``quant_resident`` (the
+    mixed layout), ``swap`` and ``lmk``; each run's tokens against the
+    no-pressure run's.  -> the runs by label."""
+    tag = f"[{fam['tag']}]"
+    runs = {"no-pressure": family_phase(model, params, SEED, swap_root,
+                                        "no-pressure", fam,
+                                        budget_chunks=1 << 20)}
+    runs["llms"] = family_phase(model, params, SEED, swap_root, "llms", fam,
+                                profiled=True)
+    runs["llms-rerun"] = family_phase(model, params, SEED, swap_root,
+                                      "llms-rerun", fam,
+                                      profile=runs["llms"]["profile"])
+    runs["quant"] = family_phase(model, params, SEED, swap_root, "quant",
+                                 fam, quant_resident=True)
     for policy in ("swap", "lmk"):
-        runs[policy] = mla_phase(model, params, SEED, swap_root, policy,
-                                 policy=policy)
+        runs[policy] = family_phase(model, params, SEED, swap_root, policy,
+                                    fam, policy=policy)
     _same_slot_run(runs["llms"], runs["llms-rerun"],
-                   "MLA llms (the card's profile)")
+                   f"{fam['arch']} llms (the card's profile, if any)")
     for label, run in runs.items():
         if label == "no-pressure":
             continue
         counts, examined = _slot_divergence(run, runs["no-pressure"])
-        log(f"[mla] {label} against the no-pressure run, call by call: "
+        log(f"{tag} {label} against the no-pressure run, call by call: "
             f"{counts}")
         for e in examined:
-            log(f"[mla] {label} first divergence: {json.dumps(e)}")
+            log(f"{tag} {label} first divergence: {json.dumps(e)}")
     for label, run in runs.items():
         run.pop("picks")
         d = run["disk_switch_ms"]
-        log(f"[mla] {label}: wall {run['run_s']:.2f} s for 12 calls; "
+        log(f"{tag} {label}: wall {run['run_s']:.2f} s for 12 calls; "
             f"switch_s over {len(d)} disk restores median "
             f"{d[len(d) // 2] if d else None} ms, max "
             f"{d[-1] if d else None} ms; splits (recomputed, read) "
             f"{[(len(a), len(b)) for a, b in run['splits']]}; launches "
-            f"quantize {run['launches']['quantize']}, dequantize "
-            f"{run['launches']['dequantize']}, attn_density "
-            f"{run['launches']['attn_density']}")
+            f"{run['launches']}")
+    return runs
+
+
+def mla_runs(swap_root):
+    """deepseek-v2-lite-16b at full width (27 layers, d 2048, 16 heads,
+    rank 512 + rope 64, 64 experts top-6 + 2 shared, vocab 102,400;
+    random bf16 weights from SEED drawn on the card) through
+    ``_family_runs``.  -> (the runs by label, (model, params)): the zoo
+    phase serves the same weights."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    model, params = build_weights(get_config(MLA["arch"]), SEED)
+    runs = _family_runs(MLA, model, params, swap_root)
     log(f"[mla] the MLA phases took {time.perf_counter() - t0:.1f} s")
     return runs, (model, params)
 
@@ -3203,8 +3278,533 @@ def zoo_runs(members):
 
 
 # --------------------------------------------------------------------- #
+# 3g. the full-sequence prefill of the dense model through attn_density
+# --------------------------------------------------------------------- #
+def _sdpa_causal(q, k, v):
+    """scaled_dot_product_attention(is_causal=True) over (B, S, H, D) /
+    (B, S, KV, D) bf16 inputs, K/V heads shared (``enable_gqa``).  -> the
+    call (out only: no density)."""
+    import torch.nn.functional as F
+    q4, k4, v4 = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, enable_gqa=k4.shape[1] != q4.shape[1])
+
+
+def _prefill_kernel_rows():
+    """attn_density at the prefill's shapes against its plain version
+    (out within MQ_OUT_TOL of its range, the density within AD_DENS_TOL
+    of its range) and timed beside its plain version, its bound and
+    scaled_dot_product_attention(is_causal=True) (out only): llama2-7b's
+    (H 32, hd 128) causal 4096 tokens in the flash form with and without
+    the density and 512 in the served form with it; the VLM's (H 64, KV
+    8) at 512 (served) and 4096 (flash).  -> {label: row}."""
+    import torch
+    from repro_torch.kernels import attn_density as kad
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    shapes = {"dense": (32, 32), "vlm": (64, 8)}
+    rows = {}
+    for fam, (H, KV) in shapes.items():
+        for S in PREFILL["S"]:
+            args = _ad_case(1, S, S, H, KV, 128, list(range(S)), g, dev)
+            form = "served" if S <= 2048 else "flash"
+            for want in ((True,) if S <= 2048 and fam == "dense"
+                         else (False, True)):
+                label = (f"{fam} (1,{S},{H},{KV},128) causal {form}"
+                         f"{' + density' if want else ''}")
+                o_k, d_k = kad.attn_density(*args, S, 0, 0, want, form)
+                o_r, d_r = ref.attn_density_plain(*args, S, 0, 0, want, form)
+                torch.cuda.synchronize()
+                span = float(o_r.float().abs().max())
+                d_o = float((o_k.float() - o_r.float()).abs().max())
+                d_d = 0.0 if d_r is None else float(
+                    (d_k - d_r).abs().max() / d_r.abs().max())
+                if not (d_o <= MQ_OUT_TOL * span and d_d <= AD_DENS_TOL):
+                    raise AssertionError(
+                        f"attn_density at the prefill's {label}: |d out| "
+                        f"{d_o} (range {span}), |d density| / range {d_d}")
+                del o_r, d_r
+                fn = lambda: kad.attn_density(                 # noqa: E731
+                    *args, S, 0, 0, want, form)
+                plain = lambda: ref.attn_density_plain(        # noqa: E731
+                    *args, S, 0, 0, want, form)
+                lib = _sdpa_causal(*args[:3])
+                bound, by = _ad_bound_ms(args, S, 0, 0, want)
+                n = 20 if S <= 2048 else 5
+                parts = {}
+                row = {"shape": label, "form": form, "density": want,
+                       "max_abs_err": d_o, "max_err_density_rel": d_d,
+                       "call_ms": _time_ms(fn, iters=n),
+                       "device_ms": _device_ms(fn, AD_KERNELS, iters=n,
+                                               by_kernel=parts),
+                       "device_ms_by_kernel": parts,
+                       "plain_call_ms": _time_ms(plain, iters=3, warmup=1),
+                       "plain_device_ms": _device_ms(plain, iters=3),
+                       "library_call_ms": _time_ms(lib, iters=n),
+                       "library_device_ms": _device_ms(lib, iters=n),
+                       "bound_ms": bound, "bound_by": by}
+                # a device reading below the bound lost kernels (the
+                # profiler's window missed some): read the call time then
+                row["library_device_below_bound"] = (
+                    row["library_device_ms"] is not None
+                    and row["library_device_ms"] < bound)
+                rows[label] = row
+                lost = (" (BELOW the bound: kernels missed)"
+                        if row["library_device_below_bound"] else "")
+                log(f"[prefill] attn_density {label}: |d out| {d_o:.3g} "
+                    f"(range {span:.3g}), |d density| / range {d_d:.3g}; "
+                    f"kernel {row['device_ms']} ms on the device, "
+                    f"{row['call_ms']:.4f} ms per call; plain "
+                    f"{row['plain_device_ms']} ms; SDPA is_causal (out "
+                    f"only) {row['library_device_ms']} ms on the device"
+                    f"{lost}, {row['library_call_ms']:.4f} ms per call; "
+                    f"bound "
+                    f"{bound:.4f} ms ({by}); by launch {parts}")
+                torch.cuda.empty_cache()
+    return rows
+
+
+def _extend_full(model, params, toks, form):
+    """The port's extend of all of ``toks`` (``recompute`` at positions
+    arange(S) over a fresh cache, with the density), its attention
+    through ``attn_density`` in ``form``: "served" is the extend's own;
+    "flash" the prefill's form beyond 2048 tokens.  -> (logits, cache,
+    density)."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import common as C
+    served = C.extend_attention
+    if form == "flash":
+        C.extend_attention = lambda *a: C.AttnOut(*kops.attn_density(
+            *a, form="flash"))
+    try:
+        S = toks.shape[1]
+        cache, x, dens = model.recompute(
+            params, toks, torch.arange(S, device=toks.device),
+            model.init_cache(1, S), S, want_density=True)
+    finally:
+        C.extend_attention = served
+    return (x[:, -1] @ model.head_weight(params)).float(), cache, dens
+
+
+def prefill_check(model, params):
+    """The serve phase's llama2-7b at full width (random weights from
+    SEED): ``prefill`` of 512 and 4096 random tokens with the density
+    against the port's extend of the same tokens (``recompute`` over a
+    fresh cache) through the same form of ``attn_density``, bit for bit
+    (512: the served form, the extend's own; 4096: the flash form);
+    one attn_density launch a layer, and the prefill's own calls held
+    against the plain version (``_KernelCalls``).  At 4096 the extend in
+    its own served form is compared too: the forms differ in rounding
+    (the flash form keeps PV in fp32, the served one rounds p to bf16),
+    layer 0's K/V must be equal, layer 1's within 1% relative L2 (one
+    attention of the other rounding) and the density within 2%; the
+    drift of every later layer and of the logits is reported.  Then
+    ``_prefill_kernel_rows``.  -> {"runs": {S: ...}, "rows": {label:
+    row}}."""
+    import torch
+    dev = model.device
+    L, V = model.cfg.n_layers, model.cfg.vocab
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    runs = {}
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).norm() / a.norm())
+
+    for S in PREFILL["S"]:
+        name = f"[prefill:{S}]"
+        toks = torch.randint(1, V, (1, S), generator=g, device=dev)
+        kc = _KernelCalls(name)
+        _zero_launches()
+        t0 = time.perf_counter()
+        pf = model.prefill(params, {"tokens": toks}, want_density=True)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = _read_launches()
+        kc.close()
+        if not all(torch.isfinite(t.float()).all() for t in (
+                pf.logits, pf.cache["k"], pf.cache["v"], pf.density)):
+            raise AssertionError(f"{name} non-finite prefill")
+        form = "served" if S <= 2048 else "flash"
+        logits, cache, dens = _extend_full(model, params, toks, form)
+        same = (torch.equal(logits, pf.logits)
+                and all(torch.equal(cache[n], pf.cache[n])
+                        for n in ("k", "v"))
+                and torch.equal(dens, pf.density))
+        del cache, logits, dens
+        drift = None
+        if form == "flash":
+            logits, cache, dens = _extend_full(model, params, toks, "served")
+            drift = {"logits": rel(logits, pf.logits),
+                     "density": rel(dens, pf.density),
+                     "k_by_layer": [rel(cache["k"][l], pf.cache["k"][l])
+                                    for l in range(L)],
+                     "v_by_layer": [rel(cache["v"][l], pf.cache["v"][l])
+                                    for l in range(L)],
+                     "same_pick": int(logits.argmax()) == int(
+                         pf.logits.argmax())}
+            del cache, logits, dens
+        del pf
+        torch.cuda.empty_cache()
+        checked = kc.check()
+        if not same:
+            raise AssertionError(f"{name} the prefill differs from the "
+                                 f"extend through the same {form} form")
+        if drift is not None and not (
+                drift["k_by_layer"][0] == drift["v_by_layer"][0] == 0.0
+                and max(drift["k_by_layer"][1], drift["v_by_layer"][1])
+                <= 0.01 and drift["density"] <= 0.02):
+            raise AssertionError(f"{name} flash against served form: "
+                                 f"{drift}")
+        if (launches["attn_density"], launches["attn_density_with_density"]
+                ) != (L, L) or launches["decode_mqattn"] or \
+                launches["quantize"]:
+            raise AssertionError(f"{name} launches {launches}, not {L} "
+                                 "attn_density with the density")
+        runs[S] = {"wall_ms": wall, "launches": launches, "form": form,
+                   "drift_from_served": drift, "checked": checked}
+        log(f"[prefill] llama2-7b prefill of {S} tokens (+ density, {form} "
+            f"form) in {wall:.1f} ms, launches {launches}: bit for bit the "
+            f"extend through the same form; its own attn_density calls "
+            f"against the plain version: {checked}")
+        if drift is not None:
+            log(f"[prefill] {S} tokens, flash form against the extend's "
+                f"served form, relative L2: logits {drift['logits']:.3e} "
+                f"(same pick {drift['same_pick']}), density "
+                f"{drift['density']:.3e}, K by layer "
+                f"{[f'{r:.2e}' for r in drift['k_by_layer']]}")
+    return {"runs": runs, "rows": _prefill_kernel_rows()}
+
+
+# --------------------------------------------------------------------- #
+# 3h. the VLM family: llama-3.2-vision-90b at full width, depth 10
+# --------------------------------------------------------------------- #
+def vlm_phase():
+    """llama-3.2-vision-90b at full width (d 8192, 64 heads over 8, hd
+    128, d_ff 28,672, vocab 128,256, 1601 image tokens of 7680) and the
+    reference's reduced depth of 10 (random bf16 weights from SEED drawn
+    on the card; the cross layers' tanh gates, zero in a fresh model,
+    drawn from U(-1, 1) so that the cross layers count; random patches
+    from the seed).  Twice: ``prefill`` of a 512-token prompt with the
+    patches and the density, then 32 greedy ``decode_step``s over a
+    window cache holding the prefill's K/V and image K/V.  Launches are
+    zeroed before the prefill and read after it and after the decode;
+    the prefill's attn_density calls are held against the plain version.
+    The rerun must give the same tokens and logits bit for bit; a
+    ``prefill`` of the 544 tokens must give the last decode logits
+    within 5% relative L2 and the same greedy pick (or a near-tie: the
+    prefill's top-2 gap within the largest difference).  bf16 level:
+    each layer's chained products round at M = 1 to other ulps than at
+    M = 544, some 0.2-0.5% a layer over ten layers of width 8192
+    (measured 2.1%).  Max |diff| and the reduced model's agreement
+    (``rtol`` = ``atol`` = 5e-2, ``tests/test_models.py``, which the
+    full width does not meet: 0.17 over a range of 8.06) are
+    reported.  The rerun (the first warms the card up)
+    profiles the prefill and one decode token.  -> the rerun's
+    record."""
+    import torch
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    cfg = get_config(VLM["arch"]).with_overrides(n_layers=VLM["n_layers"])
+    model, params = build_weights(cfg, SEED)
+    dev = model.device
+    n_self, n_cross, _ = model._counts()
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    for k in ("gate_attn", "gate_ffn"):
+        params["cross_layers"][k] = torch.rand(n_cross, generator=g,
+                                               device=dev) * 2 - 1
+    vis, S, new = cfg.vision, VLM["prompt"], VLM["new"]
+    patches = torch.randn((1, vis.n_image_tokens, vis.d_vision),
+                          generator=g, device=dev)
+    prompt = torch.randint(1, cfg.vocab, (1, S), generator=g, device=dev)
+
+    def run(label, profiled):
+        name = f"[vlm:{label}]"
+        prof, per_token = {}, []
+        kc = _KernelCalls(name)
+        _zero_launches()
+        pf = lambda: model.prefill(                           # noqa: E731
+            params, {"tokens": prompt, "patches": patches},
+            want_density=True)
+        t1 = time.perf_counter()
+        if profiled:
+            out, prof["prefill"] = _profile_round(pf, top=8)
+        else:
+            out = pf()
+            torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t1) * 1e3
+        at_prefill = _read_launches()
+        kc.close()
+        cache = model.init_cache(1, S + new)
+        for n in ("k", "v"):
+            cache[n][:, :, :S] = out.cache[n]
+        cache["xk"], cache["xv"] = out.cache["xk"], out.cache["xv"]
+        cache["pos"] = torch.tensor(S, device=dev)
+        if not torch.isfinite(out.density).all():
+            raise AssertionError(f"{name} non-finite density")
+        tok, fed, rows = out.logits.argmax(-1), [], []
+        del out
+        for i in range(new):
+            fed.append(int(tok))
+            step = lambda: model.decode_step(                 # noqa: E731
+                params, tok.view(1, 1), cache)
+            t1 = time.perf_counter()
+            if profiled and i == new // 2:
+                o, prof["decode token"] = _profile_round(step, top=8)
+            else:
+                o = step()
+                torch.cuda.synchronize()
+            per_token.append((time.perf_counter() - t1) * 1e3)
+            cache = o.cache
+            rows.append(o.logits.float().cpu())
+            tok = o.logits.argmax(-1)
+        launches = _read_launches()
+        checked = kc.check()
+        rec = {"fed": fed, "rows": torch.cat(rows), "prefill_ms": prefill_ms,
+               "launches_prefill": at_prefill, "launches": launches,
+               "per_token_ms": sorted(per_token), "prof": prof,
+               "checked": checked}
+        if not torch.isfinite(rec["rows"]).all():
+            raise AssertionError(f"{name} non-finite logits")
+        if (at_prefill["attn_density"],
+                at_prefill["attn_density_with_density"]) != (n_self, n_self) \
+                or launches != at_prefill:
+            raise AssertionError(f"{name} launches {at_prefill} at the "
+                                 f"prefill, {launches} after the decode: not "
+                                 f"{n_self} attn_density with the density, "
+                                 "then none")
+        log(f"{name} prefill of {S} tokens + {vis.n_image_tokens} image "
+            f"tokens in {prefill_ms:.1f} ms; {new} decode tokens, median "
+            f"{rec['per_token_ms'][new // 2]:.1f} ms; tokens {fed}; "
+            f"launches {launches}; the prefill's attn_density calls against "
+            f"the plain version: {checked}")
+        for kind, p in prof.items():
+            log(f"{name} one {kind} under the profiler: {json.dumps(p)}")
+        return rec
+
+    warm = run("run1", False)
+    first = run("rerun", True)
+    if warm["fed"] != first["fed"] or not torch.equal(warm["rows"],
+                                                      first["rows"]):
+        raise AssertionError("[vlm] the same-seed rerun differs")
+    # the decode fed fed[0..new-1] at positions S..S+new-1: the prefill of
+    # prompt + fed predicts what the last decode step predicted
+    full = torch.cat([prompt, torch.tensor([first["fed"]], device=dev)],
+                     dim=1)
+    pf = model.prefill(params, {"tokens": full, "patches": patches})
+    last, ref = first["rows"][-1], pf.logits[0].float().cpu()
+    d, span = float((last - ref).abs().max()), float(ref.abs().max())
+    rel = float((last - ref).norm() / ref.norm())
+    within = bool(((last - ref).abs() <= 5e-2 + 5e-2 * ref.abs()).all())
+    log(f"[vlm] the last decode logits against a prefill of the {S + new} "
+        f"tokens: relative L2 {rel:.3e} (tolerance 5e-2), max |diff| "
+        f"{d:.4g} (range {span:.4g}), within the reduced model's rtol = "
+        f"atol = 5e-2: {within}; greedy picks {int(last.argmax())} / "
+        f"{int(ref.argmax())}; the rerun identical over {new} tokens")
+    top2 = torch.topk(ref, 2).values
+    if not (rel <= 5e-2 and (int(last.argmax()) == int(ref.argmax())
+                             or float(top2[0] - top2[1]) <= d)):
+        raise AssertionError(f"[vlm] decode vs prefill: relative L2 {rel}, "
+                             f"max |diff| {d}, range {span}, picks "
+                             f"{int(last.argmax())} / {int(ref.argmax())}")
+    first.update(decode_vs_prefill=(rel, d, span), rows=None,
+                 phase_s=time.perf_counter() - t0)
+    del model, params, pf, patches
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[vlm] the VLM phase took {first['phase_s']:.1f} s")
+    return first
+
+
+# --------------------------------------------------------------------- #
+# 3i. the MoE family: llama4-maverick-400b-a17b at full width, depth 2
+# --------------------------------------------------------------------- #
+def _batch_run(model, params, seed, swap_root, fam, B):
+    """``launch.serve.serve`` of the serve phase's trace (one app, all
+    calls queued at once) at ``decode_batch`` B on slot caches, where a
+    round's members decode one after another: every greedy pick kept by
+    (cid, the context's call k, step) with the context's bit plan at the
+    call's start, for ``_batch_divergence``; the completions; the round
+    sizes.  Launches are zeroed just before the replay and read just
+    after.  -> the run."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import parse_args, serve
+    from repro_torch.trace.synth import TraceEvent
+    raw = _raw_chunk_bytes(model)
+    args = parse_args([
+        "--arch", model.cfg.name, "--policy", "llms",
+        "--max-ctx", str(fam["max_ctx"]),
+        "--budget-mib", repr(fam["budget_chunks"] * raw / 2**20),
+        "--max-new", "8", "--seed", str(seed), "--concurrency", "1",
+        "--decode-batch", str(B), "--swap-dir",
+        tempfile.mkdtemp(dir=swap_root)])
+    events = [TraceEvent(time=float(i), ctx_id=c,
+                         prompt=np.asarray(p, np.int32),
+                         ground_truth=np.zeros(0, np.int32), dataset="smoke",
+                         max_new=n)
+              for i, (c, p, n) in enumerate(_trace(model.cfg.vocab, seed))]
+    run = {"log": [], "picks": [], "plans": {}, "rounds": []}
+    calls, owner, cur = {}, {}, {}
+
+    def keep(cid, logits):
+        k = calls[cid] - 1
+        step = sum(1 for p in run["picks"] if p[:2] == (cid, k))
+        row = torch.as_tensor(np.asarray(logits, np.float32)).reshape(-1)
+        run["picks"].append((cid, k, step, row.clone()))
+
+    def on_start(svc, router):
+        exe = svc.exe
+        begin, extend, decode = svc.begin_call, exe.extend, exe.decode
+        batch = svc.decode_step_batch
+
+        def begun(stub, request):
+            cid = cur["cid"] = stub.ctx_id
+            k = calls[cid] = calls.get(cid, 0) + 1
+            run["plans"][cid, k - 1] = tuple(
+                (m.bits, m.quant)
+                for _, m in sorted(svc.contexts[cid].chunks.items()))
+            st = begin(stub, request)
+            owner[st.cache["k"].data_ptr()] = cid
+            return st
+
+        def kept_extend(cache, prompt, n0):
+            out = extend(cache, prompt, n0)
+            keep(cur["cid"], out[1])
+            return out
+
+        def kept_decode(cache, tok):
+            out = decode(cache, tok)
+            keep(owner[cache["k"].data_ptr()], out[1])
+            return out
+
+        def counted(sts):
+            run["rounds"].append(sum(not st.done and st.next_tok is not None
+                                     for st in sts))
+            return batch(sts)
+
+        def done(job, cancelled):
+            cid = job["stub"].ctx_id
+            run["log"].append(("done", cid, tuple(job["stream"].tokens)))
+
+        svc.begin_call, svc.decode_step_batch = begun, counted
+        exe.extend, exe.decode = kept_extend, kept_decode
+        router.on_complete = done
+        _zero_launches()
+        run["t0"] = time.perf_counter()
+
+    def on_end(svc, router, events):
+        torch.cuda.synchronize()
+        run["run_s"] = time.perf_counter() - run.pop("t0")
+        run["launches"] = _read_launches()
+
+    stats = serve(model, params, args, threaded=False, on_start=on_start,
+                  on_end=on_end, verbose=False, events=events)
+    sizes = {n: run["rounds"].count(n) for n in sorted(set(run["rounds"]))}
+    log(f"[{fam['tag']}:batch{B}] decode_batch {B}: {len(run['log'])} calls "
+        f"in {run['run_s']:.2f} s, round sizes {sizes}, launches "
+        f"{run['launches']}")
+    if stats["failed_calls"] or len(run["log"]) != len(events):
+        raise AssertionError(f"[{fam['tag']}:batch{B}] a call did not "
+                             "complete")
+    if B > 1 and max(run["rounds"]) < 2:
+        raise AssertionError(f"[{fam['tag']}:batch{B}] no round had two "
+                             "members")
+    return run
+
+
+def moe_runs(swap_root):
+    """llama4-maverick-400b-a17b at full width (d 5120, 40 heads over 8,
+    128 experts of 8192 top-1 + a shared expert of 8192, capacity 1.25,
+    groups of 1024, vocab 202,048) at depth 2, its one cut, with every
+    earlier phase's weights freed (the card's free memory logged before
+    the draw): ``_family_runs`` (no-pressure, ``llms`` with a decode
+    token and a recompute profiled, its rerun, ``quant_resident``,
+    ``swap``, ``lmk``), then ``decode_batch`` 2 against 1
+    (``_batch_divergence``).  Every restore is I/O (the family declares
+    no restore recompute).  Over the phase all four kernels of its path
+    must run.  -> the runs by label."""
+    import torch
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[moe] before the draw: {free / 2**30:.2f} GiB free of "
+        f"{total / 2**30:.2f} GiB")
+    cfg = get_config(MOE["arch"]).with_overrides(n_layers=MOE["n_layers"])
+    model, params = build_weights(cfg, SEED)
+    log(f"[moe] after the draw: {torch.cuda.mem_get_info()[0] / 2**30:.2f} "
+        f"GiB free; peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    runs = _family_runs(MOE, model, params, swap_root)
+    batch = {B: _batch_run(model, params, SEED, swap_root, MOE, B)
+             for B in (1, 2)}
+    counts, examined = _batch_divergence(batch[2], batch[1])
+    log(f"[moe] decode_batch 2 against 1, call by call: {counts}")
+    for e in examined:
+        log(f"[moe] decode_batch 2 first divergence: {json.dumps(e)}")
+    # a decode token reads every weight but the embedding (one row): the
+    # dispatch gives all 128 experts capacity slots (max(4, ...))
+    nbytes = sum(w.numel() * w.element_size() for w in _leaves(
+        {k: v for k, v in params.items() if k != "embed"}))
+    floor_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    token = runs["llms"]["prof"].get("decode token")
+    products = None if token is None else token["by_category_ms"].get(
+        "matmul")
+    log(f"[moe] a decode token reads {nbytes / 1e9:.2f} GB of weights: "
+        f"bytes floor {floor_ms:.2f} ms; the profiled token's products "
+        f"{products} ms, busy {None if token is None else token['device_ms']}"
+        f" ms, wall {None if token is None else token['wall_ms']} ms")
+    ran = {k: sum(r["launches"][k] for r in runs.values())
+           for k in ("quantize", "dequantize", "attn_density",
+                     "decode_mqattn")}
+    if not all(ran.values()):
+        raise AssertionError(f"[moe] a kernel of the path never ran over the "
+                             f"phase: {ran}")
+    for run in batch.values():
+        run.pop("picks")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[moe] the MoE phases took {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+# --------------------------------------------------------------------- #
 # 4. reduced model on the card vs the same port on the CPU
 # --------------------------------------------------------------------- #
+def _card_and_cpu(cfg, prepare=None):
+    """``cfg``'s model on the CPU (weights from SEED) and on the card
+    (the same weights moved there); ``prepare(params)`` edits the CPU
+    weights first.  -> (cpu model, cpu params, card model, card
+    params)."""
+    import torch
+    from repro_torch.models.registry import build_model
+    cpu = build_model(cfg, device="cpu")
+    params_cpu = cpu.init(torch.Generator().manual_seed(SEED))
+    if prepare is not None:
+        prepare(params_cpu)
+    gpu = build_model(cfg, device="cuda")
+    params_gpu = {k: ({n: w.cuda() for n, w in v.items()}
+                      if isinstance(v, dict) else v.cuda())
+                  for k, v in params_cpu.items()}
+    return cpu, params_cpu, gpu, params_gpu
+
+
+def _diffs(what, ref_out, card_out, tag):
+    """{name: (max |diff|, range)} over parallel tuples of CPU and card
+    tensors; raises on a non-finite card value."""
+    import torch
+    out = {}
+    for name, a, b in zip(what, ref_out, card_out):
+        a, b = a.float().cpu(), b.float().cpu()
+        if not torch.isfinite(b).all():
+            raise AssertionError(f"{tag}: non-finite {name} on the card")
+        out[name] = (float((a - b).abs().max()), float(a.abs().max()))
+    return out
+
+
 def _check_pipelined(name):
     """The reduced ``name``'s layer-pipelined restore on the card against
     the same port on the CPU: one prefilled cache (64 tokens) and the
@@ -3220,14 +3820,8 @@ def _check_pipelined(name):
     from repro_torch.core.restore import LayerFeed, write_chunk_file
     from repro_torch.core.service import LLMService, LLMSConfig
     from repro_torch.kernels import attn_density as kad
-    from repro_torch.models.registry import build_model
     cfg = reduced(get_config(name))
-    cpu = build_model(cfg, device="cpu")
-    params_cpu = cpu.init(torch.Generator().manual_seed(SEED))
-    gpu = build_model(cfg, device="cuda")
-    params_gpu = {k: ({n: w.cuda() for n, w in v.items()}
-                      if isinstance(v, dict) else v.cuda())
-                  for k, v in params_cpu.items()}
+    cpu, params_cpu, gpu, params_gpu = _card_and_cpu(cfg)
     io_idx, re_idx, n = [0, 3], [2], 64
     out, logits, paths = {}, {}, []
     with tempfile.TemporaryDirectory(prefix="llms_chip_check_") as root:
@@ -3357,6 +3951,9 @@ def check_phase():
     _check_pipelined("llama2-7b")
     _check_mla()
     _check_rwkv6()
+    _check_prefill()
+    _check_moe()
+    _check_vlm()
 
 
 def _rwkv6_teacher_forced(model, params, dev):
@@ -3403,14 +4000,8 @@ def _check_rwkv6():
     (max |diff|, range)}."""
     import torch
     from repro_torch.configs import get_config, reduced
-    from repro_torch.models.registry import build_model
     cfg = reduced(get_config(RWKV["arch"]))
-    cpu = build_model(cfg, device="cpu")
-    params_cpu = cpu.init(torch.Generator().manual_seed(SEED))
-    gpu = build_model(cfg, device="cuda")
-    params_gpu = {k: ({n: w.cuda() for n, w in v.items()}
-                      if isinstance(v, dict) else v.cuda())
-                  for k, v in params_cpu.items()}
+    cpu, params_cpu, gpu, params_gpu = _card_and_cpu(cfg)
     _zero_launches()
     ref_out = _rwkv6_teacher_forced(cpu, params_cpu, "cpu")
     card_out = _rwkv6_teacher_forced(gpu, params_gpu, "cuda")
@@ -3521,14 +4112,8 @@ def _check_mla(layouts=("window", "mixed")):
     import torch
     from repro_torch.configs import get_config, reduced
     from repro_torch.kernels import attn_density as kad
-    from repro_torch.models.registry import build_model
     cfg = reduced(get_config(MLA["arch"]))
-    cpu = build_model(cfg, device="cpu")
-    params_cpu = cpu.init(torch.Generator().manual_seed(SEED))
-    gpu = build_model(cfg, device="cuda")
-    params_gpu = {k: ({n: w.cuda() for n, w in v.items()}
-                      if isinstance(v, dict) else v.cuda())
-                  for k, v in params_cpu.items()}
+    cpu, params_cpu, gpu, params_gpu = _card_and_cpu(cfg)
     out = {}
     for layout in layouts:
         kad.reset_launches()
@@ -3560,6 +4145,285 @@ def _check_mla(layouts=("window", "mixed")):
     return out
 
 
+class _ExpertTies:
+    """Holds the card's MoE routing to the CPU's on the same model and
+    inputs.  While installed, every ``moe_dispatch`` call is recorded
+    (the CPU run, first) or, after ``follow()``, compared with the
+    recorded call of the same index (the card run): where the two pick
+    other experts for a token, or the same in another order, that must
+    be a near-tie: at the first rank where they differ, the CPU's gap
+    between its pick and the card's within the two gates' differences
+    (at most twice the largest difference of the token's gates), and
+    that difference within GATE_TOL.  The card then dispatches that call
+    with the CPU's gates.
+    ``forced`` lists (call, group, token, gap, difference); ``close``
+    takes the hook off."""
+
+    def __init__(self):
+        from repro_torch.models import moe_layer
+        self.mod, self.orig = moe_layer, moe_layer.moe_dispatch
+        self.seen, self.at, self.forced, self.following = [], 0, [], False
+        moe_layer.moe_dispatch = self._dispatch
+
+    def follow(self):
+        self.following, self.at = True, 0
+
+    def close(self):
+        self.mod.moe_dispatch = self.orig
+
+    def _dispatch(self, gates, top_k, cap):
+        if not self.following:
+            self.seen.append(gates.detach().cpu())
+            return self.orig(gates, top_k, cap)
+        ref = self.seen[self.at]
+        self.at += 1
+        mine = gates.detach().float().cpu()
+        # the picks in the order the dispatch's iterated argmax takes them
+        # (the order sets each token's slot in its expert)
+        pr = ref.topk(top_k, dim=-1).indices
+        pm = mine.topk(top_k, dim=-1).indices
+        differ = (pr != pm).any(dim=-1)
+        if differ.any():
+            for g, s in differ.nonzero().tolist():
+                r = int((pr[g, s] != pm[g, s]).nonzero()[0])
+                a, b = int(pr[g, s, r]), int(pm[g, s, r])
+                gap = float(ref[g, s, a] - ref[g, s, b])
+                err = float((ref[g, s] - mine[g, s]).abs().max())
+                if not (0.0 <= gap <= 2 * err and err <= GATE_TOL):
+                    raise AssertionError(
+                        f"MoE routing on the card differs from the CPU's "
+                        f"beyond a near-tie: call {self.at - 1}, token "
+                        f"({g}, {s}), experts {a} / {b}, gap {gap}, "
+                        f"difference {err}")
+                self.forced.append((self.at - 1, g, s, gap, err))
+            gates = ref.to(gates.device)
+        return self.orig(gates, top_k, cap)
+
+
+def _moe_teacher_forced(model, params, dev, layout):
+    """The reduced llama4-maverick on a (1, 64) cache: a 12-token prompt
+    recomputed with the density (padded to 16 rows at 63), then four
+    decode steps fed fixed tokens; the mixed layout holds int8 K/V at
+    [0, 16) and appends at 16.  -> (logits, K/V of [0, 32), density,
+    masses), on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(SEED + 14)
+    cfg = model.cfg
+    cache = model.init_cache(1, 64, layout=layout)
+    lo = 0
+    if layout == "mixed":
+        g = torch.Generator().manual_seed(SEED + 15)
+        shape = (cfg.n_layers, 1, 16, cfg.n_kv_heads, cfg.head_dim)
+        for n in ("k", "v"):
+            codes, sc = ref.quantize_token_head_ref(torch.randn(shape,
+                                                                generator=g))
+            cache[n + "_q"][:, :, :16] = codes.to(dev)
+            cache[n + "_scale"][:, :, :16] = sc.to(dev)
+        cache["quant_mask"][..., :16] = True
+        lo = 16
+    n = 12
+    t = lambda a: torch.as_tensor(a, dtype=torch.long, device=dev)  # noqa: E731
+    toks = t(rng.integers(1, cfg.vocab, n).tolist() + [0] * 4)[None]
+    pos = t(list(range(lo, lo + n)) + [63] * 4)
+    cache, x, dens = model.recompute(params, toks, pos, cache, lo + n,
+                                     want_density=True)
+    logits = [(x[:, n - 1] @ model.head_weight(params)).float().cpu()]
+    cache["pos"] = torch.tensor(lo + n, device=dev)
+    masses = []
+    for _ in range(4):
+        out, mass = model.decode_step(
+            params, t(rng.integers(1, cfg.vocab, (1, 1))), cache,
+            want_density=True)
+        cache = out.cache
+        logits.append(out.logits.float().cpu())
+        masses.append(mass.float().cpu())
+    kv = torch.cat([cache[n][:, :, :32].float().reshape(-1).cpu()
+                    for n in ("k", "v")])
+    return torch.cat(logits), kv, dens.float().cpu(), torch.cat(masses)
+
+
+def _check_moe(layouts=("window", "mixed")):
+    """The reduced llama4-maverick (4 experts top-1 + a shared expert)
+    teacher-forced on the card against the same port on the CPU: a
+    recompute with the density (attn_density on the card, one launch a
+    layer), then four decode steps (over the mixed cache: decode_mqattn,
+    one launch a layer and token); routing held to the CPU's at expert
+    near-ties (``_ExpertTies``).  Logits and K/V within 2% of their
+    range, the density and the masses within 1e-3
+    (``tests/test_torch_cuda.py::test_cuda_moe_matches_cpu`` runs this
+    check too).  -> {layout: {what: (max |diff|, range)}}."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import attn_density as kad
+    from repro_torch.kernels import decode_mqattn as kmq
+    cfg = reduced(get_config(MOE["arch"]))
+    cpu, params_cpu, gpu, params_gpu = _card_and_cpu(cfg)
+    out = {}
+    for layout in layouts:
+        tag = f"[check] reduced MoE {layout}"
+        ties = _ExpertTies()
+        try:
+            ref_out = _moe_teacher_forced(cpu, params_cpu, "cpu", layout)
+            ties.follow()
+            kad.reset_launches()
+            kmq.reset_launches()
+            card_out = _moe_teacher_forced(gpu, params_gpu, gpu.device,
+                                           layout)
+        finally:
+            ties.close()
+        diffs = _diffs(("logits", "kv", "density", "mass"), ref_out,
+                       card_out, tag)
+        rel = {k: d / max(s, 1e-30) for k, (d, s) in diffs.items()}
+        if rel["logits"] > 0.02 or rel["kv"] > 0.02 or \
+                diffs["density"][0] > 1e-3 or diffs["mass"][0] > 1e-3:
+            raise AssertionError(f"{tag}: card vs CPU (max |diff|, range) "
+                                 f"{diffs}")
+        L = cfg.n_layers
+        mq = 4 * L if layout == "mixed" else 0
+        if (kad.attn_density.launches, kmq.decode_mqattn.launches) != (L, mq):
+            raise AssertionError(f"{tag}: {kad.attn_density.launches} "
+                                 f"attn_density and "
+                                 f"{kmq.decode_mqattn.launches} decode_mqattn "
+                                 f"launches, not {L} and {mq}")
+        log(f"{tag} cache, teacher-forced recompute + 4 decode steps: card "
+            f"vs CPU (max |diff|, range) {diffs}; tolerance 2% of range "
+            f"(logits, K/V), 1e-3 (density, mass); experts forced at "
+            f"near-ties (call, group, token, gap, difference): "
+            f"{ties.forced}")
+        out[layout] = diffs
+    return out
+
+
+def _check_prefill(names=("llama2-7b", MLA["arch"])):
+    """``prefill`` of the reduced dense (llama2-7b) and MLA
+    (deepseek-v2-lite) models on the card against the same port on the
+    CPU, in each of the reference's branches: 40 tokens with the density
+    (the served form), and with a window of 12 and 2 sinks without and
+    with the density (the flash form); MLA's routing held to the CPU's
+    at expert near-ties.  Logits and every layer's K/V (latents) within
+    2% of their range, the density within 1e-3; one attn_density launch
+    a layer (``tests/test_torch_cuda.py::test_cuda_prefill_matches_cpu``
+    runs this check too).  -> {name: {branch: {what: (max |diff|,
+    range)}}}."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import attn_density as kad
+    out = {}
+    for name in names:
+        cfg = reduced(get_config(name))
+        cpu, params_cpu, gpu, params_gpu = _card_and_cpu(cfg)
+        toks = torch.as_tensor(np.random.default_rng(SEED + 16).integers(
+            1, cfg.vocab, (1, 40)))
+        leaves = cpu.kv_spec().seq_leaves
+        out[name] = {}
+        for branch, (window, dens) in {"served": (0, True),
+                                       "flash": (12, False),
+                                       "flash_density": (12, True)}.items():
+            tag = f"[check] reduced {name} prefill, {branch}"
+            ties = _ExpertTies()
+            try:
+                ref_pf = cpu.prefill(params_cpu, {"tokens": toks},
+                                     want_density=dens, window=window,
+                                     n_sinks=2)
+                ties.follow()
+                kad.reset_launches()
+                card_pf = gpu.prefill(params_gpu,
+                                      {"tokens": toks.to(gpu.device)},
+                                      want_density=dens, window=window,
+                                      n_sinks=2)
+            finally:
+                ties.close()
+            what = ("logits", *leaves) + (("density",) if dens else ())
+            def pick(pf):
+                return (pf.logits, *(pf.cache[n] for n in leaves),
+                        *((pf.density,) if dens else ()))
+            diffs = _diffs(what, pick(ref_pf), pick(card_pf), tag)
+            bad = [k for k, (d, s) in diffs.items()
+                   if d > (1e-3 if k == "density" else 0.02 * s)]
+            if bad or kad.attn_density.launches != cfg.n_layers:
+                raise AssertionError(f"{tag}: card vs CPU (max |diff|, "
+                                     f"range) {diffs}, attn_density launches "
+                                     f"{kad.attn_density.launches}")
+            log(f"{tag}: card vs CPU (max |diff|, range) {diffs}; tolerance "
+                f"2% of range, density 1e-3; experts forced at near-ties "
+                f"{ties.forced}")
+            out[name][branch] = diffs
+    return out
+
+
+def _check_vlm():
+    """The reduced llama-3.2-vision (two blocks of 4 self layers + 1
+    cross layer, 16 image tokens of 48; the tanh gates opened to 0.5 /
+    -0.75 and 0.25 / 1.0) on the card against the same port on the CPU:
+    ``prefill`` of 24 tokens with patches and the density (served form)
+    and with a window of 8 and 2 sinks (flash form), then 8 decode steps
+    over the prefill's cache, teacher-forced.  Logits, K/V and image K/V
+    within 2% of their range, the density within 1e-3; one attn_density
+    launch a self layer in each prefill, none in the decode
+    (``tests/test_torch_cuda.py::test_cuda_vlm_matches_cpu`` runs this
+    check too).  -> {what: (max |diff|, range)}."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import attn_density as kad
+    cfg = reduced(get_config(VLM["arch"]))
+
+    def open_gates(params):
+        for k, v in (("gate_attn", [0.5, -0.75]), ("gate_ffn", [0.25, 1.0])):
+            params["cross_layers"][k] = torch.tensor(v)
+
+    cpu, params_cpu, gpu, params_gpu = _card_and_cpu(cfg, open_gates)
+    n_self = cpu._counts()[0]
+    g = torch.Generator().manual_seed(SEED + 17)
+    toks = torch.randint(1, cfg.vocab, (1, 24), generator=g)
+    feed = torch.randint(1, cfg.vocab, (8, 1, 1), generator=g)
+    patches = torch.randn((1, cfg.vision.n_image_tokens,
+                           cfg.vision.d_vision), generator=g)
+
+    def run(model, params, dev):
+        batch = {"tokens": toks.to(dev), "patches": patches.to(dev)}
+        launches = []
+        kad.reset_launches()
+        win = model.prefill(params, batch, want_density=True, window=8,
+                            n_sinks=2)
+        pf = model.prefill(params, batch, want_density=True)
+        launches.append(kad.attn_density.launches)
+        cache = model.init_cache(1, 32)
+        for n in ("k", "v"):
+            cache[n][:, :, :24] = pf.cache[n]
+        cache["xk"], cache["xv"] = pf.cache["xk"], pf.cache["xv"]
+        cache["pos"] = torch.tensor(24, device=dev)
+        logits = [pf.logits]
+        for tok in feed:
+            o = model.decode_step(params, tok.to(dev), cache)
+            cache = o.cache
+            logits.append(o.logits)
+        launches.append(kad.attn_density.launches)
+        return ((torch.cat(logits), cache["k"], cache["v"], pf.cache["xk"],
+                 pf.cache["xv"], pf.density, win.logits, win.density),
+                launches)
+
+    ref_out, _ = run(cpu, params_cpu, cpu.device)
+    card_out, launches = run(gpu, params_gpu, gpu.device)
+    tag = "[check] reduced VLM"
+    diffs = _diffs(("logits", "k", "v", "xk", "xv", "density",
+                    "windowed_logits", "windowed_density"), ref_out,
+                   card_out, tag)
+    bad = [k for k, (d, s) in diffs.items()
+           if d > (1e-3 if "density" in k else 0.02 * s)]
+    if bad or launches != [2 * n_self, 2 * n_self]:
+        raise AssertionError(f"{tag}: card vs CPU (max |diff|, range) "
+                             f"{diffs}; attn_density launches {launches}, "
+                             f"not {2 * n_self} in the two prefills and none "
+                             "in the decode")
+    log(f"{tag} (two prefills + 8 decode steps, gates opened): card vs CPU "
+        f"(max |diff|, range) {diffs}; tolerance 2% of range, density 1e-3; "
+        f"attn_density launches {launches[0]} in the prefills, none in the "
+        f"decode")
+    return diffs
+
+
 def _check_config(name):
     """The reduced ``name`` teacher-forced on the card against the same
     port on the CPU, over the bf16 page view, the mixed page view and the
@@ -3570,17 +4434,11 @@ def _check_config(name):
     from repro_torch.kernels import decode_mqattn as kmq
     from repro_torch.kernels import decode_qattn as kdq
     from repro_torch.kernels import ref
-    from repro_torch.models.registry import build_model
 
     cfg = reduced(get_config(name))
     what = (f"reduced {name} (H {cfg.n_heads} / KV {cfg.n_kv_heads}"
             f"{', tied head' if cfg.tie_embeddings else ''})")
-    cpu = build_model(cfg, device="cpu")
-    params_cpu = cpu.init(torch.Generator().manual_seed(SEED))
-    gpu = build_model(cfg, device="cuda")
-    params_gpu = {k: ({n: w.cuda() for n, w in v.items()}
-                      if isinstance(v, dict) else v.cuda())
-                  for k, v in params_cpu.items()}
+    cpu, params_cpu, gpu, params_gpu = _card_and_cpu(cfg)
     L, KV, hd, cs = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, 16
     g = torch.Generator().manual_seed(SEED)
     shape = (L, 10, cs, KV, hd)
@@ -3676,12 +4534,20 @@ def _rwkv_zoo_launches(rwkv, zoo, key):
                              for label, run in zoo.items()}}
 
 
-def _mla_launches(mla, key):
-    """A kernel's launches in the MLA phase's runs (deepseek-v2-lite-16b
-    at full width), each counted from 0 just before the run and read
-    just after it."""
+def _later_launches(mla, prefill, vlm, moe, key):
+    """A kernel's launches in the later slices' runs, each counted from 0
+    just before the run and read just after it: the MLA phase
+    (deepseek-v2-lite-16b), the prefill check (llama2-7b at 512 and 4096
+    tokens), the VLM phase (its prefill, then prefill and 32 decode
+    tokens) and the MoE phase (llama4-maverick at depth 2)."""
     return {"launches_mla": {label: run["launches"][key]
-                             for label, run in mla.items()}}
+                             for label, run in mla.items()},
+            "launches_prefill": {S: run["launches"][key]
+                                 for S, run in prefill["runs"].items()},
+            "launches_vlm": {"prefill": vlm["launches_prefill"][key],
+                             "prefill_and_decode": vlm["launches"][key]},
+            "launches_moe": {label: run["launches"][key]
+                             for label, run in moe.items()}}
 
 
 def main() -> int:
@@ -3703,7 +4569,9 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     smi = build_phase()
     max_err, times = kernel_phase()
-    mla_codec = mla_codec_phase()
+    mla_codec = codec_leaves_phase("MLA", MLA_CODEC_SHAPES, 8)
+    moe_codec = {b: codec_leaves_phase("MoE", MOE_CODEC_SHAPES, b)
+                 for b in (8, 4, 2)}
     mq_err, mq_times = mqattn_phase()
     ad_err, ad_times = attn_phase()
     dq_err, dq_times = qattn_phase()
@@ -3768,6 +4636,10 @@ def main() -> int:
             f"{d[-1] if d else None} ms; {len(run['pipelined'])} pipelined "
             f"restores; {run['run_s']:.2f} s for 12 calls")
     log(f"[slot] the slot phases took {time.perf_counter() - t_slot:.1f} s")
+    t_prefill = time.perf_counter()
+    prefill = prefill_check(model, params)
+    log(f"[prefill] the prefill check took "
+        f"{time.perf_counter() - t_prefill:.1f} s")
     del model, params
     torch.cuda.empty_cache()
     model, params = build_weights(get_config("smollm-360m"), SEED)
@@ -3788,6 +4660,9 @@ def main() -> int:
     del mla_weights, rwkv_weights
     gc.collect()
     torch.cuda.empty_cache()
+    vlm = vlm_phase()
+    with tempfile.TemporaryDirectory(prefix="llms_chip_moe_") as root:
+        moe = moe_runs(root)
     for a, b in (("bf16", "bf16-rerun"), ("quant", "quant-rerun"),
                  ("gqa", "gqa-rerun")):
         _same_run(routed[a], routed[b], f"{a} (llama2-7b)" if a != "gqa"
@@ -3838,10 +4713,14 @@ def main() -> int:
             "bound_ms_by_bits": {b: times[b][name]["bound_ms"]
                                  for b in (8, 4, 2)},
             "launches_quant_resident": quant["launches"][name],
-            **_mla_launches(mla, name),
+            **_later_launches(mla, prefill, vlm, moe, name),
             **_rwkv_zoo_launches(rwkv, zoo, name),
             "mla_8bit": (mla_codec["quantize_two_leaves"] if name ==
                          "quantize" else mla_codec["dequantize"]),
+            "moe_leaves_by_bits": {
+                b: (moe_codec[b]["quantize_two_leaves"] if name ==
+                    "quantize" else moe_codec[b]["dequantize"])
+                for b in (8, 4, 2)},
         })
     kernels[0].update({
         "two_leaves_ms_by_bits": {
@@ -3864,7 +4743,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/decode_mqattn.cu",
         **_router_launches(routed, "decode_mqattn"),
         **_slot_launches(slots, "decode_mqattn"),
-        **_mla_launches(mla, "decode_mqattn"),
+        **_later_launches(mla, prefill, vlm, moe, "decode_mqattn"),
         **_rwkv_zoo_launches(rwkv, zoo, "decode_mqattn"),
         "replaces": "src/repro/kernels/decode_qattn.py:183",
         "launches": quant["launches"]["decode_mqattn"],
@@ -3927,12 +4806,18 @@ def main() -> int:
             "launches_quant_resident": quant["launches"][
                 "attn_density" if key == "out"
                 else "attn_density_with_density"],
-            **_mla_launches(mla, "attn_density" if key == "out"
-                            else "attn_density_with_density"),
+            **_later_launches(mla, prefill, vlm, moe,
+                              "attn_density" if key == "out"
+                              else "attn_density_with_density"),
             **_rwkv_zoo_launches(rwkv, zoo, "attn_density" if key == "out"
                                  else "attn_density_with_density"),
             "mla_shapes": {label: {k: ad_times[src][k] for k in mla_keys}
                            for label, src in mla_rows[key]},
+            "prefill_shapes": {label: r for label, r in
+                               prefill["rows"].items()
+                               if r["density"] == (key == "density")},
+            "library_call_prefill": "F.scaled_dot_product_attention("
+                                    "is_causal=True): out only",
             **{name: {k: ad_times[src][k] for k in (
                 "shape", "form", "device_ms", "call_ms", "plain_device_ms",
                 "library_device_ms", "bound_ms", "bound_by")}
@@ -3947,7 +4832,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/decode_mqattn.cu",
         "replaces": "src/repro/kernels/decode_qattn.py:84",
         **_slot_launches(slots, "decode_qattn"),
-        **_mla_launches(mla, "decode_qattn"),
+        **_later_launches(mla, prefill, vlm, moe, "decode_qattn"),
         **_rwkv_zoo_launches(rwkv, zoo, "decode_qattn"),
         "launches": int8[0]["launches"],
         "max_abs_err": dq_err["out"], "max_abs_err_mass": dq_err["mass"],

@@ -3,7 +3,8 @@
 ``REGISTRY`` holds every dense configuration of the JAX package's
 registry (the paper's llama2-7b and opt-6.7b, and smollm-360m,
 qwen2.5-14b, qwen3-32b and deepseek-67b), the MLA + MoE
-deepseek-v2-lite-16b and the RWKV6 rwkv6-1.6b, with the same fields.
+deepseek-v2-lite-16b, the MoE llama4-maverick-400b-a17b, the RWKV6
+rwkv6-1.6b and the VLM llama-3.2-vision-90b, with the same fields.
 ``reduced(cfg)`` derives the CPU-sized config the tests use, with the
 same numbers as the JAX package's ``reduced`` for these families, so
 both packages build identical shapes.  The other families join as
@@ -12,10 +13,12 @@ they are ported (``ROADMAP.md``).
 from __future__ import annotations
 
 from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
-                                      RWKV6Config)
+                                      RWKV6Config, VisionConfig)
 from repro_torch.configs.deepseek_67b import CONFIG as _ds67
 from repro_torch.configs.deepseek_v2_lite import CONFIG as _dsv2lite
 from repro_torch.configs.llama2_7b import CONFIG as _llama2
+from repro_torch.configs.llama3_2_vision_90b import CONFIG as _llamav
+from repro_torch.configs.llama4_maverick_400b import CONFIG as _llama4
 from repro_torch.configs.opt_6_7b import CONFIG as _opt
 from repro_torch.configs.qwen2_5_14b import CONFIG as _qwen25
 from repro_torch.configs.qwen3_32b import CONFIG as _qwen3
@@ -23,7 +26,7 @@ from repro_torch.configs.rwkv6_1p6b import CONFIG as _rwkv6
 from repro_torch.configs.smollm_360m import CONFIG as _smollm
 
 REGISTRY = {c.name: c for c in (_llama2, _opt, _smollm, _qwen25, _qwen3,
-                                _ds67, _dsv2lite, _rwkv6)}
+                                _ds67, _dsv2lite, _llama4, _rwkv6, _llamav)}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -34,9 +37,14 @@ def get_config(name: str) -> ModelConfig:
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
-    """A tiny same-family config for CPU tests (dense, MLA + MoE and
-    RWKV6)."""
+    """A tiny same-family config for CPU tests (dense, MLA + MoE, MoE,
+    RWKV6 and VLM)."""
     kw = dict(n_kv_heads=2 if cfg.n_kv_heads < cfg.n_heads else 4)
+    if cfg.family == "moe":
+        kw["moe"] = MoEConfig(n_experts=4, top_k=min(cfg.moe.top_k, 2),
+                              d_expert=96, n_shared=cfg.moe.n_shared,
+                              d_shared=96 if cfg.moe.d_shared else 0,
+                              capacity_factor=2.0, group_size=32)
     if cfg.family == "mla_moe":
         kw["moe"] = MoEConfig(n_experts=4, top_k=2, d_expert=96, n_shared=2,
                               d_shared=96, capacity_factor=2.0, group_size=32)
@@ -47,9 +55,13 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         kw["n_kv_heads"] = 4
         kw["rwkv"] = RWKV6Config(head_dim=16, decay_lora=8, mix_lora=4,
                                  chunk_len=16)
+    kw["n_layers"] = min(cfg.n_layers, 4)
+    if cfg.family == "vlm":
+        kw["n_layers"] = 10
+        kw["vision"] = VisionConfig(n_image_tokens=16, d_vision=48,
+                                    cross_attn_every=5)
     return cfg.with_overrides(
         name=cfg.name + "-reduced",
-        n_layers=min(cfg.n_layers, 4),
         d_model=64,
         n_heads=4,
         d_ff=128,

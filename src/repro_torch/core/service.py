@@ -124,8 +124,11 @@ class LLMSConfig:
 
 def _refuse_unported(model: ModelBase) -> None:
     """Families this port does not run yet: refused before anything is
-    built, never quietly run as something else."""
-    if model.cfg.family not in ("dense", "mla_moe", "rwkv6"):
+    built, never quietly run as something else.  A ported family that is
+    not servable (the VLM) goes on to the executor, which refuses it as
+    the reference's does."""
+    from repro_torch.models.registry import FAMILY_CLASSES
+    if model.cfg.family not in FAMILY_CLASSES:
         raise NotImplementedError(
             f"family {model.cfg.family!r} is not ported yet (ROADMAP.md)")
 

@@ -4,7 +4,7 @@ Every family implements:
 
   init(generator) -> params                  (dict of stacked-layer tensors)
   decode_step(params, tokens, cache, ...) -> DecodeOut
-  prefill(params, batch) -> PrefillOut       (RWKV6; dense/MLA: ROADMAP.md)
+  prefill(params, batch) -> PrefillOut
   kv_spec() -> KVSpec                        (declarative cache adapter)
   _build_cache(batch, seq, dtype, layout) -> cache  (dict incl. 'pos')
 
@@ -47,7 +47,7 @@ class DecodeOut(NamedTuple):
 class PrefillOut(NamedTuple):
     logits: torch.Tensor           # (B, vocab) fp32, last position
     cache: Cache
-    key_density: Any               # (B, S) fp32, or None
+    density: Any                   # (B, S) fp32, or None
 
 
 class ModelBase:

@@ -2,8 +2,9 @@
 package's models/common.py: the functions serving runs).
 
 These stay plain PyTorch, as the JAX package computes them outside any
-Pallas kernel too — except the attention of serving's extend
-(``extend_attention``: the ``attn_density`` kernel) and of decode over
+Pallas kernel too — except the attention of serving's extend and of
+a full-sequence prefill (``extend_attention``, ``prefill_attention``:
+the ``attn_density`` kernel) and of decode over
 a mixed or an all-int8 cache (``mixed_decode_attention``: the
 ``decode_mqattn`` kernel; ``decode_attention`` with scales: the
 ``decode_qattn`` kernel), which go through ``kernels/ops.py`` (on a
@@ -184,6 +185,36 @@ def extend_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from repro_torch.kernels import ops as kops
     out, density = kops.attn_density(q, k, v, q_pos, seq_len, window,
                                      n_sinks, want_density, form="served")
+    return AttnOut(out, density)
+
+
+# the longest prefill the reference attends in one materialised product
+# (``gqa_attention``); longer ones, and every windowed one, take its
+# blocked flash forms
+PREFILL_FULL_MAX_S = 2048
+
+
+def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      positions: torch.Tensor, window: int = 0,
+                      n_sinks: int = 0, want_density: bool = False
+                      ) -> AttnOut:
+    """Causal self-attention of a full-sequence prefill: q (B,S,H,Dqk),
+    k (B,S,KV,Dqk), v (B,S,KV,Dv) at ``positions`` (S,) = arange(S),
+    through ``attn_density`` (the CUDA kernel on the card, its plain
+    version on the CPU) in the form of the reference branch it stands
+    for (``dense.py:_layer_full``): the served form where the reference
+    takes ``gqa_attention`` under ``causal_window_mask`` (S <=
+    PREFILL_FULL_MAX_S and no window), else the flash form, where it
+    takes ``flash_attention`` (no density) or
+    ``blocked_causal_attention`` (with the density).  Those two round
+    the unnormalised p to bf16 before PV, in blocks of 1024 keys; the
+    flash form keeps PV in fp32, as the Pallas kernel does, so outputs
+    differ at bf16 level (``tests/test_torch_prefill.py``)."""
+    from repro_torch.kernels import ops as kops
+    S = q.shape[1]
+    form = "flash" if S > PREFILL_FULL_MAX_S or window else "served"
+    out, density = kops.attn_density(q, k, v, positions, S, window, n_sinks,
+                                     want_density, form=form)
     return AttnOut(out, density)
 
 
@@ -412,3 +443,17 @@ def init_linear(generator: torch.Generator, shape, device,
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=device)
     return (w * scale).to(dtype)
+
+
+def init_stacked(generator: torch.Generator, n: int, shapes, device
+                 ) -> dict:
+    """{name: (n, *shape) bf16} for each name -> shape of ``shapes``,
+    drawn one entry of the stack at a time (``init_linear``), so the
+    fp32 draw of a full-width weight never sits beside the stack."""
+    out = {}
+    for name, shp in shapes.items():
+        w = torch.empty((n, *shp), dtype=torch.bfloat16, device=device)
+        for i in range(n):
+            w[i] = init_linear(generator, shp, device)
+        out[name] = w
+    return out

@@ -1,13 +1,16 @@
 """Weights carried across from the JAX package.
 
-``params_from_jax`` takes the reference ``DenseModel.init``,
-``MLAModel.init`` or ``RWKV6Model.init`` pytree as numpy arrays
-(nested dicts, layers stacked on axis 0, bf16 arrays as
-``ml_dtypes.bfloat16``) and returns the port's parameter dict on
-``device``, bit for bit, so both packages compute the same model.  For
-``mla_moe`` the router stays fp32 (L, d, E) and the expert weights are
-(L, E, d, fe) and (L, E, fe, d); for ``rwkv6`` the norms, mixes and
-decay base stay fp32 and the projections bf16 (``_check_rwkv6``).
+``params_from_jax`` takes the reference ``init`` pytree of a ported
+family (``DenseModel``, ``MLAModel``, ``MoEModel``, ``RWKV6Model``,
+``VLMModel``) as numpy arrays (nested dicts, layers stacked on axis 0,
+bf16 arrays as ``ml_dtypes.bfloat16``) and returns the port's parameter
+dict on ``device``, bit for bit, so both packages compute the same
+model.  For ``mla_moe`` and ``moe`` the router stays fp32 (L, d, E) and
+the expert weights are (L, E, d, fe) and (L, E, fe, d); for ``rwkv6``
+the norms, mixes and decay base stay fp32 and the projections bf16
+(``_check_rwkv6``); ``vlm`` stacks its self layers and its cross layers
+apart (``self_layers`` over the self-layer count, ``cross_layers`` over
+the cross-layer count).
 """
 from __future__ import annotations
 
@@ -31,9 +34,9 @@ def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
 
 def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig,
                     device) -> Dict[str, Any]:
-    """Reference dense, MLA + MoE or RWKV6 params (numpy) -> port params
-    on ``device``."""
-    if cfg.family not in ("dense", "mla_moe", "rwkv6"):
+    """Reference params of a ported family (numpy) -> port params on
+    ``device``."""
+    if cfg.family not in ("dense", "mla_moe", "moe", "rwkv6", "vlm"):
         raise NotImplementedError(
             f"weight conversion for family {cfg.family!r} is not ported "
             "(ROADMAP.md)")
@@ -44,12 +47,17 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig,
         return tensor_from_numpy(np.asarray(tree), device)
 
     out = conv(np_params)
-    L = cfg.n_layers
-    for name, w in out["layers"].items():
-        if w.shape[0] != L:
-            raise ValueError(f"layer param {name!r} is not stacked over "
-                             f"{L} layers: {tuple(w.shape)}")
-    if cfg.family == "mla_moe":
+    stacks = {"layers": cfg.n_layers}
+    if cfg.family == "vlm":
+        n_cross = cfg.n_layers // cfg.vision.cross_attn_every
+        stacks = {"self_layers": cfg.n_layers - n_cross,
+                  "cross_layers": n_cross}
+    for stack, L in stacks.items():
+        for name, w in out[stack].items():
+            if w.shape[0] != L:
+                raise ValueError(f"{stack} param {name!r} is not stacked "
+                                 f"over {L} layers: {tuple(w.shape)}")
+    if cfg.family in ("mla_moe", "moe"):
         _check_moe(out["layers"], cfg)
     if cfg.family == "rwkv6":
         _check_rwkv6(out, cfg)

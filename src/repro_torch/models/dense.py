@@ -1,12 +1,16 @@
 """Dense decoder-only transformer (llama family) — the serving entries.
 
-Mirror of the JAX package's models/dense.py for what serving runs:
-``init``, ``head_weight``, ``decode_step`` (window, mixed and all-int8
-caches), the interleaved-chunk ``recompute`` (paper Fig. 7; also the
-chunked prefill-append), the layer-pipelined ``recompute_pipelined``
-(paper Fig. 8) and the paged-pool entries ``decode_paged`` /
-``extend_paged``.  Layer parameters are stacked (L, ...) as in the
-reference; its ``lax.scan`` over layers is a Python loop here.
+Mirror of the JAX package's models/dense.py for what serving and
+inference run: ``init``, ``head_weight``, the full-sequence ``prefill``
+(``_layer_full`` / ``_stack_full``, attention through
+``C.prefill_attention``: the ``attn_density`` kernel on the card),
+``decode_step`` (window, mixed and all-int8 caches), the
+interleaved-chunk ``recompute`` (paper Fig. 7; also the chunked
+prefill-append), the layer-pipelined ``recompute_pipelined`` (paper
+Fig. 8) and the paged-pool entries ``decode_paged`` / ``extend_paged``.
+Layer parameters are stacked (L, ...) as in the reference; its
+``lax.scan`` over layers is a Python loop here.  Training (``loss``,
+``blockwise_ce``, rematerialisation) is not ported (``ROADMAP.md``).
 
 The mixed layout is the quant-resident working cache: bf16 ``k``/``v``
 plus int8 ``k_q``/``v_q`` segments with per-(token, kv-head) scales,
@@ -27,7 +31,7 @@ import torch
 from repro_torch.kernels.paged import scatter_token
 from repro_torch.kernels.ref import quantize_token_head_ref
 from repro_torch.models import common as C
-from repro_torch.models.api import DecodeOut, ModelBase
+from repro_torch.models.api import DecodeOut, ModelBase, PrefillOut
 from repro_torch.models.kvspec import KVSpec, LAYOUT_MIXED, LAYOUT_WINDOW
 
 
@@ -79,26 +83,25 @@ class DenseModel(ModelBase):
         )
 
     # ------------------------------------------------------------------ #
-    def init(self, generator: torch.Generator) -> Dict:
+    def init(self, generator: torch.Generator, ffn: bool = True) -> Dict:
         """Random weights from ``generator`` (which must live on the
         model's device), drawn one layer at a time so the fp32 draw of
-        a full-width weight never sits beside the whole stack."""
+        a full-width weight never sits beside the whole stack.
+        ``ffn=False`` leaves out the dense FFN (``MoEModel`` installs
+        its experts instead)."""
         cfg, dev = self.cfg, self.device
         H, KV, hd, d, ff = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                             cfg.d_model, cfg.d_ff)
         L = cfg.n_layers
         shapes = {"wq": (d, H * hd), "wk": (d, KV * hd), "wv": (d, KV * hd),
-                  "wo": (H * hd, d), "w_gate": (d, ff), "w_up": (d, ff),
-                  "w_down": (ff, d)}
+                  "wo": (H * hd, d)}
+        if ffn:
+            shapes.update(w_gate=(d, ff), w_up=(d, ff), w_down=(ff, d))
         layers = {
             "ln_attn": torch.ones((L, d), dtype=torch.float32, device=dev),
             "ln_ffn": torch.ones((L, d), dtype=torch.float32, device=dev),
         }
-        for name, shp in shapes.items():
-            w = torch.empty((L, *shp), dtype=torch.bfloat16, device=dev)
-            for l in range(L):
-                w[l] = C.init_linear(generator, shp, dev)
-            layers[name] = w
+        layers.update(C.init_stacked(generator, L, shapes, dev))
         if cfg.qkv_bias:
             for n, width in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd)):
                 layers[n] = torch.zeros((L, width), dtype=torch.float32,
@@ -149,6 +152,62 @@ class DenseModel(ModelBase):
     def _ffn(self, pl, x):
         h = C.rms_norm(x, pl["ln_ffn"], self.cfg.norm_eps)
         return x + C.swiglu(h, pl["w_gate"], pl["w_up"], pl["w_down"])
+
+    # -- full-sequence layer (prefill) --------------------------------- #
+    def _layer_full(self, pl, x, positions, window, n_sinks, want_density,
+                    return_kv):
+        """One layer over the whole sequence x (B, S, d) at ``positions``
+        (S,) = arange(S), causal attention through
+        ``C.prefill_attention``.  -> (x, {"density", "k", "v"} as
+        asked)."""
+        h = C.rms_norm(x, pl["ln_attn"], self.cfg.norm_eps)
+        q, k, v = self._qkv(pl, h)
+        q, k = self._rope(q, k, positions)
+        ao = C.prefill_attention(q, k, v, positions, window, n_sinks,
+                                 want_density)
+        x = x + ao.out.reshape(*x.shape[:2], -1) @ pl["wo"]
+        x = self._ffn(pl, x)
+        extras = {}
+        if want_density:
+            extras["density"] = ao.key_density
+        if return_kv:
+            extras["k"], extras["v"] = k, v
+        return x, extras
+
+    def _stack_full(self, params, tokens, *, window=0, n_sinks=0,
+                    want_density=False, return_kv=False):
+        """Every layer over tokens (B, S), then the final norm.  -> (x
+        (B, S, d), extras stacked over layers: density (L, B, S), k / v
+        (L, B, S, KV, hd) as asked)."""
+        x = params["embed"][tokens].to(torch.bfloat16)
+        positions = torch.arange(tokens.shape[1], device=x.device)
+        extras = []
+        for l in range(self.cfg.n_layers):
+            x, ex = self._layer_full(_layer(params, l), x, positions,
+                                     window, n_sinks, want_density,
+                                     return_kv)
+            extras.append(ex)
+        x = C.rms_norm(x, params["ln_f"], self.cfg.norm_eps)
+        return x, {k: torch.stack([e[k] for e in extras])
+                   for k in extras[0]}
+
+    def prefill(self, params, batch, want_density: bool = False,
+                window: int = 0, n_sinks: int = 0) -> PrefillOut:
+        """Full-sequence prefill of batch["tokens"] (B, S).
+        -> PrefillOut(logits (B, V) fp32 at the last position, cache
+        {each of the KVSpec's seq_leaves stacked over layers (dense:
+        "k", "v" (L, B, S, KV, hd)), "pos": S}, density (B, S) averaged
+        over layers | None)."""
+        tokens = batch["tokens"]
+        x, extras = self._stack_full(params, tokens, window=window,
+                                     n_sinks=n_sinks,
+                                     want_density=want_density,
+                                     return_kv=True)
+        logits = (x[:, -1] @ self.head_weight(params)).to(torch.float32)
+        cache = {n: extras[n] for n in self.kv_spec().seq_leaves}
+        cache["pos"] = torch.tensor(tokens.shape[1], device=x.device)
+        density = extras["density"].mean(dim=0) if want_density else None
+        return PrefillOut(logits, cache, density)
 
     def _build_cache(self, batch, seq, dtype, layout):
         cfg, dev = self.cfg, self.device

@@ -1,17 +1,19 @@
 """DeepSeek-V2 style Multi-head Latent Attention + MoE (deepseek-v2-lite).
 
-Mirror of the JAX package's models/mla.py for what serving runs:
-``kv_spec``, ``init``, ``decode_step`` (window and mixed caches) and the
-interleaved-chunk ``recompute`` (paper Fig. 7; also the chunked
-prefill-append).  MLA caches one compressed latent per token — ``ckv``
+Mirror of the JAX package's models/mla.py for what serving and
+inference run: ``kv_spec``, ``init``, the full-sequence ``prefill``
+(``_layer_full`` under the dense ``prefill``; its cache is {"ckv",
+"kpe", "pos"}), ``decode_step``
+(window and mixed caches) and the interleaved-chunk ``recompute``
+(paper Fig. 7; also the chunked prefill-append).  MLA caches one compressed latent per token — ``ckv``
 (kv_lora_rank) plus a shared roped key ``kpe`` (qk_rope_head_dim) —
 instead of per-head K/V.  Decode uses the **absorbed** form (q folded
 through W_uk, attention runs against the rank-r latent directly, with
 torch einsums as the reference computes it with ``jnp.einsum``);
 ``recompute`` up-projects the latent to per-head K (nope + rope) and V
-and attends through ``C.extend_attention``: the ``attn_density`` CUDA
-kernel on the card, at query/key head dim nope + rope and value head
-dim ``v_head_dim``.  The FFN is the MoE layer (``moe_layer.py``).
+and attends through ``C.extend_attention`` (``prefill``: through
+``C.prefill_attention``): the ``attn_density`` CUDA kernel on the card,
+at query/key head dim nope + rope and value head dim ``v_head_dim``.  The FFN is the MoE layer (``moe_layer.py``).
 
 The mixed layout is the quant-resident working cache: bf16 ``ckv`` /
 ``kpe`` plus int8 ``ckv_q`` / ``kpe_q`` with one fp32 scale per (token,
@@ -22,7 +24,8 @@ reference's layer ``scan`` is a Python loop.
 
 The family serves only on the slot engine: its ``KVSpec`` declares no
 paged pool, no batched decode and no pipelined restore, and those
-entries raise.  ``prefill`` is not on the serving path (``ROADMAP.md``).
+entries raise.  ``prefill`` is not on the serving path: the reference's
+tests and callers use it, and so do the port's.
 """
 from __future__ import annotations
 
@@ -35,14 +38,12 @@ from repro_torch.models import common as C
 from repro_torch.models.api import DecodeOut
 from repro_torch.models.dense import DenseModel, _layer
 from repro_torch.models.kvspec import KVSpec, LAYOUT_MIXED, LAYOUT_WINDOW
-from repro_torch.models.moe_layer import init_moe_params, moe_ffn
+from repro_torch.models.moe_layer import init_moe_params, moe_residual
 
 # mixed-precision (quant-resident) latent leaves: int8 codes + per-
 # (token, layer) scales over the whole rank vector, riding along the
 # bf16 window exactly like dense's k_q/v_q tier
 _LATENT_QUANT_LEAVES = ("ckv_q", "kpe_q", "ckv_scale", "kpe_scale")
-_MOE_KEYS = ("router", "w_gate", "w_up", "w_down", "s_gate", "s_up",
-             "s_down")
 
 
 def _latent_select(c: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
@@ -99,11 +100,7 @@ class MLAModel(DenseModel):
         ones = {"ln_attn": d, "ln_ffn": d, "ln_kv": m.kv_lora_rank}
         layers = {n: torch.ones((L, w), dtype=torch.float32, device=dev)
                   for n, w in ones.items()}
-        for name, shp in shapes.items():
-            w = torch.empty((L, *shp), dtype=torch.bfloat16, device=dev)
-            for l in range(L):
-                w[l] = C.init_linear(generator, shp, dev)
-            layers[name] = w
+        layers.update(C.init_stacked(generator, L, shapes, dev))
         layers.update(init_moe_params(generator, d, moe, dev, n_layers=L))
         return {
             "embed": C.init_linear(generator, (cfg.vocab, d), dev),
@@ -113,10 +110,7 @@ class MLAModel(DenseModel):
         }
 
     def _ffn(self, pl, x):
-        h = C.rms_norm(x, pl["ln_ffn"], self.cfg.norm_eps)
-        y, _ = moe_ffn(h, {k: pl[k] for k in _MOE_KEYS if k in pl},
-                       self.cfg.moe)
-        return x + y
+        return moe_residual(pl, x, self.cfg)
 
     # -- latent computation shared by decode / recompute ---------------- #
     def _latents(self, pl, h, positions):
@@ -150,6 +144,29 @@ class MLAModel(DenseModel):
         kpe_h = kpe[:, :, None, :].expand(B, S, H, m.qk_rope_head_dim)
         k = torch.cat([k_nope, kpe_h.to(k_nope.dtype)], dim=-1)
         return k, v
+
+    # -- full-sequence layer (prefill) --------------------------------- #
+    def _layer_full(self, pl, x, positions, window, n_sinks, want_density,
+                    return_kv):
+        """One layer over the whole sequence: per-head K (nope + rope)
+        and V up-projected from the latents, causal attention through
+        ``C.prefill_attention`` at head dims nope + rope / v.  -> (x,
+        {"density", "ckv", "kpe"} as asked)."""
+        h = C.rms_norm(x, pl["ln_attn"], self.cfg.norm_eps)
+        q_nope, q_pe = self._queries(pl, h, positions)
+        q = torch.cat([q_nope, q_pe], dim=-1)
+        ckv, kpe = self._latents(pl, h, positions)
+        k, v = self._expand_kv(pl, ckv, kpe)
+        ao = C.prefill_attention(q, k, v, positions, window, n_sinks,
+                                 want_density)
+        x = x + ao.out.reshape(*x.shape[:2], -1) @ pl["wo"]
+        x = self._ffn(pl, x)
+        extras = {}
+        if want_density:
+            extras["density"] = ao.key_density
+        if return_kv:
+            extras["ckv"], extras["kpe"] = ckv, kpe
+        return x, extras
 
     def _build_cache(self, batch, seq, dtype, layout):
         cfg, m, dev = self.cfg, self.cfg.mla, self.device

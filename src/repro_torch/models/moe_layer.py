@@ -31,8 +31,6 @@ from repro_torch.configs.base import MoEConfig
 from repro_torch.models import common as C
 
 
-
-
 def capacity(gs: int, moe: MoEConfig) -> int:
     c = math.ceil(gs * moe.top_k * moe.capacity_factor / moe.n_experts)
     return max(4, min(c, gs))
@@ -112,14 +110,30 @@ def moe_ffn(x: torch.Tensor, p: Dict[str, torch.Tensor], moe: MoEConfig
     return y, {"moe_aux": aux}
 
 
+MOE_KEYS = ("router", "w_gate", "w_up", "w_down", "s_gate", "s_up",
+            "s_down")
+
+
+def moe_residual(pl: Dict[str, torch.Tensor], x: torch.Tensor,
+                 cfg) -> torch.Tensor:
+    """A layer's FFN sub-layer in the MoE families (``MoEModel._ffn``,
+    ``MLAModel._ffn``): x + moe_ffn(rms_norm(x, ln_ffn)) over the layer
+    params' MoE leaves."""
+    h = C.rms_norm(x, pl["ln_ffn"], cfg.norm_eps)
+    y, _ = moe_ffn(h, {k: pl[k] for k in MOE_KEYS if k in pl}, cfg.moe)
+    return x + y
+
+
 def init_moe_params(generator: torch.Generator, d: int, moe: MoEConfig,
                     device, n_layers: int = 1, dtype=torch.bfloat16
                     ) -> Dict[str, torch.Tensor]:
     """Stacked (L, ...) MoE FFN params drawn from ``generator`` (on
-    ``device``) one layer at a time, N(0, 0.02^2) as the reference's
-    ``init_moe_params``: the fp32 draw of one layer's experts is the
-    largest temporary (0.74 GB at deepseek-v2-lite's width), never the
-    whole stack's.  The router is drawn in ``dtype`` and kept in fp32."""
+    ``device``), N(0, 0.02^2) as the reference's ``init_moe_params``,
+    one layer at a time and the expert leaves one expert at a time: the
+    largest fp32 temporary is one expert's (d, fe) or one layer's
+    shared-expert leaf (0.17 GB at llama4-maverick's width, where one
+    layer's ``w_gate`` alone would be 21.5 GB in fp32).  The router is
+    drawn in ``dtype`` and kept in fp32."""
     E, fe, L = moe.n_experts, moe.d_expert, n_layers
     shapes = {"router": (d, E), "w_gate": (E, d, fe), "w_up": (E, d, fe),
               "w_down": (E, fe, d)}
@@ -130,6 +144,11 @@ def init_moe_params(generator: torch.Generator, d: int, moe: MoEConfig,
     for name, shp in shapes.items():
         w = torch.empty((L, *shp), dtype=dtype, device=device)
         for l in range(L):
-            w[l] = C.init_linear(generator, shp, device, dtype=dtype)
+            if name.startswith("w_"):
+                for e in range(E):
+                    w[l, e] = C.init_linear(generator, shp[1:], device,
+                                            dtype=dtype)
+            else:
+                w[l] = C.init_linear(generator, shp, device, dtype=dtype)
         p[name] = w.to(torch.float32) if name == "router" else w
     return p

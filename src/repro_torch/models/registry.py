@@ -1,9 +1,10 @@
 """Family -> model-class registry of the port.  ``build_model(cfg)`` is
 the single construction point and ``family_spec(cfg)`` the capability
-query, as in the JAX package.  The dense, the MLA + MoE (``mla_moe``)
-and the RWKV6 (``rwkv6``) families are ported; every other family
-(``moe``, ``vlm``, ``encdec``, ``rglru_hybrid``) raises
-``NotImplementedError`` by name (see ``ROADMAP.md``)."""
+query, as in the JAX package.  The dense, the MLA + MoE (``mla_moe``),
+the MoE (``moe``), the RWKV6 (``rwkv6``) and the VLM (``vlm``)
+families are ported; every other family (``encdec``,
+``rglru_hybrid``) raises ``NotImplementedError`` by name (see
+``ROADMAP.md``)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
@@ -12,10 +13,12 @@ from repro_torch.models.common import configure_numerics
 from repro_torch.models.dense import DenseModel
 from repro_torch.models.kvspec import KVSpec
 from repro_torch.models.mla import MLAModel
+from repro_torch.models.moe import MoEModel
 from repro_torch.models.rwkv6 import RWKV6Model
+from repro_torch.models.vlm import VLMModel
 
 FAMILY_CLASSES = {"dense": DenseModel, "mla_moe": MLAModel,
-                  "rwkv6": RWKV6Model}
+                  "moe": MoEModel, "rwkv6": RWKV6Model, "vlm": VLMModel}
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> ModelBase:

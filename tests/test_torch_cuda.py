@@ -919,3 +919,79 @@ def test_cuda_pipelined_equals_io_then_recompute(card, quant, tmp_path):
             assert torch.equal(a[n][:, :, :64], b[n][:, :, :64]), n
         if quant:
             assert torch.equal(a["quant_mask"], b["quant_mask"])
+
+
+# --------------------------------------------------------------------- #
+# the prefill, the MoE family (llama4-maverick) and the VLM family
+# --------------------------------------------------------------------- #
+def _smoke():
+    """``chip_smoke.py`` as a module (its card-vs-CPU checks)."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["llama2-7b", "deepseek-v2-lite-16b"])
+def test_cuda_prefill_matches_cpu(card, name):
+    """``prefill`` of the reduced dense and MLA models on the card
+    (``attn_density`` in the served form and, with a window, the flash
+    form, one launch a layer) against the same port on the CPU: logits
+    and K/V (latents) within 2% of their range, the density within
+    1e-3; MLA's routing held to the CPU's at expert near-ties.  The
+    check is ``chip_smoke.py``'s ``_check_prefill``, which raises where
+    they differ."""
+    out = _smoke()._check_prefill((name,))[name]
+    assert set(out) == {"served", "flash", "flash_density"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["window", "mixed"])
+def test_cuda_moe_matches_cpu(card, layout):
+    """The reduced llama4-maverick on the card (``attn_density`` in the
+    recompute; over the mixed cache ``decode_mqattn`` in each decode
+    step) against the same port on the CPU: logits and K/V within 2% of
+    their range, the density and the masses within 1e-3, routing held to
+    the CPU's at expert near-ties.  The check is ``chip_smoke.py``'s
+    ``_check_moe``."""
+    diffs = _smoke()._check_moe((layout,))[layout]
+    assert set(diffs) == {"logits", "kv", "density", "mass"}
+
+
+@pytest.mark.cuda
+def test_cuda_vlm_matches_cpu(card):
+    """The reduced llama-3.2-vision (gates opened) on the card against
+    the same port on the CPU: two prefills with patches (served and
+    flash forms of ``attn_density``) and 8 decode steps; logits, K/V and
+    image K/V within 2% of their range, the density within 1e-3.  The
+    check is ``chip_smoke.py``'s ``_check_vlm``."""
+    diffs = _smoke()._check_vlm()
+    assert {"logits", "xk", "xv", "density"} <= set(diffs)
+
+
+@pytest.mark.cuda
+def test_cuda_serve_main_serves_moe(card, capsys):
+    """``launch.serve.main --arch llama4-maverick-400b-a17b --reduced
+    --quant-resident`` on the card: slot caches, every call served,
+    attn_density in every extend and decode_mqattn over the mixed slot
+    cache."""
+    import json
+    from repro_torch.kernels import attn_density as kad
+    from repro_torch.kernels import decode_mqattn as kmq
+    from repro_torch.launch import serve
+    kad.reset_launches()
+    kmq.reset_launches()
+    stats = serve.main(["--arch", "llama4-maverick-400b-a17b", "--reduced",
+                        "--calls", "6", "--contexts", "3", "--max-ctx",
+                        "512", "--max-new", "4", "--decode-batch", "2",
+                        "--quant-resident"])
+    out = capsys.readouterr().out
+    printed = json.loads(out[out.index("{"):])
+    assert printed["failed_calls"] == stats["failed_calls"] == 0
+    assert printed["device"].startswith("cuda") and not printed["paged_pool"]
+    assert kad.attn_density.launches > 0 and kad.attn_density.launches % 4 == 0
+    assert kmq.decode_mqattn.launches > 0

@@ -191,10 +191,11 @@ def test_slot_and_whole_state_configurations_serve(kw, what):
     assert all(len(t) == 3 for t in out[1])
 
 
-def test_other_families_are_refused():
+@pytest.mark.parametrize("family", ["encdec", "rglru_hybrid"])
+def test_other_families_are_refused(family):
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
-    cfg = get_config("llama2-7b").with_overrides(family="moe")
+    cfg = get_config("llama2-7b").with_overrides(family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg, device="cpu")
 

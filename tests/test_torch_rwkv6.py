@@ -136,7 +136,7 @@ def test_prefill_decode_recompute_match_reference():
     jpf = jax.jit(jmodel.prefill)(jparams,
                                   {"tokens": jnp.asarray(toks[:, :S])})
     tpf = tmodel.prefill(tparams, {"tokens": torch.from_numpy(toks[:, :S])})
-    assert tpf.key_density is None and int(tpf.cache["pos"]) == S
+    assert tpf.density is None and int(tpf.cache["pos"]) == S
     _close_bf16(jpf.logits, tpf.logits)
     jc, tc = dict(jpf.cache), tpf.cache
     wkv_prefill = tc["wkv"].clone()
@@ -311,7 +311,7 @@ def test_router_and_serve_main_match_reference(capsys):
     assert printed["router"]["foreground"]["calls"] \
         + printed["router"]["background"]["calls"] == 6
 
-    for fam in ("moe", "vlm", "encdec", "rglru_hybrid"):
+    for fam in ("encdec", "rglru_hybrid"):
         with pytest.raises(NotImplementedError, match=repr(fam)):
             build_model(get_config("llama2-7b").with_overrides(family=fam),
                         device="cpu")
