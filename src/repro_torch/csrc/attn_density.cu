@@ -13,9 +13,9 @@
 // version is src/repro_torch/kernels/ref.py attn_density_plain.
 //
 // The function.  q (B,Sq,H,Dqk) bf16; k (B,Sk,KV,Dqk) bf16; v
-// (B,Sk,KV,Dv) bf16; q_pos (Sq,) int32; out (B,Sq,H,Dv).  Dqk <= 192
-// and Dv <= 128 (MLA's recompute: 128 + 64 and 128; the dense family:
-// Dqk = Dv = hd).  Key j is visible to query i when j <= q_pos[i],
+// (B,Sk,KV,Dv) bf16; q_pos (Sq,) int32; out (B,Sq,H,Dv).  Dqk <= 256
+// and Dv <= 256 (MLA's recompute: 128 + 64 and 128; the dense family:
+// Dqk = Dv = hd; recurrentgemma's local MQA: 256 and 256).  Key j is visible to query i when j <= q_pos[i],
 // j < seq_len and, with a window, j > q_pos[i] - window or j < n_sinks.
 // Scores are fp32 dot products times 1/sqrt(Dqk); invisible keys take the finite
 // NEG_INF = -0.7 FLT_MAX, so a query with no visible key is uniform over
@@ -40,8 +40,9 @@
 // slices; with 64 rows each warp owns 16 rows and all 64 keys.  Keys go
 // through shared memory as bf16 in double-buffered 64-key tiles filled
 // with cp.async (16 B a thread; zero-filled past Sk and past the head
-// dims: Dqk padded to HDQ = 64, 128 or 192 (the QK k-steps), Dv to HDV =
-// min(HDQ, 128) (the PV fragments); K rows HDQ wide, V rows HDV wide);
+// dims: Dqk padded to HDQ = 64, 128, 192 or 256 (the QK k-steps), Dv to
+// HDV = min(HDQ, 128) (the PV fragments); K rows HDQ wide, V rows HDV
+// wide);
 // Q is loaded once, into registers, through K's first stage.  A tile
 // every row sees whole skips the per-key mask.  QK and PV run on the tensor
 // cores, mma.sync.m16n8k16 bf16 -> fp32 with ldmatrix (.trans for V).
@@ -66,7 +67,22 @@
 //
 // Shared memory: 2 stages of 64 keys of K (HDQ + 8) and V (HDV + 8)
 // bf16 and the reduction buffers — 71,440 B a 64-row block at 128/128
-// (three blocks fit an SM), 87,824 B at MLA's 192/128 (two fit).
+// (three blocks fit an SM), 87,824 B at MLA's 192/128 (two fit),
+// 104,208 B at 256 (two fit).
+//
+// Head dim 256 (HDQ 256, Dv up to 256).  A block's PV accumulators stay
+// at HDV = 128 columns: Q's fragments at 256 are 64 registers a thread
+// and 128 columns of O another 64, so a 256-wide O would not fit beside
+// them.  Instead a second grid axis takes Dv in 128-column halves: each
+// block recomputes QK and the softmax of its rows (the same code on the
+// same data, so both halves hold the same m, l and p), loads and
+// multiplies only its half of V, and writes its 128 output columns;
+// only half 0 sums the key mass into the scratch (half 1 skips the
+// flash form's mass pass).  That doubles the QK work at 256 and nowhere
+// else: the 64, 128 and 192/128 instantiations compile as before (the
+// split is a compile-time branch on HDQ).  A simple design that is
+// right first; wgmma tiles with the whole of O across a warpgroup are
+// later work.
 //
 // Bound.  Bytes: q, the visible K/V rows and out once, about
 // (Sq H Dqk + n_keys KV (Dqk + Dv) + Sq H Dv) * 2 bytes; operations:
@@ -87,8 +103,8 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kKeys = 64;        // keys of a tile
-constexpr int kMaxDqk = 192;
-constexpr int kMaxDv = 128;
+constexpr int kMaxDqk = 256;
+constexpr int kMaxDv = 256;
 constexpr int kMaxGroup = 64;
 constexpr int kWaveBlocks = 132;  // SMs of an H100 SXM
 // the port's NEG_INF: -0.7 * float32 max computed in double, then cast
@@ -185,7 +201,8 @@ constexpr size_t smem_bytes() {
 }
 
 // RW row groups of 16 rows per block, 4 / RW warps sharing each one;
-// HDQ = Dqk padded to 64, 128 or 192, HDV = Dv padded to min(HDQ, 128).
+// HDQ = Dqk padded to 64, 128, 192 or 256, HDV = Dv padded to min(HDQ,
+// 128); at HDQ 256 blockIdx.y picks V's 128-column half.
 // The flash form's 64-row variants at HDQ <= 128 are held to 168
 // registers so that three blocks share an SM (measured faster at the
 // Pallas setting); the served form's spill at that bound and gain
@@ -221,6 +238,12 @@ __global__ void __launch_bounds__(kThreads,
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int rg = warp / KW, ks = warp % KW;
   const int n_rows = a.Sq * G, row0 = tile * ROWS;
+  // HDQ 256: this block's half of V (columns v0 .. v0 + dvh - 1) and of
+  // out; half 0 alone sums the key mass
+  constexpr bool VSPLIT = HDQ > 192;
+  const int v0 = VSPLIT ? (int)blockIdx.y * HDV : 0;
+  const int dvh = VSPLIT ? min(HDV, dv - v0) : dv;
+  const bool mass = MASS && v0 == 0;
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
 
   // ---- rows and Q ---------------------------------------------------- //
@@ -298,18 +321,20 @@ __global__ void __launch_bounds__(kThreads,
       const size_t row = key < Sk ? ((size_t)b * Sk + key) * a.KV + kvh : 0;
       const bool v_too = with_v && (HDV == HDQ || c < HDV);
       if (a.vec) {
-        const bool ik = key < Sk && c < dqk, iv = key < Sk && c < dv;
+        const bool ik = key < Sk && c < dqk, iv = key < Sk && c < dvh;
         cp_async16(kd + j * LDQ + c, a.k + (ik ? row * dqk + c : 0),
                    ik ? 16 : 0);
         if (v_too)
-          cp_async16(vd + j * LDV + c, a.v + (iv ? row * dv + c : 0),
+          cp_async16(vd + j * LDV + c, a.v + (iv ? row * dv + v0 + c : 0),
                      iv ? 16 : 0);
       } else {
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
-          const bool ik = key < Sk && c + i < dqk, iv = key < Sk && c + i < dv;
+          const bool ik = key < Sk && c + i < dqk;
+          const bool iv = key < Sk && c + i < dvh;
           kd[j * LDQ + c + i] = ik ? a.k[row * dqk + c + i] : zero;
-          if (v_too) vd[j * LDV + c + i] = iv ? a.v[row * dv + c + i] : zero;
+          if (v_too)
+            vd[j * LDV + c + i] = iv ? a.v[row * dv + v0 + c + i] : zero;
         }
       }
     }
@@ -491,7 +516,7 @@ __global__ void __launch_bounds__(kThreads,
   __syncthreads();  // red is reused below
 
   // ---- pass 2: p (and its column sums); served: PV ------------------- //
-  if (SERVED || MASS)
+  if (SERVED || mass)
     walk(SERVED, [&](int st, int k0) {
       float s[NT][4];
       scores(st, k0, s);
@@ -504,15 +529,15 @@ __global__ void __launch_bounds__(kThreads,
                         ? expf(x - m_g[e / 2]) / l_g[e / 2]
                         : 0.0f;
         }
-      if (MASS) colsum(k0, s);
+      if (mass) colsum(k0, s);
       if (SERVED) pv(st, s);
     });
 
   // ---- store: sum the slices' PV in order, normalise ----------------- //
   auto store = [&](int r, int d, float x) {
     const int gr = row0 + r;
-    a.out[(((size_t)b * a.Sq + gr / G) * a.H + kvh * G + gr % G) * dv + d] =
-        __float2bfloat16_rn(SERVED ? x : x / l_row[r]);
+    a.out[(((size_t)b * a.Sq + gr / G) * a.H + kvh * G + gr % G) * dv + v0 +
+          d] = __float2bfloat16_rn(SERVED ? x : x / l_row[r]);
   };
   if (KW == 1) {
 #pragma unroll
@@ -520,7 +545,7 @@ __global__ void __launch_bounds__(kThreads,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = rl + 8 * (e / 2), d = n * 8 + 2 * (lane % 4) + (e & 1);
-        if (act2[e / 2] && d < dv) store(r, d, o[n][e]);
+        if (act2[e / 2] && d < dvh) store(r, d, o[n][e]);
       }
   } else {
     // the tiles' buffers are free: the last walk ended with a barrier
@@ -534,8 +559,8 @@ __global__ void __launch_bounds__(kThreads,
             SERVED ? o[n][e] : o[n][e] * f_w[e / 2];
       }
     __syncthreads();
-    for (int e = tid; e < ROWS * dv; e += kThreads) {
-      const int r = e / dv, d = e % dv;
+    for (int e = tid; e < ROWS * dvh; e += kThreads) {
+      const int r = e / dvh, d = e % dvh;
       if (!act_s[r]) continue;
       const int g0 = (r / 16) * KW;
       float x = 0.0f;
@@ -588,7 +613,9 @@ cudaError_t launch(const Args& a, int B, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<B * a.KV * a.n_tiles, kThreads, smem, st>>>(a);
+  // HDQ 256: one block a 128-column half of V (a Dv <= 128 has one)
+  const int halves = HDQ > 192 ? (a.dv + HDV - 1) / HDV : 1;
+  kern<<<dim3(B * a.KV * a.n_tiles, halves), kThreads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -606,15 +633,17 @@ cudaError_t launch_dims(const Args& a, int B, int hdq, bool served,
                         bool mass, cudaStream_t st) {
   if (hdq == 64) return launch_form<RW, 64, 64>(a, B, served, mass, st);
   if (hdq == 128) return launch_form<RW, 128, 128>(a, B, served, mass, st);
-  return launch_form<RW, 192, 128>(a, B, served, mass, st);
+  if (hdq == 192) return launch_form<RW, 192, 128>(a, B, served, mass, st);
+  return launch_form<RW, 256, 128>(a, B, served, mass, st);
 }
 
-// the padded head dims: HDQ = max(Dqk, Dv) rounded up to 64, 128 or 192,
-// HDV = min(HDQ, 128); 0 for dims the kernel does not take
+// the padded head dims: HDQ = max(Dqk, Dv) rounded up to 64, 128, 192
+// or 256 (256 for any Dv > 128: only there does V come in halves), HDV =
+// min(HDQ, 128); 0 for dims the kernel does not take
 int padded_dqk(int dqk, int dv) {
   if (dqk <= 0 || dv <= 0 || dqk > kMaxDqk || dv > kMaxDv) return 0;
   const int w = max(dqk, dv);
-  return w <= 64 ? 64 : w <= 128 ? 128 : 192;
+  return w <= 64 ? 64 : w <= 128 ? 128 : w <= 192 && dv <= 128 ? 192 : 256;
 }
 
 }  // namespace
@@ -633,7 +662,7 @@ extern "C" int attn_density_rows(int B, int Sq, int H, int KV) {
 
 // C interface (loaded with ctypes).  Returns the CUDA error of the
 // launches (0 = launched), or -1 for shapes the kernel does not take
-// (Dqk > 192, Dv > 128, H not a multiple of KV, G = H / KV > 64).
+// (Dqk > 256, Dv > 256, H not a multiple of KV, G = H / KV > 64).
 // `density` may be null: then no mass is summed and `part` is not
 // touched.
 extern "C" int attn_density(const void* q, const void* k, const void* v,

@@ -12,9 +12,10 @@ blocks of 4 warps, 16 or 64 rows a block (``plan``), bf16 K/V tiles
 double-buffered through shared memory, QK and PV on the tensor cores
 (``mma.sync`` m16n8k16), the key mass summed from the score fragments
 and reduced by a second fixed-order launch.  Queries and keys have head
-dim Dqk <= 192 and values Dv <= 128, padded to the kernel's tile widths
+dim Dqk <= 256 and values Dv <= 256, padded to the kernel's tile widths
 (``head_plan``): the dense family's Dqk = Dv = hd, MLA's recompute
-128 + 64 and 128.
+128 + 64 and 128, recurrentgemma's local MQA 256 and 256 (V in two
+128-column halves, one block each).
 
 The wrapper checks device, dtype, shape and contiguity, allocates the
 output, the density and the (B, KV, n_tiles, Sk) fp32 scratch with
@@ -33,8 +34,8 @@ import torch
 
 from repro_torch.kernels import build
 
-MAX_DQK = 192
-MAX_DV = 128
+MAX_DQK = 256
+MAX_DV = 256
 MAX_GROUP = 64
 WAVE_BLOCKS = 132                  # SMs of an H100 SXM
 _LIB = None
@@ -54,14 +55,16 @@ def plan(B: int, Sq: int, H: int, KV: int):
 def head_plan(dqk: int, dv: int):
     """The kernel's head-dim plan (``padded_dqk`` in the CUDA source):
     Dqk and Dv padded to the tile widths HDQ = max(Dqk, Dv) rounded up
-    to 64, 128 or 192 (the QK k-steps) and HDV = min(HDQ, 128) (the PV
-    fragments).  -> (HDQ, HDV); ValueError for dims the kernel does not
-    take."""
+    to 64, 128, 192 or 256 (the QK k-steps; 256 for any Dv > 128) and
+    HDV = min(HDQ, 128) (the PV fragments; at HDQ 256 a block takes one
+    128-column half of Dv).  -> (HDQ, HDV); ValueError for dims the
+    kernel does not take."""
     if not (0 < dqk <= MAX_DQK and 0 < dv <= MAX_DV):
         raise ValueError(f"attn_density takes head dims Dqk <= {MAX_DQK} "
                          f"and Dv <= {MAX_DV}, not {dqk} and {dv}")
     w = max(dqk, dv)
-    hdq = 64 if w <= 64 else 128 if w <= 128 else 192
+    hdq = (64 if w <= 64 else 128 if w <= 128 else
+           192 if w <= 192 and dv <= 128 else 256)
     return hdq, min(hdq, 128)
 
 

@@ -94,6 +94,18 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * sigmoid(x)
 
 
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)`` as the reference computes it:
+    x * 0.5 (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3))) with the constants
+    in x's dtype and every op rounded to it (x^3 as (x x) x), where
+    ``F.gelu(approximate="tanh")`` rounds once; on bf16 inputs the two
+    differ in about one value in thirty (``tests/test_torch_models.py``)."""
+    c = torch.tensor(float(np.float32(np.sqrt(2 / np.pi))), dtype=x.dtype,
+                     device=x.device)
+    k = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
 # --------------------------------------------------------------------- #
 # Rotary position embeddings (computed on the fly from positions)
 # --------------------------------------------------------------------- #
@@ -119,6 +131,18 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     c = cos[..., None, :]
     s = sin[..., None, :]
     return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(dt)
+
+
+def sinusoidal_positions(n_pos: int, d_model: int, device=None
+                         ) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (n_pos, d_model) fp32:
+    [sin, cos] of pos * exp(-i ln(10000) / max(d/2 - 1, 1))."""
+    half = d_model // 2
+    pos = torch.arange(n_pos, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(half, dtype=torch.float32, device=device)[None, :]
+    inv = torch.exp(i * np.float32(-np.log(10000.0) / max(half - 1, 1)))
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # --------------------------------------------------------------------- #
@@ -196,8 +220,8 @@ PREFILL_FULL_MAX_S = 2048
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       positions: torch.Tensor, window: int = 0,
-                      n_sinks: int = 0, want_density: bool = False
-                      ) -> AttnOut:
+                      n_sinks: int = 0, want_density: bool = False,
+                      form: Optional[str] = None) -> AttnOut:
     """Causal self-attention of a full-sequence prefill: q (B,S,H,Dqk),
     k (B,S,KV,Dqk), v (B,S,KV,Dv) at ``positions`` (S,) = arange(S),
     through ``attn_density`` (the CUDA kernel on the card, its plain
@@ -209,10 +233,13 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``blocked_causal_attention`` (with the density).  Those two round
     the unnormalised p to bf16 before PV, in blocks of 1024 keys; the
     flash form keeps PV in fp32, as the Pallas kernel does, so outputs
-    differ at bf16 level (``tests/test_torch_prefill.py``)."""
+    differ at bf16 level (``tests/test_torch_prefill.py``).  A family
+    whose reference picks its branch by another rule passes ``form``
+    (``RGLRUModel``: served under its window up to PREFILL_FULL_MAX_S)."""
     from repro_torch.kernels import ops as kops
     S = q.shape[1]
-    form = "flash" if S > PREFILL_FULL_MAX_S or window else "served"
+    if form is None:
+        form = "flash" if S > PREFILL_FULL_MAX_S or window else "served"
     out, density = kops.attn_density(q, k, v, positions, S, window, n_sinks,
                                      want_density, form=form)
     return AttnOut(out, density)
@@ -434,6 +461,13 @@ def ring_update(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
         i = int(idx)
         cache[:, i:i + 1] = new.to(cache.dtype)
     return cache
+
+
+def layer_at(stack: dict, i: int) -> dict:
+    """Layer ``i`` of a (nested) dict of tensors stacked on axis 0: the
+    slice the reference's layer ``scan`` hands its body."""
+    return {k: layer_at(v, i) if isinstance(v, dict) else v[i]
+            for k, v in stack.items()}
 
 
 def init_linear(generator: torch.Generator, shape, device,

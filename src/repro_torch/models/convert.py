@@ -1,16 +1,20 @@
 """Weights carried across from the JAX package.
 
-``params_from_jax`` takes the reference ``init`` pytree of a ported
-family (``DenseModel``, ``MLAModel``, ``MoEModel``, ``RWKV6Model``,
-``VLMModel``) as numpy arrays (nested dicts, layers stacked on axis 0,
-bf16 arrays as ``ml_dtypes.bfloat16``) and returns the port's parameter
-dict on ``device``, bit for bit, so both packages compute the same
-model.  For ``mla_moe`` and ``moe`` the router stays fp32 (L, d, E) and
-the expert weights are (L, E, d, fe) and (L, E, fe, d); for ``rwkv6``
+``params_from_jax`` takes the reference ``init`` pytree of any family
+as numpy arrays (nested dicts, layers stacked on axis 0, bf16 arrays as
+``ml_dtypes.bfloat16``) and returns the port's parameter dict on
+``device``, bit for bit, so both packages compute the same model.  For
+``mla_moe`` and ``moe`` the router stays fp32 (L, d, E) and the expert
+weights are (L, E, d, fe) and (L, E, fe, d); for ``rwkv6``
 the norms, mixes and decay base stay fp32 and the projections bf16
 (``_check_rwkv6``); ``vlm`` stacks its self layers and its cross layers
 apart (``self_layers`` over the self-layer count, ``cross_layers`` over
-the cross-layer count).
+the cross-layer count); ``encdec`` stacks ``enc`` over the encoder's
+layers and ``dec`` over the decoder's, each with nested attention and
+MLP blocks whose biases stay fp32; ``rglru_hybrid`` stacks ``rec`` over
+its recurrent layers (the block-diagonal gates (n, nb, blk, blk),
+``lam`` and the conv bias fp32), ``attn`` over its attention layers
+and ``mlp`` over all of them.
 """
 from __future__ import annotations
 
@@ -36,11 +40,6 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig,
                     device) -> Dict[str, Any]:
     """Reference params of a ported family (numpy) -> port params on
     ``device``."""
-    if cfg.family not in ("dense", "mla_moe", "moe", "rwkv6", "vlm"):
-        raise NotImplementedError(
-            f"weight conversion for family {cfg.family!r} is not ported "
-            "(ROADMAP.md)")
-
     def conv(tree):
         if isinstance(tree, dict):
             return {k: conv(v) for k, v in tree.items()}
@@ -52,16 +51,29 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig,
         n_cross = cfg.n_layers // cfg.vision.cross_attn_every
         stacks = {"self_layers": cfg.n_layers - n_cross,
                   "cross_layers": n_cross}
+    if cfg.family == "encdec":
+        stacks = {"enc": cfg.encoder.n_layers, "dec": cfg.n_layers}
+    if cfg.family == "rglru_hybrid":
+        from repro_torch.models.rglru import _block_counts
+        n_rec, n_attn, _, _ = _block_counts(cfg)
+        stacks = {"rec": n_rec, "attn": n_attn, "mlp": cfg.n_layers}
     for stack, L in stacks.items():
-        for name, w in out[stack].items():
-            if w.shape[0] != L:
-                raise ValueError(f"{stack} param {name!r} is not stacked "
-                                 f"over {L} layers: {tuple(w.shape)}")
+        _check_stacked(stack, out[stack], L)
     if cfg.family in ("mla_moe", "moe"):
         _check_moe(out["layers"], cfg)
     if cfg.family == "rwkv6":
         _check_rwkv6(out, cfg)
     return out
+
+
+def _check_stacked(path: str, tree: Dict[str, Any], L: int) -> None:
+    """Every leaf of ``tree`` (nested dicts) is stacked over L layers."""
+    for name, w in tree.items():
+        if isinstance(w, dict):
+            _check_stacked(f"{path}.{name}", w, L)
+        elif w.shape[0] != L:
+            raise ValueError(f"{path} param {name!r} is not stacked over "
+                             f"{L} layers: {tuple(w.shape)}")
 
 
 def _check_moe(layers: Dict[str, torch.Tensor], cfg: ModelConfig) -> None:

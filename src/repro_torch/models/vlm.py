@@ -33,10 +33,6 @@ from repro_torch.models.dense import DenseModel
 from repro_torch.models.kvspec import KVSpec
 
 
-def _at(stack: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
-    return {k: v[i] for k, v in stack.items()}
-
-
 class VLMModel(DenseModel):
 
     def kv_spec(self) -> KVSpec:
@@ -152,12 +148,12 @@ class VLMModel(DenseModel):
         ys = {"k": [], "v": [], "xk": [], "xv": [], "density": []}
         for c in range(n_cross):
             for j in range(per):
-                pl = _at(params["self_layers"], c * per + j)
+                pl = C.layer_at(params["self_layers"], c * per + j)
                 x, ex = self._layer_full(pl, x, positions, window, n_sinks,
                                          want_density, return_kv)
                 for k, val in ex.items():
                     ys[k].append(val)
-            pc = _at(params["cross_layers"], c)
+            pc = C.layer_at(params["cross_layers"], c)
             xk, xv = self._cross_kv(pc, img)
             x = self._cross_layer(pc, x, xk, xv)
             if return_kv:
@@ -201,7 +197,7 @@ class VLMModel(DenseModel):
         for c in range(n_cross):
             for j in range(per):
                 l = c * per + j
-                pl = _at(params["self_layers"], l)
+                pl = C.layer_at(params["self_layers"], l)
                 h = C.rms_norm(x, pl["ln_attn"], cfg.norm_eps)
                 q, k, v = self._qkv(pl, h)
                 q, k = self._rope(q, k, positions)
@@ -211,7 +207,7 @@ class VLMModel(DenseModel):
                                          window=window, n_sinks=n_sinks)
                 x = x + out.reshape(*x.shape[:2], -1) @ pl["wo"]
                 x = self._ffn(pl, x)
-            x = self._cross_layer(_at(params["cross_layers"], c), x,
+            x = self._cross_layer(C.layer_at(params["cross_layers"], c), x,
                                   cache["xk"][c], cache["xv"][c])
         x = C.rms_norm(x, params["ln_f"], cfg.norm_eps)
         logits = (x[:, 0] @ self.head_weight(params)).to(torch.float32)

@@ -62,7 +62,7 @@ def scaled_head_pair(name: str, scale: float):
     if (name, scale) not in _PAIR:
         jcfg, jmodel, jparams, tcfg, tmodel, _ = tiny_pair(name)
         jparams = dict(jparams)
-        key = "embed" if jcfg.tie_embeddings else "head"
+        key = "head" if "head" in jparams else "embed"
         jparams[key] = (jparams[key].astype(jnp.float32) * scale
                         ).astype(jnp.bfloat16)
         tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,

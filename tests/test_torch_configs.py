@@ -53,14 +53,12 @@ def _close_bf16(a, b, frac=0.02):
 
 def test_registry_holds_every_dense_config_of_the_reference():
     """Every dense config of the reference, and beside them the configs
-    of the other ported families (MLA + MoE: deepseek-v2-lite-16b;
-    MoE: llama4-maverick-400b-a17b; RWKV6: rwkv6-1.6b; VLM:
-    llama-3.2-vision-90b)."""
+    of the other families (MLA + MoE: deepseek-v2-lite-16b; MoE:
+    llama4-maverick-400b-a17b; RWKV6: rwkv6-1.6b; VLM:
+    llama-3.2-vision-90b; encoder-decoder: whisper-base; RG-LRU hybrid:
+    recurrentgemma-2b): the whole of the reference's registry."""
     dense = sorted(n for n, c in JREGISTRY.items() if c.family == "dense")
-    ported = sorted(n for n, c in JREGISTRY.items()
-                    if c.family in ("dense", "mla_moe", "moe", "rwkv6",
-                                    "vlm"))
-    assert sorted(REGISTRY) == ported
+    assert sorted(REGISTRY) == sorted(JREGISTRY)
     assert sorted(n for n, c in REGISTRY.items()
                   if c.family == "dense") == dense
     assert set(NEW_CONFIGS) | {"llama2-7b"} == set(dense)

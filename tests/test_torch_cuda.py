@@ -298,6 +298,57 @@ def test_cuda_attn_density_at_mla_head_dims(card, B, Sq, Sk, H, KV, dqk,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", ["served", "flash"])
+@pytest.mark.parametrize("window,n_sinks", [(0, 0), (64, 4), (16, 0)])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,dqk,dv,seq_len,n_pad", [
+    (1, 64, 512, 10, 1, 256, 256, 200, 24),    # 16-row tiles, seq_len < Sk
+    (1, 1400, 1400, 10, 1, 256, 256, 1400, 0),  # 64-row tiles
+    (2, 37, 100, 4, 2, 256, 256, 90, 4),       # ragged Sq, B = 2
+    (1, 20, 64, 4, 4, 200, 136, 40, 10),       # half 1 holds 8 columns
+    (1, 24, 80, 2, 1, 256, 100, 70, 0),        # Dv <= 128: one half
+])
+def test_cuda_attn_density_at_head_dim_256(card, B, Sq, Sk, H, KV, dqk, dv,
+                                           seq_len, n_pad, window, n_sinks,
+                                           form):
+    """The HDQ-256 instantiation (recurrentgemma's local MQA: Dqk = Dv =
+    256, V in two 128-column halves, one block each) against the plain
+    version, both forms, with and without the density; the 1400-row
+    case runs the 64-row tiles, the others the 16-row ones."""
+    from repro_torch.kernels import attn_density as kad
+    assert kad.head_plan(dqk, dv)[0] == 256
+    assert kad.plan(B, Sq, H, KV)[0] == (64 if Sq == 1400 else 16)
+    args = _extend_case(B, Sq, Sk, H, KV, dqk, seq_len, n_pad, card,
+                        seed=Sq + dv, dv=dv)
+    _check_extend(args, seq_len, window, n_sinks, form)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["served", "flash"])
+def test_cuda_attn_density_v_halves_meet_at_column_128(card, form):
+    """V's column 127 (the last of half 0) holds 1 and column 128 (the
+    first of half 1) holds -2 at every key: every output row is a convex
+    combination of them, so out[..., 127] = 1 and out[..., 128] = -2
+    within a bf16 ulp (the served form's p is rounded to bf16) in both
+    16- and 64-row tiles, under a window with sinks; and the two
+    columns equal the plain version's."""
+    from repro_torch.kernels import attn_density as kad
+    from repro_torch.kernels import ref
+    for Sq, Sk, seq_len in ((64, 512, 200), (1400, 1400, 1400)):
+        q, k, v, qp = _extend_case(1, Sq, Sk, 10, 1, 256, seq_len, 0, card,
+                                   seed=Sq)
+        v[..., 127], v[..., 128] = 1.0, -2.0
+        o_k, _ = kad.attn_density(q, k, v, qp, seq_len, 64, 4, True, form)
+        o_r, _ = ref.attn_density_plain(q, k, v, qp, seq_len, 64, 4, True,
+                                        form)
+        torch.cuda.synchronize()
+        for col, want in ((127, 1.0), (128, -2.0)):
+            got = o_k[..., col].float()
+            assert float((got - want).abs().max()) <= 2 ** -7 * abs(want)
+            assert float((got - o_r[..., col].float()).abs().max()) <= \
+                2 ** -7 * abs(want)
+
+
+@pytest.mark.cuda
 def test_cuda_attn_density_pallas_form_at_width(card):
     """The Pallas kernel's own setting (q_pos = arange, seq_len = Sk) at
     (1, 1024, 32, 32, 128), causal and windowed."""
@@ -317,7 +368,7 @@ def test_cuda_attn_density_counts_launches_and_refuses_bad_input(card):
         kad.attn_density(q.float(), k, v, qp, 20)
     with pytest.raises(ValueError):
         kad.attn_density(q, k, v, qp.long(), 20)
-    for dqk, dv in ((200, 16), (16, 136)):        # beyond 192 / 128
+    for dqk, dv in ((264, 16), (16, 264)):        # beyond 256 / 256
         qb, kb, vb, _ = _extend_case(1, 8, 32, 4, 2, dqk, 20, 2, card, dv=dv)
         with pytest.raises(ValueError, match="head dims"):
             kad.attn_density(qb, kb, vb, qp, 20)
@@ -971,6 +1022,28 @@ def test_cuda_vlm_matches_cpu(card):
     check is ``chip_smoke.py``'s ``_check_vlm``."""
     diffs = _smoke()._check_vlm()
     assert {"logits", "xk", "xv", "density"} <= set(diffs)
+
+
+@pytest.mark.cuda
+def test_cuda_encdec_matches_cpu(card):
+    """The reduced whisper-base (biases drawn) on the card against the
+    same port on the CPU: a prefill with frames and the density (one
+    attn_density launch a decoder layer) and 8 decode steps; logits,
+    K/V and cross K/V within 2% of their range, the density within
+    1e-3.  The check is ``chip_smoke.py``'s ``_check_encdec``."""
+    diffs = _smoke()._check_encdec()
+    assert {"logits", "xk", "xv", "density"} <= set(diffs)
+
+
+@pytest.mark.cuda
+def test_cuda_rglru_matches_cpu(card):
+    """The reduced recurrentgemma-2b on the card against the same port
+    on the CPU: prefills of 96 (served form under the window) and 2,100
+    tokens (flash form) with the density and 8 decode steps; logits,
+    K/V, conv and lru state within 2% of their range, the density
+    within 1e-3.  The check is ``chip_smoke.py``'s ``_check_rglru``."""
+    diffs = _smoke()._check_rglru()
+    assert {"logits", "conv", "lru", "long_logits", "density"} <= set(diffs)
 
 
 @pytest.mark.cuda

@@ -191,13 +191,24 @@ def test_slot_and_whole_state_configurations_serve(kw, what):
     assert all(len(t) == 3 for t in out[1])
 
 
-@pytest.mark.parametrize("family", ["encdec", "rglru_hybrid"])
-def test_other_families_are_refused(family):
-    from repro_torch.configs import get_config
-    from repro_torch.models.registry import build_model
-    cfg = get_config("llama2-7b").with_overrides(family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, device="cpu")
+def test_every_reference_family_builds():
+    """``build_model`` builds every family of the reference's registry
+    on the CPU (no family is refused), each from the config of the
+    reference's registry that has it, with the reference's KVSpec."""
+    from repro.models.registry import FAMILY_CLASSES as JFAMILIES
+    from repro.models.registry import family_spec as jfamily_spec
+    from repro_torch.configs import REGISTRY, reduced
+    from repro_torch.models.registry import FAMILY_CLASSES, build_model
+    assert sorted(FAMILY_CLASSES) == sorted(JFAMILIES)
+    built = {}
+    for cfg in REGISTRY.values():
+        model = build_model(reduced(cfg), device="cpu")
+        assert type(model) is FAMILY_CLASSES[cfg.family]
+        assert model.device.type == "cpu"
+        assert model.kv_spec().__dict__ == jfamily_spec(reduced(
+            cfg)).__dict__
+        built[cfg.family] = model
+    assert sorted(built) == sorted(JFAMILIES)
 
 
 def test_quant_resident_service_constructs(tmp_path):

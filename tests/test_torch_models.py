@@ -132,14 +132,16 @@ def _all_bf16(lo: float, hi: float) -> np.ndarray:
     return bits[keep]
 
 
-@pytest.mark.parametrize("what", ["silu", "sigmoid", "swiglu"])
+@pytest.mark.parametrize("what", ["silu", "sigmoid", "swiglu",
+                                  "gelu_tanh"])
 def test_activations_round_as_the_reference(what):
-    """``jax.nn.silu`` and ``jax.nn.sigmoid`` jitted, and the jitted
-    ``common.swiglu`` (weights that make its SiLU the output, exactly:
-    x @ [[1], [0]] = x, x @ [[0], [1]] = 1), on every finite bf16 value
-    in [-16, 16]: the port's op-by-op ``silu`` / ``sigmoid`` / ``swiglu``
-    give the same bits, where ``F.silu`` / ``torch.sigmoid``, which
-    round once, differ in some."""
+    """``jax.nn.silu``, ``jax.nn.sigmoid`` and ``jax.nn.gelu(approximate=
+    True)`` jitted, and the jitted ``common.swiglu`` (weights that make
+    its SiLU the output, exactly: x @ [[1], [0]] = x, x @ [[0], [1]] =
+    1), on every finite bf16 value in [-16, 16]: the port's op-by-op
+    ``silu`` / ``sigmoid`` / ``gelu_tanh`` / ``swiglu`` give the same
+    bits, where ``F.silu`` / ``torch.sigmoid`` / ``F.gelu(approximate=
+    "tanh")``, which round once, differ in some."""
     import torch.nn.functional as F
     bits = _all_bf16(-16.0, 16.0)
     xt = torch.from_numpy(bits.copy()).view(torch.bfloat16)
@@ -154,6 +156,10 @@ def test_activations_round_as_the_reference(what):
         ws = [to_torch(np.asarray(w)) for w in wj]
         port = TC.swiglu(xs, *ws)[:, 0]
         fused = ((F.silu(xs @ ws[0]) * (xs @ ws[1])) @ ws[2])[:, 0]
+    elif what == "gelu_tanh":
+        ref = jax.jit(lambda x: jax.nn.gelu(x, approximate=True))(xj)
+        port = TC.gelu_tanh(xt)
+        fused = F.gelu(xt, approximate="tanh")
     else:
         ref = jax.jit(getattr(jax.nn, what))(xj)
         port = getattr(TC, what)(xt)

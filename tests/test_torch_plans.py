@@ -51,20 +51,25 @@ def test_attn_density_plan_rows_and_scratch(B, Sq, H, KV, rows):
     (80, 80, (128, 128)),       # hd 80
     (150, 64, (192, 128)),      # V padded to 128 beside a 192 QK tile
     (16, 100, (128, 128)),      # V wider than Q and K
+    (256, 256, (256, 128)),     # recurrentgemma's local MQA: V in halves
+    (200, 128, (256, 128)),     # Q and K past 192
+    (192, 160, (256, 128)),     # V past 128 beside a 192 QK tile
 ])
 def test_attn_density_head_plan(dqk, dv, expect):
     """The head dims pad to the kernel's tile widths: QK k-steps of 64,
-    128 or 192, PV fragments of min(that, 128)."""
+    128, 192 or 256 (256 for any V past 128), PV fragments of min(that,
+    128); at 256 a block takes one 128-column half of V."""
     from repro_torch.kernels import attn_density as kad
     hdq, hdv = kad.head_plan(dqk, dv)
     assert (hdq, hdv) == expect
-    assert hdq >= max(dqk, dv) and hdv >= dv and hdq % 64 == 0
+    assert hdq >= max(dqk, dv) and hdq % 64 == 0
+    assert hdv >= dv or (hdq == 256 and 2 * hdv >= dv)
 
 
-@pytest.mark.parametrize("dqk,dv", [(200, 128), (192, 160), (0, 16),
-                                    (16, 0), (256, 256)])
+@pytest.mark.parametrize("dqk,dv", [(264, 128), (192, 264), (0, 16),
+                                    (16, 0), (264, 256), (256, 264)])
 def test_attn_density_head_plan_refuses(dqk, dv):
-    """The plan and the wrapper refuse head dims beyond 192 / 128 (the
+    """The plan and the wrapper refuse head dims beyond 256 / 256 (the
     wrapper before it looks at the tensors' device)."""
     import torch
     from repro_torch.kernels import attn_density as kad

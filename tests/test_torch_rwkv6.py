@@ -274,15 +274,12 @@ def test_router_and_serve_main_match_reference(capsys):
     on one markov trace (no batched decode: a round's members decode one
     after another): equal completions, evictions and router counts.
     Then ``launch.serve.main --device cpu --reduced --arch rwkv6-1.6b``
-    serves its trace with no failed call and no paged pool, and the
-    families still unported are refused by name."""
+    serves its trace with no failed call and no paged pool."""
     from repro.core.scheduler import ServiceRouter as JRouter
     from repro.launch import serve as jserve
     from repro.trace.synth import synthesize as jsynth
-    from repro_torch.configs import get_config
     from repro_torch.core.scheduler import ServiceRouter as TRouter
     from repro_torch.launch import serve as tserve
-    from repro_torch.models.registry import build_model
     from repro_torch.trace.synth import synthesize as tsynth
     from test_torch_router import _counts, _first_difference
     from test_torch_router import _replay as router_replay
@@ -310,8 +307,3 @@ def test_router_and_serve_main_match_reference(capsys):
     assert printed["failed_calls"] == 0 and not printed["paged_pool"]
     assert printed["router"]["foreground"]["calls"] \
         + printed["router"]["background"]["calls"] == 6
-
-    for fam in ("encdec", "rglru_hybrid"):
-        with pytest.raises(NotImplementedError, match=repr(fam)):
-            build_model(get_config("llama2-7b").with_overrides(family=fam),
-                        device="cpu")

@@ -53,10 +53,12 @@ from repro_torch.models.registry import FAMILY_CLASSES, family_spec
 
 ZOO_ARCHS = {"dense": "llama2-7b", "mla_moe": "deepseek-v2-lite-16b",
              "rwkv6": "rwkv6-1.6b"}
-# every ported family's representative arch: the zoo's members, and the
-# families that serve outside it (moe) or not at all (vlm)
+# every family's representative arch: the zoo's members, and the
+# families that serve outside it (moe) or not at all (vlm, encdec,
+# rglru_hybrid)
 FAMILY_ARCHS = {**ZOO_ARCHS, "moe": "llama4-maverick-400b-a17b",
-                "vlm": "llama-3.2-vision-90b"}
+                "vlm": "llama-3.2-vision-90b", "encdec": "whisper-base",
+                "rglru_hybrid": "recurrentgemma-2b"}
 FAMILIES = sorted(FAMILY_ARCHS)
 HEAD_SCALE = 16.0
 
@@ -69,7 +71,7 @@ def _pair(family):
 
 def test_registry_covers_the_ported_families():
     assert sorted(FAMILY_CLASSES) == FAMILIES == [
-        "dense", "mla_moe", "moe", "rwkv6", "vlm"]
+        "dense", "encdec", "mla_moe", "moe", "rglru_hybrid", "rwkv6", "vlm"]
 
 
 @pytest.mark.parametrize("family", FAMILIES)
@@ -159,7 +161,7 @@ def test_executor_honors_servable_gate(family):
     _, _, _, _, model, params = _pair(family)
     sc = LLMSConfig(policy="llms", max_ctx_len=64, chunk_tokens=16)
     spec = model.kv_spec()
-    if not spec.servable:                # the VLM: prefill needs patches
+    if not spec.servable:        # VLM, encdec, rglru_hybrid
         with pytest.raises(ValueError, match="not servable"):
             ModelExecutor(model, params, sc, "cpu")
         return
