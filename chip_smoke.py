@@ -28,8 +28,12 @@ result line):
              recompute), the new families' prefill shapes (AD_NEW:
              recurrentgemma's (1, 512 / 4096, 10, 1, 256) under its
              window of 2048, served / flash, and whisper's (1, 448, 8,
-             8, 64), each with the density, timed with a warm and a
-             cold L2 beside SDPA with the boolean mask), MLA's
+             8, 64), out only and with the density, timed with a warm
+             and a cold L2 beside SDPA with the boolean mask), the
+             row-stats variant (the forward of flash_attention: out, m
+             and l) at STATS_SHAPES and at rows that see no key, timed
+             at smollm-360m's (1, 4096, 15, 5, 64) beside SDPA
+             is_causal (stats_phase), MLA's
              recompute (H = KV = 16, query/key head
              dim 192 beside value head dim 128, over S = 512 and 256 at
              the 64-row bucket, over 512 at the 16-, 32-, 128- and
@@ -192,6 +196,21 @@ result line):
              served form) and 4096 (the flash form; the window bites),
              each with the density, 32 greedy tokens, twice, against a
              prefill of prompt + 32; 8 attn_density launches a prefill;
+3l. train  — the training path through launch.train.main (TRAIN):
+             smollm-360m at full width and depth (random weights from
+             SEED, SyntheticLM batches), each step timed between
+             synchronisations with the launch counts zeroed just before
+             it and read just after (_TrainSteps): (a) seq 4096 x 1, 6
+             steps of fp32 AdamW (flash_attention: the row-stats
+             kernel, 2 x 32 launches a step, required), a checkpoint
+             every 3 steps (the step-3 one restored byte for byte),
+             step 2 profiled (busy, idle, attn_density, fp32 and bf16
+             products); (b) the same with --quantized-opt; (c) seq 512
+             x 4, 4 steps (gqa_attention: no launch); (d) (a)'s first 3
+             steps again (bit for bit or not, reported) and (a) resumed
+             from its step-3 checkpoint (losses within RESUME_RTOL);
+             wall per step, tokens/s, peak memory, model FLOPs a step,
+             one apply_updates alone;
 4. check   — the reduced llama2-7b and the reduced smollm-360m (G = 2,
              tied head) served teacher-forced on the card agree with the
              same port on the CPU (plain PyTorch), over the bf16 page
@@ -209,7 +228,11 @@ result line):
              (_ExpertTies); the reduced whisper-base's prefill and
              decode (_check_encdec) and the reduced recurrentgemma's
              prefills (served under its window, flash at 2,100 tokens),
-             decode and recurrent state (_check_rglru).
+             decode and recurrent state (_check_rglru); then
+             flash_attention's out and dq, dk, dv (_check_flash_grads)
+             and every family's reduced loss and gradients
+             (_check_train_families, MoE routing held by _ExpertTies),
+             card against CPU.
 
 The last lines are the kernel record ({"kernels": [...]}), the card's
 ``nvidia-smi`` name and power limit, and {"ok": true, "device": ...}.
@@ -260,7 +283,8 @@ AD_SERVE = dict(S=512, H=32, hd=128, bucket=64, pad=511)
 # (absolute) at a token whose expert choice is a near-tie
 GATE_TOL = 1e-2
 # the kernels' names, as the profiler reports them
-AD_KERNELS = ("attn_density_tc_kernel", "attn_density_reduce_kernel")
+AD_KERNELS = ("attn_density_tc_kernel", "attn_density_reduce_kernel",
+              "attn_density_stats_kernel")
 MQ_KERNELS = ("mq_split_kernel", "mq_split_pv_kernel", "mq_combine_kernel")
 DQ_KERNELS = ("dq_split_kernel", "dq_split_pv_kernel", "dq_combine_kernel")
 QUANT_KERNEL = "quant_leaves_kernel<"
@@ -320,6 +344,48 @@ RGLRU = dict(arch="recurrentgemma-2b", prompts=(512, 4096), new=32)
 AD_NEW = (("rglru", 512, 10, 1, 256, 2048, "served"),
           ("rglru", 4096, 10, 1, 256, 2048, "flash"),
           ("encdec", 448, 8, 8, 64, 0, "served"))
+# 3l: the training path on smollm-360m (the reference trainer's default
+# --arch) at full width and depth: (seq, batch, steps) of the long runs,
+# which attend through flash_attention (the attn_density row-stats
+# kernel, two launches a layer and step: the forward and its
+# checkpointed recompute), and of the short one (gqa_attention, no
+# kernel); a checkpoint every 3 steps of the first long run, the step
+# of it that is profiled
+TRAIN = dict(arch="smollm-360m", long=(4096, 1, 6), short=(512, 4, 4),
+             ckpt_every=3, profile_step=2)
+# the row-stats variant against its plain version: (B, S, H, KV, Dqk, Dv,
+# window, n_sinks), causal over S keys: smollm-360m at width, the
+# reduced dense / MLA / rglru training shapes, a window with sinks on
+# 16-row tiles, Sk off the tiles, HDQ 128 and 192 on 64-row tiles, and
+# recurrentgemma's HDQ 256 (V in halves: half 0 writes the stats)
+STATS_SHAPES = ((1, 4096, 15, 5, 64, 64, 0, 0),
+                (1, 2100, 4, 2, 16, 16, 0, 0),
+                (1, 2100, 4, 4, 24, 16, 0, 0),
+                (1, 2100, 4, 1, 32, 32, 64, 0),
+                (2, 40, 4, 1, 16, 16, 12, 2),
+                (1, 37, 6, 3, 32, 32, 0, 0),
+                (1, 512, 32, 32, 128, 128, 0, 0),
+                (1, 1024, 16, 16, 192, 128, 0, 0),
+                (1, 4096, 10, 1, 256, 256, 2048, 0))
+# the stats (fp32 in both, sums in another order): m within STATS_TOL of
+# max(1, max |m|), l within STATS_TOL relative
+STATS_TOL = 1e-5
+# the resumed run's losses against the uninterrupted run's (the embedding
+# gather's backward accumulates with atomics on the card, so a rerun may
+# move a last bit)
+RESUME_RTOL = 1e-4
+# every family's reduced loss and gradients, card against CPU (bf16
+# products rounded at other places): the loss within rtol
+# TRAIN_LOSS_RTOL, each gradient leaf within relative L2 TRAIN_GRAD_L2
+# and max |diff| TRAIN_GRAD_MAX of its largest magnitude (the VLM's
+# one-scalar-a-layer tanh gates, sums that largely cancel,
+# TRAIN_GATE_TOL), as tests/test_torch_train_families.py holds them to
+# the reference; flash_attention's grads within FLASH_GRAD_TOL of their
+# largest value (the card's forward rounds p to bf16 before PV, the
+# CPU's does not, and delta = rowsum(dout out) carries it)
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_GRAD_L2, TRAIN_GRAD_MAX, TRAIN_GATE_TOL = 0.05, 0.10, 0.30
+FLASH_GRAD_TOL = 0.02
 # 3i: llama4-maverick-400b-a17b at full width and depth 2 (its one cut:
 # one layer's 128 experts are 32.2 GB, so two fit one card) on the serve
 # phase's trace, slot caches (no pool in its KVSpec), a budget of 8 raw
@@ -520,11 +586,41 @@ def _device_ms(fn, match=None, iters=50, by_kernel=None, flush=None):
     return total_us / iters / 1e3 if total_us > 0 else None
 
 
-def _profile_round(fn, top=0):
+def _is_matmul(name: str) -> bool:
+    return any(t in name for t in ("gemm", "gemv", "xmma", "cutlass",
+                                   "nvjet"))
+
+
+def _train_category(name: str) -> str:
+    """A kernel's category in a profiled train step: attn_density, the
+    products that read fp32 operands (sgemm, f32 x f32 xmma / nvjet
+    tiles: the flash backward's) and the bf16 ones, the rest."""
+    if any(t in name for t in AD_KERNELS):
+        return "attn_density"
+    if not _is_matmul(name):
+        return "other"
+    fp32 = not any(t in name for t in ("bf16", "hsh", "tst", "hgemm",
+                                       "s16816", "h16816")) and any(
+        t in name for t in ("sgemm", "f32f32", "sss", "simt", "gemmsn",
+                            "gemv2n", "gemvx", "f32_f32"))
+    return "matmul fp32" if fp32 else "matmul bf16"
+
+
+def _serve_category(name: str) -> str:
+    """A kernel's category in a profiled serving step."""
+    return ("decode_mqattn" if any(t in name for t in MQ_KERNELS)
+            else "decode_qattn" if any(t in name for t in DQ_KERNELS)
+            else "attn_density" if any(t in name for t in AD_KERNELS)
+            else "indexing (page gather, scatter)" if "index" in name
+            else "matmul" if _is_matmul(name) else "other")
+
+
+def _profile_round(fn, top=0, category=_serve_category):
     """Run ``fn`` once under the profiler (CUDA activity only): its host
-    wall time, the device time of its kernels by category, and the
-    device's idle share of the wall time (profiler overhead included);
-    with ``top``, also the ``top`` kernels with the most device time."""
+    wall time, the device time of its kernels by ``category`` (of the
+    lower-cased kernel name), and the device's idle share of the wall
+    time (profiler overhead included); with ``top``, also the ``top``
+    kernels with the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -535,15 +631,7 @@ def _profile_round(fn, top=0):
         wall_ms = (time.perf_counter() - t0) * 1e3
     cats, n_kernels = {}, 0
     for ev in prof.key_averages():
-        name = ev.key.lower()
-        cat = ("decode_mqattn" if any(t in name for t in MQ_KERNELS)
-               else "decode_qattn" if any(t in name for t in DQ_KERNELS)
-               else "attn_density" if any(t in name for t in AD_KERNELS)
-               else "indexing (page gather, scatter)" if "index" in name
-               else "matmul" if any(t in name for t in
-                                    ("gemm", "gemv", "xmma", "cutlass",
-                                     "nvjet"))
-               else "other")
+        cat = category(ev.key.lower())
         cats[cat] = cats.get(cat, 0.0) + _device_us(ev) / 1e3
         n_kernels += ev.count
     busy = sum(cats.values())
@@ -962,11 +1050,13 @@ def _serve_positions(seq_len):
             + [AD_SERVE["pad"]] * (AD_SERVE["bucket"] - n))
 
 
-def _ad_bound_ms(args, seq_len, window, n_sinks, want_density):
+def _ad_bound_ms(args, seq_len, window, n_sinks, want_density,
+                 stats=False):
     """Least time for one call: q, the K (Dqk) and V (Dv) rows some query
-    sees, out (Dv; and the density) once over the HBM rate, or 2 (Dqk +
-    Dv) FLOPs per visible (query-head, key) pair (QK and PV) over the
-    bf16 tensor-core rate, the larger (Dqk = Dv = hd: 4 hd)."""
+    sees, out (Dv; and the density, or with ``stats`` the rows' m and l)
+    once over the HBM rate, or 2 (Dqk + Dv) FLOPs per visible
+    (query-head, key) pair (QK and PV) over the bf16 tensor-core rate,
+    the larger (Dqk = Dv = hd: 4 hd)."""
     from repro_torch.kernels import ref
     q, k, v, qp = args
     B, Sq, H, dqk = q.shape
@@ -975,7 +1065,8 @@ def _ad_bound_ms(args, seq_len, window, n_sinks, want_density):
     n_pairs = int(vis.sum()) * H * B
     n_keys = int(vis.any(dim=0).sum())
     nbytes = B * (Sq * H * (dqk + dv) * 2 + n_keys * KV * (dqk + dv) * 2) \
-        + 4 * Sq + (4 * B * Sk if want_density else 0)
+        + 4 * Sq + (4 * B * Sk if want_density else 0) \
+        + (8 * B * H * Sq if stats else 0)
     t_b = nbytes / HBM_BYTES_PER_S
     t_o = 2 * (dqk + dv) * n_pairs / BF16_OPS_PER_S
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
@@ -2101,6 +2192,7 @@ def _read_launches():
             "decode_mqattn": kmq.decode_mqattn.launches,
             "attn_density": kad.attn_density.launches,
             "attn_density_with_density": kad.attn_density.density_launches,
+            "attn_density_stats": kad.attn_density.stats_launches,
             "decode_qattn": kdq.decode_qattn.launches}
 
 
@@ -3433,9 +3525,10 @@ def _prefill_kernel_rows():
 
 def _new_family_kernel_rows():
     """``_ad_shape_row`` at the prefill shapes of recurrentgemma-2b and
-    whisper-base (AD_NEW, each with the density and the family's window)
-    with a warm and a cold L2, beside scaled_dot_product_attention with
-    the boolean mask of the same visibility.  -> {label: row}."""
+    whisper-base (AD_NEW, under the family's window, out only and with
+    the density) with a warm and a cold L2, beside
+    scaled_dot_product_attention with the boolean mask of the same
+    visibility.  -> {label: row}."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -3445,16 +3538,182 @@ def _new_family_kernel_rows():
     rows = {}
     for fam, S, H, KV, hd, window, form in AD_NEW:
         args = _ad_case(1, S, S, H, KV, hd, list(range(S)), g, dev)
-        label = (f"{fam} (1,{S},{H},{KV},{hd}) window {window} {form} + "
-                 f"density")
         mask = ref.extend_visibility(args[3].long(), S, S, window)
         q4, k4, v4 = (t.transpose(1, 2).contiguous() for t in args[:3])
         lib = lambda: F.scaled_dot_product_attention(          # noqa: E731
             q4, k4, v4, attn_mask=mask, enable_gqa=KV != H)
-        rows[label] = _ad_shape_row("kernels", label, args, window, True,
-                                    form, lib, 20 if S <= 512 else 5, flush)
+        for want in (False, True):
+            label = (f"{fam} (1,{S},{H},{KV},{hd}) window {window} {form}"
+                     f"{' + density' if want else ''}")
+            rows[label] = _ad_shape_row("kernels", label, args, window,
+                                        want, form, lib,
+                                        20 if S <= 512 else 5, flush)
         del args, q4, k4, v4, mask, lib
     return rows
+
+
+def _stats_check(args, seq_len, window, n_sinks, label):
+    """attn_density's row-stats variant (flash form, no density: the
+    forward of flash_attention) over ``args`` (q, k, v, q_pos) bounded by
+    ``seq_len`` against its plain version: out within MQ_OUT_TOL of its
+    range, m within STATS_TOL of max(1, max |m|) over the rows that see
+    a key (a row that sees none has m = NEG_INF in both), l within
+    STATS_TOL relative; a rerun bit-identical; and the variant's out
+    against the no-stats flash kernel's.  -> {"out", "m", "l" errors,
+    "out_equals_no_stats"}."""
+    import torch
+    from repro_torch.kernels import attn_density as kad
+    from repro_torch.kernels import ref
+    o_s, d_s, m_k, l_k = kad.attn_density(*args, seq_len, window, n_sinks,
+                                          False, "flash", True)
+    o_2, _, m_2, l_2 = kad.attn_density(*args, seq_len, window, n_sinks, False,
+                                        "flash", True)
+    o_n, _ = kad.attn_density(*args, seq_len, window, n_sinks, False, "flash")
+    o_r, _, m_r, l_r = ref.attn_density_plain(*args, seq_len, window, n_sinks,
+                                              False, "flash", True)
+    torch.cuda.synchronize()
+    span = float(o_r.float().abs().max())
+    d_o = float((o_s.float() - o_r.float()).abs().max())
+    seen = m_r > ref.NEG_INF / 2
+    m_span = max(1.0, float(m_r[seen].abs().max()) if seen.any() else 1.0)
+    d_m = float((m_k - m_r).abs().max()) / m_span
+    d_l = float(((l_k - l_r).abs() / l_r).max())
+    if d_s is not None or tuple(m_k.shape) != tuple(m_r.shape):
+        raise AssertionError(f"attn_density stats at {label}: shapes")
+    if not (torch.isfinite(o_s.float()).all() and d_o <= MQ_OUT_TOL * span
+            and d_m <= STATS_TOL and d_l <= STATS_TOL):
+        raise AssertionError(
+            f"attn_density stats at {label}: |d out| {d_o} (range {span}), "
+            f"|d m| / max(1, |m|) {d_m}, |d l| / l {d_l}")
+    if not (torch.equal(o_2, o_s) and torch.equal(m_2, m_k)
+            and torch.equal(l_2, l_k)):
+        raise AssertionError(f"attn_density stats at {label}: reruns differ")
+    same = torch.equal(o_n, o_s)
+    log(f"[stats] attn_density + row stats {label}: |d out| {d_o:.3g} (range "
+        f"{span:.3g}), |d m| / max(1, |m|) {d_m:.3g}, |d l| / l {d_l:.3g}, "
+        f"rerun identical; out {'equals' if same else 'DIFFERS from'} the "
+        f"no-stats flash kernel's bit for bit")
+    return {"out": d_o / span, "m": d_m, "l": d_l,
+            "out_equals_no_stats": same}
+
+
+def stats_phase():
+    """The row-stats variant against its plain version at STATS_SHAPES
+    and at rows that see no key (queries past seq_len under a window),
+    then timed at the first of them, smollm-360m's training shape
+    (1,4096,15,5,64) causal:
+    on the device and per call, beside its no-stats flash kernel, its
+    plain version, its bound and scaled_dot_product_attention
+    (is_causal=True, out only).  -> (worst errors, the timed row)."""
+    import torch
+    from repro_torch.kernels import attn_density as kad
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    worst = {"out": 0.0, "m": 0.0, "l": 0.0, "out_equals_no_stats": True}
+    timed_args = None
+    for B, S, H, KV, dqk, dv, window, n_sinks in STATS_SHAPES:
+        args = _ad_case(B, S, S, H, KV, dqk, list(range(S)), g, dev, dv=dv)
+        label = (f"({B},{S},{H},{KV},{dqk}/{dv}) window {window} sinks "
+                 f"{n_sinks}, {kad.plan(B, S, H, KV)[0]}-row tiles")
+        errs = _stats_check(args, S, window, n_sinks, label)
+        for k in ("out", "m", "l"):
+            worst[k] = max(worst[k], errs[k])
+        worst["out_equals_no_stats"] &= errs["out_equals_no_stats"]
+        if timed_args is None:          # the first: smollm-360m's shape
+            timed_args = args
+    # queries at 100.. over 50 keys under a window of 4: no row sees a key
+    args = _ad_case(1, 20, 50, 4, 2, 16, list(range(100, 120)), g, dev)
+    o_k, _, m_k, l_k = kad.attn_density(*args, 50, 4, 0, False, "flash",
+                                        True)
+    o_r, _, m_r, l_r = ref.attn_density_plain(*args, 50, 4, 0, False,
+                                              "flash", True)
+    if not (torch.equal(m_k, m_r) and torch.equal(l_k, l_r)
+            and float((o_k.float() - o_r.float()).abs().max())
+            <= MQ_OUT_TOL * float(o_r.float().abs().max())):
+        raise AssertionError("attn_density stats at rows that see no key")
+    log(f"[stats] rows that see no key: m = NEG_INF, l = "
+        f"{float(l_k[0, 0, 0, 0])} (uniform over 50 keys) as the plain "
+        f"version")
+    return worst, _stats_row(timed_args)
+
+
+def _flash_backward_times(args):
+    """One ``flash_attention`` backward (``_flash_bwd``: plain fp32
+    products in blocks of 1024 keys, what a training step runs once a
+    layer) over ``args``' q, k, v (causal), per call from the host, beside
+    scaled_dot_product_attention(is_causal=True)'s backward (its forward
+    and backward less its forward) and the least time for the
+    backward's work: 5 products of 2 hd FLOPs per causal (query-head,
+    key) pair at the fp32 rate outside the tensor cores.  -> a dict."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.models import common as C
+    q, k, v, _ = args
+    B, S, H, hd = q.shape
+    q_pos = torch.arange(S, device=q.device)
+    out, _, m, l = ops.attn_density(q, k, v, q_pos, S, 0, 0, False,
+                                    "flash", True)
+    dout = torch.randn(out.shape, device=q.device).bfloat16()
+    bwd = lambda: C._flash_bwd(q, k, v, out, m, l, dout, 0,  # noqa: E731
+                               1024, 0, 0)
+    q4, k4, v4 = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    d4 = dout.transpose(1, 2).contiguous()
+    fwd = lambda: F.scaled_dot_product_attention(            # noqa: E731
+        q4, k4, v4, is_causal=True, enable_gqa=k4.shape[1] != q4.shape[1])
+    fwd_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        fwd(), (q4, k4, v4), d4)
+    pairs = B * H * S * (S + 1) // 2
+    row = {"flash_backward_call_ms": _time_ms(bwd, iters=5, warmup=2),
+           "flash_backward_bound_ms": 5 * 2 * hd * pairs / FP32_OPS_PER_S
+           * 1e3,
+           "library_backward_call_ms": _time_ms(fwd_bwd, iters=20)
+           - _time_ms(fwd, iters=20)}
+    log(f"[stats] flash_attention backward at ({B},{S},{H},"
+        f"{k.shape[2]},{hd}): {row['flash_backward_call_ms']:.3f} ms a call "
+        f"(bound {row['flash_backward_bound_ms']:.3f} ms, fp32 operations); "
+        f"SDPA is_causal backward {row['library_backward_call_ms']:.3f} ms")
+    return row
+
+
+def _stats_row(args):
+    """The timed row of the stats variant over ``args`` (causal flash)."""
+    import torch
+    from repro_torch.kernels import attn_density as kad
+    from repro_torch.kernels import ref
+    B, S, H, _ = args[0].shape
+    KV = args[1].shape[2]
+    fn = lambda: kad.attn_density(*args, S, 0, 0, False, "flash",  # noqa: E731
+                                  True)
+    no_stats = lambda: kad.attn_density(*args, S, 0, 0, False,    # noqa: E731
+                                        "flash")
+    plain = lambda: ref.attn_density_plain(                       # noqa: E731
+        *args, S, 0, 0, False, "flash", True)
+    lib = _sdpa_causal(*args[:3])
+    bound, by = _ad_bound_ms(args, S, 0, 0, False, stats=True)
+    label = f"({B},{S},{H},{KV},{args[0].shape[-1]}) causal flash + stats"
+    row = {"shape": label, "form": "flash", "density": False, "stats": True,
+           "call_ms": _time_ms(fn, iters=20),
+           "device_ms": _device_ms(fn, ("attn_density_stats_kernel",),
+                                   iters=20),
+           "no_stats_call_ms": _time_ms(no_stats, iters=20),
+           "no_stats_device_ms": _device_ms(no_stats, AD_KERNELS, iters=20),
+           "plain_call_ms": _time_ms(plain, iters=3, warmup=1),
+           "plain_device_ms": _device_ms(plain, iters=3),
+           "library_call_ms": _time_ms(lib, iters=20),
+           "library_device_ms": _device_ms(lib, iters=20),
+           "bound_ms": bound, "bound_by": by}
+    row.update(_flash_backward_times(args))
+    log(f"[stats] attn_density {label}: kernel {row['device_ms']} ms on the "
+        f"device, {row['call_ms']:.4f} ms per call; without the stats "
+        f"{row['no_stats_device_ms']} ms; plain {row['plain_device_ms']} "
+        f"ms; SDPA is_causal (out only) {row['library_device_ms']} ms on "
+        f"the device, {row['library_call_ms']:.4f} ms per call; bound "
+        f"{bound:.4f} ms ({by})")
+    torch.cuda.empty_cache()
+    return row
 
 
 def _extend_full(model, params, toks, form):
@@ -3802,6 +4061,247 @@ def rglru_phase():
     return runs
 
 # --------------------------------------------------------------------- #
+# 3l. the training path: smollm-360m at full width through
+# launch.train.main
+# --------------------------------------------------------------------- #
+class _TrainSteps:
+    """The step wrapper given to ``launch.train.main`` (``wrap_step``):
+    each step runs between two ``torch.cuda.synchronize()`` with the
+    kernel launch counts zeroed just before it and read just after; it
+    records the step's wall time, launches, loss and grad norm, keeps a
+    host copy of the state after step ``keep`` (1-based, as the
+    checkpoints count: on the host, so that it adds nothing to the
+    card's peak memory) and the last state and batch, and runs step
+    ``profile`` (0-based) under the profiler (its wall time then
+    includes the profiler's)."""
+
+    def __init__(self, keep=None, profile=None):
+        self.keep, self.profile = keep, profile
+        self.steps, self.kept, self.state, self.batch = [], None, None, None
+        self.profiled = None
+
+    def wrap(self, step_fn):
+        import torch
+
+        def run(state, batch):
+            torch.cuda.synchronize()
+            _zero_launches()
+            t0 = time.perf_counter()
+            if len(self.steps) == self.profile:
+                (new, metrics), self.profiled = _profile_round(
+                    lambda: step_fn(state, batch), 15, _train_category)
+            else:
+                new, metrics = step_fn(state, batch)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            self.steps.append({"wall_s": wall, "launches": _read_launches(),
+                               "loss": float(metrics["loss"]),
+                               "grad_norm": float(metrics["grad_norm"])})
+            if int(new["step"]) == self.keep:
+                from repro_torch.train.optimizer import tree_map
+                self.kept = tree_map(lambda t: t.detach().cpu(), new)
+            self.state, self.batch = new, batch
+            return new, metrics
+        return run
+
+
+def _train_argv(steps, seq, batch, ckpt_dir, ckpt_every=0, *extra):
+    return ["--arch", TRAIN["arch"], "--steps", str(steps), "--seq",
+            str(seq), "--batch", str(batch), "--seed", str(SEED),
+            "--ckpt-dir", ckpt_dir, "--ckpt-every", str(ckpt_every), *extra]
+
+
+def _train_flops(cfg, S, B):
+    """Model FLOPs of one step (forward + backward, 3x the forward; the
+    checkpointed recompute not counted): 2 T per matmul weight (q, k, v,
+    o and the three FFN projections a layer, and the tied head) and 2 x
+    (QK + PV) over the causal pairs, T = B S tokens."""
+    d, hd, L = cfg.d_model, cfg.head_dim, cfg.n_layers
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    per_layer = d * H * hd * 2 + d * KV * hd * 2 + 3 * d * cfg.d_ff
+    T = B * S
+    fwd = 2 * T * (L * per_layer + d * cfg.vocab) \
+        + L * B * H * 4 * hd * S * (S + 1) // 2
+    return 3 * fwd
+
+
+def _train_run(label, argv, hooks, S, B, n_attn_layers):
+    """``launch.train.main(argv)`` with ``hooks``: the peak memory, the
+    attn_density launches of every step (2 a layer with the flash
+    branch, none with gqa_attention), finite losses and grad norms.
+    -> the run's record."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import train as ltrain
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = ltrain.main(argv, wrap_step=hooks.wrap)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = hooks.steps
+    if not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])
+               for s in steps) or not steps:
+        raise AssertionError(f"[train] {label}: non-finite loss or grad "
+                             f"norm: {steps}")
+    want = 2 * n_attn_layers if S > 2048 else 0
+    for i, s in enumerate(steps):
+        got = s["launches"]
+        if got["attn_density_stats"] != want or got["attn_density"] != want:
+            raise AssertionError(
+                f"[train] {label} step {i}: {got['attn_density_stats']} "
+                f"attn_density row-stats launches ({got['attn_density']} in "
+                f"all), not {want}")
+    walls = [s["wall_s"] for i, s in enumerate(steps)
+             if i != hooks.profile and i > 0]
+    med = float(np.median(walls)) if walls else steps[-1]["wall_s"]
+    rec = {"argv": argv[:10], "steps": steps, "losses": out["losses"],
+           "run_s": run_s, "peak_gib": peak, "step_wall_s_median": med,
+           "tokens_per_s": B * S / med,
+           "attn_density_launches_a_step": want}
+    log(f"[train] {label}: {len(steps)} steps, losses "
+        f"{[round(x, 4) for x in out['losses']]}, grad norms "
+        f"{[round(s['grad_norm'], 3) for s in steps]}; step wall "
+        f"{[round(s['wall_s'], 3) for s in steps]} s (median after the "
+        f"first {med:.3f} s, {B * S / med:.0f} tokens/s), peak "
+        f"{peak:.2f} GiB; {want} attn_density launches a step")
+    return rec
+
+
+def _same_state(a, b):
+    """Names of the leaves of two state trees that differ (bits)."""
+    import torch
+    bad = []
+
+    def walk(x, y, path):
+        if isinstance(x, dict):
+            for k in x:
+                walk(x[k], y[k], f"{path}/{k}")
+        elif not (x.dtype == y.dtype and x.shape == y.shape
+                  and torch.equal(x.cpu(), y.cpu())):
+            bad.append(path)
+    walk(a, b, "")
+    return bad
+
+
+def train_phase(root):
+    """smollm-360m (32 layers, d 960, 15 heads over 5 KV heads of 64,
+    vocab 49,152, tied head) at full width and depth through
+    ``launch.train.main`` on the card: random bf16 weights from SEED
+    (its seeded init), SyntheticLM batches, step by step through
+    ``_TrainSteps``.  (a) seq 4096, batch 1, 6 steps of fp32 AdamW
+    (flash_attention: the row-stats kernel, 2 x 32 launches a step), a
+    checkpoint every 3 steps (restored byte for byte against the state
+    the step returned), step 2 profiled; then, on its last state, one
+    apply_updates timed alone and one step's gradients computed twice
+    (the leaves that differ, if any), and every tensor of (a) freed, so
+    that each run's peak memory is its own; (b) the same with
+    --quantized-opt; (c) seq 512, batch 4, 4 steps (gqa_attention, no
+    launch); (d) the first 3 steps of (a) again (two identical runs: bit
+    for bit?), and (a) resumed from its step-3 checkpoint to step 6 (the
+    losses within RESUME_RTOL of (a)'s, the final state against (a)'s
+    step-6 checkpoint).  -> the record."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import grad_of
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import (OptConfig, apply_updates,
+                                             init_state)
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN["arch"])
+    L = cfg.n_layers
+    S, B, n = TRAIN["long"]
+    every = TRAIN["ckpt_every"]
+    dirs = {k: os.path.join(root, k) for k in ("a", "d", "r")}
+    rec = {"model_flops_a_step": {"long": _train_flops(cfg, S, B)}}
+    hooks_a = _TrainSteps(keep=every, profile=TRAIN["profile_step"])
+    rec["a"] = _train_run(f"(a) fp32 AdamW, seq {S} x {B}", _train_argv(
+        n, S, B, dirs["a"], every), hooks_a, S, B, L)
+    rec["a"]["profile"] = hooks_a.profiled
+    log(f"[train] (a) step {TRAIN['profile_step']} profiled: "
+        f"{json.dumps(hooks_a.profiled)}")
+    bad = _same_state(hooks_a.kept, ckpt.restore(dirs["a"], every,
+                                                 device="cpu"))
+    if bad:
+        raise AssertionError(f"[train] the step-{every} checkpoint differs "
+                             f"from the state the step returned: {bad}")
+    log(f"[train] the step-{every} checkpoint restores byte for byte")
+    # one optimizer step alone, on (a)'s last state and a step's grads,
+    # and the same step's gradients twice
+    state_a = hooks_a.state
+    model = build_model(cfg.with_overrides(max_seq=S), device="cuda")
+    _, grads = grad_of(model, state_a["params"], hooks_a.batch)
+    _, grads2 = grad_of(model, state_a["params"], hooks_a.batch)
+    rec["grad_rerun_differs_in"] = _same_state(grads, grads2)
+    opt, opt8 = OptConfig(), OptConfig(quantized=True)
+    state8 = init_state(state_a["params"], opt8)
+    rec["optimizer_ms"] = _time_ms(
+        lambda: apply_updates(state_a, grads, opt), iters=3, warmup=1)
+    rec["optimizer_8bit_ms"] = _time_ms(
+        lambda: apply_updates(state8, grads, opt8), iters=3, warmup=1)
+    log(f"[train] one apply_updates alone: fp32 moments "
+        f"{rec['optimizer_ms']:.2f} ms, 8-bit {rec['optimizer_8bit_ms']:.2f} "
+        f"ms (step wall {rec['a']['step_wall_s_median'] * 1e3:.1f} ms); one "
+        f"step's gradients computed twice differ in "
+        f"{rec['grad_rerun_differs_in']}")
+    hooks_a.state = hooks_a.batch = None
+    del model, grads, grads2, state_a, state8
+    gc.collect()
+    rec["b"] = _train_run(f"(b) 8-bit AdamW, seq {S} x {B}", _train_argv(
+        n, S, B, dirs["d"], 0, "--quantized-opt"), _TrainSteps(), S, B, L)
+    Ss, Bs, ns = TRAIN["short"]
+    rec["model_flops_a_step"]["short"] = _train_flops(cfg, Ss, Bs)
+    rec["c"] = _train_run(f"(c) fp32 AdamW, seq {Ss} x {Bs}", _train_argv(
+        ns, Ss, Bs, dirs["d"], 0), _TrainSteps(), Ss, Bs, L)
+    hooks_d = _TrainSteps(keep=every)
+    rec["d_rerun"] = _train_run(f"(d) (a)'s first {every} steps again",
+                                _train_argv(every, S, B, dirs["d"], 0),
+                                hooks_d, S, B, L)
+    diff_rerun = _same_state(hooks_a.kept, hooks_d.kept)
+    same_losses = rec["d_rerun"]["losses"] == rec["a"]["losses"][:every]
+    rec["rerun_bit_identical"] = not diff_rerun and same_losses
+    rec["rerun_differs_in"] = diff_rerun
+    log(f"[train] (d) two identical runs of {every} steps: "
+        f"{'' if rec['rerun_bit_identical'] else 'NOT '}bit for bit the same"
+        f" (losses {'equal' if same_losses else 'differ'}; state leaves "
+        f"that differ: {diff_rerun})")
+    os.makedirs(dirs["r"], exist_ok=True)
+    os.link(os.path.join(dirs["a"], f"step_{every}.pkl"),
+            os.path.join(dirs["r"], f"step_{every}.pkl"))
+    hooks_r = _TrainSteps()
+    rec["d_resume"] = _train_run(
+        f"(d) (a) resumed from step {every}",
+        _train_argv(n, S, B, dirs["r"], 0, "--resume"), hooks_r, S, B, L)
+    want = rec["a"]["losses"][every:]
+    got = rec["d_resume"]["losses"]
+    err = max(abs(x - y) / abs(y) for x, y in zip(got, want))
+    if len(got) != len(want) or err > RESUME_RTOL:
+        raise AssertionError(f"[train] resumed losses {got} against {want}")
+    diff_final = _same_state(ckpt.restore(dirs["a"], n, device="cpu"),
+                             hooks_r.state)
+    rec["resume"] = {"losses": got, "uninterrupted": want,
+                     "max_rel_diff": err, "bit_identical": got == want
+                     and not diff_final, "state_differs_in": diff_final}
+    log(f"[train] (d) resumed losses {got} against {want}: max rel diff "
+        f"{err:.3g} (tolerance {RESUME_RTOL}); final state "
+        f"{'differs in ' + str(diff_final) if diff_final else 'bit for bit'}")
+    del hooks_a, hooks_d, hooks_r
+    gc.collect()
+    torch.cuda.empty_cache()
+    flops = rec["model_flops_a_step"]
+    for k, fl in (("a", flops["long"]), ("c", flops["short"])):
+        rec[k]["model_tflops_per_s"] = fl / rec[k]["step_wall_s_median"] / 1e12
+    log(f"[train] model FLOPs a step: {flops['long'] / 1e12:.2f} T at "
+        f"({B}, {S}), {flops['short'] / 1e12:.2f} T at ({Bs}, {Ss}); "
+        f"{rec['a']['model_tflops_per_s']:.1f} / "
+        f"{rec['c']['model_tflops_per_s']:.1f} TFLOP/s")
+    log(f"[train] the training phase took {time.perf_counter() - t0:.1f} s")
+    return rec
+
+
+
+# --------------------------------------------------------------------- #
 # 3i. the MoE family: llama4-maverick-400b-a17b at full width, depth 2
 # --------------------------------------------------------------------- #
 def _batch_run(model, params, seed, swap_root, fam, B):
@@ -4129,6 +4629,168 @@ def _teacher_forced_int8(model, params, dev):
     return torch.cat(logits), torch.cat(masses)
 
 
+def _grad_errors(tag, cpu_grads, card_grads):
+    """Each gradient leaf, card against CPU: relative L2 within
+    TRAIN_GRAD_L2 and max |diff| within TRAIN_GRAD_MAX of its largest
+    magnitude (TRAIN_GATE_TOL for the VLM's tanh gates).  -> the worst
+    (relative L2, max share)."""
+    import torch
+    from repro_torch.train.optimizer import tree_leaves
+    worst = [0.0, 0.0]
+
+    def walk(a, b, path):
+        if isinstance(a, dict):
+            for k in a:
+                walk(a[k], b[k], f"{path}/{k}")
+            return
+        a, b = a.double().cpu(), b.double().cpu()
+        if not torch.isfinite(b).all():
+            raise AssertionError(f"{tag}: non-finite gradient {path}")
+        tol = (TRAIN_GATE_TOL, TRAIN_GATE_TOL) if path.split("/")[-1] in (
+            "gate_attn", "gate_ffn") else (TRAIN_GRAD_L2, TRAIN_GRAD_MAX)
+        scale, norm = float(a.abs().max()), float(a.norm())
+        l2 = float((a - b).norm()) / (norm or 1.0)
+        mx = float((a - b).abs().max()) / (scale or 1.0)
+        if l2 > tol[0] or mx > tol[1]:
+            raise AssertionError(f"{tag}: gradient {path} relative L2 {l2}, "
+                                 f"max |diff| / max {mx} (tolerance {tol})")
+        if tol[0] == TRAIN_GRAD_L2:
+            worst[0], worst[1] = max(worst[0], l2), max(worst[1], mx)
+    walk(cpu_grads, card_grads, "")
+    assert len(tree_leaves(cpu_grads)) == len(tree_leaves(card_grads))
+    return tuple(worst)
+
+
+def _train_batch(cfg, B, S, seed, dev):
+    """Tokens and targets (B, S) and the family's frames / patches, from
+    numpy, on ``dev``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    tok = rng.integers(0, cfg.vocab, (B, S + 1))
+    batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (B, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal(
+            (B, cfg.vision.n_image_tokens, cfg.vision.d_vision)
+        ).astype(np.float32)
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+# the reduced configs of every family and their training lengths: the
+# dense family and recurrentgemma also above 2,048 tokens, where the
+# reference's training attention takes flash_attention (the kernel)
+TRAIN_CHECKS = (("smollm-360m", 24), ("smollm-360m", 2100),
+                ("deepseek-v2-lite-16b", 24),
+                ("llama4-maverick-400b-a17b", 24),
+                ("llama-3.2-vision-90b", 24), ("whisper-base", 24),
+                ("rwkv6-1.6b", 24), ("recurrentgemma-2b", 24),
+                ("recurrentgemma-2b", 2100))
+
+
+def _check_train_families(cases=TRAIN_CHECKS):
+    """Every family's reduced ``loss`` and its gradients (``grad_of``) on
+    the card against the same port on the CPU, the same weights and
+    batch: the loss within TRAIN_LOSS_RTOL, each gradient leaf as
+    ``_grad_errors``; MoE routing held to the CPU's at expert near-ties
+    (``_ExpertTies``, the gradient through the gates kept); the
+    row-stats kernel launched twice an attention layer above 2,048
+    tokens (the forward and its recompute), never below.  -> {case:
+    (loss diff, worst relative L2, worst max share, launches)}."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.train import grad_of
+    from repro_torch.models.rglru import _block_counts
+    out = {}
+    for name, S in cases:
+        cfg = reduced(get_config(name))
+        cpu, p_cpu, gpu, p_gpu = _card_and_cpu(cfg)
+        B = 1 if S > 2048 else 2
+        b_cpu = _train_batch(cfg, B, S, SEED + 31, "cpu")
+        b_gpu = {k: v.cuda() for k, v in b_cpu.items()}
+        ties = _ExpertTies() if cfg.moe is not None else None
+        try:
+            m_cpu, g_cpu = grad_of(cpu, p_cpu, b_cpu)
+            if ties is not None:
+                ties.follow()
+            _zero_launches()
+            m_gpu, g_gpu = grad_of(gpu, p_gpu, b_gpu)
+            torch.cuda.synchronize()
+            launches = _read_launches()["attn_density_stats"]
+        finally:
+            if ties is not None:
+                ties.close()
+        n_attn = (_block_counts(cfg)[1] if cfg.family == "rglru_hybrid"
+                  else cfg.n_layers)
+        want = 2 * n_attn if S > 2048 else 0
+        d_loss = abs(float(m_gpu["loss"]) - float(m_cpu["loss"]))
+        if d_loss > TRAIN_LOSS_RTOL * abs(float(m_cpu["loss"])) or \
+                launches != want:
+            raise AssertionError(
+                f"[check] train {name} S {S}: loss card {float(m_gpu['loss'])}"
+                f" CPU {float(m_cpu['loss'])}; {launches} row-stats "
+                f"launches, not {want}")
+        l2, mx = _grad_errors(f"[check] train {name} S {S}", g_cpu, g_gpu)
+        out[f"{name} S {S}"] = (d_loss, l2, mx, launches)
+        log(f"[check] train {name} (reduced) S {S}: loss card "
+            f"{float(m_gpu['loss']):.6f} CPU {float(m_cpu['loss']):.6f}; "
+            f"gradients worst relative L2 {l2:.4f}, worst max |diff| / max "
+            f"{mx:.4f}; {launches} row-stats launches"
+            f"{'; forced routing ' + str(len(ties.forced)) if ties else ''}")
+        del cpu, p_cpu, gpu, p_gpu, g_cpu, g_gpu
+    return out
+
+
+# flash_attention on the card against the CPU: (B, S, H, KV, Dqk, Dv,
+# block, window, n_sinks): smollm-360m's heads over a ragged third block,
+# a window with sinks on 16-row tiles, and MLA's head dims
+FLASH_CHECKS = ((1, 2500, 15, 5, 64, 64, 1024, 0, 0),
+                (2, 300, 4, 1, 16, 16, 128, 48, 2),
+                (1, 640, 16, 16, 192, 128, 256, 0, 0))
+
+
+def _check_flash_grads(cases=FLASH_CHECKS):
+    """``flash_attention``'s forward and its dq, dk, dv through autograd
+    on the card (the row-stats kernel forward, the plain fp32 backward)
+    against the same function on the CPU (the plain forward), the same
+    bf16 inputs and dout: out within MQ_OUT_TOL of its range, each
+    gradient within FLASH_GRAD_TOL of its largest value.  -> {case:
+    worst share}."""
+    import torch
+    from repro_torch.models import common as C
+    out = {}
+    for B, S, H, KV, dqk, dv, block, window, n_sinks in cases:
+        g = torch.Generator().manual_seed(SEED + S)
+        r = lambda *sh: torch.randn(sh, generator=g).bfloat16()  # noqa: E731
+        xs = (r(B, S, H, dqk), r(B, S, KV, dqk), r(B, S, KV, dv))
+        do = r(B, S, H, dv)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            leaves = [x.to(dev).requires_grad_(True) for x in xs]
+            o = C.flash_attention(*leaves, 0, block, window, n_sinks)
+            res[dev] = [o] + list(torch.autograd.grad(o, leaves, do.to(dev)))
+        torch.cuda.synchronize()
+        label = (f"({B},{S},{H},{KV},{dqk}/{dv}) block {block} window "
+                 f"{window} sinks {n_sinks}")
+        errs = []
+        for i, (a, b) in enumerate(zip(res["cpu"], res["cuda"])):
+            a, b = a.detach().float(), b.detach().float().cpu()
+            e = float((a - b).abs().max()) / float(a.abs().max())
+            tol = MQ_OUT_TOL if i == 0 else FLASH_GRAD_TOL
+            if not (torch.isfinite(b).all() and e <= tol):
+                raise AssertionError(f"[check] flash_attention {label}: "
+                                     f"{('out', 'dq', 'dk', 'dv')[i]} "
+                                     f"|diff| / max {e} (tolerance {tol})")
+            errs.append(e)
+        out[label] = max(errs[1:])
+        log(f"[check] flash_attention {label}, card against CPU: out "
+            f"{errs[0]:.3g}, dq {errs[1]:.3g}, dk {errs[2]:.3g}, dv "
+            f"{errs[3]:.3g} of their largest values")
+    return out
+
+
 def check_phase():
     for name in ("llama2-7b", "smollm-360m"):
         _check_config(name)
@@ -4140,6 +4802,8 @@ def check_phase():
     _check_vlm()
     _check_encdec()
     _check_rglru()
+    return {"flash_grads": _check_flash_grads(),
+            "train_families": _check_train_families()}
 
 
 def _rwkv6_teacher_forced(model, params, dev):
@@ -4341,7 +5005,8 @@ class _ExpertTies:
     between its pick and the card's within the two gates' differences
     (at most twice the largest difference of the token's gates), and
     that difference within GATE_TOL.  The card then dispatches that call
-    with the CPU's gates.
+    with the CPU's gates (in training: its own plus the difference as a
+    constant, so the gradient through the gates is kept).
     ``forced`` lists (call, group, token, gap, difference); ``close``
     takes the hook off."""
 
@@ -4382,7 +5047,11 @@ class _ExpertTies:
                         f"({g}, {s}), experts {a} / {b}, gap {gap}, "
                         f"difference {err}")
                 self.forced.append((self.at - 1, g, s, gap, err))
-            gates = ref.to(gates.device)
+            ref = ref.to(gates.device)
+            # in training the gates keep their gradient: the CPU's values
+            # as a constant offset
+            gates = (gates + (ref - gates).detach() if gates.requires_grad
+                     else ref)
         return self.orig(gates, top_k, cap)
 
 
@@ -4896,6 +5565,7 @@ def main() -> int:
                  for b in (8, 4, 2)}
     mq_err, mq_times = mqattn_phase()
     ad_err, ad_times = attn_phase()
+    st_err, st_row = stats_phase()
     dq_err, dq_times = qattn_phase()
     from repro_torch.configs import get_config
     model, params = build_weights(get_config("llama2-7b"), SEED)
@@ -4987,6 +5657,8 @@ def main() -> int:
         moe = moe_runs(root)
     encdec = encdec_phase()
     rglru = rglru_phase()
+    with tempfile.TemporaryDirectory(prefix="llms_chip_train_") as root:
+        train = train_phase(root)
     for a, b in (("bf16", "bf16-rerun"), ("quant", "quant-rerun"),
                  ("gqa", "gqa-rerun")):
         _same_run(routed[a], routed[b], f"{a} (llama2-7b)" if a != "gqa"
@@ -5015,7 +5687,15 @@ def main() -> int:
         raise AssertionError("the int8 decode rerun differs")
     log("[int8] rerun from the same seed: identical tokens and masses")
     first, quant = runs["run1"], runs["quant1"]
-    check_phase()
+    train_checks = check_phase()
+    log("[train] summary " + json.dumps({
+        k: {f: train[k][f] for f in ("step_wall_s_median", "tokens_per_s",
+                                     "peak_gib", "losses",
+                                     "model_tflops_per_s") if f in train[k]}
+        for k in ("a", "b", "c", "d_rerun", "d_resume")} | {
+        k: train[k] for k in ("model_flops_a_step", "optimizer_ms",
+                              "optimizer_8bit_ms", "rerun_bit_identical",
+                              "resume")} | {"profile": train["a"]["profile"]}))
 
     src = "src/repro_torch/csrc/chunk_quant.cu"
     kernels = []
@@ -5138,6 +5818,15 @@ def main() -> int:
             **_new_family_launches(encdec, rglru, "attn_density" if key ==
                                    "out" else "attn_density_with_density"),
             "new_family_shapes": ad_times["new_families"],
+            **({"stats_shape": st_row, "max_err_stats": st_err,
+                "launches_train_per_step": {
+                    k: [st["launches"]["attn_density_stats"]
+                        for st in train[k]["steps"]]
+                    for k in ("a", "b", "c", "d_rerun", "d_resume")},
+                "launches_train_checks": {
+                    c: v[3] for c, v in
+                    train_checks["train_families"].items()}}
+               if key == "out" else {}),
             "library_call_new_family_shapes": "F.scaled_dot_product_"
                                               "attention with the boolean "
                                               "mask: out only",

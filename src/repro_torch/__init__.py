@@ -8,7 +8,7 @@ reference wrote as Pallas TPU kernels are hand-written CUDA kernels
 for Hopper (``csrc/``), each beside a plain PyTorch version
 (``kernels/ref.py``) that CPU tensors take.
 
-Entry points (``models.registry.build_model``, ``core.LLMService``)
-run on the card (``device="cuda"``) unless the caller passes
-``device="cpu"``.  What is not ported yet is listed in ``ROADMAP.md``.
+Entry points (``models.registry.build_model``, ``core.LLMService``,
+``launch.serve.main``, ``launch.train.main``) run on the card
+(``device="cuda"``) unless the caller passes ``device="cpu"``.  What is not ported yet is listed in ``ROADMAP.md``.
 """

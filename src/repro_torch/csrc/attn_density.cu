@@ -30,6 +30,16 @@
 //            ulps of max|out| of the fp32-p plain version; the mass sums
 //            p / max(l, 1e-30) in fp32 over visible (query, key) pairs.
 // density (B,Sk) = mass / (H * max(1, visible queries of the key)).
+// Row stats (attn_density_stats_kernel, the flash form without the
+// density): each (query, head) row's max m and sum max(l, 1e-30) as a
+// (2, B, KV, G, Sq) fp32 buffer — the layout of the reference's
+// _flash_fwd_impl, whose m and l the training path's custom backward
+// reads (src/repro/models/common.py flash_attention; here
+// models/common.py flash_attention).  l is stored clamped, as the PV
+// divides by it; the reference's backward reads max(l, 1e-30), the same
+// value.  The stats kernel is the flash kernel's body with one more
+// store after the slices' (m, l) are combined, compiled apart so the
+// other instantiations keep their machine code.
 //
 // Design.  Rows are (query, head) pairs flattened as row = qi * G + g, so
 // one K/V tile serves a whole group and any G <= 64 works.  A block of 4
@@ -119,6 +129,10 @@ struct Args {
   float* part;  // (B, KV, n_tiles, Sk) per-tile key mass, or null
   int Sq, Sk, H, KV, G, dqk, dv, seq_len, window, n_sinks, n_tiles, vec;
   float scale;
+  // the stats kernel's (2, B, KV, G, Sq) row max m and row sum l (m at
+  // 0, l at stats_l), or null
+  float* stats;
+  size_t stats_l;
 };
 
 __device__ __forceinline__ bool visible(int j, int qp, int seq_len,
@@ -207,10 +221,8 @@ constexpr size_t smem_bytes() {
 // registers so that three blocks share an SM (measured faster at the
 // Pallas setting); the served form's spill at that bound and gain
 // nothing, and at HDQ 192 shared memory allows two blocks anyway.
-template <int RW, int HDQ, int HDV, bool SERVED, bool MASS>
-__global__ void __launch_bounds__(kThreads,
-                                  RW == 4 && !SERVED && HDQ <= 128 ? 3 : 1)
-    attn_density_tc_kernel(const Args a) {
+template <int RW, int HDQ, int HDV, bool SERVED, bool MASS, bool STATS>
+__device__ __forceinline__ void attn_density_tc(const Args a) {
   constexpr int KW = kWarps / RW;  // key slices of a tile
   constexpr int ROWS = 16 * RW;
   constexpr int WK = kKeys / KW;   // keys of a warp's slice
@@ -512,6 +524,19 @@ __global__ void __launch_bounds__(kThreads,
   if (ks == 0 && lane % 4 == 0) {
     l_row[rl] = l_g[0];
     l_row[rl + 8] = l_g[1];
+    // the flash form's row stats, (B, KV, G, Sq): l as the PV divides by
+    // it, max(l, 1e-30); at HDQ 256 both halves hold the same, half 0
+    // writes
+    if (STATS && v0 == 0)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gr = row0 + rl + 8 * h;
+        if (!act2[h]) continue;
+        const size_t i =
+            (((size_t)b * a.KV + kvh) * G + gr % G) * a.Sq + gr / G;
+        a.stats[i] = m_g[h];
+        a.stats[a.stats_l + i] = l_g[h];
+      }
   }
   __syncthreads();  // red is reused below
 
@@ -570,6 +595,23 @@ __global__ void __launch_bounds__(kThreads,
   }
 }
 
+template <int RW, int HDQ, int HDV, bool SERVED, bool MASS>
+__global__ void __launch_bounds__(kThreads,
+                                  RW == 4 && !SERVED && HDQ <= 128 ? 3 : 1)
+    attn_density_tc_kernel(const Args a) {
+  attn_density_tc<RW, HDQ, HDV, SERVED, MASS, false>(a);
+}
+
+// the flash form without the density that also writes each row's (m, l):
+// the forward of models/common.py flash_attention, whose backward reads
+// them (the reference's _flash_vjp_fwd saves the same); a kernel of its
+// own, so that the other instantiations keep their machine code
+template <int RW, int HDQ, int HDV>
+__global__ void __launch_bounds__(kThreads, RW == 4 && HDQ <= 128 ? 3 : 1)
+    attn_density_stats_kernel(const Args a) {
+  attn_density_tc<RW, HDQ, HDV, false, false, true>(a);
+}
+
 // density[b, j] = the scratch summed over kv-heads and query tiles, over
 // H * max(1, number of queries that see key j).  One block per (32 keys,
 // b); warp w takes every 8th scratch row and query, then warp 0 adds the
@@ -606,10 +648,10 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <int RW, int HDQ, int HDV, bool SERVED, bool MASS>
-cudaError_t launch(const Args& a, int B, cudaStream_t st) {
+template <int RW, int HDQ, int HDV>
+cudaError_t launch(void (*kern)(const Args), const Args& a, int B,
+                   cudaStream_t st) {
   constexpr size_t smem = smem_bytes<RW, HDQ, HDV>();
-  auto* kern = attn_density_tc_kernel<RW, HDQ, HDV, SERVED, MASS>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -622,10 +664,20 @@ cudaError_t launch(const Args& a, int B, cudaStream_t st) {
 template <int RW, int HDQ, int HDV>
 cudaError_t launch_form(const Args& a, int B, bool served, bool mass,
                         cudaStream_t st) {
-  if (served && mass) return launch<RW, HDQ, HDV, true, true>(a, B, st);
-  if (served) return launch<RW, HDQ, HDV, true, false>(a, B, st);
-  if (mass) return launch<RW, HDQ, HDV, false, true>(a, B, st);
-  return launch<RW, HDQ, HDV, false, false>(a, B, st);
+  if (a.stats)
+    return launch<RW, HDQ, HDV>(attn_density_stats_kernel<RW, HDQ, HDV>, a,
+                                B, st);
+  if (served && mass)
+    return launch<RW, HDQ, HDV>(
+        attn_density_tc_kernel<RW, HDQ, HDV, true, true>, a, B, st);
+  if (served)
+    return launch<RW, HDQ, HDV>(
+        attn_density_tc_kernel<RW, HDQ, HDV, true, false>, a, B, st);
+  if (mass)
+    return launch<RW, HDQ, HDV>(
+        attn_density_tc_kernel<RW, HDQ, HDV, false, true>, a, B, st);
+  return launch<RW, HDQ, HDV>(
+      attn_density_tc_kernel<RW, HDQ, HDV, false, false>, a, B, st);
 }
 
 template <int RW>
@@ -662,18 +714,22 @@ extern "C" int attn_density_rows(int B, int Sq, int H, int KV) {
 
 // C interface (loaded with ctypes).  Returns the CUDA error of the
 // launches (0 = launched), or -1 for shapes the kernel does not take
-// (Dqk > 256, Dv > 256, H not a multiple of KV, G = H / KV > 64).
-// `density` may be null: then no mass is summed and `part` is not
-// touched.
+// (Dqk > 256, Dv > 256, H not a multiple of KV, G = H / KV > 64) and for
+// stats asked of the served form or beside the density.  `density` may
+// be null: then no mass is summed and `part` is not touched.  `stats`
+// may be null; else it is a (2, B, KV, G, Sq) fp32 buffer that the flash
+// form without the density fills with each row's max m and sum
+// max(l, 1e-30) (attn_density_stats_kernel).
 extern "C" int attn_density(const void* q, const void* k, const void* v,
                             const void* q_pos, void* out, void* part,
-                            void* density, int B, int Sq, int Sk, int H,
-                            int KV, int dqk, int dv, int seq_len,
-                            int window, int n_sinks, float scale,
-                            int served, void* stream) {
+                            void* density, void* stats, int B, int Sq,
+                            int Sk, int H, int KV, int dqk, int dv,
+                            int seq_len, int window, int n_sinks,
+                            float scale, int served, void* stream) {
   const int rows = attn_density_rows(B, Sq, H, KV);
   const int hdq = padded_dqk(dqk, dv);
   if (rows < 0 || Sk <= 0 || hdq == 0) return -1;
+  if (stats != nullptr && (served != 0 || density != nullptr)) return -1;
   Args a;
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.k = static_cast<const __nv_bfloat16*>(k);
@@ -694,6 +750,8 @@ extern "C" int attn_density(const void* q, const void* k, const void* v,
   a.n_tiles = (Sq * a.G + rows - 1) / rows;
   a.vec = dqk % 8 == 0 && dv % 8 == 0;
   a.scale = scale;
+  a.stats = static_cast<float*>(stats);
+  a.stats_l = (size_t)B * H * Sq;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool want = density != nullptr;
   cudaError_t err;

@@ -1,1 +1,1 @@
-"""Synthetic data of the port (``pipeline.markov_*``)."""
+"""Synthetic data of the port (``pipeline``: the Markov language, ``SyntheticLM``)."""

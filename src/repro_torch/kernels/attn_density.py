@@ -23,7 +23,9 @@ output, the density and the (B, KV, n_tiles, Sk) fp32 scratch with
 raises if the launch was refused, and adds one to
 ``attn_density.launches`` (a plain integer on the wrapper) and, when
 it also launched the density pass and its reduction, to
-``attn_density.density_launches``.
+``attn_density.density_launches``; when it launched the row-stats
+kernel (``return_stats``: the forward of ``models/common.py
+flash_attention``), to ``attn_density.stats_launches``.
 """
 from __future__ import annotations
 
@@ -73,7 +75,7 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = build.load("attn_density")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.attn_density.argtypes = ([vp] * 7 + [ci] * 10
+        lib.attn_density.argtypes = ([vp] * 8 + [ci] * 10
                                      + [ctypes.c_float, ci, vp])
         lib.attn_density.restype = ci
         lib.attn_density_rows.argtypes = [ci] * 4
@@ -94,14 +96,20 @@ def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
 
 def attn_density(q, k, v, q_pos, seq_len: int, window: int = 0,
                  n_sinks: int = 0, want_density: bool = True,
-                 form: str = "served"):
+                 form: str = "served", return_stats: bool = False):
     """q (B,Sq,H,Dqk) bf16; k (B,Sk,KV,Dqk) bf16; v (B,Sk,KV,Dv) bf16;
     q_pos (Sq,) int32, all CUDA.  Scores are scaled by 1/sqrt(Dqk).
     ``form`` is "served" (bf16-rounded p, the mass of every query) or
     "flash" (the Pallas kernel).  -> (out (B,Sq,H,Dv) bf16, density
-    (B,Sk) fp32 | None)."""
+    (B,Sk) fp32 | None); with ``return_stats`` (the flash form without
+    the density: ``attn_density_stats_kernel``) also each row's max m
+    and sum max(l, 1e-30), (B,KV,G,Sq) fp32 each, views of one
+    (2,B,KV,G,Sq) buffer."""
     if form not in ("served", "flash"):
         raise ValueError(f"form must be 'served' or 'flash', not {form!r}")
+    if return_stats and (form != "flash" or want_density):
+        raise ValueError("attn_density gives row stats in the flash form "
+                         "without the density only")
     B, Sq, H, dqk = q.shape
     Sk, KV, dv = k.shape[1], k.shape[2], v.shape[-1]
     head_plan(dqk, dv)                  # ValueError for dims it refuses
@@ -119,7 +127,10 @@ def attn_density(q, k, v, q_pos, seq_len: int, window: int = 0,
         raise RuntimeError("attn_density: the kernel's tile plan differs "
                            "from plan()")
     out = torch.empty((B, Sq, H, dv), dtype=torch.bfloat16, device=dev)
-    part = dens = None
+    part = dens = stats = None
+    if return_stats:
+        stats = torch.empty((2, B, KV, H // KV, Sq), dtype=torch.float32,
+                            device=dev)
     if want_density:
         part = torch.empty((B, KV, n_tiles, Sk), dtype=torch.float32,
                            device=dev)
@@ -129,6 +140,7 @@ def attn_density(q, k, v, q_pos, seq_len: int, window: int = 0,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
             out.data_ptr(), None if part is None else part.data_ptr(),
             None if dens is None else dens.data_ptr(),
+            None if stats is None else stats.data_ptr(),
             B, Sq, Sk, H, KV, dqk, dv, int(seq_len), int(window),
             int(n_sinks), float(np.float32(1.0 / np.sqrt(dqk))),
             int(form == "served"), torch.cuda.current_stream().cuda_stream)
@@ -137,13 +149,18 @@ def attn_density(q, k, v, q_pos, seq_len: int, window: int = 0,
     attn_density.launches += 1
     if want_density:
         attn_density.density_launches += 1
+    if return_stats:
+        attn_density.stats_launches += 1
+        return out, dens, stats[0], stats[1]
     return out, dens
 
 
 attn_density.launches = 0
 attn_density.density_launches = 0      # of them, those with the density
+attn_density.stats_launches = 0        # of them, those with the row stats
 
 
 def reset_launches() -> None:
     attn_density.launches = 0
     attn_density.density_launches = 0
+    attn_density.stats_launches = 0

@@ -99,16 +99,20 @@ def decode_qattn(q, k_q, v_q, k_scale, v_scale, n_valid, window: int = 0,
 
 
 def attn_density(q, k, v, q_pos, seq_len, window: int = 0, n_sinks: int = 0,
-                 want_density: bool = True, form: str = "served"):
+                 want_density: bool = True, form: str = "served",
+                 return_stats: bool = False):
     """Attention of queries at positions ``q_pos`` (Sq,) over a cache
     bounded by ``seq_len``, with the Eq.-1 key density.  q (B,Sq,H,Dqk);
     k (B,Sk,KV,Dqk); v (B,Sk,KV,Dv).  -> (out (B,Sq,H,Dv), density
-    (B,Sk) | None) (forms: ``kernels/ref.py::attn_density_plain``)."""
+    (B,Sk) | None), and with ``return_stats`` (flash form, no density)
+    the rows' max m and sum max(l, 1e-30), (B,KV,G,Sq) fp32 each (forms:
+    ``kernels/ref.py::attn_density_plain``)."""
     if _route(q) == "cpu":
         return ref.attn_density_plain(q, k, v, q_pos, seq_len, window,
-                                      n_sinks, want_density, form)
+                                      n_sinks, want_density, form,
+                                      return_stats)
     from repro_torch.kernels import attn_density as kad
     c = [t.contiguous() for t in (q, k, v)]
     return kad.attn_density(*c, q_pos.to(torch.int32).contiguous(),
                             int(seq_len), window, n_sinks, want_density,
-                            form)
+                            form, return_stats)

@@ -263,7 +263,7 @@ def extend_visibility(q_pos: torch.Tensor, Sk: int, seq_len: int,
 
 def attn_density_plain(q, k, v, q_pos=None, seq_len=None, window: int = 0,
                        n_sinks: int = 0, want_density: bool = True,
-                       form: str = "served"):
+                       form: str = "served", return_stats: bool = False):
     """Plain version of the CUDA kernel (``kernels/attn_density.py``),
     both of its forms.  q (B,Sq,H,Dqk); k (B,Sk,KV,Dqk); v (B,Sk,KV,Dv)
     (Dv may differ from Dqk, as in MLA's recompute), bf16 or fp32;
@@ -282,9 +282,14 @@ def attn_density_plain(q, k, v, q_pos=None, seq_len=None, window: int = 0,
         out = acc / max(l, 1e-30); the mass sums p / max(l, 1e-30) over
         visible (query, key) pairs only.
 
-    -> (out (B,Sq,H,Dv) in q's dtype, density (B,Sk) fp32 | None)."""
+    -> (out (B,Sq,H,Dv) in q's dtype, density (B,Sk) fp32 | None); with
+    ``return_stats`` (the flash form without the density, as the
+    kernel) also m (B,KV,G,Sq) and max(l, 1e-30) (B,KV,G,Sq), fp32."""
     if form not in ("served", "flash"):
         raise ValueError(f"form must be 'served' or 'flash', not {form!r}")
+    if return_stats and (form != "flash" or want_density):
+        raise ValueError("attn_density gives row stats in the flash form "
+                         "without the density only")
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -312,6 +317,8 @@ def attn_density_plain(q, k, v, q_pos=None, seq_len=None, window: int = 0,
         out = o.permute(0, 3, 1, 2, 4)
         pm = torch.where(maskb[:, None, None], p / l, 0.0)
     out = out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+    if return_stats:
+        return out, None, m[..., 0], l[..., 0]
     if not want_density:
         return out, None
     mass = torch.sum(pm, dim=(1, 2, 3))                           # (B, Sk)

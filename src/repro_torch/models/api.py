@@ -3,6 +3,7 @@
 Every family implements:
 
   init(generator) -> params                  (dict of stacked-layer tensors)
+  loss(params, batch) -> (scalar, metrics)   (next-token CE; remat inside)
   decode_step(params, tokens, cache, ...) -> DecodeOut
   prefill(params, batch) -> PrefillOut
   kv_spec() -> KVSpec                        (declarative cache adapter)
@@ -18,7 +19,7 @@ tests pass ``device="cpu"``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -50,6 +51,23 @@ class PrefillOut(NamedTuple):
     density: Any                   # (B, S) fp32, or None
 
 
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Token-mean CE in fp32.  logits (B,S,V), targets (B,S) int, mask
+    (B,S) or None.  -> (loss, {"loss", "acc"})."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = logz - ll
+    mask = (torch.ones_like(nll) if mask is None
+            else mask.to(torch.float32))
+    denom = torch.clamp_min(torch.sum(mask), 1.0)
+    loss = torch.sum(nll * mask) / denom
+    acc = torch.sum((torch.argmax(logits, dim=-1) == targets) * mask) / denom
+    return loss, {"loss": loss, "acc": acc}
+
+
 class ModelBase:
     """Common plumbing; families override the layer stack."""
 
@@ -78,4 +96,10 @@ class ModelBase:
         raise NotImplementedError
 
     def init(self, generator: torch.Generator) -> Dict:
+        raise NotImplementedError
+
+    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict]:
+        """Next-token CE of batch["tokens"] against batch["targets"]
+        (optional batch["mask"]), differentiable in ``params``.  -> (loss,
+        {"loss", "acc"})."""
         raise NotImplementedError

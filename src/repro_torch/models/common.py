@@ -4,7 +4,9 @@ package's models/common.py: the functions serving runs).
 These stay plain PyTorch, as the JAX package computes them outside any
 Pallas kernel too — except the attention of serving's extend and of
 a full-sequence prefill (``extend_attention``, ``prefill_attention``:
-the ``attn_density`` kernel) and of decode over
+the ``attn_density`` kernel), the forward of training's
+``flash_attention`` (the kernel with its row stats; its backward is
+plain products, as the reference's) and the attention of decode over
 a mixed or an all-int8 cache (``mixed_decode_attention``: the
 ``decode_mqattn`` kernel; ``decode_attention`` with scales: the
 ``decode_qattn`` kernel), which go through ``kernels/ops.py`` (on a
@@ -245,6 +247,104 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return AttnOut(out, density)
 
 
+# --------------------------------------------------------------------- #
+# Training attention: flash attention with a custom backward
+# --------------------------------------------------------------------- #
+def _flash_bwd(q, k, v, out, m, l, dout, q_offset: int, block: int,
+               window: int, n_sinks: int):
+    """The reference's ``_flash_vjp_bwd`` op for op: blocks of ``block``
+    keys, scores recomputed in fp32 from the saved (q, k, v, out, m, l),
+    delta = rowsum(dout * out), every product fp32.  The reference pads
+    the last block with invalid keys; here it is just shorter (a padded
+    key's k and v are 0, so it adds nothing to dq and its dk, dv rows
+    are dropped).  -> (dq, dk, dv) in the inputs' dtypes."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    vd = v.shape[-1]
+    f32 = torch.float32
+    qg = q.reshape(B, Sq, KV, G, hd).to(f32)
+    do = dout.reshape(B, Sq, KV, G, vd).to(f32)
+    og = out.reshape(B, Sq, KV, G, vd).to(f32)
+    scale = 1.0 / np.sqrt(hd)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    delta = torch.sum(do * og, dim=-1).permute(0, 2, 3, 1)   # (B,KV,G,Sq)
+    lsafe = torch.clamp_min(l, 1e-30)
+    dq = torch.zeros((B, Sq, KV, G, hd), dtype=f32, device=q.device)
+    dks, dvs = [], []
+    for lo in range(0, Sk, block):
+        hi = min(lo + block, Sk)
+        kblk, vblk = k[:, lo:hi].to(f32), v[:, lo:hi].to(f32)
+        k_pos = torch.arange(lo, hi, device=q.device)
+        s = torch.einsum("bqngd,bknd->bngqk", qg, kblk) * scale
+        valid = causal_window_mask(q_pos, k_pos, window, n_sinks)
+        s = torch.where(valid[None, None, None], s, NEG_INF)
+        p = torch.exp(s - m[..., None]) / lsafe[..., None]  # (B,n,g,q,k)
+        dvs.append(torch.einsum("bngqk,bqngd->bknd", p, do))
+        dp = torch.einsum("bqngd,bknd->bngqk", do, vblk)
+        ds = p * (dp - delta[..., None]) * scale
+        dq = dq + torch.einsum("bngqk,bknd->bqngd", ds, kblk)
+        dks.append(torch.einsum("bngqk,bqngd->bknd", ds, qg))
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype),
+            torch.cat(dks, dim=1).to(k.dtype),
+            torch.cat(dvs, dim=1).to(v.dtype))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``flash_attention`` ``custom_vjp`` (its only custom
+    gradient).  Forward: ``attn_density``'s flash form with the row stats
+    (on the card the CUDA kernel ``attn_density_stats_kernel``, on the
+    CPU its plain version), saving (q, k, v, out, m, l) as the
+    reference's ``_flash_vjp_fwd`` does.  Backward: ``_flash_bwd``, plain
+    fp32 products, as the reference computes its backward in jnp outside
+    any Pallas kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, block, window, n_sinks):
+        from repro_torch.kernels import ops as kops
+        q_pos = torch.arange(q_offset, q_offset + q.shape[1],
+                             device=q.device)
+        out, _, m, l = kops.attn_density(q, k, v, q_pos, k.shape[1], window,
+                                         n_sinks, want_density=False,
+                                         form="flash", return_stats=True)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.cfg = (q_offset, block, window, n_sinks)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, m, l = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, m, l, dout, *ctx.cfg)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_offset: int = 0, block: int = 1024, window: int = 0,
+                    n_sinks: int = 0) -> torch.Tensor:
+    """Causal attention of q (B,Sq,H,Dqk) at positions q_offset + i over
+    k (B,Sk,KV,Dqk) / v (B,Sk,KV,Dv), with a window and sinks, and the
+    reference's flash backward (``block`` keys at a time).  The forward
+    is the flash form (p unrounded, PV in fp32 on the CPU; on the card
+    the kernel's bf16 PV operand): out differs from the reference's
+    forward, which rounds p to bf16 before PV, by at most a bf16 ulp or
+    two of its largest value.  -> out (B,Sq,H,Dv) in q's dtype."""
+    return _FlashAttention.apply(q, k, v, q_offset, block, window, n_sinks)
+
+
+def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    positions: torch.Tensor, window: int = 0,
+                    n_sinks: int = 0) -> torch.Tensor:
+    """Causal self-attention of a training forward, by the reference's
+    rule (``dense.py:_layer_full`` with no density): ``flash_attention``
+    where S > PREFILL_FULL_MAX_S or there is a window, else
+    ``gqa_attention`` under ``causal_window_mask``, differentiated by
+    autograd (plain products, as the reference's jnp).  -> out."""
+    if q.shape[1] > PREFILL_FULL_MAX_S or window:
+        return flash_attention(q, k, v, 0, 1024, window, n_sinks)
+    mask = causal_window_mask(positions, positions, window, n_sinks)
+    return gqa_attention(q, k, v, mask).out
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cur_pos: torch.Tensor,
                      k_scale: Optional[torch.Tensor] = None,
@@ -461,6 +561,26 @@ def ring_update(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
         i = int(idx)
         cache[:, i:i + 1] = new.to(cache.dtype)
     return cache
+
+
+def unstack(stack: dict) -> list:
+    """A (nested) dict of tensors stacked on axis 0 -> one dict per entry
+    of the stack, through ``torch.unbind``: in training each layer's
+    slices come from one op, whose backward stacks the layers' gradients
+    in one copy (``layer_at`` would add a full-size zero tensor per
+    layer)."""
+    cols = {k: unstack(v) if isinstance(v, dict) else torch.unbind(v)
+            for k, v in stack.items()}
+    n = len(next(iter(cols.values())))
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)`` rematerialised in the backward
+    (``torch.utils.checkpoint``, non-reentrant): the reference's
+    ``jax.checkpoint``.  Only ``args`` are kept for the backward."""
+    from torch.utils.checkpoint import checkpoint
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def layer_at(stack: dict, i: int) -> dict:

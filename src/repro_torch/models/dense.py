@@ -9,8 +9,11 @@ interleaved-chunk ``recompute`` (paper Fig. 7; also the chunked
 prefill-append), the layer-pipelined ``recompute_pipelined`` (paper
 Fig. 8) and the paged-pool entries ``decode_paged`` / ``extend_paged``.
 Layer parameters are stacked (L, ...) as in the reference; its
-``lax.scan`` over layers is a Python loop here.  Training (``loss``,
-``blockwise_ce``, rematerialisation) is not ported (``ROADMAP.md``).
+``lax.scan`` over layers is a Python loop here.  Training: ``loss``
+(one ``torch.utils.checkpoint`` a layer; attention by the reference's
+training branches, ``C.train_attention``) and ``blockwise_ce`` (the LM
+head's CE in checkpointed blocks of 512 positions, so the (B, S, V)
+logits are never all alive).
 
 The mixed layout is the quant-resident working cache: bf16 ``k``/``v``
 plus int8 ``k_q``/``v_q`` segments with per-(token, kv-head) scales,
@@ -33,6 +36,40 @@ from repro_torch.kernels.ref import quantize_token_head_ref
 from repro_torch.models import common as C
 from repro_torch.models.api import DecodeOut, ModelBase, PrefillOut
 from repro_torch.models.kvspec import KVSpec, LAYOUT_MIXED, LAYOUT_WINDOW
+
+
+def _ce_block(xx, head, tt, mm):
+    """One block of ``blockwise_ce``: (sum of masked nll, masked hits).
+    The head product is rounded to bf16 before the fp32 cast, as in the
+    reference."""
+    logits = (xx @ head).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, tt[..., None])[..., 0]
+    return (torch.sum((logz - ll) * mm),
+            torch.sum((torch.argmax(logits, dim=-1) == tt) * mm))
+
+
+def blockwise_ce(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
+                 mask=None, block: int = 512):
+    """Token-mean next-token CE of the final hidden x (B, S, d) under the
+    head (d, V) against targets (B, S), mask (B, S) or None, in blocks
+    of ``block`` positions, each checkpointed (its logits are recomputed
+    in the backward), so the (B, S, V) logits are never all alive.  The
+    reference pads the last block with masked rows; here it is shorter.
+    -> (loss, {"loss", "acc"})."""
+    B, S, _ = x.shape
+    targets = targets.long()
+    m = (torch.ones((B, S), dtype=torch.float32, device=x.device)
+         if mask is None else mask.to(torch.float32))
+    nll = acc = 0.0
+    for lo in range(0, S, block):
+        sl = slice(lo, lo + block)
+        n_b, a_b = C.checkpointed(_ce_block, x[:, sl], head, targets[:, sl],
+                                  m[:, sl])
+        nll, acc = nll + n_b, acc + a_b
+    cnt = torch.clamp_min(torch.sum(m), 1.0)
+    loss = nll / cnt
+    return loss, {"loss": loss, "acc": acc / cnt}
 
 
 def _layer(params: Dict, l: int) -> Dict[str, torch.Tensor]:
@@ -153,18 +190,23 @@ class DenseModel(ModelBase):
         h = C.rms_norm(x, pl["ln_ffn"], self.cfg.norm_eps)
         return x + C.swiglu(h, pl["w_gate"], pl["w_up"], pl["w_down"])
 
-    # -- full-sequence layer (prefill) --------------------------------- #
+    # -- full-sequence layer (train / prefill) ------------------------- #
     def _layer_full(self, pl, x, positions, window, n_sinks, want_density,
-                    return_kv):
+                    return_kv, train=False):
         """One layer over the whole sequence x (B, S, d) at ``positions``
         (S,) = arange(S), causal attention through
-        ``C.prefill_attention``.  -> (x, {"density", "k", "v"} as
-        asked)."""
+        ``C.prefill_attention`` or, with ``train``, the reference's
+        training branches (``C.train_attention``).  -> (x, {"density",
+        "k", "v"} as asked)."""
         h = C.rms_norm(x, pl["ln_attn"], self.cfg.norm_eps)
         q, k, v = self._qkv(pl, h)
         q, k = self._rope(q, k, positions)
-        ao = C.prefill_attention(q, k, v, positions, window, n_sinks,
-                                 want_density)
+        if train:
+            ao = C.AttnOut(C.train_attention(q, k, v, positions, window,
+                                             n_sinks), None)
+        else:
+            ao = C.prefill_attention(q, k, v, positions, window, n_sinks,
+                                     want_density)
         x = x + ao.out.reshape(*x.shape[:2], -1) @ pl["wo"]
         x = self._ffn(pl, x)
         extras = {}
@@ -174,13 +216,23 @@ class DenseModel(ModelBase):
             extras["k"], extras["v"] = k, v
         return x, extras
 
+    def _train_layer(self, pl, x, positions, window, n_sinks):
+        return self._layer_full(pl, x, positions, window, n_sinks, False,
+                                False, train=True)[0]
+
     def _stack_full(self, params, tokens, *, window=0, n_sinks=0,
-                    want_density=False, return_kv=False):
+                    want_density=False, return_kv=False, train=False):
         """Every layer over tokens (B, S), then the final norm.  -> (x
         (B, S, d), extras stacked over layers: density (L, B, S), k / v
-        (L, B, S, KV, hd) as asked)."""
+        (L, B, S, KV, hd) as asked).  ``train``: the training forward,
+        one checkpoint a layer (no extras)."""
         x = params["embed"][tokens].to(torch.bfloat16)
         positions = torch.arange(tokens.shape[1], device=x.device)
+        if train:
+            for pl in C.unstack(params["layers"]):
+                x = C.checkpointed(self._train_layer, pl, x, positions,
+                                   window, n_sinks)
+            return C.rms_norm(x, params["ln_f"], self.cfg.norm_eps), {}
         extras = []
         for l in range(self.cfg.n_layers):
             x, ex = self._layer_full(_layer(params, l), x, positions,
@@ -190,6 +242,17 @@ class DenseModel(ModelBase):
         x = C.rms_norm(x, params["ln_f"], self.cfg.norm_eps)
         return x, {k: torch.stack([e[k] for e in extras])
                    for k in extras[0]}
+
+    def loss(self, params, batch):
+        """Next-token CE of batch["tokens"] (B, S) against
+        batch["targets"] (optional batch["mask"]) through ``blockwise_ce``,
+        one checkpoint a layer.  The reference nests its checkpoints two
+        levels deep over groups of layers (``_inner_group``): a policy
+        of what memory holds, not of what is computed, so one level
+        gives the same numbers.  -> (loss, {"loss", "acc"})."""
+        x, _ = self._stack_full(params, batch["tokens"], train=True)
+        return blockwise_ce(x, self.head_weight(params), batch["targets"],
+                            batch.get("mask"))
 
     def prefill(self, params, batch, want_density: bool = False,
                 window: int = 0, n_sinks: int = 0) -> PrefillOut:

@@ -1,7 +1,7 @@
 """Whisper-style encoder-decoder (audio frontend STUBBED).
 
-Mirror of the JAX package's models/encdec.py for inference: ``kv_spec``,
-``init``, ``encode``, ``prefill`` (with ``frames``) and ``decode_step``.
+Mirror of the JAX package's models/encdec.py: ``kv_spec``, ``init``,
+``encode``, ``prefill`` (with ``frames``), ``decode_step`` and ``loss``.
 The conv/mel frontend is a stub: the batch provides precomputed frame
 embeddings ``frames`` (B, n_frames, d_model).  The encoder adds
 sinusoidal positions and runs pre-LN self-attention blocks; the decoder
@@ -14,11 +14,13 @@ the card: S <= 448, so never the flash form), with the density; the
 encoder's unmasked attention and the cross-attention stay in the plain
 ``gqa_attention``, as the reference computes them; decode attends
 through the plain ``decode_attention`` for self and cross, as the
-reference does in jnp.
+reference does in jnp.  ``loss`` attends the decoder's self-attention
+by ``gqa_attention`` under the causal mask, as the reference's
+training forward does: it launches no kernel.
 
 The KVSpec declares the family not servable (its prefill needs audio
 frames), so ``LLMService`` refuses it as the reference's executor does.
-Training (``loss``, ``batch_specs``) is not ported (``ROADMAP.md``).
+``batch_specs`` is not ported (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch
 
 from repro_torch.models import common as C
 from repro_torch.models.api import DecodeOut, ModelBase, PrefillOut
+from repro_torch.models.dense import blockwise_ce
 from repro_torch.models.kvspec import KVSpec
 
 
@@ -144,38 +147,73 @@ class EncDecModel(ModelBase):
                             cfg.norm_eps)
 
     # -- decoder (full sequence) ---------------------------------------- #
-    def _decode_full(self, params, tokens, enc_out, want_density=False):
+    def _dec_layer(self, pl, x, enc_out, positions, want_density=False,
+                   train=False):
+        """One decoder layer: causal self-attention (the prefill's through
+        ``C.prefill_attention`` with the density as asked; with
+        ``train`` the reference's ``gqa_attention`` under the causal mask,
+        no kernel), cross-attention over ``enc_out`` and the MLP.  -> (x,
+        {"k", "v", "xk", "xv", "density"})."""
+        cfg = self.cfg
+        h = C.layer_norm(x, pl["ln0"], pl["ln0_b"], cfg.norm_eps)
+        q, k, v = self._proj_qkv(pl["self"], h, h)
+        if train:
+            mask = C.causal_window_mask(positions, positions)
+            ao = C.gqa_attention(q, k, v, mask)
+        else:
+            ao = C.prefill_attention(q, k, v, positions,
+                                     want_density=want_density)
+        x = self._attn_out(pl["self"], x, ao.out)
+        h = C.layer_norm(x, pl["ln1"], pl["ln1_b"], cfg.norm_eps)
+        qx, kx, vx = self._proj_qkv(pl["cross"], h, enc_out)
+        maskx = torch.ones((x.shape[1], enc_out.shape[1]), dtype=torch.bool,
+                           device=x.device)
+        x = self._attn_out(pl["cross"], x,
+                           C.gqa_attention(qx, kx, vx, maskx).out)
+        x = self._mlp(pl["mlp"], pl["ln2"], pl["ln2_b"], x)
+        return x, {"k": k, "v": v, "xk": kx, "xv": vx,
+                   "density": ao.key_density}
+
+    def _train_dec_layer(self, pl, x, enc_out, positions):
+        return self._dec_layer(pl, x, enc_out, positions, train=True)[0]
+
+    def _decode_full(self, params, tokens, enc_out, want_density=False,
+                     train=False):
         """-> (x after the final norm, {"k", "v", "xk", "xv": (L, B, ., H,
-        hd), "density": (L, B, S) as asked})."""
+        hd), "density": (L, B, S) as asked}).  ``train``: the training
+        forward, one checkpoint a layer (no extras)."""
         cfg = self.cfg
         B, S = tokens.shape
         x = params["embed"][tokens].to(torch.bfloat16)
         x = x + params["pos_dec"][:S].to(x.dtype)[None]
         positions = torch.arange(S, device=x.device)
-        maskx = torch.ones((S, enc_out.shape[1]), dtype=torch.bool,
-                           device=x.device)
         ys = {"k": [], "v": [], "xk": [], "xv": [], "density": []}
-        for i in range(cfg.n_layers):
-            pl = C.layer_at(params["dec"], i)
-            h = C.layer_norm(x, pl["ln0"], pl["ln0_b"], cfg.norm_eps)
-            q, k, v = self._proj_qkv(pl["self"], h, h)
-            ao = C.prefill_attention(q, k, v, positions,
-                                     want_density=want_density)
-            x = self._attn_out(pl["self"], x, ao.out)
-            h = C.layer_norm(x, pl["ln1"], pl["ln1_b"], cfg.norm_eps)
-            qx, kx, vx = self._proj_qkv(pl["cross"], h, enc_out)
-            x = self._attn_out(pl["cross"], x,
-                               C.gqa_attention(qx, kx, vx, maskx).out)
-            x = self._mlp(pl["mlp"], pl["ln2"], pl["ln2_b"], x)
-            for n, t in (("k", k), ("v", v), ("xk", kx), ("xv", vx)):
-                ys[n].append(t)
+        for pl in C.unstack(params["dec"]):
+            if train:
+                x = C.checkpointed(self._train_dec_layer, pl, x, enc_out,
+                                   positions)
+                continue
+            x, ex = self._dec_layer(pl, x, enc_out, positions, want_density)
+            for n in ("k", "v", "xk", "xv"):
+                ys[n].append(ex[n])
             if want_density:
-                ys["density"].append(ao.key_density)
+                ys["density"].append(ex["density"])
         x = C.layer_norm(x, params["ln_dec"], params["ln_dec_b"],
                          cfg.norm_eps)
         return x, {n: torch.stack(t) for n, t in ys.items() if t}
 
     # -- entry points --------------------------------------------------- #
+    def loss(self, params, batch):
+        """Next-token CE of batch["tokens"] given batch["frames"]: the
+        encoder (not rematerialised, as in the reference), the decoder
+        with one checkpoint a layer, ``blockwise_ce``.  -> (loss,
+        {"loss", "acc"})."""
+        enc_out = self.encode(params, batch["frames"])
+        x, _ = self._decode_full(params, batch["tokens"], enc_out,
+                                 train=True)
+        return blockwise_ce(x, self.head_weight(params), batch["targets"],
+                            batch.get("mask"))
+
     def prefill(self, params, batch, want_density: bool = False,
                 window: int = 0, n_sinks: int = 0) -> PrefillOut:
         """Encode batch["frames"] (B, n_frames, d), then the full-sequence

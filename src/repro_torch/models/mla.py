@@ -1,9 +1,9 @@
 """DeepSeek-V2 style Multi-head Latent Attention + MoE (deepseek-v2-lite).
 
-Mirror of the JAX package's models/mla.py for what serving and
-inference run: ``kv_spec``, ``init``, the full-sequence ``prefill``
-(``_layer_full`` under the dense ``prefill``; its cache is {"ckv",
-"kpe", "pos"}), ``decode_step``
+Mirror of the JAX package's models/mla.py: ``kv_spec``, ``init``, the
+full-sequence ``prefill`` (``_layer_full`` under the dense ``prefill``;
+its cache is {"ckv", "kpe", "pos"}) and ``loss`` (dense's, over MLA's
+``_layer_full`` with the training attention rule), ``decode_step``
 (window and mixed caches) and the interleaved-chunk ``recompute``
 (paper Fig. 7; also the chunked prefill-append).  MLA caches one compressed latent per token — ``ckv``
 (kv_lora_rank) plus a shared roped key ``kpe`` (qk_rope_head_dim) —
@@ -145,20 +145,26 @@ class MLAModel(DenseModel):
         k = torch.cat([k_nope, kpe_h.to(k_nope.dtype)], dim=-1)
         return k, v
 
-    # -- full-sequence layer (prefill) --------------------------------- #
+    # -- full-sequence layer (train / prefill) ------------------------- #
     def _layer_full(self, pl, x, positions, window, n_sinks, want_density,
-                    return_kv):
+                    return_kv, train=False):
         """One layer over the whole sequence: per-head K (nope + rope)
         and V up-projected from the latents, causal attention through
-        ``C.prefill_attention`` at head dims nope + rope / v.  -> (x,
-        {"density", "ckv", "kpe"} as asked)."""
+        ``C.prefill_attention`` at head dims nope + rope / v, or with
+        ``train`` by the reference's training branches
+        (``C.train_attention``, dense's rule).  -> (x, {"density", "ckv",
+        "kpe"} as asked)."""
         h = C.rms_norm(x, pl["ln_attn"], self.cfg.norm_eps)
         q_nope, q_pe = self._queries(pl, h, positions)
         q = torch.cat([q_nope, q_pe], dim=-1)
         ckv, kpe = self._latents(pl, h, positions)
         k, v = self._expand_kv(pl, ckv, kpe)
-        ao = C.prefill_attention(q, k, v, positions, window, n_sinks,
-                                 want_density)
+        if train:
+            ao = C.AttnOut(C.train_attention(q, k, v, positions, window,
+                                             n_sinks), None)
+        else:
+            ao = C.prefill_attention(q, k, v, positions, window, n_sinks,
+                                     want_density)
         x = x + ao.out.reshape(*x.shape[:2], -1) @ pl["wo"]
         x = self._ffn(pl, x)
         extras = {}

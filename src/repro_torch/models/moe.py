@@ -4,8 +4,8 @@ Mirror of the JAX package's models/moe.py: the dense attention stack
 (GQA + RoPE) with every FFN replaced by a routed MoE (top-1 over 128
 experts for llama4) plus one always-on shared expert (``moe_layer.py``).
 Every other entry is ``DenseModel``'s: window and mixed caches,
-``prefill``, ``decode_step`` (batched too), ``recompute``; only
-``kv_spec``, ``init`` and ``_ffn`` change.
+``prefill``, ``decode_step`` (batched too), ``recompute``, ``loss``;
+only ``kv_spec``, ``init`` and ``_ffn`` change.
 
 The KVSpec is dense's with no restore recompute, no paged pool and no
 pipelined restore: recompute replays expert routing, so restores are

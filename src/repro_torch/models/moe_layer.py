@@ -15,7 +15,11 @@ n_experts), group_size)).  The Switch-Transformer auxiliary loss
 (E * mean_e(frac_tokens_e * mean_prob_e)) is returned as a metric.
 
 The reference computes every product here with ``jnp.einsum`` outside
-any Pallas kernel, so they stay ``torch.einsum`` on both devices.  The
+any Pallas kernel, so they stay ``torch.einsum`` on both devices.
+Dispatch and combine are built from one-hots by products and sums, with
+no index written in place, so ``loss`` differentiates through the gate
+weights as the reference does; the aux loss is a metric that ``loss``
+drops, as the reference's does.  The
 dispatch is dense over experts: every expert's weights are read on
 every call, whatever the router picks.
 """

@@ -26,9 +26,13 @@ Attention layers use a 2048-token local window with a single KV head
 served form under the window, above it the flash form with the window
 (on the card both are the CUDA kernel); decode attends through the
 plain ``decode_attention`` with the window over a non-ring cache.
+``loss`` (one checkpoint a (rec, rec, attn) triple, the two trailing
+recurrent layers not, as in the reference) attends by the reference's
+training rule: ``flash_attention`` with the window above
+PREFILL_FULL_MAX_S tokens, ``gqa_attention`` under the window mask up
+to it.
 
 The KVSpec declares the family not servable, as the reference does.
-Training (``loss``) is not ported (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as C
 from repro_torch.models.api import DecodeOut, ModelBase, PrefillOut
+from repro_torch.models.dense import blockwise_ce
 from repro_torch.models.kvspec import KVSpec
 
 RG_C = 8.0
@@ -225,18 +230,25 @@ class RGLRUModel(ModelBase):
         cos, sin = C.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
         return C.apply_rope(q, cos, sin), C.apply_rope(k, cos, sin), v
 
-    def _attn_block(self, pa, x, positions, want_density):
+    def _attn_block(self, pa, x, positions, want_density, train=False):
         """Full-sequence local attention under the window: the served
         form up to PREFILL_FULL_MAX_S tokens (the reference's
         gqa_attention under causal_window_mask), the flash form above
-        (its flash_attention / blocked_causal_attention).  -> (x', k, v,
-        density | None)."""
+        (its flash_attention / blocked_causal_attention); with ``train``
+        the reference's ``gqa_attention`` and ``flash_attention``
+        themselves.  -> (x', k, v, density | None)."""
         B, S, _ = x.shape
         q, k, v = self._qkv(pa, x, positions)
-        form = "served" if S <= C.PREFILL_FULL_MAX_S else "flash"
-        ao = C.prefill_attention(q, k, v, positions,
-                                 window=self.cfg.rglru.window,
-                                 want_density=want_density, form=form)
+        w = self.cfg.rglru.window
+        if train and S > C.PREFILL_FULL_MAX_S:
+            ao = C.AttnOut(C.flash_attention(q, k, v, 0, 1024, w, 0), None)
+        elif train:
+            mask = C.causal_window_mask(positions, positions, w)
+            ao = C.gqa_attention(q, k, v, mask)
+        else:
+            form = "served" if S <= C.PREFILL_FULL_MAX_S else "flash"
+            ao = C.prefill_attention(q, k, v, positions, window=w,
+                                     want_density=want_density, form=form)
         x = x + ao.out.reshape(B, S, -1) @ pa["wo"]
         return x, k, v, ao.key_density
 
@@ -290,7 +302,41 @@ class RGLRUModel(ModelBase):
             out["density"] = torch.stack(dens).mean(dim=0)
         return out
 
+    def _train_triple(self, prs, pa, pms, x, conv0, lru0, positions):
+        """One (rec, rec, attn) triple of the training forward, each
+        block followed by its MLP, from zero recurrent states."""
+        for pr, pm in zip(prs, pms):
+            x = self._mlp(pm, self._rec_block_full(pr, x, conv0, lru0)[0])
+        x = self._attn_block(pa, x, positions, False, train=True)[0]
+        return self._mlp(pms[2], x)
+
     # -- entry points --------------------------------------------------- #
+    def loss(self, params, batch):
+        """Next-token CE of batch["tokens"] (B, S) from zero states
+        (``blockwise_ce``): one checkpoint a triple, the trailing
+        recurrent layers outside any.  -> (loss, {"loss", "acc"})."""
+        cfg, g = self.cfg, self.cfg.rglru
+        _, _, n_tri, n_trail = _block_counts(cfg)
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = self._embed(params, tokens)
+        positions = torch.arange(S, device=x.device)
+        conv0 = torch.zeros((B, g.conv_width - 1, g.lru_width),
+                            dtype=torch.bfloat16, device=x.device)
+        lru0 = torch.zeros((B, g.lru_width), dtype=torch.float32,
+                           device=x.device)
+        rec, attn, mlp = (C.unstack(params[n]) for n in ("rec", "attn", "mlp"))
+        for t in range(n_tri):
+            x = C.checkpointed(self._train_triple, rec[2 * t:2 * t + 2],
+                               attn[t], mlp[3 * t:3 * t + 3], x, conv0,
+                               lru0, positions)
+        for t in range(n_trail):
+            x = self._rec_block_full(rec[2 * n_tri + t], x, conv0, lru0)[0]
+            x = self._mlp(mlp[3 * n_tri + t], x)
+        x = C.rms_norm(x, params["ln_f"], cfg.norm_eps)
+        return blockwise_ce(x, self.head_weight(params), batch["targets"],
+                            batch.get("mask"))
+
     def prefill(self, params, batch, want_density: bool = False,
                 window: int = 0, n_sinks: int = 0) -> PrefillOut:
         """Full-sequence prefill of batch["tokens"] (B, S).  ``window``

@@ -24,8 +24,10 @@ the token-shift rows ``tm`` / ``cm`` (L, B, d) bf16 — so serving moves
 it as one whole-state snapshot (``core.chunks.WholeStateCodec``), and
 extends run at exact length: a pad token would fold into the carried
 state.  Entries write the new state IN PLACE into the cache they are
-given, as the port's other families do.  ``loss`` (training) is not
-ported (``ROADMAP.md``).
+given, as the port's other families do.  ``loss`` (training) starts
+from a zero state, one checkpoint a layer, and writes nothing in place:
+``_wkv_chunked`` carries its state by rebinding, so autograd sees every
+chunk's state.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ import torch
 
 from repro_torch.models import common as C
 from repro_torch.models.api import DecodeOut, ModelBase, PrefillOut
-from repro_torch.models.dense import _layer
+from repro_torch.models.dense import _layer, blockwise_ce
 from repro_torch.models.kvspec import KVSpec
 
 LOG_DECAY_FLOOR = -5.0
@@ -227,7 +229,31 @@ class RWKV6Model(ModelBase):
             cache["wkv"][l], cache["tm"][l], cache["cm"][l] = wkv, tm, cm
         return C.layer_norm(x, params["ln_f"], params["ln_f_b"], cfg.norm_eps)
 
+    def _train_layer(self, pl, x, tm0, wkv0, cm0):
+        x, _, _ = self._time_mix_full(pl, x, tm0, wkv0)
+        return self._channel_mix_full(pl, x, cm0)[0]
+
     # -- entry points ------------------------------------------------------ #
+    def loss(self, params, batch):
+        """Next-token CE of batch["tokens"] (B, S) from a zero state
+        (``blockwise_ce``), one checkpoint a layer.  -> (loss, {"loss",
+        "acc"})."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B = tokens.shape[0]
+        x = params["embed"][tokens].to(torch.bfloat16)
+        H, hd = cfg.n_heads, cfg.rwkv.head_dim
+        wkv0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                           device=x.device)
+        shift0 = torch.zeros((B, cfg.d_model), dtype=torch.bfloat16,
+                             device=x.device)      # both token shifts
+        for pl in C.unstack(params["layers"]):
+            x = C.checkpointed(self._train_layer, pl, x, shift0, wkv0,
+                               shift0)
+        x = C.layer_norm(x, params["ln_f"], params["ln_f_b"], cfg.norm_eps)
+        return blockwise_ce(x, self.head_weight(params), batch["targets"],
+                            batch.get("mask"))
+
     def prefill(self, params, batch, want_density=False, window=0, n_sinks=0):
         """The prompt ``batch["tokens"]`` (B, S) from a zero state.
         -> PrefillOut(last-token logits (B, V) fp32, cache with pos = S,

@@ -1,11 +1,13 @@
 """Llama-3.2-Vision style VLM: dense text backbone with tanh-gated
 cross-attention layers every ``cross_attn_every`` layers.
 
-Mirror of the JAX package's models/vlm.py for inference: ``kv_spec``,
-``init``, ``prefill`` (with ``patches``) and ``decode_step``.  The
-vision tower is a STUB: the batch provides precomputed patch
-embeddings ``patches`` (B, n_image_tokens, d_vision); the model owns
-only the projector and the cross-attention layers.
+Mirror of the JAX package's models/vlm.py: ``kv_spec``, ``init``,
+``prefill`` (with ``patches``), ``decode_step`` and ``loss`` (one
+checkpoint a block of self layers and its cross layer, as the
+reference's).  The vision tower is a STUB: the batch provides
+precomputed patch embeddings ``patches`` (B, n_image_tokens,
+d_vision); the model owns only the projector and the cross-attention
+layers.
 
 Layer layout (100 layers, cross every 5th): 20 blocks of [4 self-attn
 layers -> 1 gated cross-attn layer].  The self layers are the dense
@@ -18,8 +20,8 @@ the prefill builds and the cache carries.
 
 The KVSpec declares the family not servable: its prefill needs
 patches, so there is no text-only extend and ``LLMService`` refuses
-it (as the reference's executor does).  Training (``loss``,
-``batch_specs``) is not ported (``ROADMAP.md``).
+it (as the reference's executor does).  ``batch_specs`` is not ported
+(``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import torch
 
 from repro_torch.models import common as C
 from repro_torch.models.api import DecodeOut, PrefillOut
-from repro_torch.models.dense import DenseModel
+from repro_torch.models.dense import DenseModel, blockwise_ce
 from repro_torch.models.kvspec import KVSpec
 
 
@@ -135,16 +137,31 @@ class VLMModel(DenseModel):
         return x + torch.tanh(pc["gate_ffn"]).to(x.dtype) * y
 
     # -- stacked forward ------------------------------------------------ #
+    def _train_block(self, pss, pc, x, img, positions, window, n_sinks):
+        """One block of the training forward: its self layers (the
+        dense training layer) and its gated cross layer."""
+        for pl in pss:
+            x = self._train_layer(pl, x, positions, window, n_sinks)
+        return self._cross_layer(pc, x, *self._cross_kv(pc, img))
+
     def _forward_full(self, params, tokens, patches, *, window=0, n_sinks=0,
-                      want_density=False, return_kv=False):
+                      want_density=False, return_kv=False, train=False):
         """The blocks over tokens (B, S) and patches (B, I, d_vision).
         -> (x after the final norm, {"k", "v": (n_self, B, S, KV, hd),
         "xk", "xv": (n_cross, B, I, KV, hd), "density": (n_self, B, S)}
-        as asked)."""
+        as asked).  ``train``: the training forward, one checkpoint a
+        block (no extras)."""
         n_self, n_cross, per = self._counts()
         x = params["embed"][tokens].to(torch.bfloat16)
         img = patches.to(torch.bfloat16) @ params["projector"]
         positions = torch.arange(tokens.shape[1], device=x.device)
+        if train:
+            ps = C.unstack(params["self_layers"])
+            for c, pc in enumerate(C.unstack(params["cross_layers"])):
+                x = C.checkpointed(self._train_block,
+                                   ps[c * per:(c + 1) * per], pc, x, img,
+                                   positions, window, n_sinks)
+            return C.rms_norm(x, params["ln_f"], self.cfg.norm_eps), {}
         ys = {"k": [], "v": [], "xk": [], "xv": [], "density": []}
         for c in range(n_cross):
             for j in range(per):
@@ -163,6 +180,14 @@ class VLMModel(DenseModel):
         return x, {k: torch.stack(v) for k, v in ys.items() if v}
 
     # -- entry points --------------------------------------------------- #
+    def loss(self, params, batch):
+        """Next-token CE of batch["tokens"] given batch["patches"]
+        (``blockwise_ce``).  -> (loss, {"loss", "acc"})."""
+        x, _ = self._forward_full(params, batch["tokens"], batch["patches"],
+                                  train=True)
+        return blockwise_ce(x, self.head_weight(params), batch["targets"],
+                            batch.get("mask"))
+
     def prefill(self, params, batch, want_density: bool = False,
                 window: int = 0, n_sinks: int = 0) -> PrefillOut:
         """Full-sequence prefill of batch["tokens"] (B, S) with

@@ -1068,3 +1068,128 @@ def test_cuda_serve_main_serves_moe(card, capsys):
     assert printed["device"].startswith("cuda") and not printed["paged_pool"]
     assert kad.attn_density.launches > 0 and kad.attn_density.launches % 4 == 0
     assert kmq.decode_mqattn.launches > 0
+
+
+# --------------------------------------------------------------------- #
+# The training path: attn_density's row stats (the forward of
+# flash_attention), flash_attention's gradients, the train step and
+# launch.train.main.  Tolerances: out as above; m within 1e-5 of
+# max(1, max |m|) and l within 1e-5 relative (fp32 in both, sums in
+# another order); gradients and losses as chip_smoke.py's checks.
+# --------------------------------------------------------------------- #
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,n_sinks", [(0, 0), (16, 2), (8, 0)])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,dqk,dv,seq_len,n_pad", [
+    (2, 37, 100, 4, 4, 16, 16, 90, 4),       # G 1, hd 16, ragged tiles
+    (1, 50, 200, 16, 2, 80, 80, 180, 8),     # G 8, hd 80
+    (1, 24, 300, 64, 1, 64, 64, 250, 0),     # G 64
+    (1, 64, 512, 32, 8, 128, 128, 200, 24),  # G 4, hd 128
+    (1, 640, 1024, 16, 16, 192, 128, 1000, 0),  # 64-row tiles at 192/128
+    (1, 64, 512, 10, 1, 256, 256, 200, 24),  # HDQ 256: V in halves
+    (1, 1400, 1400, 10, 1, 256, 256, 1400, 0),  # and on 64-row tiles
+    (1, 20, 64, 4, 4, 32, 32, 40, 10),       # pads that see no key
+])
+def test_cuda_attn_density_row_stats_match_plain_version(
+        card, B, Sq, Sk, H, KV, dqk, dv, seq_len, n_pad, window, n_sinks):
+    """The row-stats variant (``return_stats``) against its plain
+    version: out, m and l; a rerun bit-identical (``chip_smoke.py``'s
+    ``_stats_check``).  Pads past seq_len under a window see no key: m =
+    NEG_INF, l = Sk in both."""
+    args = _extend_case(B, Sq, Sk, H, KV, dqk, seq_len, n_pad, card,
+                        seed=Sq + dqk, dv=dv)
+    _smoke()._stats_check(args, seq_len, window, n_sinks, "edge case")
+
+
+@pytest.mark.cuda
+def test_cuda_row_stats_count_launches_and_refuse_other_forms(card):
+    from repro_torch.kernels import attn_density as kad
+    args = _extend_case(1, 16, 64, 4, 2, 16, 64, 0, card)
+    kad.reset_launches()
+    kad.attn_density(*args, 64, 0, 0, False, "flash", True)
+    assert (kad.attn_density.launches, kad.attn_density.stats_launches,
+            kad.attn_density.density_launches) == (1, 1, 0)
+    for want, form in ((True, "flash"), (False, "served")):
+        with pytest.raises(ValueError, match="row stats"):
+            kad.attn_density(*args, 64, 0, 0, want, form, True)
+    assert kad.attn_density.launches == 1
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_grads_match_cpu(card):
+    """``flash_attention``'s out and dq, dk, dv on the card (the row-stats
+    kernel forward) against the CPU (its plain version): out within two
+    bf16 ulps, gradients within 2% of their largest values
+    (``chip_smoke.py``'s ``_check_flash_grads``)."""
+    errs = _smoke()._check_flash_grads()
+    assert len(errs) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,S", [("smollm-360m", 24),
+                                    ("smollm-360m", 2100),
+                                    ("recurrentgemma-2b", 2100)])
+def test_cuda_loss_and_grads_match_cpu(card, name, S):
+    """The reduced model's ``loss`` and per-leaf gradients on the card
+    against the CPU, the row-stats kernel launched twice an attention
+    layer above 2,048 tokens (``chip_smoke.py``'s
+    ``_check_train_families``)."""
+    out = _smoke()._check_train_families(((name, S),))
+    assert out[f"{name} S {S}"][3] == (0 if S < 2048 else
+                                       8 if name == "smollm-360m" else 2)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_cpu(card):
+    """One ``make_train_step`` step of the reduced smollm-360m (fp32 and
+    8-bit moments) on the card against the CPU from the same weights:
+    loss and grad norm within 1e-3 relative, the updated parameters
+    within 2 lr + 2 bf16 ulps (Adam's first step moves an entry by about
+    lr times the sign of its gradient)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.train import batch_to, make_train_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.optimizer import OptConfig, init_state, tree_leaves
+    cfg = reduced(get_config("smollm-360m"))
+    batch = SyntheticLM(vocab=cfg.vocab, seq=32, batch=4).batch_for_step(0)
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    gpu = build_model(cfg, device="cuda")
+    for quantized in (False, True):
+        opt = OptConfig(lr=1e-3, warmup_steps=1, quantized=quantized)
+        s_c, m_c = make_train_step(cpu, opt)(init_state(params, opt),
+                                             batch_to(batch, "cpu"))
+        p_g = {k: (v.cuda() if not isinstance(v, dict) else
+                   {n: t.cuda() for n, t in v.items()})
+               for k, v in params.items()}
+        s_g, m_g = make_train_step(gpu, opt)(init_state(p_g, opt),
+                                             batch_to(batch, "cuda"))
+        for k in ("loss", "grad_norm"):
+            assert abs(float(m_g[k]) - float(m_c[k])) <= \
+                1e-3 * abs(float(m_c[k]))
+        for a, b in zip(tree_leaves(s_c["params"]),
+                        tree_leaves(s_g["params"])):
+            a, b = a.float(), b.float().cpu()
+            ulp = 2.0 ** (float(torch.log2(a.abs().max()).floor()) - 7)
+            assert float((a - b).abs().max()) <= 2 * 1e-3 + 2 * ulp
+
+
+@pytest.mark.cuda
+def test_cuda_train_main_on_the_card(card, tmp_path):
+    """``launch.train.main`` on the card (its default device), the
+    reduced smollm-360m at 2,100 tokens (flash_attention: 2 row-stats
+    launches a layer and step) with a checkpoint and a resume; finite
+    losses, the resumed steps within 1e-4 of the uninterrupted run's."""
+    from repro_torch.kernels import attn_density as kad
+    from repro_torch.launch import train
+    base = ["--reduced", "--seq", "2100", "--batch", "1", "--ckpt-every",
+            "2"]
+    kad.reset_launches()
+    full = train.main(base + ["--steps", "4", "--ckpt-dir",
+                              str(tmp_path / "a")])
+    assert kad.attn_density.stats_launches == 4 * 2 * 4
+    train.main(base + ["--steps", "2", "--ckpt-dir", str(tmp_path / "b")])
+    rest = train.main(base + ["--steps", "4", "--ckpt-dir",
+                              str(tmp_path / "b"), "--resume"])
+    assert np.isfinite(full["losses"]).all() and len(rest["losses"]) == 2
+    np.testing.assert_allclose(rest["losses"], full["losses"][2:], rtol=1e-4)

@@ -64,13 +64,24 @@ RWKV6_SLICE = ("repro_torch.models.rwkv6", "repro_torch.configs.rwkv6_1p6b",
                "repro_torch.core")
 
 
+# the modules of the training slice (launch/train.py, the optimizer,
+# checkpoints, SyntheticLM, every family's loss)
+TRAIN_SLICE = ("repro_torch.train", "repro_torch.train.optimizer",
+               "repro_torch.train.checkpoint", "repro_torch.launch.train",
+               "repro_torch.data.pipeline", "repro_torch.models.common",
+               "repro_torch.models.dense", "repro_torch.models.vlm",
+               "repro_torch.models.encdec", "repro_torch.models.rglru",
+               "repro_torch.models.rwkv6")
+
+
 def _module_path(mod: str) -> pathlib.Path:
     rel = pathlib.Path(*mod.split(".")[1:])
     path = PORT / rel.with_suffix(".py")
     return path if path.exists() else PORT / rel / "__init__.py"
 
 
-@pytest.mark.parametrize("mod", ROUTER_SLICE + MLA_SLICE + RWKV6_SLICE)
+@pytest.mark.parametrize("mod", ROUTER_SLICE + MLA_SLICE + RWKV6_SLICE
+                         + TRAIN_SLICE)
 def test_router_slice_modules_are_scanned(mod):
     assert _module_path(mod) in _sources()
 
@@ -110,6 +121,22 @@ def test_rwkv6_slice_imports_without_triton_or_card():
     """``rwkv6.py``, its config, ``zoo.py`` (and the core package that
     exports it) import as the router slice does."""
     _imports_cleanly(RWKV6_SLICE)
+
+
+def test_train_slice_imports_without_triton_or_card():
+    """The training substrate (``train/``, ``launch/train.py``,
+    ``SyntheticLM``) and the families' losses import as the router
+    slice does."""
+    _imports_cleanly(TRAIN_SLICE)
+
+
+def test_train_main_defaults_to_the_card(monkeypatch):
+    """``launch.train.main`` trains on the card unless ``--device cpu``
+    is given."""
+    from repro_torch.launch import train
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--reduced", "--steps", "1", "--ckpt-every", "0"])
 
 
 @pytest.mark.parametrize("path", _sources(),

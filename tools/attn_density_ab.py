@@ -58,15 +58,32 @@ def _sass(lib: str):
     return funcs
 
 
-def _load(path: str) -> ctypes.CDLL:
+class _NoStats:
+    """A library built from a source whose C entry takes no ``stats``
+    pointer (before the row stats): takes the wrapper's call, which
+    passes one after ``density``, without it."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self._lib = lib
+        self.attn_density_rows = lib.attn_density_rows
+
+    def attn_density(self, *args):
+        if args[7] is not None:
+            raise ValueError("this source's kernel gives no row stats")
+        return self._lib.attn_density(*args[:7], *args[8:])
+
+
+def _load(path: str, src: str):
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.attn_density.argtypes = [vp] * 7 + [ci] * 10 + [ctypes.c_float, ci,
-                                                         vp]
+    with open(src) as f:
+        stats = "void* stats" in f.read()
+    lib.attn_density.argtypes = ([vp] * (8 if stats else 7) + [ci] * 10
+                                 + [ctypes.c_float, ci, vp])
     lib.attn_density.restype = ci
     lib.attn_density_rows.argtypes = [ci] * 4
     lib.attn_density_rows.restype = ci
-    return lib
+    return lib if stats else _NoStats(lib)
 
 
 def main(other_src: str) -> int:
@@ -79,9 +96,10 @@ def main(other_src: str) -> int:
     out_dir = os.path.dirname(os.path.abspath(other_src))
     libs = {"other": os.path.join(out_dir, "lib_other.so"),
             "this": os.path.join(out_dir, "lib_this.so")}
-    _build(other_src, libs["other"])
-    _build(os.path.join(ROOT, "src/repro_torch/csrc/attn_density.cu"),
-           libs["this"])
+    srcs = {"other": other_src,
+            "this": os.path.join(ROOT, "src/repro_torch/csrc/attn_density.cu")}
+    for k in libs:
+        _build(srcs[k], libs[k])
     s_o, s_t = _sass(libs["other"]), _sass(libs["this"])
     shared = sorted(set(s_o) & set(s_t))
     result = {"card": smoke.nvidia_smi_line(),
@@ -89,7 +107,7 @@ def main(other_src: str) -> int:
               "sass_differ": [f for f in shared if s_o[f] != s_t[f]],
               "only_this": sorted(set(s_t) - set(s_o)),
               "only_other": sorted(set(s_o) - set(s_t)), "times": {}}
-    loaded = {k: _load(p) for k, p in libs.items()}
+    loaded = {k: _load(p, srcs[k]) for k, p in libs.items()}
     g = torch.Generator(device="cuda").manual_seed(smoke.SEED)
     serve = smoke._serve_positions(200)
     cases = {
