@@ -1,9 +1,10 @@
 """Static annotation markers consumed by ``repro_torch.analysis``.
 
 Zero-cost at runtime (plain attribute tags); dependency-free so every
-core module can import them.  The analyzer reads the DECORATOR SYNTAX
-via AST — the runtime attributes exist only so tooling/tests can
-introspect live objects.
+core module can import them.  The analyzer (``python -m
+repro_torch.analysis``; its ``lockcheck`` enforces both markers) reads
+the DECORATOR SYNTAX via AST — the runtime attributes exist only so
+tooling/tests can introspect live objects.
 """
 from typing import Any, Callable, TypeVar
 

@@ -122,17 +122,6 @@ class LLMSConfig:
             self.paged_pool = False     # pages ARE chunks
 
 
-def _refuse_unported(model: ModelBase) -> None:
-    """Families this port does not run yet: refused before anything is
-    built, never quietly run as something else.  A ported family that is
-    not servable (the VLM) goes on to the executor, which refuses it as
-    the reference's does."""
-    from repro_torch.models.registry import FAMILY_CLASSES
-    if model.cfg.family not in FAMILY_CLASSES:
-        raise NotImplementedError(
-            f"family {model.cfg.family!r} is not ported yet (ROADMAP.md)")
-
-
 @dataclass
 class GenerationState:
     """One in-flight generation between ``begin_call`` and
@@ -170,7 +159,6 @@ class LLMService:
                  cid_alloc: Optional[Callable[[], int]] = None,
                  records: Any = None):
         self.device = resolve_device(device)
-        _refuse_unported(model)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, service on "
                              f"{self.device}")

@@ -74,6 +74,16 @@ TRAIN_SLICE = ("repro_torch.train", "repro_torch.train.optimizer",
                "repro_torch.models.rwkv6")
 
 
+# the static analyzer (stdlib only: tests/test_torch_analysis.py runs it
+# with torch, numpy, JAX and the reference refused)
+ANALYSIS_SLICE = tuple(
+    f"repro_torch.analysis.{m}" for m in (
+        "findings", "astpass", "config", "lockcheck", "sharedstate",
+        "jitcheck", "familycheck", "baseline", "runner", "__main__",
+        "fixtures", "fixtures.pr3_deadlock", "fixtures.pr6_restore_race",
+        "fixtures.family_dispatch")) + ("repro_torch.analysis",)
+
+
 def _module_path(mod: str) -> pathlib.Path:
     rel = pathlib.Path(*mod.split(".")[1:])
     path = PORT / rel.with_suffix(".py")
@@ -81,7 +91,7 @@ def _module_path(mod: str) -> pathlib.Path:
 
 
 @pytest.mark.parametrize("mod", ROUTER_SLICE + MLA_SLICE + RWKV6_SLICE
-                         + TRAIN_SLICE)
+                         + TRAIN_SLICE + ANALYSIS_SLICE)
 def test_router_slice_modules_are_scanned(mod):
     assert _module_path(mod) in _sources()
 
