@@ -211,6 +211,24 @@ result line):
              from its step-3 checkpoint (losses within RESUME_RTOL);
              wall per step, tokens/s, peak memory, model FLOPs a step,
              one apply_updates alone;
+3m. dryrun — launch/dryrun.py's main over every cell of ASSIGNED x
+             SHAPES on the meta device, single and multi-pod (no cell
+             may fail; only whisper-base x long_500k is skipped), the
+             per-device argument GiB of each cell printed; then the
+             single-pod data-parallel shares of DRYRUN_RUNS on the card
+             at full width and depth (no cut allowed) through
+             run_cell(..., run=True): qwen2.5-14b x decode_32k and
+             smollm-360m x long_500k over the all-int8 cache
+             (decode_qattn once a layer, every layer's call held against
+             the plain version on its own inputs, the logits against the
+             plain run's, a differing greedy pick only at a near-tie),
+             smollm-360m x prefill_32k (attn_density with the density
+             once a layer, the first call's last 512 query rows held)
+             and x train_4k (the row-stats kernel twice a layer on each
+             of 2 splits, finite loss and grad norm); each share's wall,
+             peak and launches of one call are read from its record;
+             then attn_density and decode_qattn timed at those shapes
+             beside their bounds, their plain versions and SDPA;
 4. check   — the reduced llama2-7b and the reduced smollm-360m (G = 2,
              tied head) served teacher-forced on the card agree with the
              same port on the CPU (plain PyTorch), over the bf16 page
@@ -395,6 +413,17 @@ MOE = dict(tag="moe", arch="llama4-maverick-400b-a17b", n_layers=2,
            mixed_decode_kernel=True)
 # its chunk leaves (T, layers x KV x hd): k and v (16, 2 x 8 x 128)
 MOE_CODEC_SHAPES = ((16, 2 * 8 * 128), (16, 2 * 8 * 128))
+# 3m: the dry run (launch/dryrun.py): every cell of ASSIGNED x SHAPES on
+# the meta device on both meshes, then these cells' data-parallel shares
+# on the card at full width (arch, shape, --kv-dtype), each with the
+# launches of one call that the path must make: decode_qattn once a
+# layer over the all-int8 cache; attn_density (with the density) once a
+# layer in the 32k prefill; the row-stats kernel twice a layer (the
+# forward and its checkpointed recompute) on each of n_micro = 2 splits
+DRYRUN_RUNS = (("qwen2.5-14b", "decode_32k", "int8"),
+               ("smollm-360m", "long_500k", "int8"),
+               ("smollm-360m", "prefill_32k", "bf16"),
+               ("smollm-360m", "train_4k", "bf16"))
 # 3e: rwkv6-1.6b at full width (one whole-state snapshot a context:
 # wkv 24 x 32 x 64 x 64 fp32 + tm / cm 2 x 24 x 2048 fp16 = 12,779,520 B)
 RWKV = dict(arch="rwkv6-1.6b", budget_snapshots=2, max_ctx=256)
@@ -532,17 +561,28 @@ def _device_us(ev) -> float:
                    getattr(ev, "cuda_time_total", 0.0))
 
 
+def _event_ms(fn, iters, flush=None):
+    """Time per call by CUDA events (``_time_ms``); with the callable
+    ``flush`` run before every call, the flush's own time taken off."""
+    if flush is None:
+        return _time_ms(fn, iters=iters, warmup=1)
+    both = _time_ms(lambda: (flush(), fn()), iters=iters, warmup=1)
+    return both - _time_ms(flush, iters=iters, warmup=1)
+
+
 def _device_ms(fn, match=None, iters=50, by_kernel=None, flush=None):
     """Device time per call from the profiler's CUDA kernel records: the
     kernels whose name contains ``match`` (a string or a tuple of them;
     all kernels when None), summed and divided by ``iters``.  Raises when
-    ``match`` is given and no kernel matches it (a kernel renamed without
-    its match, or a profiler that records no device time); None when
-    ``match`` is None and the profiler records no device time.  With a
-    dict ``by_kernel``, also each counted kernel's time per call, by
-    name.  With ``flush`` (``_l2_flush()``), the flush runs before every
-    call and its own kernels are left out: the call's time with a cold
-    L2."""
+    ``match`` is given and no kernel matches it although the profiler
+    recorded other kernels (a kernel renamed without its match); when
+    the profiler recorded no kernel at all in PROFILE_TRIES windows, the
+    time per call by CUDA events instead (logged, and named so in
+    ``by_kernel``), as the profiler's own failure; None when ``match`` is
+    None and the profiler records no device time.  With a dict
+    ``by_kernel``, also each counted kernel's time per call, by name.
+    With ``flush`` (``_l2_flush()``), the flush runs before every call
+    and its own kernels are left out: the call's time with a cold L2."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     flush, skip = flush if flush is not None else (None, set())
@@ -552,6 +592,7 @@ def _device_ms(fn, match=None, iters=50, by_kernel=None, flush=None):
     # the profiler now and then records no kernel of a window (seen on
     # this card's machine in two runs of many): profile the window again,
     # up to PROFILE_TRIES times, before calling the kernel missing
+    seen = False               # a window recorded some kernel's time
     for i in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -561,6 +602,7 @@ def _device_ms(fn, match=None, iters=50, by_kernel=None, flush=None):
             torch.cuda.synchronize()
         total_us, parts = 0.0, {}
         for ev in prof.key_averages():
+            seen = seen or _device_us(ev) > 0
             if ev.key in skip:
                 continue
             if subs is None or any(m in ev.key for m in subs):
@@ -578,9 +620,16 @@ def _device_ms(fn, match=None, iters=50, by_kernel=None, flush=None):
         log(f"[profiler] window {i + 1} of {PROFILE_TRIES} recorded no "
             f"device time for a kernel matching {subs}; profiling it again")
     if subs is not None and total_us == 0:
-        raise AssertionError(f"the profiler recorded no device time for a "
-                             f"kernel matching {subs} in {PROFILE_TRIES} "
-                             "windows")
+        if seen:
+            raise AssertionError(f"the profiler recorded no device time for "
+                                 f"a kernel matching {subs} in "
+                                 f"{PROFILE_TRIES} windows")
+        ms = _event_ms(fn, iters, flush)
+        log(f"[profiler] {PROFILE_TRIES} windows recorded no kernel at all; "
+            f"{subs} timed by CUDA events instead: {ms} ms a call")
+        if by_kernel is not None:
+            by_kernel["CUDA events, whole call"] = ms
+        return ms
     if by_kernel is not None:
         by_kernel.update(parts)
     return total_us / iters / 1e3 if total_us > 0 else None
@@ -2174,26 +2223,13 @@ def _batch_divergence(batched, serial):
 # --------------------------------------------------------------------- #
 def _zero_launches():
     """Every kernel wrapper's launch count to 0."""
-    from repro_torch.kernels import attn_density as kad
-    from repro_torch.kernels import chunk_quant
-    from repro_torch.kernels import decode_mqattn as kmq
-    from repro_torch.kernels import decode_qattn as kdq
-    for k in (chunk_quant, kmq, kad, kdq):
-        k.reset_launches()
+    from repro_torch.kernels import reset_launch_counts
+    reset_launch_counts()
 
 
 def _read_launches():
-    from repro_torch.kernels import attn_density as kad
-    from repro_torch.kernels import chunk_quant
-    from repro_torch.kernels import decode_mqattn as kmq
-    from repro_torch.kernels import decode_qattn as kdq
-    return {"quantize": chunk_quant.quantize.launches,
-            "dequantize": chunk_quant.dequantize.launches,
-            "decode_mqattn": kmq.decode_mqattn.launches,
-            "attn_density": kad.attn_density.launches,
-            "attn_density_with_density": kad.attn_density.density_launches,
-            "attn_density_stats": kad.attn_density.stats_launches,
-            "decode_qattn": kdq.decode_qattn.launches}
+    from repro_torch.kernels import launch_counts
+    return launch_counts()
 
 
 class _KernelCalls:
@@ -4455,6 +4491,216 @@ def moe_runs(swap_root):
 
 
 # --------------------------------------------------------------------- #
+# 3m. the dry run: launch/dryrun.py on the meta device and its cells'
+# shares on the card
+# --------------------------------------------------------------------- #
+def _dryrun_expected(one):
+    """The launches of one call that a share's path must make, from its
+    record's ``one_card`` block (key of ``_read_launches``: count)."""
+    L, entry = one["n_layers"], one["entry"]
+    if entry == "decode":
+        return {"decode_qattn": L}
+    if entry == "prefill":
+        return {"attn_density": L, "attn_density_with_density": L}
+    return {"attn_density_stats": 2 * one["n_micro"] * L}
+
+
+def _dryrun_ad_row(label, args, want, stats, iters=3):
+    """attn_density at a cell's shape (queries at arange(S) over S keys,
+    causal flash form, with the density or the row stats): its device
+    time and time per call, its bound, SDPA is_causal (out only) and the
+    plain version on the last 512 query rows (the whole would hold (B,
+    H, S, S) fp32 scores), each timed on the same inputs."""
+    import torch
+    from repro_torch.kernels import attn_density as kad
+    from repro_torch.kernels import ref
+    S = args[0].shape[1]
+    fn = lambda: kad.attn_density(*args, S, 0, 0, want, "flash",  # noqa: E731
+                                  stats)
+    rows = min(S, 512)
+    tail = [args[0][:, -rows:].contiguous(), args[1], args[2],
+            args[3][-rows:].contiguous()]
+    plain = lambda: ref.attn_density_plain(                      # noqa: E731
+        *tail, S, 0, 0, want, "flash", stats)
+    lib = _sdpa_causal(*args[:3])
+    bound, by = _ad_bound_ms(args, S, 0, 0, want, stats=stats)
+    parts = {}
+    row = {"shape": label, "form": "flash", "density": want, "stats": stats,
+           "call_ms": _time_ms(fn, iters=iters, warmup=1),
+           "device_ms": _device_ms(fn, AD_KERNELS, iters=iters,
+                                   by_kernel=parts),
+           "device_ms_by_kernel": parts,
+           "plain_last_rows": rows,
+           "plain_call_ms": _time_ms(plain, iters=2, warmup=1),
+           "plain_device_ms": _device_ms(plain, iters=2),
+           "library_call_ms": _time_ms(lib, iters=iters, warmup=1),
+           "library_device_ms": _device_ms(lib, iters=iters),
+           "bound_ms": bound, "bound_by": by}
+    log(f"[dryrun] attn_density {label}: kernel {row['device_ms']} ms on "
+        f"the device, {row['call_ms']:.4f} ms per call; plain on the last "
+        f"{rows} query rows {row['plain_device_ms']} ms; SDPA is_causal "
+        f"(out only) {row['library_device_ms']} ms on the device, "
+        f"{row['library_call_ms']:.4f} ms per call; bound {bound:.4f} ms "
+        f"({by}); by launch {parts}")
+    torch.cuda.empty_cache()
+    return row
+
+
+def _dryrun_dq_row(label, B, S, H, KV, hd, window, n_sinks, g, dev):
+    """decode_qattn at a cell's shape as decode_step calls it (select
+    form, no mass, every row at n_valid = S, the cell's window and
+    sinks): device time and time per call, its plain version, its bound
+    (the valid keys' int8 rows and scales, q and out once over the HBM
+    rate, or 4 H hd FLOPs a valid key over the bf16 rate; the kernel
+    loads no invalid key) and SDPA over the dequantized bf16 K/V with the
+    boolean mask of the valid keys (out only)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_qattn as kdq
+    from repro_torch.kernels import ref
+    q = torch.randn((B, H, hd), generator=g, device=dev).bfloat16()
+    k_q, v_q = (torch.randint(-127, 128, (B, S, KV, hd), generator=g,
+                              device=dev, dtype=torch.int8)
+                for _ in range(2))
+    k_s, v_s = ((torch.rand((B, S, KV), generator=g, device=dev) + 0.5)
+                / 127 for _ in range(2))
+    nv = torch.full((B,), S, dtype=torch.int32, device=dev)
+    args = (q, k_q, v_q, k_s, v_s, nv, window, n_sinks)
+    fn = lambda: kdq.decode_qattn(*args, select=True)          # noqa: E731
+    plain = lambda: ref.decode_qattn_plain(*args, select=True)  # noqa: E731
+    o_k, o_r = fn(), plain()
+    span = float(o_r.float().abs().max())
+    d_o = float((o_k.float() - o_r.float()).abs().max())
+    if not (torch.isfinite(o_k.float()).all() and d_o <= MQ_OUT_TOL * span):
+        raise AssertionError(f"decode_qattn at {label}: |d out| {d_o} "
+                             f"(range {span})")
+    valid = ref._valid_keys(nv, B, S, window, n_sinks, dev)
+    n_keys = int(valid.sum())
+    kb = ref.dequantize_token_head_ref(k_q, k_s).transpose(1, 2).contiguous()
+    vb = ref.dequantize_token_head_ref(v_q, v_s).transpose(1, 2).contiguous()
+    mask = valid[:, None, None, :]
+    lib = lambda: F.scaled_dot_product_attention(               # noqa: E731
+        q[:, :, None], kb, vb, attn_mask=mask, enable_gqa=KV != H)
+    nbytes = n_keys * KV * (2 * hd + 8) + 2 * B * H * hd * 2 + 4 * B
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, 4 * H * hd * n_keys / BF16_OPS_PER_S
+    parts = {}
+    row = {"shape": label, "form": "select", "window": window,
+           "n_sinks": n_sinks, "valid_keys_a_row": n_keys // B,
+           "max_err_rel": d_o / span,
+           "call_ms": _time_ms(fn, iters=50, warmup=5),
+           "device_ms": _device_ms(fn, DQ_KERNELS, iters=20,
+                                   by_kernel=parts),
+           "device_ms_by_kernel": parts,
+           "plain_call_ms": _time_ms(plain, iters=5, warmup=1),
+           "plain_device_ms": _device_ms(plain, iters=5),
+           "library_call_ms": _time_ms(lib, iters=20, warmup=2),
+           "library_device_ms": _device_ms(lib, iters=20),
+           "bound_ms": max(t_b, t_o) * 1e3,
+           "bound_by": "bytes" if t_b >= t_o else "operations"}
+    log(f"[dryrun] decode_qattn {label}: |d out| {d_o:.3g} (range "
+        f"{span:.3g}); {n_keys // B} valid keys a row; kernel "
+        f"{row['device_ms']} ms on the device, {row['call_ms']:.5f} ms per "
+        f"call; plain {row['plain_device_ms']} ms; SDPA over the "
+        f"dequantized bf16 K/V with the mask (out only) "
+        f"{row['library_device_ms']} ms on the device, "
+        f"{row['library_call_ms']:.5f} ms per call; bound "
+        f"{row['bound_ms']:.5f} ms ({row['bound_by']}); by launch {parts}")
+    del args, kb, vb, k_q, v_q
+    torch.cuda.empty_cache()
+    return row
+
+
+def dryrun_phase(root):
+    """launch/dryrun.py's main over every cell of ASSIGNED x SHAPES on the
+    meta device, single and multi-pod (no cell may fail, and only the
+    cells ``shape_applicability`` refuses are skipped); then DRYRUN_RUNS
+    through ``run_cell(..., run=True)``: each share at full width (no
+    depth cut allowed), its kernels' launches in one call required, its
+    decode held against the plain version layer by layer and in its
+    logits, its first attn_density call's last 512 query rows held
+    against the plain version; then the kernels timed at those shapes.
+    -> {"meta", "runs", "kernel_rows"}."""
+    import torch
+    from repro_torch.configs import ASSIGNED, SHAPES, shape_applicability
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    out = {"meta": {}, "runs": {}, "kernel_rows": {}}
+    refused = {(a, s) for a in ASSIGNED for s in SHAPES
+               if not shape_applicability(get_config(a), SHAPES[s])[0]}
+    for multi in (False, True):
+        try:
+            recs = dryrun.main(["--all", "--out", os.path.join(root, "meta")]
+                               + (["--multi-pod"] if multi else []))
+        except SystemExit as e:
+            raise AssertionError(f"[dryrun] a cell failed (exit {e.code})")
+        mesh = recs[0]["mesh"]
+        status = [r["status"] for r in recs]
+        skipped = {(r["arch"], r["shape"]) for r in recs
+                   if r["status"] == "skipped"}
+        if skipped != refused:
+            raise AssertionError(f"[dryrun] skipped {skipped}, not "
+                                 f"{refused}")
+        gib = {f"{r['arch']} x {r['shape']}":
+               r["memory"]["argument_size_in_bytes"] / 2**30
+               for r in recs if r["status"] == "ok"}
+        out["meta"][mesh] = {k: status.count(k)
+                             for k in ("ok", "skipped", "fail")}
+        out["meta"][mesh]["argument_gib_a_device"] = gib
+        log(f"[dryrun] {mesh} on the meta device: {out['meta'][mesh]}")
+    for arch, shape, kv in DRYRUN_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        label = f"{arch} x {shape}" + (" int8" if kv == "int8" else "")
+        rec = dryrun.run_cell(arch, shape, False, os.path.join(root, "run"),
+                              kv_dtype=kv, run=True, device="cuda",
+                              seed=SEED)
+        if rec["status"] != "ok":
+            raise AssertionError(f"[dryrun] {label}: {rec.get('error')}\n"
+                                 f"{rec.get('traceback')}")
+        one = dict(rec["one_card"], entry=rec["entry"],
+                   n_micro=rec["n_micro"], window=rec["window"])
+        if one["reduced"]:
+            raise AssertionError(f"[dryrun] {label} cut: {one['reduced']}")
+        want = _dryrun_expected(one)
+        got = {k: one["launches"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"[dryrun] {label}: launches {got}, not "
+                                 f"{want}")
+        out["runs"][label] = one
+        log(f"[dryrun] {label}: {json.dumps(one)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 24)
+    cfg = get_config("smollm-360m")
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    for B, S, stats in ((2, 32768, False), (8, 4096, True)):
+        args = _ad_case(B, S, S, H, KV, hd, list(range(S)), g, dev)
+        label = (f"({B},{S},{H},{KV},{hd}) causal flash "
+                 f"{'+ stats' if stats else '+ density'}")
+        out["kernel_rows"][label] = _dryrun_ad_row(label, args, not stats,
+                                                   stats)
+        del args
+    q14 = get_config("qwen2.5-14b")
+    for B, S, c, (w, ns) in (
+            (8, 32768, q14, (0, 0)),
+            (1, 524288, cfg, (8192, cfg.n_sink_tokens))):
+        label = (f"({B},{S},{c.n_heads},{c.n_kv_heads},{c.head_dim}) select"
+                 + (f", window {w} + {ns} sinks" if w else ""))
+        out["kernel_rows"][label] = _dryrun_dq_row(
+            label, B, S, c.n_heads, c.n_kv_heads, c.head_dim, w, ns, g, dev)
+    log(f"[dryrun] the dry-run phase took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _dryrun_launches(dry, key):
+    """A kernel's launches in one call of each dry-run share."""
+    return {"launches_dryrun": {label: run["launches"][key]
+                                for label, run in dry["runs"].items()}}
+
+
+# --------------------------------------------------------------------- #
 # 4. reduced model on the card vs the same port on the CPU
 # --------------------------------------------------------------------- #
 def _card_and_cpu(cfg, prepare=None):
@@ -5659,6 +5905,10 @@ def main() -> int:
     rglru = rglru_phase()
     with tempfile.TemporaryDirectory(prefix="llms_chip_train_") as root:
         train = train_phase(root)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="llms_chip_dryrun_") as root:
+        dry = dryrun_phase(root)
     for a, b in (("bf16", "bf16-rerun"), ("quant", "quant-rerun"),
                  ("gqa", "gqa-rerun")):
         _same_run(routed[a], routed[b], f"{a} (llama2-7b)" if a != "gqa"
@@ -5719,6 +5969,7 @@ def main() -> int:
             "launches_quant_resident": quant["launches"][name],
             **_later_launches(mla, prefill, vlm, moe, name),
             **_new_family_launches(encdec, rglru, name),
+            **_dryrun_launches(dry, name),
             **_rwkv_zoo_launches(rwkv, zoo, name),
             "mla_8bit": (mla_codec["quantize_two_leaves"] if name ==
                          "quantize" else mla_codec["dequantize"]),
@@ -5750,6 +6001,7 @@ def main() -> int:
         **_slot_launches(slots, "decode_mqattn"),
         **_later_launches(mla, prefill, vlm, moe, "decode_mqattn"),
         **_new_family_launches(encdec, rglru, "decode_mqattn"),
+        **_dryrun_launches(dry, "decode_mqattn"),
         **_rwkv_zoo_launches(rwkv, zoo, "decode_mqattn"),
         "replaces": "src/repro/kernels/decode_qattn.py:183",
         "launches": quant["launches"]["decode_mqattn"],
@@ -5817,7 +6069,12 @@ def main() -> int:
                               else "attn_density_with_density"),
             **_new_family_launches(encdec, rglru, "attn_density" if key ==
                                    "out" else "attn_density_with_density"),
+            **_dryrun_launches(dry, "attn_density" if key == "out"
+                               else "attn_density_with_density"),
             "new_family_shapes": ad_times["new_families"],
+            "dryrun_shapes": {k: r for k, r in dry["kernel_rows"].items()
+                              if r["form"] == "flash"
+                              and (key == "out" or r["density"])},
             **({"stats_shape": st_row, "max_err_stats": st_err,
                 "launches_train_per_step": {
                     k: [st["launches"]["attn_density_stats"]
@@ -5855,6 +6112,7 @@ def main() -> int:
         **_slot_launches(slots, "decode_qattn"),
         **_later_launches(mla, prefill, vlm, moe, "decode_qattn"),
         **_new_family_launches(encdec, rglru, "decode_qattn"),
+        **_dryrun_launches(dry, "decode_qattn"),
         **_rwkv_zoo_launches(rwkv, zoo, "decode_qattn"),
         "launches": int8[0]["launches"],
         "max_abs_err": dq_err["out"], "max_abs_err_mass": dq_err["mass"],
@@ -5871,10 +6129,24 @@ def main() -> int:
             "shape", "form", "device_ms", "call_ms", "plain_device_ms",
             "plain_call_ms", "library_device_ms", "library_call_ms",
             "bound_ms", "bound_by", *COLD_KEYS)},
+        "dryrun_shapes": {k: r for k, r in dry["kernel_rows"].items()
+                          if r["form"] == "select"},
+        "library_call_dryrun_shapes": "F.scaled_dot_product_attention "
+                                      "over the dequantized bf16 K/V with "
+                                      "the boolean mask of the valid keys: "
+                                      "out only",
         "int8_decode_ms_per_token": sorted(int8[0]["per_token_ms"])[
             len(int8[0]["per_token_ms"]) // 2],
         "int8_decode_profiled_token": int8[0]["profile"],
     })
+    log("[dryrun] summary " + json.dumps({
+        "meta": {m: {k: v for k, v in c.items()
+                     if k != "argument_gib_a_device"}
+                 for m, c in dry["meta"].items()},
+        "runs": {label: {k: run[k] for k in (
+            "batch", "seq", "n_layers", "reduced", "wall_s", "peak_bytes",
+            "argument_bytes", "model_flops_per_s", "max_err_vs_plain")}
+            for label, run in dry["runs"].items()}}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -233,6 +233,10 @@ FAMILY_DISPATCH_ALLOWED_FILES = {
     # whose stacks are laid out per family: keyed by family as the
     # registry is, and read by no engine code
     "src/repro_torch/models/convert.py",
+    # the dry run's model-FLOPs count (``model_flops``): a formula of the
+    # dense family's layer shapes, which it declines for any other
+    # family; a measurement, read by no engine code
+    "src/repro_torch/launch/dryrun.py",
 }
 FAMILY_DISPATCH_ALLOWED_PREFIXES = (
     "src/repro_torch/configs/",    # arch tables keyed by family name

@@ -7,15 +7,19 @@ deepseek-v2-lite-16b, the MoE llama4-maverick-400b-a17b, the RWKV6
 rwkv6-1.6b, the VLM llama-3.2-vision-90b, the encoder-decoder
 whisper-base and the RG-LRU hybrid recurrentgemma-2b, with the same
 fields: every configuration of the JAX package's registry.
+``ASSIGNED`` holds the ten architectures of the dry-run cells (all but
+llama2-7b and opt-6.7b), ``SHAPES`` the four input shapes of those
+cells, and ``shape_applicability`` says which pairs run.
 ``reduced(cfg)`` derives the CPU-sized config the tests use, with the
 same numbers as the JAX package's ``reduced``, so both packages build
 identical shapes.
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import (EncoderConfig, MLAConfig, ModelConfig,
-                                      MoEConfig, RGLRUConfig, RWKV6Config,
-                                      VisionConfig)
+from repro_torch.configs.base import (SHAPES, EncoderConfig, MLAConfig,
+                                      ModelConfig, MoEConfig, RGLRUConfig,
+                                      RWKV6Config, ShapeSpec, VisionConfig,
+                                      shape_applicability)
 from repro_torch.configs.deepseek_67b import CONFIG as _ds67
 from repro_torch.configs.deepseek_v2_lite import CONFIG as _dsv2lite
 from repro_torch.configs.llama2_7b import CONFIG as _llama2
@@ -29,9 +33,13 @@ from repro_torch.configs.rwkv6_1p6b import CONFIG as _rwkv6
 from repro_torch.configs.smollm_360m import CONFIG as _smollm
 from repro_torch.configs.whisper_base import CONFIG as _whisper
 
-REGISTRY = {c.name: c for c in (_llama2, _opt, _smollm, _qwen25, _qwen3,
-                                _ds67, _dsv2lite, _llama4, _rwkv6, _llamav,
-                                _whisper, _rgemma)}
+# the ten assigned architectures (the dry-run cells) ...
+ASSIGNED = {c.name: c for c in (_llama4, _dsv2lite, _ds67, _qwen3, _smollm,
+                                _qwen25, _rgemma, _rwkv6, _whisper, _llamav)}
+# ... plus the paper's own evaluation models
+REGISTRY = dict(ASSIGNED)
+REGISTRY[_llama2.name] = _llama2
+REGISTRY[_opt.name] = _opt
 
 
 def get_config(name: str) -> ModelConfig:
@@ -77,4 +85,5 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         "d_ff": 128, "vocab": 512, "head_dim": 16, "max_seq": 256, **kw})
 
 
-__all__ = ["REGISTRY", "ModelConfig", "get_config", "reduced"]
+__all__ = ["ASSIGNED", "REGISTRY", "SHAPES", "ShapeSpec", "ModelConfig",
+           "get_config", "reduced", "shape_applicability"]

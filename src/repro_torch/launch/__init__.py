@@ -1,1 +1,1 @@
-"""Entry points of the port (``serve``, ``train``)."""
+"""Entry points of the port (``serve``, ``train``, ``dryrun``)."""

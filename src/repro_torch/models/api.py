@@ -15,7 +15,11 @@ package, so converted reference weights keep their layout; the layer
 
 A model is built for one ``device``.  Entry points default to the card:
 building for ``"cuda"`` where no card is present raises, and the CPU
-tests pass ``device="cpu"``.
+tests pass ``device="cpu"``.  A model built for ``"meta"`` allocates
+nothing: ``init`` and ``init_cache`` give tensors with a shape and a
+dtype only, the port's counterpart of ``jax.eval_shape``, and the
+dry-run specs (``batch_specs``, ``cache_specs``, ``input_specs``) are
+such tensors whatever device the model was built for.
 """
 from __future__ import annotations
 
@@ -23,10 +27,11 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.models.kvspec import KVSpec, LAYOUT_WINDOW
 
 Cache = Dict[str, Any]
+META = torch.device("meta")
 
 
 def resolve_device(device) -> torch.device:
@@ -103,3 +108,51 @@ class ModelBase:
         (optional batch["mask"]), differentiable in ``params``.  -> (loss,
         {"loss", "acc"})."""
         raise NotImplementedError
+
+    # -- dry-run specs ------------------------------------------------- #
+    def batch_specs(self, shape: ShapeSpec) -> Dict[str, torch.Tensor]:
+        """Meta stand-ins for the data batch of ``shape``: int32 tokens
+        and targets (global_batch, clamp_seq(seq_len))."""
+        B, S = shape.global_batch, self.clamp_seq(shape.seq_len)
+        tok = torch.empty((B, S), dtype=torch.int32, device=META)
+        return {"tokens": tok, "targets": tok}
+
+    def clamp_seq(self, seq: int) -> int:
+        if self.kv_spec().clamp_to_max_seq:
+            return min(seq, self.cfg.max_seq)
+        return seq
+
+    def decode_seq(self, shape: ShapeSpec) -> int:
+        return self.clamp_seq(shape.seq_len)
+
+    def cache_specs(self, shape: ShapeSpec, dtype=torch.bfloat16) -> Cache:
+        """The decode cache of ``shape`` on the meta device (allocates
+        nothing)."""
+        meta = type(self)(self.cfg, META)
+        return meta.init_cache(shape.global_batch, self.decode_seq(shape),
+                               dtype)
+
+    def input_specs(self, shape: ShapeSpec) -> Tuple[str, Dict[str, Any]]:
+        """(entry point name, its keyword arguments as meta tensors) for
+        the dry run."""
+        if shape.kind == "train":
+            return "train", dict(batch=self.batch_specs(shape))
+        if shape.kind == "prefill":
+            b = self.batch_specs(shape)
+            b.pop("targets")
+            return "prefill", dict(batch=b)
+        # decode: one new token against a seq_len-deep cache
+        return "decode", dict(
+            tokens=torch.empty((shape.global_batch, 1), dtype=torch.int32,
+                               device=META),
+            cache=self.cache_specs(shape))
+
+    # -- streaming (paper section 4: sliding window + attention sinks) - #
+    def streaming_window(self, shape: ShapeSpec) -> Tuple[int, int]:
+        """(window, n_sinks) for ``shape``; (0, 0) = full attention."""
+        cfg = self.cfg
+        if shape.name == "long_500k" and self.kv_spec().streaming_long:
+            return 8192, cfg.n_sink_tokens
+        if cfg.sliding_window:
+            return cfg.sliding_window, cfg.n_sink_tokens
+        return 0, 0

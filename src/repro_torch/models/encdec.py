@@ -20,7 +20,8 @@ training forward does: it launches no kernel.
 
 The KVSpec declares the family not servable (its prefill needs audio
 frames), so ``LLMService`` refuses it as the reference's executor does.
-``batch_specs`` is not ported (``ROADMAP.md``).
+Its dry-run batch (``batch_specs``) is the frames and the tokens and
+targets clamped to ``max_seq``.
 """
 from __future__ import annotations
 
@@ -29,7 +30,8 @@ from typing import Dict
 import torch
 
 from repro_torch.models import common as C
-from repro_torch.models.api import DecodeOut, ModelBase, PrefillOut
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.models.api import META, DecodeOut, ModelBase, PrefillOut
 from repro_torch.models.dense import blockwise_ce
 from repro_torch.models.kvspec import KVSpec
 
@@ -282,3 +284,13 @@ class EncDecModel(ModelBase):
                 "xv": torch.zeros((L, batch, F, H, hd), dtype=dtype,
                                   device=dev),
                 "pos": torch.zeros((), dtype=torch.int64, device=dev)}
+
+    def batch_specs(self, shape: ShapeSpec) -> Dict[str, torch.Tensor]:
+        """Frames (B, n_frames, d_model) bf16 and tokens / targets
+        clamped to ``max_seq``, on the meta device."""
+        cfg = self.cfg
+        B, T = shape.global_batch, min(shape.seq_len, cfg.max_seq)
+        tok = torch.empty((B, T), dtype=torch.int32, device=META)
+        return {"frames": torch.empty((B, cfg.encoder.n_frames, cfg.d_model),
+                                      dtype=torch.bfloat16, device=META),
+                "tokens": tok, "targets": tok}

@@ -147,7 +147,7 @@ def init_moe_params(generator: torch.Generator, d: int, moe: MoEConfig,
     p = {}
     for name, shp in shapes.items():
         w = torch.empty((L, *shp), dtype=dtype, device=device)
-        for l in range(L):
+        for l in range(0 if w.is_meta else L):  # meta: nothing to draw
             if name.startswith("w_"):
                 for e in range(E):
                     w[l, e] = C.init_linear(generator, shp[1:], device,

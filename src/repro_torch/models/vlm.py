@@ -20,8 +20,8 @@ the prefill builds and the cache carries.
 
 The KVSpec declares the family not servable: its prefill needs
 patches, so there is no text-only extend and ``LLMService`` refuses
-it (as the reference's executor does).  ``batch_specs`` is not ported
-(``ROADMAP.md``).
+it (as the reference's executor does).  Its dry-run batch
+(``batch_specs``) carries the patches beside the tokens.
 """
 from __future__ import annotations
 
@@ -30,7 +30,8 @@ from typing import Dict
 import torch
 
 from repro_torch.models import common as C
-from repro_torch.models.api import DecodeOut, PrefillOut
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.models.api import META, DecodeOut, PrefillOut
 from repro_torch.models.dense import DenseModel, blockwise_ce
 from repro_torch.models.kvspec import KVSpec
 
@@ -253,3 +254,13 @@ class VLMModel(DenseModel):
                 "xk": torch.zeros(xshape, dtype=dtype, device=dev),
                 "xv": torch.zeros(xshape, dtype=dtype, device=dev),
                 "pos": torch.zeros((), dtype=torch.int64, device=dev)}
+
+    def batch_specs(self, shape: ShapeSpec) -> Dict[str, torch.Tensor]:
+        """The dense batch plus the patch embeddings (B, n_image_tokens,
+        d_vision) bf16, on the meta device."""
+        cfg = self.cfg
+        specs = super().batch_specs(shape)
+        specs["patches"] = torch.empty(
+            (shape.global_batch, cfg.vision.n_image_tokens,
+             cfg.vision.d_vision), dtype=torch.bfloat16, device=META)
+        return specs

@@ -1193,3 +1193,29 @@ def test_cuda_train_main_on_the_card(card, tmp_path):
                               str(tmp_path / "b"), "--resume"])
     assert np.isfinite(full["losses"]).all() and len(rest["losses"]) == 2
     np.testing.assert_allclose(rest["losses"], full["losses"][2:], rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape_name,seq,batch,kv,kernel", [
+    ("decode_32k", 4096, 128, "int8", "decode_qattn"),
+    ("long_500k", 9000, 1, "int8", "decode_qattn"),
+    ("prefill_32k", 2100, 32, "bf16", "attn_density_with_density"),
+    ("train_4k", 2100, 32, "bf16", "attn_density_stats")])
+def test_cuda_dryrun_share_runs_the_kernels(card, shape_name, seq, batch,
+                                            kv, kernel):
+    """``launch.dryrun``'s --run on the card for the reduced smollm-360m
+    at shorter sequences: the share's entry launches its kernel once a
+    layer (the train step: twice a layer on each split) and passes its
+    holds against the plain versions."""
+    from repro_torch.configs import SHAPES, ShapeSpec, get_config, reduced
+    from repro_torch.launch import dryrun
+    cfg = reduced(get_config("smollm-360m"))
+    shape = ShapeSpec(shape_name, SHAPES[shape_name].kind, seq, batch)
+    rec = dryrun.run_cell("smollm-360m", shape_name, False, None,
+                          kv_dtype=kv, run=True, device="cuda", cfg=cfg,
+                          shape=shape)
+    assert rec["status"] == "ok", rec.get("error")
+    one = rec["one_card"]
+    per_layer = 2 * rec["n_micro"] if kernel == "attn_density_stats" else 1
+    assert one["launches"][kernel] == per_layer * cfg.n_layers
+    assert one["peak_bytes"] > 0 and one["reduced"] == []

@@ -84,6 +84,13 @@ ANALYSIS_SLICE = tuple(
         "fixtures.family_dispatch")) + ("repro_torch.analysis",)
 
 
+# the dry-run tooling (launch/dryrun.py, the mesh description, the
+# sharding rules, the configs' ASSIGNED and SHAPES)
+DRYRUN_SLICE = ("repro_torch.launch.dryrun", "repro_torch.launch.mesh",
+                "repro_torch.sharding", "repro_torch.sharding.rules",
+                "repro_torch.configs", "repro_torch.models.api")
+
+
 def _module_path(mod: str) -> pathlib.Path:
     rel = pathlib.Path(*mod.split(".")[1:])
     path = PORT / rel.with_suffix(".py")
@@ -91,7 +98,7 @@ def _module_path(mod: str) -> pathlib.Path:
 
 
 @pytest.mark.parametrize("mod", ROUTER_SLICE + MLA_SLICE + RWKV6_SLICE
-                         + TRAIN_SLICE + ANALYSIS_SLICE)
+                         + TRAIN_SLICE + ANALYSIS_SLICE + DRYRUN_SLICE)
 def test_router_slice_modules_are_scanned(mod):
     assert _module_path(mod) in _sources()
 
@@ -138,6 +145,25 @@ def test_train_slice_imports_without_triton_or_card():
     ``SyntheticLM``) and the families' losses import as the router
     slice does."""
     _imports_cleanly(TRAIN_SLICE)
+
+
+def test_dryrun_slice_imports_without_triton_or_card():
+    """The dry-run tooling imports as the router slice does."""
+    _imports_cleanly(DRYRUN_SLICE)
+
+
+def test_dryrun_run_defaults_to_the_card(monkeypatch):
+    """``launch.dryrun.main`` with ``--run`` runs its cells on the card
+    unless ``--device cpu`` is given, and raises before any cell without
+    one; without ``--run`` it allocates nothing and needs no card."""
+    from repro_torch.launch import dryrun
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.main(["--arch", "smollm-360m", "--shape", "train_4k",
+                     "--run", "--out", ""])
+    rec, = dryrun.main(["--arch", "smollm-360m", "--shape", "train_4k",
+                        "--out", ""])
+    assert rec["status"] == "ok" and "one_card" not in rec
 
 
 def test_train_main_defaults_to_the_card(monkeypatch):
