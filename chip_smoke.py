@@ -302,7 +302,12 @@ AD_SERVE = dict(S=512, H=32, hd=128, bucket=64, pad=511)
 GATE_TOL = 1e-2
 # the kernels' names, as the profiler reports them
 AD_KERNELS = ("attn_density_tc_kernel", "attn_density_reduce_kernel",
-              "attn_density_stats_kernel")
+              "attn_density_stats_kernel", "attn_flash_fwd_kernel",
+              "attn_flash_bounds_kernel", "attn_flash_mass_kernel",
+              "attn_flash_finish_kernel")
+# of them, csrc/attn_flash.cu's density pass (the flash form at head
+# dims 64 and 128)
+FLASH_MASS_KERNELS = AD_KERNELS[4:]
 MQ_KERNELS = ("mq_split_kernel", "mq_split_pv_kernel", "mq_combine_kernel")
 DQ_KERNELS = ("dq_split_kernel", "dq_split_pv_kernel", "dq_combine_kernel")
 QUANT_KERNEL = "quant_leaves_kernel<"
@@ -633,6 +638,24 @@ def _device_ms(fn, match=None, iters=50, by_kernel=None, flush=None):
     if by_kernel is not None:
         by_kernel.update(parts)
     return total_us / iters / 1e3 if total_us > 0 else None
+
+
+def _device_ms_whole(fn, call_ms, iters, by_kernel):
+    """``_device_ms`` over AD_KERNELS, held to the time per call: a long
+    call (0.1 ms or more a call, so that back-to-back calls keep the card
+    busy) whose profiled device time is below 0.8 of its time per call
+    lost kernels to the profiler's window (seen on the card: a call
+    with the density read below the same call without it); it is timed
+    by CUDA events instead (``_event_ms``), and ``by_kernel`` keeps the
+    profiler's partial reading under "profiler (short)"."""
+    ms = _device_ms(fn, AD_KERNELS, iters=iters, by_kernel=by_kernel)
+    if ms is not None and call_ms >= 0.1 and ms < 0.8 * call_ms:
+        by_kernel["profiler (short)"] = ms
+        ms = _event_ms(fn, iters)
+        log(f"[profiler] {by_kernel['profiler (short)']} ms on the device "
+            f"against {call_ms} ms a call: kernels missed; CUDA events: "
+            f"{ms} ms a call")
+    return ms
 
 
 def _is_matmul(name: str) -> bool:
@@ -1105,7 +1128,9 @@ def _ad_bound_ms(args, seq_len, window, n_sinks, want_density,
     sees, out (Dv; and the density, or with ``stats`` the rows' m and l)
     once over the HBM rate, or 2 (Dqk + Dv) FLOPs per visible
     (query-head, key) pair (QK and PV) over the bf16 tensor-core rate,
-    the larger (Dqk = Dv = hd: 4 hd)."""
+    and with the density 2 Dqk more for the second QK (normalised p
+    needs each row's final m and l), the larger (Dqk = Dv = hd: 4 hd,
+    6 hd with the density)."""
     from repro_torch.kernels import ref
     q, k, v, qp = args
     B, Sq, H, dqk = q.shape
@@ -1117,7 +1142,8 @@ def _ad_bound_ms(args, seq_len, window, n_sinks, want_density,
         + 4 * Sq + (4 * B * Sk if want_density else 0) \
         + (8 * B * H * Sq if stats else 0)
     t_b = nbytes / HBM_BYTES_PER_S
-    t_o = 2 * (dqk + dv) * n_pairs / BF16_OPS_PER_S
+    t_o = (2 * (dqk + dv) + (2 * dqk if want_density else 0)) * n_pairs \
+        / BF16_OPS_PER_S
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -1294,6 +1320,7 @@ def attn_phase():
         iters = 200 if q.shape[1] <= 64 else 20
         parts = {}
         row = {"shape": label, "form": form, "density": want_density,
+               "route": kad.route(form, q.shape[-1], v.shape[-1]),
                "call_ms": _time_ms(fn, iters=iters),
                "device_ms": _device_ms(fn, AD_KERNELS, iters=min(iters, 50),
                                        by_kernel=parts),
@@ -3465,18 +3492,27 @@ def _ad_shape_row(tag, label, args, window, want, form, lib, iters,
     """attn_density over ``args`` (queries at arange(S) over S keys,
     seq_len S) under ``window``: against its plain version (out within
     MQ_OUT_TOL of its range, the density within AD_DENS_TOL of its
-    range) and its rerun (bit-identical), then timed on the device and
-    per call beside its plain version, its bound and the library call
-    ``lib`` (out only); with ``flush`` (``_l2_flush()``) also with a cold
-    L2.  A library reading below the bound lost kernels (the profiler's
-    window missed some): read its call time then.  -> the row."""
+    range; the kernel's route picks it: ``attn_flash_plain`` for
+    csrc/attn_flash.cu, else ``attn_density_plain``) and its rerun
+    (bit-identical), then timed on the device and per call beside its
+    plain version, its bound and the library call ``lib`` (out only);
+    with ``flush`` (``_l2_flush()``) also with a cold L2.  A library
+    reading below the bound lost kernels (the profiler's window missed
+    some): read its call time then.  -> the row."""
     import torch
     from repro_torch.kernels import attn_density as kad
     from repro_torch.kernels import ref
     S = args[0].shape[1]
+    route = kad.route(form, args[0].shape[-1], args[2].shape[-1])
     o_k, d_k = kad.attn_density(*args, S, window, 0, want, form)
     o_2, d_2 = kad.attn_density(*args, S, window, 0, want, form)
-    o_r, d_r = ref.attn_density_plain(*args, S, window, 0, want, form)
+    if route == "wgmma":
+        plain = lambda: ref.attn_flash_plain(                 # noqa: E731
+            *args, S, window, 0, want)
+    else:
+        plain = lambda: ref.attn_density_plain(               # noqa: E731
+            *args, S, window, 0, want, form)
+    o_r, d_r = plain()
     torch.cuda.synchronize()
     span = float(o_r.float().abs().max())
     d_o = float((o_k.float() - o_r.float()).abs().max())
@@ -3491,25 +3527,23 @@ def _ad_shape_row(tag, label, args, window, want, form, lib, iters,
     del o_k, d_k, o_2, d_2, o_r, d_r
     fn = lambda: kad.attn_density(*args, S, window, 0, want,  # noqa: E731
                                   form)
-    plain = lambda: ref.attn_density_plain(                   # noqa: E731
-        *args, S, window, 0, want, form)
     bound, by = _ad_bound_ms(args, S, window, 0, want)
     parts = {}
-    row = {"shape": label, "form": form, "density": want,
+    row = {"shape": label, "form": form, "density": want, "route": route,
            "hdq": kad.head_plan(args[0].shape[-1], args[2].shape[-1])[0],
-           "rows_a_block": kad.plan(1, S, args[0].shape[2],
-                                    args[1].shape[2])[0],
+           "rows_a_block": (kad.FLASH_ROWS if route == "wgmma" else
+                            kad.plan(1, S, args[0].shape[2],
+                                     args[1].shape[2])[0]),
            "max_abs_err": d_o, "max_err_rel": d_o / span,
            "max_err_density_rel": d_d,
            "call_ms": _time_ms(fn, iters=iters),
-           "device_ms": _device_ms(fn, AD_KERNELS, iters=iters,
-                                   by_kernel=parts),
            "device_ms_by_kernel": parts,
            "plain_call_ms": _time_ms(plain, iters=3, warmup=1),
            "plain_device_ms": _device_ms(plain, iters=3),
            "library_call_ms": _time_ms(lib, iters=iters),
            "library_device_ms": _device_ms(lib, iters=iters),
            "bound_ms": bound, "bound_by": by}
+    row["device_ms"] = _device_ms_whole(fn, row["call_ms"], iters, parts)
     cold = ""
     if flush is not None:
         row["device_ms_by_kernel_l2_cold"] = {}
@@ -3522,7 +3556,7 @@ def _ad_shape_row(tag, label, args, window, want, form, lib, iters,
         and row["library_device_ms"] < bound)
     lost = (" (BELOW the bound: kernels missed)"
             if row["library_device_below_bound"] else "")
-    log(f"[{tag}] attn_density {label} (HDQ {row['hdq']}, "
+    log(f"[{tag}] attn_density {label} ({route}, HDQ {row['hdq']}, "
         f"{row['rows_a_block']}-row tiles): |d out| {d_o:.3g} (range "
         f"{span:.3g}), |d density| / range {d_d:.3g}, rerun identical; "
         f"kernel {row['device_ms']} ms on the device{cold}, "
@@ -3732,8 +3766,9 @@ def _stats_row(args):
     label = f"({B},{S},{H},{KV},{args[0].shape[-1]}) causal flash + stats"
     row = {"shape": label, "form": "flash", "density": False, "stats": True,
            "call_ms": _time_ms(fn, iters=20),
-           "device_ms": _device_ms(fn, ("attn_density_stats_kernel",),
-                                   iters=20),
+           "route": kad.route("flash", args[0].shape[-1],
+                              args[2].shape[-1]),
+           "device_ms": _device_ms(fn, AD_KERNELS, iters=20),
            "no_stats_call_ms": _time_ms(no_stats, iters=20),
            "no_stats_device_ms": _device_ms(no_stats, AD_KERNELS, iters=20),
            "plain_call_ms": _time_ms(plain, iters=3, warmup=1),
@@ -3845,11 +3880,14 @@ def prefill_check(model, params):
                 <= 0.01 and drift["density"] <= 0.02):
             raise AssertionError(f"{name} flash against served form: "
                                  f"{drift}")
-        if (launches["attn_density"], launches["attn_density_with_density"]
-                ) != (L, L) or launches["decode_mqattn"] or \
+        flash = L if form == "flash" else 0
+        if (launches["attn_density"], launches["attn_density_with_density"],
+                launches["attn_flash"], launches["attn_flash_with_density"]
+                ) != (L, L, flash, flash) or launches["decode_mqattn"] or \
                 launches["quantize"]:
             raise AssertionError(f"{name} launches {launches}, not {L} "
-                                 "attn_density with the density")
+                                 f"attn_density with the density ({flash} "
+                                 f"through csrc/attn_flash.cu)")
         runs[S] = {"wall_ms": wall, "launches": launches, "form": form,
                    "drift_from_served": drift, "checked": checked}
         log(f"[prefill] llama2-7b prefill of {S} tokens (+ density, {form} "
@@ -4183,11 +4221,13 @@ def _train_run(label, argv, hooks, S, B, n_attn_layers):
     want = 2 * n_attn_layers if S > 2048 else 0
     for i, s in enumerate(steps):
         got = s["launches"]
-        if got["attn_density_stats"] != want or got["attn_density"] != want:
+        if not (got["attn_density_stats"] == got["attn_density"]
+                == got["attn_flash"] == want):
             raise AssertionError(
                 f"[train] {label} step {i}: {got['attn_density_stats']} "
                 f"attn_density row-stats launches ({got['attn_density']} in "
-                f"all), not {want}")
+                f"all, {got['attn_flash']} through csrc/attn_flash.cu), not "
+                f"{want}")
     walls = [s["wall_s"] for i, s in enumerate(steps)
              if i != hooks.profile and i > 0]
     med = float(np.median(walls)) if walls else steps[-1]["wall_s"]
@@ -4501,45 +4541,72 @@ def _dryrun_expected(one):
     if entry == "decode":
         return {"decode_qattn": L}
     if entry == "prefill":
-        return {"attn_density": L, "attn_density_with_density": L}
-    return {"attn_density_stats": 2 * one["n_micro"] * L}
+        return {"attn_density": L, "attn_density_with_density": L,
+                "attn_flash": L, "attn_flash_with_density": L}
+    return {"attn_density_stats": 2 * one["n_micro"] * L,
+            "attn_flash": 2 * one["n_micro"] * L}
 
 
 def _dryrun_ad_row(label, args, want, stats, iters=3):
     """attn_density at a cell's shape (queries at arange(S) over S keys,
-    causal flash form, with the density or the row stats): its device
-    time and time per call, its bound, SDPA is_causal (out only) and the
-    plain version on the last 512 query rows (the whole would hold (B,
-    H, S, S) fp32 scores), each timed on the same inputs."""
+    causal flash form: out only, with the density or with the row stats)
+    held against its plain version over every row (``attn_flash_plain``
+    in query chunks of 512, so that no (B, H, S, S) score tensor is
+    held: out within MQ_OUT_TOL of its range, the density within
+    AD_DENS_TOL of its largest value, m within STATS_TOL of max(1,
+    |m|) and l within STATS_TOL relative) and its rerun (bit-identical);
+    then its device time and time per call, its bound, SDPA is_causal
+    (out only) and the plain version, each timed on the same inputs."""
     import torch
     from repro_torch.kernels import attn_density as kad
     from repro_torch.kernels import ref
     S = args[0].shape[1]
     fn = lambda: kad.attn_density(*args, S, 0, 0, want, "flash",  # noqa: E731
                                   stats)
-    rows = min(S, 512)
-    tail = [args[0][:, -rows:].contiguous(), args[1], args[2],
-            args[3][-rows:].contiguous()]
-    plain = lambda: ref.attn_density_plain(                      # noqa: E731
-        *tail, S, 0, 0, want, "flash", stats)
+    plain = lambda: ref.attn_flash_plain(                        # noqa: E731
+        *args, S, 0, 0, want, stats, q_chunk=512)
+    got, again = fn(), fn()
+    exp = plain()
+    torch.cuda.synchronize()
+    span = float(exp[0].float().abs().max())
+    err = {"out": float((got[0].float() - exp[0].float()).abs().max())
+           / span}
+    if want:
+        err["density"] = float((got[1] - exp[1]).abs().max()
+                               / exp[1].abs().max())
+    if stats:
+        err["m"] = float((got[2] - exp[2]).abs().max()) / max(
+            1.0, float(exp[2].abs().max()))
+        err["l"] = float(((got[3] - exp[3]).abs() / exp[3]).max())
+    if not (torch.isfinite(got[0].float()).all()
+            and err["out"] <= MQ_OUT_TOL
+            and err.get("density", 0.0) <= AD_DENS_TOL
+            and max(err.get("m", 0.0), err.get("l", 0.0)) <= STATS_TOL):
+        raise AssertionError(f"attn_density at {label}: against the plain "
+                             f"version {err}")
+    if not all(a is b or torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"attn_density at {label}: reruns differ")
+    del got, again, exp
     lib = _sdpa_causal(*args[:3])
     bound, by = _ad_bound_ms(args, S, 0, 0, want, stats=stats)
     parts = {}
     row = {"shape": label, "form": "flash", "density": want, "stats": stats,
+           "route": kad.route("flash", args[0].shape[-1], args[2].shape[-1]),
+           "max_err_rel": err,
            "call_ms": _time_ms(fn, iters=iters, warmup=1),
-           "device_ms": _device_ms(fn, AD_KERNELS, iters=iters,
-                                   by_kernel=parts),
            "device_ms_by_kernel": parts,
-           "plain_last_rows": rows,
-           "plain_call_ms": _time_ms(plain, iters=2, warmup=1),
-           "plain_device_ms": _device_ms(plain, iters=2),
+           "plain_q_chunk": 512,
+           "plain_call_ms": _time_ms(plain, iters=1, warmup=0),
+           "plain_device_ms": _device_ms(plain, iters=1),
            "library_call_ms": _time_ms(lib, iters=iters, warmup=1),
            "library_device_ms": _device_ms(lib, iters=iters),
            "bound_ms": bound, "bound_by": by}
-    log(f"[dryrun] attn_density {label}: kernel {row['device_ms']} ms on "
-        f"the device, {row['call_ms']:.4f} ms per call; plain on the last "
-        f"{rows} query rows {row['plain_device_ms']} ms; SDPA is_causal "
-        f"(out only) {row['library_device_ms']} ms on the device, "
+    row["device_ms"] = _device_ms_whole(fn, row["call_ms"], iters, parts)
+    log(f"[dryrun] attn_density {label} ({row['route']}): against the "
+        f"plain version {err}, rerun identical; kernel {row['device_ms']} "
+        f"ms on the device, {row['call_ms']:.4f} ms per call; plain (query "
+        f"chunks of 512) {row['plain_device_ms']} ms; SDPA is_causal (out "
+        f"only) {row['library_device_ms']} ms on the device, "
         f"{row['library_call_ms']:.4f} ms per call; bound {bound:.4f} ms "
         f"({by}); by launch {parts}")
     torch.cuda.empty_cache()
@@ -4675,12 +4742,14 @@ def dryrun_phase(root):
     g = torch.Generator(device=dev).manual_seed(SEED + 24)
     cfg = get_config("smollm-360m")
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    for B, S, stats in ((2, 32768, False), (8, 4096, True)):
+    for B, S, modes in ((2, 32768, ("density", "out")), (8, 4096, ("stats",))):
         args = _ad_case(B, S, S, H, KV, hd, list(range(S)), g, dev)
-        label = (f"({B},{S},{H},{KV},{hd}) causal flash "
-                 f"{'+ stats' if stats else '+ density'}")
-        out["kernel_rows"][label] = _dryrun_ad_row(label, args, not stats,
-                                                   stats)
+        for mode in modes:
+            label = (f"({B},{S},{H},{KV},{hd}) causal flash "
+                     + {"density": "+ density", "out": "out only",
+                        "stats": "+ stats"}[mode])
+            out["kernel_rows"][label] = _dryrun_ad_row(
+                label, args, mode == "density", mode == "stats")
         del args
     q14 = get_config("qwen2.5-14b")
     for B, S, c, (w, ns) in (
@@ -6074,8 +6143,11 @@ def main() -> int:
             "new_family_shapes": ad_times["new_families"],
             "dryrun_shapes": {k: r for k, r in dry["kernel_rows"].items()
                               if r["form"] == "flash"
+                              and r.get("route") == "mma"
                               and (key == "out" or r["density"])},
-            **({"stats_shape": st_row, "max_err_stats": st_err,
+            **({"stats_shape": (st_row if st_row.get("route") == "mma"
+                                else None),
+                "max_err_stats": st_err,
                 "launches_train_per_step": {
                     k: [st["launches"]["attn_density_stats"]
                         for st in train[k]["steps"]]
@@ -6093,16 +6165,67 @@ def main() -> int:
                            for label, src in mla_rows[key]},
             "prefill_shapes": {label: r for label, r in
                                prefill["rows"].items()
-                               if r["density"] == (key == "density")},
+                               if r["density"] == (key == "density")
+                               and r.get("route") == "mma"},
             "library_call_prefill": "F.scaled_dot_product_attention("
                                     "is_causal=True): out only",
             **{name: {k: ad_times[src][k] for k in (
-                "shape", "form", "device_ms", "call_ms", "plain_device_ms",
-                "library_device_ms", "bound_ms", "bound_by")}
+                "shape", "form", "route", "device_ms", "call_ms",
+                "plain_device_ms", "library_device_ms", "bound_ms",
+                "bound_by")}
                for name, src in (("long_append", "long"),
                                  ("pallas_setting", "pallas"),
                                  ("slot_recompute_set", "slot"),
                                  ("lmk_whole_recompute", "lmk"))},
+        })
+    # csrc/attn_flash.cu: the flash form at head dims 64 and 128, timed at
+    # llama2-7b's 4096-token prefill (out only, and with the density: the
+    # forward and the density pass), launched by the 4096-token prefill
+    flash_rows = {label: r for label, r in (
+        list(prefill["rows"].items()) + list(dry["kernel_rows"].items())
+        + [(st_row["shape"], st_row)]) if r.get("route") == "wgmma"}
+    for name, line, label, key in (
+            ("attn_flash_fwd", 128, "dense (1,4096,32,32,128) causal flash",
+             "attn_flash"),
+            ("attn_flash_mass", 156,
+             "dense (1,4096,32,32,128) causal flash + density",
+             "attn_flash_with_density")):
+        row = prefill["rows"][label]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/attn_flash.cu",
+            "replaces": f"src/repro/kernels/attn_density.py:{line}",
+            "launches": prefill["runs"][4096]["launches"][key],
+            "max_abs_err": row["max_abs_err"],
+            "ms": _device_or_call(row, ""),
+            "plain_ms": _device_or_call(row, "plain_"),
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": (_device_or_call(row, "library_")
+                           if key == "attn_flash" else None),
+            "library_call": ("F.scaled_dot_product_attention(is_causal="
+                             "True): out only" if key == "attn_flash"
+                             else None),
+            "shape": f"{label} (the call: the forward"
+                     f"{' and the density pass' if row['density'] else ''})",
+            "call_ms": row["call_ms"], "plain_call_ms": row["plain_call_ms"],
+            "ms_by_kernel": row["device_ms_by_kernel"],
+            "density_pass_ms": (sum(v for k, v in
+                                    row["device_ms_by_kernel"].items()
+                                    if any(m in k for m in
+                                           FLASH_MASS_KERNELS))
+                                if row["density"] else None),
+            **_later_launches(mla, prefill, vlm, moe, key),
+            **_new_family_launches(encdec, rglru, key),
+            **_dryrun_launches(dry, key),
+            "launches_train_per_step": {
+                k: [st["launches"][key] for st in train[k]["steps"]]
+                for k in ("a", "b", "c", "d_rerun", "d_resume")},
+            "flash_shapes": {k: {f: r.get(f) for f in (
+                "density", "stats", "max_err_rel", "device_ms", "call_ms",
+                "plain_device_ms", "library_device_ms", "library_call_ms",
+                "bound_ms", "bound_by", "device_ms_by_kernel")}
+                for k, r in flash_rows.items()
+                if r["density"] == (key != "attn_flash")},
         })
     row, long_row = dq_times
     kernels.append({

@@ -41,6 +41,14 @@
 // store after the slices' (m, l) are combined, compiled apart so the
 // other instantiations keep their machine code.
 //
+// What runs here.  Every served form (serving's extend, its bit plans,
+// recovery recompute, extend_nod), and the flash form at head dims other
+// than Dqk = Dv = 64 or 128 (MLA's 192/128, recurrentgemma's 256, the
+// tests' small dims).  The flash form at 64 and 128 (the prefill's,
+// training's and the dry run's attention) runs csrc/attn_flash.cu, a
+// wgmma + TMA forward with a key-major density pass; the wrapper picks
+// by form and head dims alone (kernels/attn_density.py route()).
+//
 // Design.  Rows are (query, head) pairs flattened as row = qi * G + g, so
 // one K/V tile serves a whole group and any G <= 64 works.  A block of 4
 // warps takes 16 or 64 rows (the host plan attn_density_rows: 64 when
@@ -92,7 +100,8 @@
 // else: the 64, 128 and 192/128 instantiations compile as before (the
 // split is a compile-time branch on HDQ).  A simple design that is
 // right first; wgmma tiles with the whole of O across a warpgroup are
-// later work.
+// csrc/attn_flash.cu's, at 64 and 128, and later work at 192/128 and
+// 256.
 //
 // Bound.  Bytes: q, the visible K/V rows and out once, about
 // (Sq H Dqk + n_keys KV (Dqk + Dv) + Sq H Dv) * 2 bytes; operations:

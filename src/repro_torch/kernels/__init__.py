@@ -16,8 +16,9 @@ def _wrappers():
 
 def launch_counts() -> Dict[str, int]:
     """Each kernel's launches since its count was last reset (the
-    attn_density launches with the density and with the row stats are
-    counted among its launches and apart)."""
+    attn_density launches with the density, with the row stats and
+    through csrc/attn_flash.cu are counted among its launches and
+    apart)."""
     chunk_quant, kmq, kad, kdq = _wrappers()
     return {"quantize": chunk_quant.quantize.launches,
             "dequantize": chunk_quant.dequantize.launches,
@@ -25,6 +26,9 @@ def launch_counts() -> Dict[str, int]:
             "attn_density": kad.attn_density.launches,
             "attn_density_with_density": kad.attn_density.density_launches,
             "attn_density_stats": kad.attn_density.stats_launches,
+            "attn_flash": kad.attn_density.flash_launches,
+            "attn_flash_with_density":
+                kad.attn_density.flash_density_launches,
             "decode_qattn": kdq.decode_qattn.launches}
 
 

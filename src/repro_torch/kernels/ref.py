@@ -324,3 +324,74 @@ def attn_density_plain(q, k, v, q_pos=None, seq_len=None, window: int = 0,
     mass = torch.sum(pm, dim=(1, 2, 3))                           # (B, Sk)
     nvalid = torch.clamp_min(torch.sum(maskb, dim=1), 1)          # (1, Sk)
     return out, (mass / (H * nvalid)).to(torch.float32)
+
+
+def attn_flash_plain(q, k, v, q_pos=None, seq_len=None, window: int = 0,
+                     n_sinks: int = 0, want_density: bool = True,
+                     return_stats: bool = False, q_chunk: int = 0):
+    """Plain version of ``csrc/attn_flash.cu`` (``attn_density``'s flash
+    form at Dqk = Dv = 64 or 128): its two-pass arithmetic on the
+    visibility and scores of ``attn_density_plain``.
+
+      * pass 1, the rows: m = max_j s, p = exp(s - m), l = max(sum p,
+        1e-30); out = (bf16(p) V) / l in fp32, then q's dtype (the
+        kernel's PV takes p rounded to bf16, its tensor cores' operand);
+      * pass 2, key-major: for each key, the kv-head's sum over its
+        group's rows of exp(s - m) / l over visible (query, key) pairs,
+        from pass 1's m and l; the kv-heads' partials summed in order,
+        over H * max(1, visible queries of the key).
+
+    ``q_chunk`` > 0 takes the queries that many at a time (a row's m
+    and l are its own, so only the order of the mass sums changes): the
+    scores of a chunk, not of all Sq rows, are held at once.
+    -> (out (B,Sq,H,D), density (B,Sk) fp32 | None); with
+    ``return_stats`` also m and l, (B,KV,G,Sq) fp32 each."""
+    if return_stats and want_density:
+        raise ValueError("attn_density gives row stats in the flash form "
+                         "without the density only")
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    if q_pos is None:
+        q_pos = torch.arange(Sq, device=q.device)
+    if seq_len is None:
+        seq_len = Sk
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    step = q_chunk if q_chunk > 0 else Sq
+    outs, ms, ls = [], [], []
+    part = torch.zeros((B, KV, Sk), dtype=torch.float32, device=q.device)
+    count = torch.zeros((Sk,), dtype=torch.int64, device=q.device)
+    for a in range(0, Sq, step):
+        mask = extend_visibility(q_pos[a:a + step].to(q.device), Sk,
+                                 int(seq_len), window, n_sinks)[None, None,
+                                                                None]
+        qg = q[:, a:a + step].reshape(B, -1, KV, G, hd).to(torch.float32)
+
+        def scores():
+            s = torch.einsum("bqngd,bknd->bngqk", qg, kf)
+            return torch.where(mask, s * (1.0 / np.sqrt(hd)), NEG_INF)
+
+        s = scores()                                       # pass 1
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
+        o = torch.einsum("bngqk,bknd->bngqd", p.to(torch.bfloat16).float(),
+                         vf) / l
+        del s, p
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(B, -1, H, v.shape[-1]))
+        ms.append(m[..., 0])
+        ls.append(l[..., 0])
+        if want_density:                                  # pass 2
+            pn = torch.where(mask, torch.exp(scores() - m) / l, 0.0)
+            part += pn.sum(dim=(2, 3))
+            count += mask[0, 0, 0].sum(dim=0)
+            del pn
+    out = torch.cat(outs, dim=1).to(q.dtype)
+    if return_stats:
+        return out, None, torch.cat(ms, dim=-1), torch.cat(ls, dim=-1)
+    if not want_density:
+        return out, None
+    mass = part[:, 0]
+    for kv in range(1, KV):
+        mass = mass + part[:, kv]
+    return out, (mass / (H * torch.clamp_min(count, 1))).to(torch.float32)

@@ -293,7 +293,8 @@ def _flash_bwd(q, k, v, out, m, l, dout, q_offset: int, block: int,
 class _FlashAttention(torch.autograd.Function):
     """The reference's ``flash_attention`` ``custom_vjp`` (its only custom
     gradient).  Forward: ``attn_density``'s flash form with the row stats
-    (on the card the CUDA kernel ``attn_density_stats_kernel``, on the
+    (on the card ``csrc/attn_flash.cu``'s forward at head dims 64 and
+    128, the tile kernel ``attn_density_stats_kernel`` at others; on the
     CPU its plain version), saving (q, k, v, out, m, l) as the
     reference's ``_flash_vjp_fwd`` does.  Backward: ``_flash_bwd``, plain
     fp32 products, as the reference computes its backward in jnp outside

@@ -12,6 +12,7 @@ two bf16 ulps and 1e-5 of the largest density (the sums run in another
 order); bf16 level (2% of the logit range) between the card and the
 CPU for the model, whose bf16 matmuls round differently.
 """
+import ctypes
 import tempfile
 
 import numpy as np
@@ -467,6 +468,109 @@ def test_cuda_recompute_runs_attn_density(card):
 
 
 # --------------------------------------------------------------------- #
+# attn_density's flash form at Dqk = Dv = 64 and 128: csrc/attn_flash.cu
+# (the wgmma + TMA forward, the key-major density pass) against its plain
+# two-pass version, at the tolerances of _check_extend (out within 2^-7
+# of max|out|, density within 1e-5 of its largest value) and the row
+# stats at STATS_TOL; reruns and the out without the density or with
+# the stats bit-identical.
+# --------------------------------------------------------------------- #
+FLASH_GROUPS = {1: (4, 4), 3: (15, 5), 5: (10, 2), 8: (16, 2)}
+FLASH_SETTINGS = {
+    # name: (Sq, Sk, q_pos, seq_len, window, n_sinks)
+    "causal, Sq off the tiles": (300, 300, list(range(300)), 300, 0, 0),
+    "offset, seq_len < Sk": (200, 520, list(range(300, 500)), 500, 0, 0),
+    "window + sinks": (700, 700, list(range(700)), 700, 256, 4),
+    "pads that see no key": (64, 512, list(range(160, 200)) + [511] * 24,
+                             200, 16, 0),
+}
+
+
+def _check_flash(args, seq_len, window, n_sinks):
+    from repro_torch.kernels import attn_density as kad
+    from repro_torch.kernels import ref
+    kad.reset_launches()
+    o_k, d_k = kad.attn_density(*args, seq_len, window, n_sinks, True,
+                                "flash")
+    o_n, d_n = kad.attn_density(*args, seq_len, window, n_sinks, False,
+                                "flash")
+    o_s, d_s, m_k, l_k = kad.attn_density(*args, seq_len, window, n_sinks,
+                                          False, "flash", True)
+    o_2, d_2 = kad.attn_density(*args, seq_len, window, n_sinks, True,
+                                "flash")
+    torch.cuda.synchronize()
+    assert (kad.attn_density.launches, kad.attn_density.flash_launches,
+            kad.attn_density.flash_density_launches) == (4, 4, 2)
+    o_r, d_r = ref.attn_flash_plain(*args, seq_len, window, n_sinks, True)
+    _, _, m_r, l_r = ref.attn_flash_plain(*args, seq_len, window, n_sinks,
+                                          False, True)
+    assert d_n is None and d_s is None and torch.isfinite(o_k.float()).all()
+    assert float((o_k.float() - o_r.float()).abs().max()) <= \
+        2 ** -7 * float(o_r.float().abs().max())
+    assert float((d_k - d_r).abs().max()) <= \
+        1e-5 * max(float(d_r.abs().max()), 1e-30)
+    seen = m_r > ref.NEG_INF / 2
+    assert torch.equal(m_k[~seen], m_r[~seen])
+    if seen.any():
+        assert float((m_k - m_r)[seen].abs().max()) <= \
+            1e-5 * max(1.0, float(m_r[seen].abs().max()))
+    assert float(((l_k - l_r).abs() / l_r).max()) <= 1e-5
+    assert torch.equal(o_n, o_k) and torch.equal(o_s, o_k)
+    assert torch.equal(o_2, o_k) and torch.equal(d_2, d_k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setting", sorted(FLASH_SETTINGS))
+@pytest.mark.parametrize("G", sorted(FLASH_GROUPS))
+@pytest.mark.parametrize("hd", [64, 128])
+def test_cuda_attn_flash_matches_plain_version(card, hd, G, setting):
+    """The new flash kernels at hd 64 and 128, G 1, 3, 5 and 8: Sq G
+    off the 128-row tiles, queries at an offset over more keys with
+    seq_len < Sk, a window with sinks, and pad rows that see no key
+    beside rows that see keys; with and without the density and with
+    the row stats."""
+    H, KV = FLASH_GROUPS[G]
+    Sq, Sk, qp, seq_len, window, n_sinks = FLASH_SETTINGS[setting]
+    g = torch.Generator().manual_seed(Sq + Sk + hd + G)
+    r = lambda *s: torch.randn(s, generator=g).bfloat16().to(card)  # noqa
+    args = [r(2, Sq, H, hd), r(2, Sk, KV, hd), r(2, Sk, KV, hd),
+            torch.tensor(qp, dtype=torch.int32, device=card)]
+    _check_flash(args, seq_len, window, n_sinks)
+
+
+@pytest.mark.cuda
+def test_cuda_attn_density_routes_by_form_and_head_dims(card):
+    """Each route launches its kernel: the flash form at 64/64 and
+    128/128 through csrc/attn_flash.cu (its counter), the served form
+    and the flash form at other head dims through csrc/attn_density.cu
+    (the flash counter stays); one call counts one launch whatever the
+    kernel; the new route refuses a base that is not 16-byte aligned
+    (TMA) and launches nothing then."""
+    from repro_torch.kernels import attn_density as kad
+    for dqk, dv, form, want in ((64, 64, "flash", 1), (128, 128, "flash", 1),
+                                (64, 64, "served", 0),
+                                (128, 128, "served", 0),
+                                (192, 128, "flash", 0), (256, 256, "flash", 0),
+                                (16, 16, "flash", 0), (128, 64, "flash", 0)):
+        args = _extend_case(1, 40, 100, 8, 2, dqk, 90, 4, card, dv=dv)
+        for density in (False, True):
+            kad.reset_launches()
+            kad.attn_density(*args, 90, 0, 0, density, form)
+            assert (kad.attn_density.launches,
+                    kad.attn_density.flash_launches,
+                    kad.attn_density.flash_density_launches) == \
+                (1, want, want * density)
+    q, k, v, qp = _extend_case(1, 40, 100, 8, 2, 64, 90, 4, card)
+    buf = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=card)
+    q_off = buf[1:].view(q.shape)
+    q_off.copy_(q)
+    kad.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        kad.attn_density(q_off, k, v, qp, 90, 0, 0, True, "flash")
+    assert kad.attn_density.launches == 0
+
+
+# --------------------------------------------------------------------- #
 # Edge cases of the tile plan (attn_density) and the split plan
 # (decode_mqattn), and the plans the CUDA sources compute against the
 # wrappers' ``plan`` (tested on the CPU in tests/test_torch_plans.py).
@@ -526,13 +630,17 @@ def test_cuda_decode_mqattn_edge_cases(card, B, S, H, KV, hd, n_valid,
 @pytest.mark.cuda
 def test_cuda_kernel_plans_match_the_wrappers(card):
     """The CUDA sources' tile and split plans equal the wrappers'
-    ``plan``, which sizes the scratch buffers."""
+    ``plan`` and ``flash_plan``, which size the scratch buffers."""
     from repro_torch.kernels import attn_density as kad
     from repro_torch.kernels import decode_mqattn as kmq
     la, lm = kad._lib(), kmq._lib()
+    lf = kad._flash_lib()
+    got = (ctypes.c_int * 5)()
     for B, Sq, H, KV in ((1, 64, 32, 32), (1, 512, 32, 32), (2, 37, 4, 4),
                          (1, 24, 64, 1), (4, 64, 32, 32), (1, 2048, 32, 8)):
         assert la.attn_density_rows(B, Sq, H, KV) == kad.plan(B, Sq, H, KV)[0]
+        assert lf.attn_flash_plan(B, Sq, H, KV, got) == 0
+        assert tuple(got) == kad.flash_plan(B, Sq, H, KV)
     for B, S, KV in ((1, 512, 32), (1, 4096, 32), (4, 512, 32), (3, 4100, 4),
                      (1, 16, 2), (2, 300, 2), (1, 65536, 32)):
         assert lm.decode_mqattn_splits(B, S, KV) == kmq.plan(B, S, KV)[0]

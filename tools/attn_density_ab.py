@@ -15,7 +15,10 @@ file of the same name, so that both get the same mangled names), then
 2. times the shapes of ``PERF.md`` §6 rows 3-4 that both take, with
    and without the density, in turns (other, this, this, other, ...),
    device time a call from the profiler (``chip_smoke._device_ms``),
-   and checks that the two give the same bits.
+   and checks that the two give the same bits.  Every case calls this
+   source's kernel directly (``attn_density._tiles``), also where the
+   wrapper would route the call to ``csrc/attn_flash.cu`` (the flash
+   form at head dims 64 and 128).
 
 Prints one JSON object.
 """
@@ -86,6 +89,21 @@ def _load(path: str, src: str):
     return lib if stats else _NoStats(lib)
 
 
+def _tile_kernel(kad, args, seq_len, want, form):
+    """One call of ``csrc/attn_density.cu`` (the library in
+    ``kad._LIB``) over ``args`` = (q, k, v, q_pos), no window.
+    -> (out, density | None)."""
+    import torch
+    q, k, v, qp = args
+    B, Sq, H, _ = q.shape
+    out = torch.empty((B, Sq, H, v.shape[-1]), dtype=torch.bfloat16,
+                      device=q.device)
+    dens = (torch.empty((B, k.shape[1]), dtype=torch.float32,
+                        device=q.device) if want else None)
+    kad._tiles(q, k, v, qp, out, None, dens, seq_len, 0, 0, form)
+    return out, dens
+
+
 def main(other_src: str) -> int:
     import torch
     import chip_smoke as smoke
@@ -134,8 +152,8 @@ def main(other_src: str) -> int:
                 for k in (("other", "this") if rnd % 2 == 0
                           else ("this", "other")):
                     kad._LIB = loaded[k]
-                    fn = lambda: kad.attn_density(  # noqa: E731
-                        *args, seq_len, 0, 0, want, form)
+                    fn = lambda: _tile_kernel(  # noqa: E731
+                        kad, args, seq_len, want, form)
                     outs[k] = fn()
                     times[k].append(smoke._device_ms(
                         fn, smoke.AD_KERNELS, iters=50 if Sq <= 64 else 10))
