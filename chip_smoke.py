@@ -216,8 +216,10 @@ result line):
              may fail; only whisper-base x long_500k is skipped), the
              per-device argument GiB of each cell printed; then the
              single-pod data-parallel shares of DRYRUN_RUNS on the card
-             at full width and depth (no cut allowed) through
-             run_cell(..., run=True): qwen2.5-14b x decode_32k and
+             at full width and depth (no cut allowed but for the VLM)
+             through run_cell(..., run=True), every decode and prefill
+             share's last timed call bit-identical to its warm call:
+             qwen2.5-14b x decode_32k and
              smollm-360m x long_500k over the all-int8 cache
              (decode_qattn once a layer, every layer's call held against
              the plain version on its own inputs, the logits against the
@@ -225,7 +227,12 @@ result line):
              smollm-360m x prefill_32k (attn_density with the density
              once a layer, the first call's last 512 query rows held)
              and x train_4k (the row-stats kernel twice a layer on each
-             of 2 splits, finite loss and grad norm); each share's wall,
+             of 2 splits, finite loss and grad norm), rwkv6-1.6b x
+             long_500k (its recurrent state put back before each call;
+             no kernel) and llama-3.2-vision-90b x decode_32k over its
+             int8 cache without scales (the reference's dtype flow in
+             plain PyTorch, no kernel; depth cut by _fit_depth, the cut
+             printed); each share's wall,
              peak and launches of one call are read from its record;
              then attn_density and decode_qattn timed at those shapes
              beside their bounds, their plain versions and SDPA;
@@ -424,11 +431,19 @@ MOE_CODEC_SHAPES = ((16, 2 * 8 * 128), (16, 2 * 8 * 128))
 # launches of one call that the path must make: decode_qattn once a
 # layer over the all-int8 cache; attn_density (with the density) once a
 # layer in the 32k prefill; the row-stats kernel twice a layer (the
-# forward and its checkpointed recompute) on each of n_micro = 2 splits
+# forward and its checkpointed recompute) on each of n_micro = 2 splits;
+# no kernel in RWKV6's decode nor in the VLM's decode over its int8
+# cache, which has no scales (plain PyTorch, as the reference computes
+# it in jnp)
 DRYRUN_RUNS = (("qwen2.5-14b", "decode_32k", "int8"),
                ("smollm-360m", "long_500k", "int8"),
                ("smollm-360m", "prefill_32k", "bf16"),
-               ("smollm-360m", "train_4k", "bf16"))
+               ("smollm-360m", "train_4k", "bf16"),
+               ("rwkv6-1.6b", "long_500k", "bf16"),
+               ("llama-3.2-vision-90b", "decode_32k", "int8"))
+# the one share that may run cut in depth (its 176 GB of bf16 weights
+# do not fit the card); its cut is printed and recorded
+DRYRUN_CUT_OK = frozenset({"llama-3.2-vision-90b"})
 # 3e: rwkv6-1.6b at full width (one whole-state snapshot a context:
 # wkv 24 x 32 x 64 x 64 fp32 + tm / cm 2 x 24 x 2048 fp16 = 12,779,520 B)
 RWKV = dict(arch="rwkv6-1.6b", budget_snapshots=2, max_ctx=256)
@@ -4536,10 +4551,13 @@ def moe_runs(swap_root):
 # --------------------------------------------------------------------- #
 def _dryrun_expected(one):
     """The launches of one call that a share's path must make, from its
-    record's ``one_card`` block (key of ``_read_launches``: count)."""
+    record's ``one_card`` block (key of ``_read_launches``: count): on a
+    path with no kernel, no launch of any."""
     L, entry = one["n_layers"], one["entry"]
     if entry == "decode":
-        return {"decode_qattn": L}
+        if one["family"] == "dense" and one["kv"] == "int8":
+            return {"decode_qattn": L}
+        return {k: 0 for k in one["launches"]}
     if entry == "prefill":
         return {"attn_density": L, "attn_density_with_density": L,
                 "attn_flash": L, "attn_flash_with_density": L}
@@ -4682,7 +4700,9 @@ def dryrun_phase(root):
     meta device, single and multi-pod (no cell may fail, and only the
     cells ``shape_applicability`` refuses are skipped); then DRYRUN_RUNS
     through ``run_cell(..., run=True)``: each share at full width (no
-    depth cut allowed), its kernels' launches in one call required, its
+    depth cut allowed but for DRYRUN_CUT_OK), its kernels' launches in
+    one call required (none on a path with no kernel), a decode or
+    prefill share's last timed call bit-identical to its warm call, its
     decode held against the plain version layer by layer and in its
     logits, its first attn_density call's last 512 query rows held
     against the plain version; then the kernels timed at those shapes.
@@ -4726,9 +4746,17 @@ def dryrun_phase(root):
             raise AssertionError(f"[dryrun] {label}: {rec.get('error')}\n"
                                  f"{rec.get('traceback')}")
         one = dict(rec["one_card"], entry=rec["entry"],
-                   n_micro=rec["n_micro"], window=rec["window"])
-        if one["reduced"]:
+                   n_micro=rec["n_micro"], window=rec["window"],
+                   family=get_config(arch).family, kv=kv)
+        if one["reduced"] and arch not in DRYRUN_CUT_OK:
             raise AssertionError(f"[dryrun] {label} cut: {one['reduced']}")
+        if one["reduced"]:
+            log(f"[dryrun] {label} cut: {one['reduced']}")
+        # a train step advances its state: no repeat to hold
+        if one["repeat_identical"] is not (
+                None if one["entry"] == "train" else True):
+            raise AssertionError(f"[dryrun] {label}: repeat identical "
+                                 f"{one['repeat_identical']}")
         want = _dryrun_expected(one)
         got = {k: one["launches"][k] for k in want}
         if got != want:
@@ -6268,7 +6296,8 @@ def main() -> int:
                  for m, c in dry["meta"].items()},
         "runs": {label: {k: run[k] for k in (
             "batch", "seq", "n_layers", "reduced", "wall_s", "peak_bytes",
-            "argument_bytes", "model_flops_per_s", "max_err_vs_plain")}
+            "argument_bytes", "model_flops_per_s", "repeat_identical",
+            "max_err_vs_plain")}
             for label, run in dry["runs"].items()}}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

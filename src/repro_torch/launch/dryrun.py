@@ -33,15 +33,19 @@ arguments would not fit the card (each cut listed under ``reduced``).
 Weights come from a seeded ``torch.Generator`` on the device, tokens
 from ``numpy.random.default_rng(--seed)``, and a decode cache is filled
 with random codes (int8) or values (bf16) and positive scales, with
-``pos = seq - 1``: one new token against a seq_len-deep cache.  The
-record gains a ``one_card`` block: the batch, the cuts, the argument
-bytes, the peak memory, the wall time (median of 3 calls after a warm
-one), each kernel's launches in one call, the model FLOPs of the dense
-family and their rate, and the entry held against its plain version
-(a decode's logits and greedy picks against the same ``decode_step``
-with the kernels' plain versions; the first ``attn_density`` call's
-last 512 query rows, over all its keys, against the plain version).
-A cell that fails is recorded as ``fail`` and ``main`` exits 1.
+``pos = seq - 1``: one new token against a seq_len-deep cache, every
+call from the same state (``pos`` and the cache's state leaves are put
+back first).  The record gains a ``one_card`` block: the batch, the
+cuts, the argument bytes, the peak memory, the wall time (median of 3
+calls after a warm one), whether the last call's output is the warm
+call's bit for bit (``repeat_identical``; a decode or prefill share
+raises where it is not), each kernel's launches in one call, the model
+FLOPs of the dense family and their rate, and the entry held against
+its plain version (a decode's logits and greedy picks against the same
+``decode_step`` with the kernels' plain versions; the first
+``attn_density`` call's last 512 query rows, over all its keys, against
+the plain version).  A cell that fails is recorded as ``fail`` and
+``main`` exits 1.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod]
@@ -455,6 +459,14 @@ def _compare_logits(logits: torch.Tensor, plain: torch.Tensor
     return out
 
 
+def _outputs(entry: str, out) -> Tuple:
+    """The tensors of a decode or prefill call's output that a repeat
+    must give bit for bit: the logits, and a prefill's density (None
+    where it has none)."""
+    return (out.logits, out.density) if entry == "prefill" else (
+        out.logits,)
+
+
 def _fill_cache(cache: Dict[str, torch.Tensor], pos: int,
                 g: torch.Generator) -> None:
     """Random contents in place: int8 codes in [-127, 127], positive
@@ -491,6 +503,32 @@ def _batch(model, spec: Dict[str, torch.Tensor], B: int, rng, g, dev
     return out
 
 
+def state_leaves(model, dtype=torch.bfloat16) -> Tuple[str, ...]:
+    """The names of ``model``'s decode cache leaves that have no sequence
+    axis, ``pos`` aside: those of one shape in a cache 1 and a cache 2
+    positions long (two meta caches, so no list a family).  A
+    ``decode_step`` writes a sequence leaf at ``pos`` only, but may
+    rewrite these whole: RWKV6's ``wkv`` / ``tm`` / ``cm``,
+    recurrentgemma's ``conv`` / ``lru``."""
+    meta = type(model)(model.cfg, META)
+    one, two = (meta.init_cache(1, n, dtype) for n in (1, 2))
+    return tuple(n for n in one
+                 if n != "pos" and one[n].shape == two[n].shape)
+
+
+def _cache_restorer(cache: Dict[str, torch.Tensor], names):
+    """-> a function that puts ``pos`` and the leaves ``names`` of
+    ``cache`` back, in place, as they are now (a copy of each kept).
+    The sequence leaves are not copied: a decode at the same ``pos``
+    from the same state writes them with the same values."""
+    kept = {n: cache[n].clone() for n in (*names, "pos")}
+
+    def restore():
+        for n, t in kept.items():
+            cache[n].copy_(t)
+    return restore
+
+
 class Share(NamedTuple):
     model: Any
     cuts: List[str]
@@ -503,8 +541,10 @@ class Share(NamedTuple):
 def share_inputs(cell: Cell, multi_pod: bool, device="cuda", seed: int = 0
                  ) -> Share:
     """The model, weights and inputs of the cell's data-parallel share on
-    ``device``, and the call that runs its entry on them (a decode call
-    puts ``pos`` back first, so every call computes the same token)."""
+    ``device``, and the call that runs its entry on them.  A decode call
+    first puts back ``pos`` and every ``state_leaves`` leaf as
+    ``_fill_cache`` left them, so every call computes the same token
+    from the same state."""
     dev = resolve_device(device)
     shape = cell.shape
     n_data = 32 if multi_pod else 16
@@ -539,9 +579,10 @@ def share_inputs(cell: Cell, multi_pod: bool, device="cuda", seed: int = 0
     _fill_cache(cache, S - 1, g)
     tokens = torch.as_tensor(rng.integers(1, cfg.vocab, (B, 1)),
                              dtype=torch.int64, device=dev)
+    restore = _cache_restorer(cache, state_leaves(model, cell.kv_dtype))
 
     def call():
-        cache["pos"].fill_(S - 1)
+        restore()
         return model.decode_step(params, tokens, cache, window=window,
                                  n_sinks=n_sinks)
     return Share(model, cuts, B, S, (params, tokens, cache), call)
@@ -551,7 +592,10 @@ def run_share(cell: Cell, multi_pod: bool, device="cuda", seed: int = 0
               ) -> Dict[str, Any]:
     """The cell's data-parallel share on ``device``, at full width, after
     the hand kernels are built.  -> the ``one_card`` block of the
-    record."""
+    record.  A decode or prefill share raises where its last timed
+    call's output is not its warm call's bit for bit; a train step
+    advances its state by design and is exempt (``repeat_identical``
+    None)."""
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
     if on_card:
@@ -574,6 +618,8 @@ def run_share(cell: Cell, multi_pod: bool, device="cuda", seed: int = 0
     sync()
     first_s = time.perf_counter() - t0
     launches = launch_counts()
+    # a train step advances its state by design: no repeat to hold
+    warm = None if cell.entry == "train" else _outputs(cell.entry, out)
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -582,6 +628,16 @@ def run_share(cell: Cell, multi_pod: bool, device="cuda", seed: int = 0
         walls.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated(dev) if on_card else None
     wall = sorted(walls)[1]
+    repeat = None
+    if warm is not None:
+        repeat = all(a is b or (a is not None and b is not None
+                                and torch.equal(a, b))
+                     for a, b in zip(warm, _outputs(cell.entry, out)))
+        if not repeat:
+            raise AssertionError(
+                f"{cfg.name} x {cell.shape.name} ({cell.entry}, "
+                f"{str(cell.kv_dtype).split('.')[-1]} cache): the last "
+                f"timed call's output differs from the warm call's")
 
     err: Dict[str, Any] = {}
     if cell.entry == "train":
@@ -612,6 +668,7 @@ def run_share(cell: Cell, multi_pod: bool, device="cuda", seed: int = 0
         "batch": B, "seq": S, "n_layers": cfg.n_layers, "reduced": cuts,
         "argument_bytes": arg_bytes, "peak_bytes": peak,
         "first_call_s": first_s, "wall_s": wall, "wall_s_all": walls,
+        "repeat_identical": repeat,
         "launches": launches,
         "model_flops": flops,
         "model_flops_per_s": None if flops is None else flops / wall,
@@ -619,7 +676,8 @@ def run_share(cell: Cell, multi_pod: bool, device="cuda", seed: int = 0
     }
     print(f"[dryrun] one card ({block['device']}): {cell.entry} B {B} S {S} "
           f"L {cfg.n_layers}{' ' + str(cuts) if cuts else ''}: wall "
-          f"{wall:.4f} s (first {first_s:.2f} s), peak "
+          f"{wall:.4f} s (first {first_s:.2f} s, repeat identical "
+          f"{repeat}), peak "
           f"{None if peak is None else round(peak / 2**30, 2)} GiB, "
           f"launches {launches}, vs plain {err}")
     return block

@@ -164,6 +164,51 @@ def causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
 
 
 # --------------------------------------------------------------------- #
+# int8 without scales: the reference's dtype flow over a scale-less int8
+# cache (the VLM's int8 cache), which JAX carries through its promotion
+# --------------------------------------------------------------------- #
+# keys a chunk of the exact int8 p.v product: 1024 products of at most
+# 2^14 in magnitude sum to at most 2^24, which fp32 holds exactly
+INT8_PV_KEYS = 1024
+
+
+def to_int8(x: torch.Tensor) -> torch.Tensor:
+    """A float tensor -> int8 as the reference's ``astype(jnp.int8)``
+    converts it: toward zero, saturated at -128 and 127, NaN to 0.
+    (``.to(torch.int8)`` of a value out of range is undefined: 300.0
+    comes out 44 on the CPU.)"""
+    x = torch.nan_to_num(x, nan=0.0).trunc()
+    return x.clamp(-128, 127).to(torch.int8)
+
+
+def cast_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x.to(dtype)``, a float into int8 converted by ``to_int8``."""
+    if dtype == torch.int8 and x.is_floating_point():
+        return to_int8(x)
+    return x.to(dtype)
+
+
+def pv_product(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """p (B,KV,G,Sq,Sk) fp32, v (B,Sk,KV,vd) -> (B,Sq,KV,G,vd) in v's
+    dtype: the reference's ``einsum("bngqk,bknd->bqngd",
+    p.astype(v.dtype), v)``.  Over an int8 v (no scales) p becomes int8
+    (``to_int8``: 1 only where one key takes all the mass) and the
+    product is XLA's int8 einsum: the exact sum wrapped mod 256, here
+    fp32 products over INT8_PV_KEYS keys at a time summed in int64
+    (torch has no int8 product on the card)."""
+    if v.dtype != torch.int8:
+        return torch.einsum("bngqk,bknd->bqngd", p.to(v.dtype), v)
+    p8 = to_int8(p)
+    acc = 0
+    for k0 in range(0, v.shape[1], INT8_PV_KEYS):
+        k1 = k0 + INT8_PV_KEYS
+        acc = acc + torch.einsum(
+            "bngqk,bknd->bqngd", p8[..., k0:k1].to(torch.float32),
+            v[:, k0:k1].to(torch.float32)).to(torch.int64)
+    return ((acc + 128) % 256 - 128).to(torch.int8)
+
+
+# --------------------------------------------------------------------- #
 # Grouped-query attention with the Eq.-1 density
 # --------------------------------------------------------------------- #
 class AttnOut(NamedTuple):
@@ -185,8 +230,7 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     maskb = mask[None] if mask.dim() == 2 else mask           # (B|1, Sq, Sk)
     s = torch.where(maskb[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bngqk,bknd->bqngd", p.to(v.dtype), v)
-    out = out.reshape(B, Sq, H, v.shape[-1])
+    out = pv_product(p, v).reshape(B, Sq, H, v.shape[-1])
     density = None
     if want_density:
         # Eq. (1): per key, mean attention received over valid queries
@@ -357,7 +401,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     token attends to cache[:cur_pos].  -> out (B,1,H,hd)[, per-key mass
     (B,S) fp32].  With scales it runs ``ops.decode_qattn`` in the select
     form (K/V dequantized to q's dtype, p rounded before PV: what the
-    reference computes here), the ``decode_qattn`` kernel on the card."""
+    reference computes here), the ``decode_qattn`` kernel on the card.
+    An int8 cache without scales gives an int8 out (``pv_product``), as
+    the reference's promotion does."""
     if k_scale is not None:
         from repro_torch.kernels import ops as kops
         res = kops.decode_qattn(q[:, 0], k_cache, v_cache, k_scale, v_scale,
@@ -381,8 +427,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          | (k_pos[None, :] < n_sinks))
     s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bngqk,bknd->bqngd", p.to(v_cache.dtype), v_cache)
-    out = out.reshape(B, 1, H, v_cache.shape[-1])
+    out = pv_product(p, v_cache).reshape(B, 1, H, v_cache.shape[-1])
     if want_density:
         mass = (torch.sum(p, dim=(1, 2, 3)) / H).to(torch.float32)
         return out, mass
@@ -552,15 +597,16 @@ def ring_update(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
     pos is a 0-d tensor (every row writes at one position: the serial
     working cache) or a (B,) tensor of per-row positions (batched
     decode: row b writes at its own offset).  With ring=True the index
-    wraps (sliding-window cache)."""
+    wraps (sliding-window cache).  A float ``new`` goes into an int8
+    cache as the reference converts it (``cast_to``)."""
     S = cache.shape[1]
     idx = pos % S if ring else pos
     if pos.dim():
         rows = torch.arange(cache.shape[0], device=cache.device)
-        cache[rows, idx] = new[:, 0].to(cache.dtype)
+        cache[rows, idx] = cast_to(new[:, 0], cache.dtype)
     else:
         i = int(idx)
-        cache[:, i:i + 1] = new.to(cache.dtype)
+        cache[:, i:i + 1] = cast_to(new, cache.dtype)
     return cache
 
 

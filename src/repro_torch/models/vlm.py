@@ -122,7 +122,9 @@ class VLMModel(DenseModel):
     def _cross_layer(self, pc, x, xk, xv):
         """x + tanh(gate_attn) * (unmasked attention of rms-normed
         queries over the image K/V) @ wo, then x + tanh(gate_ffn) *
-        SwiGLU."""
+        SwiGLU.  Over int8 ``xk`` / ``xv`` the attention's out is int8
+        and the product with ``wo`` promotes it to bf16, as in the
+        reference."""
         cfg = self.cfg
         B, S, _ = x.shape
         h = C.rms_norm(x, pc["ln_attn"], cfg.norm_eps)
@@ -132,7 +134,7 @@ class VLMModel(DenseModel):
                           device=x.device)
         ao = C.gqa_attention(q, xk, xv, mask)
         x = x + torch.tanh(pc["gate_attn"]).to(x.dtype) * (
-            ao.out.reshape(B, S, -1) @ pc["wo"])
+            ao.out.reshape(B, S, -1).to(pc["wo"].dtype) @ pc["wo"])
         h = C.rms_norm(x, pc["ln_ffn"], cfg.norm_eps)
         y = C.swiglu(h, pc["w_gate"], pc["w_up"], pc["w_down"])
         return x + torch.tanh(pc["gate_ffn"]).to(x.dtype) * y
@@ -212,9 +214,12 @@ class VLMModel(DenseModel):
         with the prefill's ``xk`` / ``xv``) and a 0-d ``pos``.  The self
         layers write their K/V into ``cache`` in place and attend through
         ``decode_attention``; the cross layers attend over the carried
-        image K/V.  -> DecodeOut(logits (B, V) fp32, cache with pos + 1)
-        [, a (B, 1) zero mass: the density is tracked at prefill
-        granularity, as in the reference]."""
+        image K/V.  Over the int8 cache (no scales) every step follows
+        the reference's dtype flow: K/V written by ``C.to_int8``, p cast
+        to int8, the int8 p.v product wrapped mod 256, the int8 out
+        promoted to bf16 by ``wo``.  -> DecodeOut(logits (B, V) fp32,
+        cache with pos + 1) [, a (B, 1) zero mass: the density is
+        tracked at prefill granularity, as in the reference]."""
         cfg = self.cfg
         n_self, n_cross, per = self._counts()
         x = params["embed"][tokens].to(torch.bfloat16)           # (B, 1, d)
@@ -231,7 +236,8 @@ class VLMModel(DenseModel):
                 v_c = C.ring_update(cache["v"][l], v, pos)
                 out = C.decode_attention(q, k_c, v_c, pos + 1,
                                          window=window, n_sinks=n_sinks)
-                x = x + out.reshape(*x.shape[:2], -1) @ pl["wo"]
+                x = x + out.reshape(*x.shape[:2], -1).to(
+                    pl["wo"].dtype) @ pl["wo"]
                 x = self._ffn(pl, x)
             x = self._cross_layer(C.layer_at(params["cross_layers"], c), x,
                                   cache["xk"][c], cache["xv"][c])

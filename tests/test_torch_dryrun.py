@@ -26,6 +26,14 @@ package's.
   the tolerances of tests/test_torch_models.py (logits atol 0.02 x
   max|ref| + rtol 0.02; densities 1e-4).
 * ``--run`` on the card with no card raises.
+* ``--run --device cpu`` on every assigned architecture's reduced
+  config, at short shapes: a decode share's two calls in a row give
+  bit-identical logits and leave the whole cache as the first left it
+  (its state leaves put back, whichever they are), under both KV dtypes
+  where the family serves int8; each record's hold against its plain
+  run reads 0 (both runs are plain PyTorch on the CPU) and
+  ``repeat_identical`` is true.  Every prefill share repeats bit for bit
+  too; a train share advances its state and records None.
 """
 import functools
 import json
@@ -391,3 +399,88 @@ def test_run_prefill_matches_the_reference():
     hold = rec["one_card"]["max_err_vs_plain"]["attn_density"]
     assert (hold["rows"], hold["keys"]) == (512, 2100)
     assert hold["out"] == 0.0 and hold["density"] == 0.0
+
+
+# --------------------------------------------------------------------- #
+# --run on the CPU: every share repeats from the same state
+# --------------------------------------------------------------------- #
+SHORT = {"decode_32k": ShapeSpec("decode_32k", "decode", 300, 128),
+         "long_500k": ShapeSpec("long_500k", "decode", 8400, 1),
+         "prefill_32k": ShapeSpec("prefill_32k", "prefill", 300, 32),
+         "train_4k": ShapeSpec("train_4k", "train", 64, 32)}
+
+
+def _share_cases(kinds):
+    """(arch, short shape, kv dtype) of every assigned architecture and
+    applicable shape of ``kinds``; a decode under int8 too where the
+    family serves int8."""
+    for arch in sorted(ASSIGNED):
+        cfg = get_config(arch)
+        int8 = build_model(cfg, META).kv_spec().int8_serving
+        for shape in SHORT.values():
+            if shape.kind not in kinds or not shape_applicability(
+                    cfg, shape)[0]:
+                continue
+            kvs = ("bf16", "int8") if int8 and shape.kind == "decode" \
+                else ("bf16",)
+            for kv in kvs:
+                yield pytest.param(arch, shape, kv,
+                                   id=f"{arch}-{shape.name}-{kv}")
+
+
+@pytest.mark.parametrize("arch,shape,kv", list(_share_cases(("decode",))))
+def test_decode_share_repeats_from_the_same_state(arch, shape, kv):
+    """Two ``share.call()``s in a row: bit-identical logits, and every
+    cache leaf after the second as after the first (a leaf the restore
+    missed would be rewritten from a moved state); then ``run_cell``'s
+    record: no fail, the hold against the plain run 0, the repeat gate
+    true."""
+    cfg = reduced(get_config(arch))
+    cell, _ = dryrun.build_cell(arch, shape.name, False, kv_dtype=kv,
+                                cfg=cfg, shape=shape)
+    share = dryrun.share_inputs(cell, False, "cpu", seed=3)
+    cache = share.args[2]
+    first = share.call().logits
+    after = {n: t.clone() for n, t in cache.items()}
+    second = share.call().logits
+    assert torch.equal(first, second)
+    for n, t in cache.items():
+        assert torch.equal(t, after[n]), n
+    rec = dryrun.run_cell(arch, shape.name, False, None, kv_dtype=kv,
+                          run=True, device="cpu", seed=3, cfg=cfg,
+                          shape=shape)
+    assert rec["status"] == "ok", rec.get("error")
+    one = rec["one_card"]
+    assert one["repeat_identical"] is True
+    err = one["max_err_vs_plain"]
+    assert err["logits"] == 0.0 and err["logits_rel_l2"] == 0.0
+
+
+def test_state_leaves_are_the_cache_leaves_without_a_sequence_axis():
+    """The restore's leaves: the recurrent state of RWKV6 and
+    recurrentgemma, the image / encoder K/V of the VLM and whisper, no
+    leaf of the dense caches (their scales included)."""
+    want = {"rwkv6-1.6b": ("wkv", "tm", "cm"),
+            "recurrentgemma-2b": ("conv", "lru"),
+            "llama-3.2-vision-90b": ("xk", "xv"),
+            "whisper-base": ("xk", "xv"),
+            "qwen2.5-14b": (), "deepseek-v2-lite-16b": ()}
+    for arch, names in want.items():
+        model = build_model(reduced(get_config(arch)), META)
+        assert dryrun.state_leaves(model) == names, arch
+    assert dryrun.state_leaves(build_model(get_config("qwen2.5-14b"), META),
+                               torch.int8) == ()
+
+
+@pytest.mark.parametrize("arch,shape,kv",
+                         list(_share_cases(("prefill", "train"))))
+def test_prefill_and_train_shares_run(arch, shape, kv):
+    """Every prefill and train share runs with no fail; a prefill's last
+    timed call repeats the warm one bit for bit, a train share records
+    no repeat."""
+    rec = dryrun.run_cell(arch, shape.name, False, None, kv_dtype=kv,
+                          run=True, device="cpu", seed=3,
+                          cfg=reduced(get_config(arch)), shape=shape)
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["one_card"]["repeat_identical"] is (
+        True if shape.kind == "prefill" else None)

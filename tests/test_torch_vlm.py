@@ -20,6 +20,15 @@ packages) so that the cross-attention and its FFN count.
 * The servable gate: ``build_model`` builds the family, its KVSpec is
   the reference's, and ``LLMService`` refuses it as the reference's
   executor does.
+* The int8 cache (``init_cache(dtype=int8)``, which the dry run's int8
+  decode cells build: no scales): ``decode_step`` over it against the
+  reference's jitted one, from a zero cache at position 0 and from a
+  cache of random codes at a later position, 6 steps each: every int8
+  leaf byte-equal each step, logits at the bf16 decode's level (atol
+  0.02 x max|ref|, rtol 0.02).  Under it, ``common.to_int8`` against
+  jnp's bf16 / fp32 -> int8 conversion (toward zero, saturating, NaN to
+  0) and ``common.pv_product`` against jnp's int8 einsum (wrapped mod
+  256) across its key chunks.
 """
 import numpy as np
 import pytest
@@ -176,3 +185,93 @@ def test_servable_gate(tmp_path):
                    device="cpu")
     with pytest.raises(ValueError, match="not servable"):
         JService(jmodel, jparams, JConfig(swap_dir=str(tmp_path)))
+
+
+# --------------------------------------------------------------------- #
+# the int8 cache without scales: the reference's dtype flow
+# --------------------------------------------------------------------- #
+INT8_LEAVES = ("k", "v", "xk", "xv")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_to_int8_converts_as_the_reference(dtype):
+    """``C.to_int8`` against ``jnp.asarray(x, dtype).astype(jnp.int8)``
+    over +-300 in steps of 1/8, fractions of +-1, the edges of the int8
+    range, +-0, +-inf and NaN; ``.to(torch.int8)`` would wrap 300."""
+    from repro_torch.models import common as C
+    x = np.concatenate([
+        np.arange(-300, 300.125, 0.125), np.linspace(-1, 1, 41),
+        [0.7, -1.6, 127.4, 127.9, 128.0, 128.5, -128.4, -128.9, -129.0,
+         0.0, -0.0, np.inf, -np.inf, np.nan]]).astype(np.float32)
+    want = np.asarray(jnp.asarray(x, dtype).astype(jnp.int8))
+    got = C.to_int8(torch.from_numpy(x).to(getattr(torch, dtype)))
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_pv_product_wraps_as_the_reference():
+    """``C.pv_product`` over an int8 v against the reference's
+    ``einsum(p.astype(int8), v)``: p of whole values up to +-127 (which
+    truncate to themselves) and fractions, 2,500 keys over three key
+    chunks, so the exact sum passes int8's range and wraps mod 256; a
+    bf16 v gives ``einsum(p.to(v.dtype), v)`` unchanged."""
+    from repro_torch.models import common as C
+    rng = np.random.default_rng(11)
+    B, KV, G, Sq, Sk, vd = 2, 2, 3, 1, 2500, 8
+    p = rng.integers(-127, 128, (B, KV, G, Sq, Sk)).astype(np.float32)
+    p[..., ::7] = rng.random(p[..., ::7].shape, dtype=np.float32)
+    v = rng.integers(-128, 128, (B, Sk, KV, vd), dtype=np.int8)
+    want = np.asarray(jnp.einsum("bngqk,bknd->bqngd",
+                                 jnp.asarray(p).astype(jnp.int8),
+                                 jnp.asarray(v)))
+    got = C.pv_product(torch.from_numpy(p), torch.from_numpy(v))
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(), want)
+    exact = np.einsum("bngqk,bknd->bqngd", np.trunc(p).astype(np.int64),
+                      v.astype(np.int64))
+    assert np.abs(exact).max() > 127            # the sum did wrap
+    vb = torch.from_numpy(rng.standard_normal((B, Sk, KV, vd),
+                                              dtype=np.float32)).bfloat16()
+    pt = torch.softmax(torch.from_numpy(p), dim=-1)
+    assert torch.equal(C.pv_product(pt, vb), torch.einsum(
+        "bngqk,bknd->bqngd", pt.to(torch.bfloat16), vb))
+
+
+@pytest.mark.parametrize("filled", [False, True], ids=["zero", "codes"])
+def test_int8_decode_matches_reference(filled):
+    """``decode_step`` over ``init_cache(dtype=int8)`` (no scales) of two
+    rows, 40 deep, against the reference's jitted one on the same
+    weights (gates opened), 6 steps: from a zero cache at position 0,
+    and from a cache of random codes in [-127, 127] (numpy seed 5, as
+    the dry run's ``_fill_cache`` fills it) at position 30.  Each step:
+    k / v / xk / xv byte-equal, logits at the bf16 decode's level."""
+    jcfg, jmodel, jparams, _, tmodel, tparams = _open_pair()
+    B, S, steps = 2, 40, 6
+    rng = np.random.default_rng(5)
+    tc = tmodel.init_cache(B, S, dtype=torch.int8)
+    jc = jmodel.init_cache(B, S, dtype=jnp.int8)
+    assert set(tc) == set(jc) == {*INT8_LEAVES, "pos"}
+    pos = 0
+    if filled:
+        pos = 30
+        for n in INT8_LEAVES:
+            codes = rng.integers(-127, 128, tc[n].shape, dtype=np.int8)
+            tc[n].copy_(torch.from_numpy(codes))
+            jc[n] = jnp.asarray(codes)
+    tc["pos"].fill_(pos)
+    jc["pos"] = jnp.asarray(pos, jnp.int32)
+    tokens = rng.integers(1, jcfg.vocab, (B, steps))
+    dec = jax.jit(jmodel.decode_step)
+    for i in range(steps):
+        jout = dec(jparams, jnp.asarray(tokens[:, i:i + 1], jnp.int32), jc)
+        tout = tmodel.decode_step(
+            tparams, torch.from_numpy(tokens[:, i:i + 1]).long(), tc)
+        for n in INT8_LEAVES:
+            assert tout.cache[n].dtype == torch.int8
+            np.testing.assert_array_equal(tout.cache[n].numpy(),
+                                          np.asarray(jout.cache[n]),
+                                          err_msg=f"{n}, step {i}")
+        assert np.isfinite(np.asarray(jout.logits)).all()
+        _close_bf16(jout.logits, tout.logits)
+        jc, tc = jout.cache, tout.cache
+    assert int(tc["pos"]) == pos + steps
