@@ -64,7 +64,16 @@ result line):
              layer).  The kernel launch counts are zeroed just before
              each run and read just after; each rerun from the same seed
              must give identical tokens and bit plans; quantize
-             launches per chunk and per switch-out are reported.  Then
+             launches per chunk and per switch-out are reported.  Every
+             paged_extend and paged_decode call is one replay of its
+             bucket's CUDA graph (core/graphs.py, every bucket captured
+             when the service builds its pool): replays must equal
+             calls, and after each run every graph, replayed on its
+             last staged inputs, must give its eager body's logits,
+             density or mass and arena bytes bit for bit (graph_check,
+             which prints the graphs captured per entry and bucket, the
+             capture seconds and the graph pool's bytes; the peak memory
+             is printed too).  Then
              the same model decodes over an all-int8 cache (decode_qattn,
              one launch per layer and token), twice, with identical
              tokens and masses, one token of the first run profiled;
@@ -93,7 +102,8 @@ result line):
              same way, with a rerun, and once through launch.serve.main
              itself (its own seeded init, the threaded router, the
              printed JSON read back).  Kernel launch counts are zeroed
-             just before each replay and read just after;
+             just before each replay and read just after; every run's
+             graphs are gated as the serve phase's (graph_check);
 3c. slot  — the slot engine (paged_pool=False) on the same llama2-7b
              weights, the serve phase's trace (SLOT): llms with the
              card's restore profile and a rerun under that profile
@@ -1554,6 +1564,83 @@ def build_weights(cfg, seed, device="cuda"):
     return model, params
 
 
+def _peak_memory():
+    """The card's peak memory since the last reset: allocated, and
+    reserved (a captured graph's temporaries are reserved in its pool,
+    not allocated, between replays)."""
+    import torch
+    return {"allocated": torch.cuda.max_memory_allocated(),
+            "reserved": torch.cuda.max_memory_reserved()}
+
+
+def _same_bytes(a, b) -> bool:
+    """Two tensors of one dtype and shape hold the same bytes."""
+    import torch
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(torch.uint8),
+                            b.contiguous().view(torch.uint8)))
+
+
+def graph_check(exe, arenas, label):
+    """The graph gates of a paged executor over its arenas after a run
+    (serve and router phases): on the card every ``paged_extend`` /
+    ``paged_decode``
+    call was one replay of its bucket's CUDA graph (``core/graphs.py``:
+    replays = calls), and every graph the service holds (one a bucket),
+    replayed on its entry's last staged inputs, gives the bytes of its
+    eager body run
+    on the same inputs: logits, density or mass, and every arena byte
+    (the arenas put back in between and after).  The launch counts are
+    put back too: nothing here counts toward the run.  Logs the graphs
+    captured per entry and bucket, the capture seconds and the graph
+    pool's bytes.  On the CPU (a rehearsal) the body runs twice.
+    -> the cache's stats, with the buckets held ("held")."""
+    import torch
+    from repro_torch.kernels import launch_counts, set_launch_counts
+    cache, on_card = exe.graphs, exe.device.type == "cuda"
+    stats = cache.stats()
+    log(f"[{label}] graphs: {stats['calls']} paged calls, "
+        f"{stats['replays']} replays; captured by entry/bucket/quant "
+        f"{stats['captures']} in {stats['capture_s']:.3f} s; graph pool "
+        f"{stats['pool_bytes']} B ({stats['pool_bytes'] / 2**20:.1f} MiB)"
+        f"; entries held {stats['entries']}, drops {stats['drops']}")
+    if on_card and not (stats["calls"] and
+                        stats["replays"] == stats["calls"]):
+        raise AssertionError(f"[{label}] {stats['replays']} graph replays "
+                             f"for {stats['calls']} paged calls")
+    counts = launch_counts()
+    saved = {n: t.clone() for n, t in arenas.items()}
+    held = []
+    try:
+        for key in cache.keys():
+            entry = cache.entry(key)
+            got = [o.clone() for o in (entry.replay() if on_card
+                                       else entry.eager())]
+            after = {n: t.clone() for n, t in arenas.items()}
+            for n, t in arenas.items():
+                t.copy_(saved[n])
+            want = entry.eager()
+            bad = [f"output {i}" for i, (a, b) in enumerate(zip(got, want))
+                   if not _same_bytes(a, b)]
+            bad += [n for n in arenas if not _same_bytes(after[n], arenas[n])]
+            for n, t in arenas.items():
+                t.copy_(saved[n])
+            del after
+            if bad:
+                raise AssertionError(f"[{label}] graph {key}: the replay and "
+                                     f"the eager body differ in {bad}")
+            held.append("/".join(map(str, key)))
+    finally:
+        set_launch_counts(counts)
+        del saved
+        if on_card:
+            torch.cuda.empty_cache()
+    log(f"[{label}] graphs replayed against their eager bodies on the same "
+        f"inputs, logits, density or mass and every arena byte: identical "
+        f"for {held}")
+    return dict(stats, held=held)
+
+
 def serve_phase(model, params, seed, swap_root, label,
                 quant_resident=False):
     """Drive LLMService over ``model`` on its device (the CPU only to
@@ -1666,6 +1753,8 @@ def serve_phase(model, params, seed, swap_root, label,
     restore.reset_io_counters()
     trace = _trace(cfg.vocab, seed)
     records = []
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
     with svc:
         stubs = [svc.newLLMCtx() for _ in range(4)]
         _zero_launches()
@@ -1704,6 +1793,8 @@ def serve_phase(model, params, seed, swap_root, label,
                 f"| bits {bits}")
         run_s = time.perf_counter() - t_run
         launches = _read_launches()
+        peak = _peak_memory() if on_card else None
+        graphs = graph_check(exe, pool.arenas, f"serve:{label}")
         stats = svc.stats()
         widths = {}
         for ctx in svc.contexts.values():
@@ -1730,6 +1821,8 @@ def serve_phase(model, params, seed, swap_root, label,
         f"{host[len(host) // 2]:.4f} ms (min {host[0]:.4f}, max "
         f"{host[-1]:.4f})")
     log(f"[serve:{label}] stats {json.dumps(stats, default=str)}")
+    log(f"[serve:{label}] peak memory {peak} B (reserved includes the "
+        f"graph pool)")
     if "round" in round_profile:
         log(f"[serve:{label}] decode round {PROFILED_ROUND} under the "
             f"profiler: {json.dumps(round_profile['round'])}")
@@ -1768,7 +1861,8 @@ def serve_phase(model, params, seed, swap_root, label,
             "quant_rounds": n_logits["quant_rounds"],
             "round_profile": round_profile.get("round"),
             "extend_profile": round_profile.get("extend"),
-            "quant_pages_admitted": quant_pages["admitted"]}
+            "quant_pages_admitted": quant_pages["admitted"],
+            "graphs": graphs, "peak_bytes": peak}
 
 
 def int8_decode_phase(model, params, seed, label, profiled=False):
@@ -1965,6 +2059,8 @@ def router_phase(model, params, seed, swap_root, label, n_calls,
 
         router.on_complete = done
         run["read0"] = restore.io_counters()["read"]
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
         _zero_launches()
         run["t0"] = time.perf_counter()
 
@@ -1981,6 +2077,10 @@ def router_phase(model, params, seed, swap_root, label, n_calls,
         run["router"] = router.stats()
         run["pipeline"] = (dataclasses.asdict(svc.res.profile)
                            if svc.res.profiled else None)
+        run["peak"] = _peak_memory() if on_card else None
+        run["graphs"] = (graph_check(svc.exe, svc.res.pool.arenas,
+                                     f"router:{label}")
+                         if svc.exe.paged else None)
 
     stats = serve(model, params, args, threaded=False, on_start=on_start,
                   on_end=on_end, verbose=False)
@@ -2048,6 +2148,8 @@ def router_phase(model, params, seed, swap_root, label, n_calls,
             f"under the profiler: {json.dumps(tally['profile'])}")
     log(f"{name} pipeline profile (recompute s = base + per chunk * x, "
         f"read s = base + per byte * n): {run['pipeline']}")
+    log(f"{name} peak memory {run['peak']} B (reserved includes the graph "
+        f"pool)")
 
     if failed or len(done_) != n_calls:
         raise AssertionError(f"{name} {failed} failed calls, "
@@ -2083,7 +2185,8 @@ def router_phase(model, params, seed, swap_root, label, n_calls,
             "trace_calls": trace_calls,
             "launches": launches, "run_s": run_s, "restored": restored,
             "evictions": n_evict, "batched_mq": batched_mq,
-            "profile": tally["profile"], "picks": picks, "plans": plans}
+            "profile": tally["profile"], "picks": picks, "plans": plans,
+            "graphs": run["graphs"], "peak_bytes": run["peak"]}
 
 
 def _preempt_episode(router, events):
@@ -6023,6 +6126,11 @@ def main() -> int:
         routed[label].pop("picks")
     log(f"[router] the router phases took "
         f"{time.perf_counter() - t_router:.1f} s")
+    log("[graphs] summary " + json.dumps(
+        {f"serve:{k}": dict(v["graphs"], peak_bytes=v["peak_bytes"])
+         for k, v in runs.items()}
+        | {f"router:{k}": dict(v["graphs"], peak_bytes=v["peak_bytes"])
+           for k, v in routed.items()}))
     for a_name, b_name in (("run1", "rerun"), ("quant1", "quant-rerun")):
         for a, b in zip(runs[a_name]["records"], runs[b_name]["records"]):
             if (a["tokens"], a["bits"]) != (b["tokens"], b["bits"]):

@@ -22,8 +22,10 @@ Checkers (DESIGN.md "Concurrency invariants"):
             class); chunk-file reads must be ordered behind in-flight
             same-key AoT writes (the restore-vs-AoT race class).
 ``jit``     jit-cache keys must be hashable content fingerprints —
-            never ``id(...)``; the ``jax.jit`` rules have no target
-            while the port traces nothing.
+            never ``id(...)``; a CUDA-graph body handed to
+            ``core/graphs.capturable`` (as a function handed to
+            ``jax.jit``) closes over no ``self`` and makes no host call
+            or host sync.
 ``shared``  attributes written by worker-thread-reachable code and
             touched from router/dispatcher code must be written under
             a lock or appear in the audited allowlist

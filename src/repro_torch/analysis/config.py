@@ -215,6 +215,16 @@ JIT_HOST_CALL_ROOTS = {"time", "os", "FAULTS", "random"}
 JIT_HOST_CALL_CHAINS = {("np", "random"), ("numpy", "random")}
 # names treated as jit-cache accessors for key-hashability checking
 JIT_CACHE_NAME_HINT = "cache"
+# the port's counterpart of jax.jit: the helper every CUDA-graph body
+# of core/graphs.py goes through (``capturable(body)``); J1 and J2 read
+# the bodies handed to it as they read jax.jit's traced functions
+GRAPH_CAPTURE_HELPERS = {"capturable"}
+# host syncs forbidden inside a graph body besides the host calls above:
+# a tensor method that copies to the host, and a Python number of a
+# tensor (``int(x)``, ``float(x)``, ``bool(x)``); each breaks the capture
+# or bakes one call's value into the graph
+GRAPH_HOST_SYNC_ATTRS = {"item", "cpu", "numpy", "tolist"}
+GRAPH_HOST_SYNC_NAMES = {"int", "float", "bool"}
 
 # --------------------------------------------------------------------- #
 # family dispatch (rule family/string-dispatch)

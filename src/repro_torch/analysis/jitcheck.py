@@ -1,25 +1,34 @@
 """jit-discipline checker.
 
-The port traces nothing: J1 and J2 look for ``jax.jit`` calls and have
-no target in ``src/repro_torch`` (they stay so that the analyzer
-matches the reference's, rule for rule).  J3 still applies to every
+The port's counterpart of ``jax.jit`` is a captured CUDA graph: every
+body of ``core/graphs.py`` is handed to ``capturable`` (the capture
+helper, ``config.GRAPH_CAPTURE_HELPERS``), and J1 and J2 read those
+bodies as they read the functions handed to ``jax.jit``, which they
+keep flagging as the reference's analyzer does.  J3 applies to every
 ``*cache*`` accessor.
 
 Rules:
 
-``self-in-traced-fn``   (J1) a function handed to ``jax.jit`` closes
+``self-in-traced-fn``   (J1) a function handed to ``jax.jit``, or a
+                        graph body handed to ``capturable``, closes
                         over ``self`` — retracing keys on object
-                        identity and mutable state silently bakes into
-                        the trace.  The executor's idiom is to copy
-                        what it needs into locals first
+                        identity, and mutable state silently bakes into
+                        the trace (a graph bakes in what its capture
+                        read).  The executor's idiom is to copy what it
+                        needs into locals first
                         (``cs, nl = self.cs, self.n_layers``) or to
                         jit a BOUND leaf method (3+-element chain like
                         ``jax.jit(self.codec.insert)``), both of which
                         pass.
 ``host-call-in-jit``    (J2) host-side-effect call (print/open/
                         time.*/os.*/FAULTS.*/random.*) inside a traced
-                        function: runs once at trace time, then never
-                        again.
+                        function or a graph body: runs once at trace
+                        (capture) time, then never again; and in a
+                        graph body a host sync (``.item()``, ``.cpu()``,
+                        ``.numpy()``, ``.tolist()``, ``int()`` /
+                        ``float()`` / ``bool()`` of a value), which
+                        breaks the capture or bakes in one call's
+                        value.
 ``unhashable-jit-key``  (J3) a jit-cache access keyed by something
                         unhashable (list/dict/set display) or by
                         ``id(...)`` — the ``id(model)`` cache bug:
@@ -50,12 +59,20 @@ def _is_jit_call(node: ast.Call) -> bool:
     return bool(chain) and chain[-1] == "jit"
 
 
+def _is_capture_call(node: ast.Call) -> bool:
+    chain = attr_chain(node.func)
+    return bool(chain) and chain[-1] in config.GRAPH_CAPTURE_HELPERS
+
+
 def _scan_fn(program: Program, mod: ModuleInfo, fn: FunctionInfo,
              findings: List[Finding]):
     for node in ast.walk(fn.node):
         if isinstance(node, ast.Call) and _is_jit_call(node):
             for arg in node.args[:1]:
                 _check_traced(mod, fn, arg, findings)
+        if isinstance(node, ast.Call) and _is_capture_call(node):
+            for arg in node.args[:1]:
+                _check_traced(mod, fn, arg, findings, graph=True)
         if isinstance(node, ast.Call):
             _check_cache_key(mod, fn, node, findings)
         if isinstance(node, ast.Subscript):
@@ -66,9 +83,11 @@ def _scan_fn(program: Program, mod: ModuleInfo, fn: FunctionInfo,
 # J1 / J2: the traced callable
 # ------------------------------------------------------------------ #
 def _check_traced(mod: ModuleInfo, fn: FunctionInfo, arg,
-                  findings: List[Finding]):
+                  findings: List[Finding], graph: bool = False):
     body: Optional[ast.AST] = None
     label = "<traced>"
+    what = "graph body" if graph else "traced function"
+    helper = "capturable" if graph else "jax.jit"
     if isinstance(arg, ast.Lambda):
         body, label = arg.body, "<lambda>"
     elif isinstance(arg, ast.Call):
@@ -76,7 +95,7 @@ def _check_traced(mod: ModuleInfo, fn: FunctionInfo, arg,
         # positional arg 0; partials over module functions resolve below
         chain = attr_chain(arg.func)
         if chain and chain[-1] == "partial" and arg.args:
-            _check_traced(mod, fn, arg.args[0], findings)
+            _check_traced(mod, fn, arg.args[0], findings, graph)
         return
     elif isinstance(arg, ast.Name):
         target = _lookup_local(fn, arg.id) or mod.functions.get(arg.id)
@@ -89,7 +108,7 @@ def _check_traced(mod: ModuleInfo, fn: FunctionInfo, arg,
             findings.append(Finding(
                 checker="jit", rule="self-in-traced-fn",
                 file=mod.relpath, line=arg.lineno, scope=fn.qualname,
-                message=f"jax.jit(self.{chain[1]}) traces a bound "
+                message=f"{helper}(self.{chain[1]}) traces a bound "
                         f"method of the ENGINE object: mutable self "
                         f"state bakes into the trace; jit a leaf "
                         f"callable or copy state to locals first"))
@@ -105,7 +124,7 @@ def _check_traced(mod: ModuleInfo, fn: FunctionInfo, arg,
             checker="jit", rule="self-in-traced-fn",
             file=mod.relpath, line=self_uses[0].lineno,
             scope=fn.qualname,
-            message=f"traced function {label} closes over `self`: "
+            message=f"{what} {label} closes over `self`: "
                     f"copy the needed fields into locals before "
                     f"defining it"))
     for n in ast.walk(body):
@@ -115,9 +134,16 @@ def _check_traced(mod: ModuleInfo, fn: FunctionInfo, arg,
                 findings.append(Finding(
                     checker="jit", rule="host-call-in-jit",
                     file=mod.relpath, line=n.lineno, scope=fn.qualname,
-                    message=f"traced function {label} calls {why}: "
+                    message=f"{what} {label} calls {why}: "
                             f"host side effects run once at trace "
                             f"time, then never again"))
+            elif graph and _host_sync(n):
+                findings.append(Finding(
+                    checker="jit", rule="host-call-in-jit",
+                    file=mod.relpath, line=n.lineno, scope=fn.qualname,
+                    message=f"{what} {label} calls {_host_sync(n)}: a "
+                            f"host sync breaks the capture or bakes "
+                            f"one call's value into the graph"))
 
 
 def _lookup_local(fn: FunctionInfo, name: str) -> Optional[FunctionInfo]:
@@ -140,6 +166,20 @@ def _host_call(node: ast.Call) -> Optional[str]:
             return ".".join(chain) + "()"
         if chain[:2] in config.JIT_HOST_CALL_CHAINS:
             return ".".join(chain) + "()"
+    return None
+
+
+def _host_sync(node: ast.Call) -> Optional[str]:
+    """A call that reads a device value on the host: ``x.item()`` and
+    the like, or ``int(x)`` / ``float(x)`` / ``bool(x)`` of anything but
+    a constant."""
+    if isinstance(node.func, ast.Attribute) and \
+            node.func.attr in config.GRAPH_HOST_SYNC_ATTRS:
+        return f".{node.func.attr}()"
+    if isinstance(node.func, ast.Name) and \
+            node.func.id in config.GRAPH_HOST_SYNC_NAMES and node.args and \
+            not isinstance(node.args[0], ast.Constant):
+        return f"{node.func.id}()"
     return None
 
 

@@ -14,15 +14,24 @@ token/batch/I-O buckets, and two engines over the same model entries.
   layer l of the disk chunks from a ``restore.LayerFeed`` while the
   feed's I/O thread reads layer l + 1.
 * **The paged pool**: ``paged_extend`` / ``paged_decode`` over the
-  global page arenas, and the page admit/read/zero helpers.
+  global page arenas, and the page admit/read/zero helpers.  Each
+  paged entry runs per bucket through ``core/graphs.py``, the
+  counterpart of the reference's jitted entries in its ``_JIT_CACHE``:
+  on the card every call is one replay of a CUDA graph captured for its
+  bucket (the head product and ``seq_len`` on the device inside it), on
+  the CPU the same body runs eagerly on the same buffers.  The
+  executor owns its graphs (they bake in its params' and arenas'
+  addresses), so no cache is shared across executors.  admit / read /
+  zero stay eager: each is one copy.
 
-PyTorch runs eagerly, so the reference's process-wide ``_JIT_CACHE``
-has no counterpart, and the pipelined restore needs no ``io_callback``
-and no ``_ACTIVE_FEED`` global: the feed is an argument.  The buckets
-stay all the same: prefill positions are padded to ``pad_slot``, those
-padded query rows attend every valid key and enter the Eq.-1 density,
-and the density drives the Eq.-3 bit plan — so the port pads exactly as
-the reference does.  A family that is not ``pad_safe`` (RWKV6: a pad
+The slot engine runs eagerly (its slot caches are cloned per context,
+and ``ring_update`` reads a 0-d position on the host), and the
+pipelined restore needs no ``io_callback`` and no ``_ACTIVE_FEED``
+global: the feed is an argument.  The buckets stay all the same:
+prefill positions are padded to ``pad_slot``, those padded query rows
+attend every valid key and enter the Eq.-1 density, and the density
+drives the Eq.-3 bit plan — so the port pads exactly as the reference
+does.  A family that is not ``pad_safe`` (RWKV6: a pad
 token would fold into the carried state) extends at exact length, and
 a family whose cache is not chunkable takes ``WholeStateCodec``.
 
@@ -40,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.chunks import ChunkCodec, WholeStateCodec
+from repro_torch.core.graphs import GraphCache, capturable
 from repro_torch.models.kvspec import LAYOUT_MIXED, LAYOUT_WINDOW
 
 
@@ -125,6 +135,8 @@ class ModelExecutor:
                 int(getattr(cfg, "pool_pages_8", 0) or 16 * C + 1)
                 if self.quant_resident else 1)
         self._cw = dict(window=cfg.window, n_sinks=cfg.n_sinks)
+        # the paged entries' graphs (core/graphs.py), this executor's own
+        self.graphs = GraphCache(self.device)
 
     @property
     def max_request_tokens(self) -> int:
@@ -291,7 +303,11 @@ class ModelExecutor:
         """Fresh page arenas — one fixed buffer per leaf.  Page 0 is the
         reserved scratch page every unowned page-table entry points at;
         its contents are garbage after the first write and never
-        attended (the causal/seq-len masks zero those positions)."""
+        attended (the causal/seq-len masks zero those positions).  The
+        graphs captured over earlier arenas are dropped; on the card
+        every bucket of both paged entries is captured over the new ones
+        (``core/graphs.py``)."""
+        self.graphs.clear()
         arenas = {}
         L, cs, dev = self.n_layers, self.cs, self.device
         for n in self.codec.leaves:
@@ -305,6 +321,12 @@ class ModelExecutor:
                 arenas[n + "8s"] = torch.zeros(
                     (L, self.pool_pages8, cs, *dims[:-1]),
                     dtype=torch.float32, device=dev)
+        if dev.type == "cuda":
+            for name, buckets in (("extend", self.tok_buckets),
+                                  ("decode", self.batch_buckets)):
+                for b in buckets:
+                    self.graphs.prepare(arenas, *self._paged_entry(
+                        name, b, self.quant_resident, arenas))
         return arenas
 
     def admit16(self, arenas, page: int, blocks):
@@ -342,36 +364,85 @@ class ModelExecutor:
             arenas[n + "16"][:, page].zero_()
         return arenas
 
-    def _quant_rows(self, pt8, qmask):
-        """The quant-resident page rows as device tensors (None, None
-        outside quant-resident mode)."""
-        if pt8 is None:
-            return dict(pt8=None, quant_chunks=None)
-        return dict(pt8=self._t(pt8), quant_chunks=self._t(qmask, torch.bool))
+    def _paged_entry(self, name: str, bucket: int, quant: bool, arenas):
+        """A paged entry at a bucket: its cache key, its static inputs
+        {name: (shape, dtype)} and the maker of its body.  Both entries
+        take tokens, positions, page-table rows (rows, C) and, under
+        quant_resident, the int8 rows and the quant mask; the extend (one
+        row of ``bucket`` tokens) also seq_len and its last real row."""
+        rows, n_tok = (1, bucket) if name == "extend" else (bucket, 1)
+        C, i64 = self.pages_per_ctx, torch.int64
+        spec = {"toks": ((rows, n_tok), i64), "pos": ((bucket,), i64),
+                "pt16": ((rows, C), i64)}
+        if quant:
+            spec["pt8"] = ((rows, C), i64)
+            spec["qmask"] = ((rows, C), torch.bool)
+        if name == "extend":
+            spec["seq_len"] = ((), torch.int32)
+            spec["last"] = ((1,), i64)
+            make = lambda: self._extend_body(arenas)     # noqa: E731
+        else:
+            make = lambda: self._decode_body(arenas)     # noqa: E731
+        return (name, bucket, quant), spec, make
+
+    def _extend_body(self, arenas):
+        """``paged_extend``'s body over the static inputs: the model's
+        ``extend_paged`` and the head product of the last real row (a
+        device index: it moves within the bucket).  -> (logits (1, V)
+        fp32, density (1, S))."""
+        model, params, cw = self.model, self.params, self._cw
+        head = model.head_weight(params)
+
+        def body(inp):
+            _, hidden, dens = model.extend_paged(
+                params, inp["toks"], inp["pos"], arenas, inp["pt16"],
+                inp["seq_len"], want_density=True, pt8=inp.get("pt8"),
+                quant_chunks=inp.get("qmask"), **cw)
+            last = hidden.index_select(1, inp["last"])[:, 0]
+            return (last @ head).to(torch.float32), dens
+        return capturable(body)
+
+    def _decode_body(self, arenas):
+        """``paged_decode``'s body over the static inputs: the model's
+        ``decode_paged`` (its head product included).  -> (logits
+        (nb, V) fp32, mass (nb, S))."""
+        model, params, cw = self.model, self.params, self._cw
+
+        def body(inp):
+            _, logits, mass = model.decode_paged(
+                params, inp["toks"], arenas, inp["pt16"], inp["pos"],
+                want_density=True, pt8=inp.get("pt8"),
+                quant_chunks=inp.get("qmask"), **cw)
+            return logits, mass
+        return capturable(body)
 
     def paged_extend(self, arenas, prompt: np.ndarray, n0: int, pt16,
                      pt8=None, qmask=None):
         """Append ``prompt`` at [n0, n0+M) for the single context whose
         page-table row is ``pt16[0]`` (and ``pt8[0]`` / ``qmask[0]``
-        under quant_resident).  Padded positions land on the scratch page
-        0.  -> (arenas, last-token logits, per-position density mass)."""
+        under quant_resident), in the token bucket's graph.  Padded
+        positions land on the scratch page 0.  -> (arenas, last-token
+        logits, per-position density mass)."""
         M = len(prompt)
         pos = np.arange(n0, n0 + M, dtype=np.int32)
         pos_b = self.bucket_pad(pos, self.pad_slot)
         toks_b = self.bucket_pad(np.asarray(prompt, np.int32), 0)
-        arenas, hidden, dens = self.model.extend_paged(
-            self.params, self._t(toks_b)[None], self._t(pos_b), arenas,
-            self._t(pt16), n0 + M, want_density=True,
-            **self._quant_rows(pt8, qmask), **self._cw)
-        logits = self.logits(hidden[:, M - 1])[0]
-        return arenas, logits, dens[0].cpu().numpy().astype(np.float64)
+        quant = pt8 is not None
+        host = {"toks": toks_b[None], "pos": pos_b, "pt16": pt16,
+                "seq_len": np.int32(n0 + M), "last": np.int64([M - 1])}
+        if quant:
+            host.update(pt8=pt8, qmask=qmask)
+        logits, dens = self.graphs.run(
+            arenas, *self._paged_entry("extend", len(toks_b), quant, arenas),
+            host)
+        return arenas, logits[0], dens[0].astype(np.float64)
 
     def paged_decode(self, arenas, toks: Sequence[int], pos: Sequence[int],
                      pt16, pt8=None, qmask=None):
-        """One decode round for n contexts over the pool: row i advances
-        by ``toks[i]`` at its own position ``pos[i]``, batch-bucketed.
-        Pad rows get the all-zero page-table row (scratch page) and are
-        sliced off the outputs.  -> (arenas, logits [n, V],
+        """One decode round for n contexts over the pool, in the batch
+        bucket's graph: row i advances by ``toks[i]`` at its own position
+        ``pos[i]``.  Pad rows get the all-zero page-table row (scratch
+        page) and are sliced off the outputs.  -> (arenas, logits [n, V],
         density-mass [n, S])."""
         n = len(toks)
         nb = next(b for b in self.batch_buckets if b >= n)
@@ -382,15 +453,13 @@ class ModelExecutor:
         C = pt16.shape[1]
         pt16_b = np.zeros((nb, C), np.int32)
         pt16_b[:n] = pt16
-        pt8_b = qmask_b = None
-        if pt8 is not None:
-            pt8_b = np.zeros((nb, C), np.int32)
-            pt8_b[:n] = pt8
-            qmask_b = np.zeros((nb, C), bool)
-            qmask_b[:n] = qmask
-        arenas, logits, mass = self.model.decode_paged(
-            self.params, self._t(toks_b), arenas, self._t(pt16_b),
-            self._t(pos_b), want_density=True,
-            **self._quant_rows(pt8_b, qmask_b), **self._cw)
-        return (arenas, logits[:n].cpu().numpy(),
-                mass[:n].cpu().numpy().astype(np.float64))
+        quant = pt8 is not None
+        host = {"toks": toks_b, "pos": pos_b, "pt16": pt16_b}
+        if quant:
+            host["pt8"] = np.zeros((nb, C), np.int32)
+            host["pt8"][:n] = pt8
+            host["qmask"] = np.zeros((nb, C), bool)
+            host["qmask"][:n] = qmask
+        logits, mass = self.graphs.run(
+            arenas, *self._paged_entry("decode", nb, quant, arenas), host)
+        return arenas, logits[:n], mass[:n].astype(np.float64)

@@ -137,12 +137,20 @@ struct Args {
   __nv_bfloat16* out;
   float* part;  // (B, KV, n_tiles, Sk) per-tile key mass, or null
   int Sq, Sk, H, KV, G, dqk, dv, seq_len, window, n_sinks, n_tiles, vec;
+  // seq_len as a device int32 (serving's extend, whose captured CUDA
+  // graph replays with each call's value), or null: then seq_len
+  const int* seq_len_p;
   float scale;
   // the stats kernel's (2, B, KV, G, Sq) row max m and row sum l (m at
   // 0, l at stats_l), or null
   float* stats;
   size_t stats_l;
 };
+
+// the seq_len a launch runs with: the device int32 at p, else v
+__device__ __forceinline__ int read_seq_len(const int* p, int v) {
+  return p != nullptr ? *p : v;
+}
 
 __device__ __forceinline__ bool visible(int j, int qp, int seq_len,
                                         int window, int n_sinks) {
@@ -253,6 +261,7 @@ __device__ __forceinline__ void attn_density_tc(const Args a) {
   float* obuf = reinterpret_cast<float*>(smem);  // [kWarps][16][HDV], at end
 
   const int Sk = a.Sk, dqk = a.dqk, dv = a.dv, G = a.G;
+  const int seq_len = read_seq_len(a.seq_len_p, a.seq_len);
   const int tile = blockIdx.x % a.n_tiles;
   const int kvh = (blockIdx.x / a.n_tiles) % a.KV;
   const int b = blockIdx.x / (a.n_tiles * a.KV);
@@ -295,8 +304,8 @@ __device__ __forceinline__ void attn_density_tc(const Args a) {
     for (int r = 0; r < ROWS; ++r) {
       if (!act_s[r]) continue;
       const int qp = qp_s[r];
-      empty |= !sees_a_key(qp, a.seq_len, Sk, a.window, a.n_sinks);
-      kend = max(kend, min(qp, min(a.seq_len, Sk) - 1) + 1);
+      empty |= !sees_a_key(qp, seq_len, Sk, a.window, a.n_sinks);
+      kend = max(kend, min(qp, min(seq_len, Sk) - 1) + 1);
       qmin = min(qmin, qp);
       qmax = max(qmax, qp);
     }
@@ -317,7 +326,7 @@ __device__ __forceinline__ void attn_density_tc(const Args a) {
   // a tile every row of the block sees whole: no per-key mask
   auto full = [&](int k0) {
     const int k1 = k0 + kKeys - 1;
-    return k1 < Sk && k1 < a.seq_len && k1 <= qmin &&
+    return k1 < Sk && k1 < seq_len && k1 <= qmin &&
            (a.window <= 0 || k0 > qmax - a.window);
   };
 
@@ -404,7 +413,7 @@ __device__ __forceinline__ void attn_density_tc(const Args a) {
         const int key = k0 + ks * WK + j * 8 + 2 * (lane % 4) + (e & 1);
         s[j][e] = whole       ? s[j][e] * a.scale
                   : key >= Sk ? __int_as_float(0xff800000)
-                  : visible(key, qp2[e / 2], a.seq_len, a.window, a.n_sinks)
+                  : visible(key, qp2[e / 2], seq_len, a.window, a.n_sinks)
                       ? s[j][e] * a.scale
                       : kNegInf;
       }
@@ -629,9 +638,11 @@ __global__ void __launch_bounds__(256)
     attn_density_reduce_kernel(const float* __restrict__ part,
                                const int* __restrict__ q_pos,
                                float* __restrict__ density, int Sq, int Sk,
-                               int H, int n_rows, int seq_len, int window,
-                               int n_sinks) {
+                               int H, int n_rows,
+                               const int* __restrict__ seq_len_p,
+                               int seq_len_v, int window, int n_sinks) {
   __shared__ float xs[8][32];
+  const int seq_len = read_seq_len(seq_len_p, seq_len_v);
   __shared__ int ns[8][32];
   const int lane = threadIdx.x % 32, w = threadIdx.x / 32, b = blockIdx.y;
   const int j = blockIdx.x * 32 + lane;
@@ -728,10 +739,14 @@ extern "C" int attn_density_rows(int B, int Sq, int H, int KV) {
 // be null: then no mass is summed and `part` is not touched.  `stats`
 // may be null; else it is a (2, B, KV, G, Sq) fp32 buffer that the flash
 // form without the density fills with each row's max m and sum
-// max(l, 1e-30) (attn_density_stats_kernel).
+// max(l, 1e-30) (attn_density_stats_kernel).  `seq_len_dev` may be
+// null; else it points at a device int32 that both launches read as
+// seq_len in place of `seq_len` (a captured CUDA graph keeps the
+// pointer, and each replay reads the value its call staged there).
 extern "C" int attn_density(const void* q, const void* k, const void* v,
                             const void* q_pos, void* out, void* part,
-                            void* density, void* stats, int B, int Sq,
+                            void* density, void* stats,
+                            const void* seq_len_dev, int B, int Sq,
                             int Sk, int H, int KV, int dqk, int dv,
                             int seq_len, int window, int n_sinks,
                             float scale, int served, void* stream) {
@@ -754,6 +769,7 @@ extern "C" int attn_density(const void* q, const void* k, const void* v,
   a.dqk = dqk;
   a.dv = dv;
   a.seq_len = seq_len;
+  a.seq_len_p = static_cast<const int*>(seq_len_dev);
   a.window = window;
   a.n_sinks = n_sinks;
   a.n_tiles = (Sq * a.G + rows - 1) / rows;
@@ -776,6 +792,6 @@ extern "C" int attn_density(const void* q, const void* k, const void* v,
   if (err != cudaSuccess || !want) return (int)err;
   attn_density_reduce_kernel<<<dim3((Sk + 31) / 32, B), 256, 0, st>>>(
       static_cast<const float*>(part), a.q_pos, static_cast<float*>(density),
-      Sq, Sk, H, KV * a.n_tiles, seq_len, window, n_sinks);
+      Sq, Sk, H, KV * a.n_tiles, a.seq_len_p, seq_len, window, n_sinks);
   return (int)cudaGetLastError();
 }

@@ -26,6 +26,13 @@ PyTorch version is ``kernels/ref.py::attn_density_plain``;
     128 + 64 and 128, recurrentgemma's local MQA 256 and 256 (V in two
     128-column halves, one block each).
 
+``seq_len`` is a Python int or a 0-d int32 CUDA tensor.  The tile
+kernel reads a tensor's value on the device (its launches take the
+pointer), so a CUDA graph that captured the call replays with the value
+each later call stages there: serving's extend passes it so.  The flash
+kernel takes ``seq_len`` by value: a tensor there is read on the host
+(``int``), which syncs, and which a graph capture refuses.
+
 The wrapper checks device, dtype, shape, contiguity and (for TMA) the
 16-byte alignment of q, k and v, allocates the output, the density and
 the kernels' scratch with ``torch.empty``, launches on the current
@@ -112,7 +119,7 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = build.load("attn_density")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.attn_density.argtypes = ([vp] * 8 + [ci] * 10
+        lib.attn_density.argtypes = ([vp] * 9 + [ci] * 10
                                      + [ctypes.c_float, ci, vp])
         lib.attn_density.restype = ci
         lib.attn_density_rows.argtypes = [ci] * 4
@@ -145,11 +152,12 @@ def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def attn_density(q, k, v, q_pos, seq_len: int, window: int = 0,
+def attn_density(q, k, v, q_pos, seq_len, window: int = 0,
                  n_sinks: int = 0, want_density: bool = True,
                  form: str = "served", return_stats: bool = False):
     """q (B,Sq,H,Dqk) bf16; k (B,Sk,KV,Dqk) bf16; v (B,Sk,KV,Dv) bf16;
-    q_pos (Sq,) int32, all CUDA.  Scores are scaled by 1/sqrt(Dqk).
+    q_pos (Sq,) int32, all CUDA; seq_len an int or a 0-d int32 CUDA
+    tensor.  Scores are scaled by 1/sqrt(Dqk).
     ``form`` is "served" (bf16-rounded p, the mass of every query) or
     "flash" (the Pallas kernel).  -> (out (B,Sq,H,Dv) bf16, density
     (B,Sk) fp32 | None); with ``return_stats`` (the flash form without
@@ -167,6 +175,8 @@ def attn_density(q, k, v, q_pos, seq_len: int, window: int = 0,
     _check("k", k, torch.bfloat16, (B, Sk, KV, dqk))
     _check("v", v, torch.bfloat16, (B, Sk, KV, dv))
     _check("q_pos", q_pos, torch.int32, (Sq,))
+    if isinstance(seq_len, torch.Tensor):
+        _check("seq_len", seq_len, torch.int32, ())
     if H % KV or H // KV > MAX_GROUP:
         raise ValueError(f"attn_density takes H a multiple of KV with "
                          f"H/KV <= {MAX_GROUP}, not H={H} KV={KV}")
@@ -212,12 +222,15 @@ def _tiles(q, k, v, q_pos, out, stats, dens, seq_len, window, n_sinks,
     if dens is not None:
         part = torch.empty((B, KV, n_tiles, Sk), dtype=torch.float32,
                            device=q.device)
+    on_device = isinstance(seq_len, torch.Tensor)
     err = lib.attn_density(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
         out.data_ptr(), None if part is None else part.data_ptr(),
         None if dens is None else dens.data_ptr(),
         None if stats is None else stats.data_ptr(),
-        B, Sq, Sk, H, KV, dqk, dv, int(seq_len), int(window), int(n_sinks),
+        seq_len.data_ptr() if on_device else None,
+        B, Sq, Sk, H, KV, dqk, dv, 0 if on_device else int(seq_len),
+        int(window), int(n_sinks),
         float(np.float32(1.0 / np.sqrt(dqk))), int(form == "served"),
         torch.cuda.current_stream().cuda_stream)
     if err != 0:

@@ -102,7 +102,10 @@ def attn_density(q, k, v, q_pos, seq_len, window: int = 0, n_sinks: int = 0,
                  want_density: bool = True, form: str = "served",
                  return_stats: bool = False):
     """Attention of queries at positions ``q_pos`` (Sq,) over a cache
-    bounded by ``seq_len``, with the Eq.-1 key density.  q (B,Sq,H,Dqk);
+    bounded by ``seq_len`` (an int, or a 0-d integer tensor on q's
+    device, which the served form's kernel reads on the device, so that
+    no host sync bakes one call's value into a captured graph), with
+    the Eq.-1 key density.  q (B,Sq,H,Dqk);
     k (B,Sk,KV,Dqk); v (B,Sk,KV,Dv).  -> (out (B,Sq,H,Dv), density
     (B,Sk) | None), and with ``return_stats`` (flash form, no density)
     the rows' max m and sum max(l, 1e-30), (B,KV,G,Sq) fp32 each (forms:
@@ -113,6 +116,10 @@ def attn_density(q, k, v, q_pos, seq_len, window: int = 0, n_sinks: int = 0,
                                       return_stats)
     from repro_torch.kernels import attn_density as kad
     c = [t.contiguous() for t in (q, k, v)]
+    if isinstance(seq_len, torch.Tensor):
+        seq_len = seq_len.to(torch.int32).reshape(())
+    else:
+        seq_len = int(seq_len)
     return kad.attn_density(*c, q_pos.to(torch.int32).contiguous(),
-                            int(seq_len), window, n_sinks, want_density,
+                            seq_len, window, n_sinks, want_density,
                             form, return_stats)

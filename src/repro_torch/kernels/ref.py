@@ -248,11 +248,12 @@ def decode_qattn_plain(q, k_q, v_q, k_scale, v_scale, n_valid,
 # --------------------------------------------------------------------- #
 # attn_density: extend attention with the Eq.-1 per-key density
 # --------------------------------------------------------------------- #
-def extend_visibility(q_pos: torch.Tensor, Sk: int, seq_len: int,
+def extend_visibility(q_pos: torch.Tensor, Sk: int, seq_len,
                       window: int = 0, n_sinks: int = 0) -> torch.Tensor:
     """(Sq, Sk) bool: key j is visible to the query at q_pos[i] when
     j <= q_pos[i], j < seq_len and, with a window, j > q_pos[i] - window
-    or j < n_sinks (``causal_window_mask`` & ``k < seq_len``)."""
+    or j < n_sinks (``causal_window_mask`` & ``k < seq_len``).  seq_len
+    is an int or a 0-d integer tensor (compared on the device)."""
     k = torch.arange(Sk, device=q_pos.device)[None, :]
     q = q_pos[:, None]
     m = k <= q
@@ -267,8 +268,8 @@ def attn_density_plain(q, k, v, q_pos=None, seq_len=None, window: int = 0,
     """Plain version of the CUDA kernel (``kernels/attn_density.py``),
     both of its forms.  q (B,Sq,H,Dqk); k (B,Sk,KV,Dqk); v (B,Sk,KV,Dv)
     (Dv may differ from Dqk, as in MLA's recompute), bf16 or fp32;
-    q_pos (Sq,) int (default ``arange(Sq)``); seq_len (default Sk).
-    Visibility is ``extend_visibility``; invisible scores take the
+    q_pos (Sq,) int (default ``arange(Sq)``); seq_len an int or a 0-d
+    integer tensor (default Sk).  Visibility is ``extend_visibility``; invisible scores take the
     finite NEG_INF, so a query with no visible key is uniform over all
     Sk keys.  Scores fp32 times 1/sqrt(Dqk).
 
@@ -297,7 +298,7 @@ def attn_density_plain(q, k, v, q_pos=None, seq_len=None, window: int = 0,
         q_pos = torch.arange(Sq, device=q.device)
     if seq_len is None:
         seq_len = Sk
-    mask = extend_visibility(q_pos.to(q.device), Sk, int(seq_len), window,
+    mask = extend_visibility(q_pos.to(q.device), Sk, seq_len, window,
                              n_sinks)
     maskb = mask[None]                                        # (1, Sq, Sk)
     qg = q.reshape(B, Sq, KV, G, hd)

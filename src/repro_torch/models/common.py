@@ -248,7 +248,8 @@ def extend_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``MLAModel.recompute``): queries q (B,Sq,H,Dqk) at positions
     ``q_pos`` (Sq,) over the whole cache, k (B,Sk,KV,Dqk) and v
     (B,Sk,KV,Dv), under ``causal_window_mask(q_pos, k) & (k <
-    seq_len)``, with the Eq.-1 key density; out (B,Sq,H,Dv).  It computes what
+    seq_len)`` (seq_len an int or a 0-d integer tensor on q's device,
+    passed through to the kernel, which reads a tensor on the card), with the Eq.-1 key density; out (B,Sq,H,Dv).  It computes what
     ``gqa_attention`` computes under that mask (``form="served"``): on
     the card through the ``attn_density`` CUDA kernel, on the CPU
     through its plain version."""

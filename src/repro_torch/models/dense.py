@@ -377,8 +377,8 @@ class DenseModel(ModelBase):
                   n_sinks: int = 0, want_density: bool = False):
         """miss_tokens (B, M) original text of the missing slots;
         miss_pos (M,) absolute positions; cache: KV with holes there;
-        seq_len: valid context tokens INCLUDING the missing ones.
-        Recomputes the missing K/V (global RoPE, attending over resident
+        seq_len: valid context tokens INCLUDING the missing ones (an int
+        or a 0-d integer tensor on the cache's device).  Recomputes the missing K/V (global RoPE, attending over resident
         + recomputed KV under the causal/window mask bounded by
         ``seq_len``, through ``C.extend_attention``: the
         ``attn_density`` kernel on the card) and writes them into
@@ -483,7 +483,9 @@ class DenseModel(ModelBase):
         """One [B, 1] decode round over the pool.  tokens (B, 1); pt16
         (B, C) page-table rows; pos (B,) per-row positions; in
         quant-resident mode pt8 (B, C) int8-arena rows and quant_chunks
-        (B, C) bool (else both None).  -> (arenas, logits[, mass])."""
+        (B, C) bool (else both None).  No host sync: the executor
+        captures it as a CUDA graph (``core/graphs.py``).
+        -> (arenas, logits[, mass])."""
         cs = arenas["k16"].shape[2]
         cache = C.paged_cache_view(arenas, ("k", "v"), pt16, pt8,
                                    quant_chunks, pos)
@@ -507,12 +509,15 @@ class DenseModel(ModelBase):
         """Chunked prefill-append over the pool (B = 1): the paged form of
         ``recompute``'s append mode.  miss_pos positions map to bf16
         pages already allocated in pt16 (padding positions map to the
-        scratch page 0); pt8 / quant_chunks as in ``decode_paged``.
+        scratch page 0); pt8 / quant_chunks as in ``decode_paged``;
+        seq_len an int or a 0-d int32 tensor on the arenas' device (the
+        executor's captured graph stages each call's value there).
         -> (arenas, hidden (1, M, d), density)."""
         cs = arenas["k16"].shape[2]
         cache = C.paged_cache_view(arenas, ("k", "v"), pt16, pt8,
                                    quant_chunks,
-                                   torch.zeros((), dtype=torch.int64))
+                                   torch.zeros((), dtype=torch.int64,
+                                               device=pt16.device))
         new_cache, x, density = self.recompute(
             params, miss_tokens, miss_pos, cache, seq_len, window,
             n_sinks, want_density)

@@ -125,6 +125,65 @@ CORPUS = {
 }
 
 
+# the port's counterpart of jax.jit: a CUDA-graph body handed to
+# core/graphs.py's capture helper (port-only: the reference has none)
+GRAPH_CORPUS = {
+    "graph_self_closure": """
+        from repro_torch.core.graphs import capturable
+
+        class Executor:
+            def body(self):
+                def run(inp):
+                    return inp["x"] * self.scale
+                return capturable(run)
+    """,
+    "graph_host_sync": """
+        from repro_torch.core import graphs
+
+        def make(model, params):
+            def run(inp):
+                n = int(inp["seq_len"])
+                m = inp["x"].sum().item()
+                return model.step(params, inp["x"][:n]).cpu() * m
+            return graphs.capturable(run)
+    """,
+    "graph_host_call": """
+        import time
+        from repro_torch.core.graphs import capturable
+
+        def make(model, params):
+            return capturable(lambda inp: model.step(params, inp["x"],
+                                                     time.time()))
+    """,
+    "graph_clean": """
+        from repro_torch.core.graphs import capturable
+
+        class Executor:
+            def body(self, arenas):
+                model, params, cw = self.model, self.params, self.cw
+
+                def run(inp):
+                    out = model.step(params, inp["x"], arenas, **cw)
+                    last = out.index_select(1, inp["last"])
+                    return (last.to(float),)
+                return capturable(run)
+    """,
+    # host syncs outside a graph body, or in a function never handed to
+    # the helper, are not the rule's business
+    "graph_sync_outside": """
+        from repro_torch.core.graphs import capturable
+
+        def make(model):
+            def run(inp):
+                return (model.step(inp["x"]),)
+
+            def read(out):
+                return out.cpu().numpy().tolist(), int(out[0])
+            return capturable(run), read
+    """,
+}
+
+
 # --------------------------------------------------------------------- #
 # static checkers: inline fixture corpus
 # --------------------------------------------------------------------- #
@@ -156,6 +215,46 @@ def test_jit_self_closure_flagged():
 def test_jit_host_call_flagged():
     fs = analyze(CORPUS["jit_host_call"])
     assert "jit/host-call-in-jit" in rules(fs)
+
+
+def test_graph_body_self_closure_flagged():
+    fs = analyze(GRAPH_CORPUS["graph_self_closure"])
+    assert rules(fs) == ["jit/self-in-traced-fn"]
+    assert fs[0].scope == "Executor.body" and "graph body" in fs[0].message
+
+
+def test_graph_body_host_syncs_flagged():
+    fs = analyze(GRAPH_CORPUS["graph_host_sync"])
+    assert rules(fs) == ["jit/host-call-in-jit"] * 3
+    assert sorted(f.message.split(" calls ")[1].split(":")[0]
+                  for f in fs) == [".cpu()", ".item()", "int()"]
+
+
+def test_graph_body_host_call_flagged():
+    fs = analyze(GRAPH_CORPUS["graph_host_call"])
+    assert rules(fs) == ["jit/host-call-in-jit"]
+    assert "time.time()" in fs[0].message
+
+
+@pytest.mark.parametrize("name", ["graph_clean", "graph_sync_outside"])
+def test_graph_body_clean_passes(name):
+    assert analyze(GRAPH_CORPUS[name]) == []
+
+
+def test_executor_graph_bodies_are_checked():
+    """The executor's two bodies are the rule's targets in the tree, and
+    each passes: a body that read ``self`` or synced would be flagged."""
+    src = (REPO_ROOT / "src/repro_torch/core/executor.py").read_text()
+    tree = ast.parse(src)
+    helpers = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+               and getattr(n.func, "id", None) == "capturable"]
+    assert len(helpers) == 2
+    assert [f for f in analyze_source(src) if f.checker == "jit"] == []
+    bad = src.replace('last = hidden.index_select(1, inp["last"])[:, 0]',
+                      'last = hidden[:, int(inp["last"])] * self.cs')
+    assert bad != src
+    assert rules(f for f in analyze_source(bad) if f.checker == "jit") == [
+        "jit/host-call-in-jit", "jit/self-in-traced-fn"]
 
 
 def test_unhashable_jit_key_flagged():

@@ -1327,3 +1327,154 @@ def test_cuda_dryrun_share_runs_the_kernels(card, shape_name, seq, batch,
     per_layer = 2 * rec["n_micro"] if kernel == "attn_density_stats" else 1
     assert one["launches"][kernel] == per_layer * cfg.n_layers
     assert one["peak_bytes"] > 0 and one["reduced"] == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["served", "flash"])
+@pytest.mark.parametrize("seq_len", [48, 200, 512])
+def test_cuda_attn_density_reads_seq_len_on_the_device(card, seq_len, form):
+    """The tile kernel given ``seq_len`` as a 0-d int32 CUDA tensor (the
+    pointer its launches read, as serving's extend passes it) gives the
+    bytes of the same call by value, out and density, at serving's
+    extend shape (the flash form at head dim 80, where it runs the tile
+    kernel too)."""
+    from repro_torch.kernels import attn_density as kad
+    hd = 128 if form == "served" else 80
+    assert kad.route(form, hd, hd) == "mma"
+    args = _extend_case(1, 64, 512, 32, 8, hd, seq_len, 24, card, seed=3)
+    dev_len = torch.tensor(seq_len, dtype=torch.int32, device=card)
+    c = [a.contiguous() for a in args[:3]] + [args[3].to(torch.int32)]
+    for want in (True, False):
+        by_value = kad.attn_density(*c, seq_len, 0, 0, want, form)
+        on_device = kad.attn_density(*c, dev_len, 0, 0, want, form)
+        for a, b in zip(by_value, on_device):
+            assert (a is None and b is None) or torch.equal(a, b)
+    if form == "served":
+        with pytest.raises(ValueError):       # a 0-d int64 is refused
+            kad.attn_density(*c, dev_len.long(), 0, 0, True, form)
+
+
+def _graph_executor(quant, device="cuda"):
+    """The reduced llama2-7b's executor on the card (seeded weights) with
+    its arenas filled with seeded random pages, and page-table rows of
+    four contexts whose chunks up to position 40 hold distinct bf16
+    pages (chunk 0 also an int8 page, in the quant mask, under
+    quant_resident).  -> (exe, arenas, (pt16, pt8 | None, qmask |
+    None))."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.executor import ModelExecutor
+    from repro_torch.core.service import LLMSConfig
+    from repro_torch.models.registry import build_model
+    cfg = reduced(get_config("llama2-7b"))
+    model = build_model(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    sc = LLMSConfig(max_ctx_len=64, decode_batch=4, quant_resident=quant,
+                    pool_pages_16=40, pool_pages_8=12)
+    exe = ModelExecutor(model, params, sc, device)
+    arenas = exe.init_arenas()
+    g = torch.Generator(device=device).manual_seed(1)
+    for n, t in arenas.items():
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=g,
+                                  device=device, dtype=torch.int8))
+        elif t.dtype == torch.float32:
+            t.copy_(torch.rand(t.shape, generator=g, device=device) * 0.007
+                    + 0.01)
+        else:
+            t.copy_(torch.randn(t.shape, generator=g, device=device))
+    C = exe.pages_per_ctx
+    pt16 = np.zeros((4, C), np.int32)
+    pt16[:, :3] = np.arange(1, 13).reshape(4, 3)
+    rows = (pt16, None, None)
+    if quant:
+        pt8 = np.zeros((4, C), np.int32)
+        pt8[:, 0] = np.arange(1, 5)
+        qmask = np.zeros((4, C), bool)
+        qmask[:, 0] = True
+        rows = (pt16, pt8, qmask)
+    return exe, arenas, rows
+
+
+def _graph_calls(exe, arenas, rows):
+    """Two token buckets of paged_extend and two batch buckets of
+    paged_decode."""
+    pt16, pt8, qmask = rows
+    rng = np.random.default_rng(2)
+    for M, n0 in ((13, 20), (30, 4)):              # buckets 16 and 32
+        exe.paged_extend(arenas, rng.integers(1, 512, M), n0, pt16[:1],
+                         None if pt8 is None else pt8[:1],
+                         None if qmask is None else qmask[:1])
+    for n in (1, 3):                               # buckets 1 and 4
+        exe.paged_decode(arenas, rng.integers(1, 512, n).tolist(),
+                         [33 + i for i in range(n)], pt16[:n],
+                         None if pt8 is None else pt8[:n],
+                         None if qmask is None else qmask[:n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+def test_cuda_graph_replay_equals_eager_body(card, quant):
+    """Every bucket is captured with the arenas; every call on the card
+    is a replay of its bucket's graph, and each graph replayed on its
+    last staged inputs gives its eager body's logits, density or mass
+    and arena bytes, bit for bit."""
+    exe, arenas, rows = _graph_executor(quant)
+    # every bucket captured with the arenas, before any call
+    assert exe.graphs.stats()["captures"] == {
+        f"{e}/{b}/{quant}": 1 for e, bs in (("extend", exe.tok_buckets),
+                                            ("decode", exe.batch_buckets))
+        for b in bs}
+    _graph_calls(exe, arenas, rows)
+    before = {n: t.clone() for n, t in arenas.items()}
+    # chip_smoke.py's gate: replays = calls, and every graph replayed
+    # against its eager body bit for bit (it raises where they differ)
+    stats = _smoke().graph_check(exe, arenas, "test")
+    assert stats["calls"] == stats["replays"] == 4
+    assert sorted(stats["held"]) == sorted(stats["captures"])
+    for n, t in arenas.items():                # the arenas put back
+        assert torch.equal(t.view(torch.uint8), before[n].view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_cuda_graph_replays_credit_launch_counts(card):
+    """A captured call counts what its eager body counts (attn_density
+    once a layer an extend, decode_mqattn once a layer a quant-resident
+    round); warm-up and capture count nothing."""
+    from repro_torch import kernels
+    exe, arenas, rows = _graph_executor(True)
+    L = exe.n_layers
+    kernels.reset_launch_counts()
+    _graph_calls(exe, arenas, rows)                # 4 replays
+    got = kernels.launch_counts()
+    assert got["attn_density"] == got["attn_density_with_density"] == 2 * L
+    assert got["decode_mqattn"] == 2 * L
+    _graph_calls(exe, arenas, rows)                # replays only
+    got = kernels.launch_counts()
+    assert got["attn_density"] == 4 * L and got["decode_mqattn"] == 4 * L
+    for key in exe.graphs.keys():
+        kernels.reset_launch_counts()
+        exe.graphs.entry(key).eager()
+        eager = {k: n for k, n in kernels.launch_counts().items() if n}
+        assert eager == exe.graphs.entry(key).launches, key
+
+
+@pytest.mark.cuda
+def test_cuda_capture_of_a_host_sync_raises(card):
+    """A body that reads a device value on the host (``.item()``) makes
+    the capture raise: nothing runs it eagerly in the graph's place."""
+    from repro_torch import kernels
+    from repro_torch.core import graphs
+    cache = graphs.GraphCache("cuda")
+    arenas = {"k16": torch.zeros(4, device="cuda")}
+
+    def body(inp):
+        return (inp["x"] * int(inp["x"].sum().item()),)
+
+    before = kernels.launch_counts()
+    with pytest.raises(RuntimeError):
+        cache.run(arenas, ("extend", 16, False), {"x": ((4,), torch.int64)},
+                  lambda: graphs.capturable(body), {"x": np.arange(4)})
+    assert cache.replays == 0 and kernels.launch_counts() == before
+    entry = cache.entry(("extend", 16, False))
+    assert entry is None or entry.graph is None
+    torch.cuda.synchronize()

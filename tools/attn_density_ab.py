@@ -18,7 +18,10 @@ file of the same name, so that both get the same mangled names), then
    and checks that the two give the same bits.  Every case calls this
    source's kernel directly (``attn_density._tiles``), also where the
    wrapper would route the call to ``csrc/attn_flash.cu`` (the flash
-   form at head dims 64 and 128).
+   form at head dims 64 and 128).  A source whose C entry takes
+   ``seq_len_dev`` (``seq_len`` as a device int32) gets it in the
+   served form, as serving's extend passes it; the flash form and a
+   source without it take ``seq_len`` by value.
 
 Prints one JSON object.
 """
@@ -61,32 +64,38 @@ def _sass(lib: str):
     return funcs
 
 
-class _NoStats:
-    """A library built from a source whose C entry takes no ``stats``
-    pointer (before the row stats): takes the wrapper's call, which
-    passes one after ``density``, without it."""
+class _Older:
+    """A library built from a source whose C entry lacks pointers the
+    wrapper passes: ``stats`` (before the row stats; after ``density``)
+    and ``seq_len_dev`` (before ``seq_len`` on the device; after
+    ``stats``).  Takes the wrapper's call without them; refuses one that
+    needs them."""
 
-    def __init__(self, lib: ctypes.CDLL):
+    def __init__(self, lib: ctypes.CDLL, stats: bool, seq_len_dev: bool):
         self._lib = lib
+        self._drop = [i for i, has in ((7, stats), (8, seq_len_dev))
+                      if not has]
         self.attn_density_rows = lib.attn_density_rows
 
     def attn_density(self, *args):
-        if args[7] is not None:
-            raise ValueError("this source's kernel gives no row stats")
-        return self._lib.attn_density(*args[:7], *args[8:])
+        if any(args[i] is not None for i in self._drop):
+            raise ValueError("this source's kernel takes no such pointer")
+        return self._lib.attn_density(
+            *(a for i, a in enumerate(args) if i not in self._drop))
 
 
 def _load(path: str, src: str):
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     with open(src) as f:
-        stats = "void* stats" in f.read()
-    lib.attn_density.argtypes = ([vp] * (8 if stats else 7) + [ci] * 10
+        text = f.read()
+    stats, seq_dev = "void* stats" in text, "seq_len_dev" in text
+    lib.attn_density.argtypes = ([vp] * (7 + stats + seq_dev) + [ci] * 10
                                  + [ctypes.c_float, ci, vp])
     lib.attn_density.restype = ci
     lib.attn_density_rows.argtypes = [ci] * 4
     lib.attn_density_rows.restype = ci
-    return lib if stats else _NoStats(lib)
+    return lib if stats and seq_dev else _Older(lib, stats, seq_dev)
 
 
 def _tile_kernel(kad, args, seq_len, want, form):
@@ -146,6 +155,9 @@ def main(other_src: str) -> int:
     }
     for label, (Sq, Sk, H, KV, dqk, dv, pos, seq_len, form) in cases.items():
         args = smoke._ad_case(1, Sq, Sk, H, KV, dqk, pos, g, "cuda", dv=dv)
+        seq = {k: (torch.tensor(seq_len, dtype=torch.int32, device="cuda")
+                   if form == "served" and isinstance(lib, ctypes.CDLL)
+                   else seq_len) for k, lib in loaded.items()}
         for want in (False, True):
             times, outs = {"other": [], "this": []}, {}
             for rnd in range(4):
@@ -153,7 +165,7 @@ def main(other_src: str) -> int:
                           else ("this", "other")):
                     kad._LIB = loaded[k]
                     fn = lambda: _tile_kernel(  # noqa: E731
-                        kad, args, seq_len, want, form)
+                        kad, args, seq[k], want, form)
                     outs[k] = fn()
                     times[k].append(smoke._device_ms(
                         fn, smoke.AD_KERNELS, iters=50 if Sq <= 64 else 10))
@@ -162,6 +174,8 @@ def main(other_src: str) -> int:
             result["times"][f"{label} {form}"
                             f"{' + density' if want else ''}"] = {
                 "other_ms": times["other"], "this_ms": times["this"],
+                "seq_len_on_device": {k: not isinstance(v, int)
+                                      for k, v in seq.items()},
                 "bit_identical": same}
     kad._LIB = None
     print(json.dumps(result, indent=1))
