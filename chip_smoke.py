@@ -1577,52 +1577,107 @@ def _same_bytes(a, b) -> bool:
     """Two tensors of one dtype and shape hold the same bytes."""
     import torch
     return (a.dtype == b.dtype and a.shape == b.shape
-            and torch.equal(a.contiguous().view(torch.uint8),
-                            b.contiguous().view(torch.uint8)))
+            and torch.equal(a.reshape(-1).contiguous().view(torch.uint8),
+                            b.reshape(-1).contiguous().view(torch.uint8)))
 
 
 def graph_check(exe, arenas, label):
-    """The graph gates of a paged executor over its arenas after a run
-    (serve and router phases): on the card every ``paged_extend`` /
-    ``paged_decode``
-    call was one replay of its bucket's CUDA graph (``core/graphs.py``:
-    replays = calls), and every graph the service holds (one a bucket),
-    replayed on its entry's last staged inputs, gives the bytes of its
-    eager body run
-    on the same inputs: logits, density or mass, and every arena byte
-    (the arenas put back in between and after).  The launch counts are
-    put back too: nothing here counts toward the run.  Logs the graphs
-    captured per entry and bucket, the capture seconds and the graph
-    pool's bytes.  On the CPU (a rehearsal) the body runs twice.
-    -> the cache's stats, with the buckets held ("held")."""
+    """The graph gates of an executor after a run (serve and router
+    phases over the paged pool's ``arenas``; slot, MLA, MoE, RWKV and
+    zoo phases over the static slot caches, ``arenas`` None): on the
+    card every ``paged_extend`` / ``paged_decode`` call and every slot
+    ``extend`` / ``extend_nod`` / ``decode`` (``lmk``'s whole recompute
+    included) was one replay of its CUDA graph (``core/graphs.py``:
+    replays = calls), no slot entry ran eagerly on a private cache
+    (``eager_calls`` 0), and every graph the executor holds, replayed
+    on its entry's last staged inputs, gives the bytes of its eager
+    body run on the same inputs: logits, density, mass or hidden rows,
+    and every byte of the arenas and of every slot cache but a slot's
+    pad position (all put back in between and after; a mismatch says
+    where, and whether the eager body repeats itself there).  A slot
+    graph that served no call is held on a call of its own
+    (``_unserved_inputs``) rather than on the capture's all-zero inputs:
+    those put every row at position 0 with ``seq_len`` 0, where a routed
+    FFN (MLA, MoE) drops some of the identical rows at an expert's
+    capacity, their writes race at position 0, and rows that see no key
+    attend that position (measured: replay and eager differ there, on
+    the card, in no call the service makes).  The launch counts are put back too: nothing
+    here counts toward the run.  Logs the graphs captured per entry,
+    bucket and slot, the capture seconds (and those at a key's first
+    call) and the graph pool's bytes.  On the CPU (a rehearsal) the body
+    runs twice.  -> the cache's stats, with the keys held ("held")."""
     import torch
     from repro_torch.kernels import launch_counts, set_launch_counts
     cache, on_card = exe.graphs, exe.device.type == "cuda"
-    stats = cache.stats()
-    log(f"[{label}] graphs: {stats['calls']} paged calls, "
-        f"{stats['replays']} replays; captured by entry/bucket/quant "
-        f"{stats['captures']} in {stats['capture_s']:.3f} s; graph pool "
+    stats = dict(cache.stats(), eager_calls=exe.eager_calls)
+    log(f"[{label}] graphs: {stats['calls']} calls, {stats['replays']} "
+        f"replays, {stats['eager_calls']} eager slot calls; captured by "
+        f"entry/bucket/quant[/slot] {stats['captures']} in "
+        f"{stats['capture_s']:.3f} s ({stats['late_captures']} at a "
+        f"key's first call, {stats['late_capture_s']:.3f} s); graph pool "
         f"{stats['pool_bytes']} B ({stats['pool_bytes'] / 2**20:.1f} MiB)"
-        f"; entries held {stats['entries']}, drops {stats['drops']}")
+        f"; entries held {stats['entries']} ({stats['pinned']} pinned), "
+        f"drops {stats['drops']}")
     if on_card and not (stats["calls"] and
                         stats["replays"] == stats["calls"]):
         raise AssertionError(f"[{label}] {stats['replays']} graph replays "
-                             f"for {stats['calls']} paged calls")
+                             f"for {stats['calls']} calls")
+    if on_card and stats["eager_calls"]:
+        raise AssertionError(f"[{label}] {stats['eager_calls']} slot-engine "
+                             "calls ran eagerly")
+    bufs = dict(arenas or {})
+    seq = set()                  # slot-cache leaves with a sequence axis
+    for slot, c in exe.slot_caches.items():
+        for n, t in c.items():
+            bufs[f"slot{slot}/{n}"] = t
+            if t.dim() >= 3 and t.shape[2] == exe.s_work:
+                seq.add(f"slot{slot}/{n}")
+    arenas = bufs
+    pad = exe.pad_slot
+
+    def same(n, a, b):
+        # a slot cache's pad position is scratch: a bucket's pad rows all
+        # write there, and where a routed FFN (MLA, MoE) dropped some of
+        # them at an expert's capacity their rows differ, so which one
+        # lands is a race on the card, eager or replayed alike
+        if n not in seq:
+            return _same_bytes(a, b)
+        return (_same_bytes(a[:, :, :pad], b[:, :, :pad])
+                and _same_bytes(a[:, :, pad + 1:], b[:, :, pad + 1:]))
+
+    def where(a, b):
+        d = (a.float() - b.float()).abs()
+        if d.dim() < 3:
+            return f"max |d| {float(d.max())}"
+        cols = (d.reshape(*d.shape[:3], -1).amax(-1) > 0).any(0).any(0)
+        return f"positions {cols.nonzero().flatten().tolist()[:12]}"
+
     counts = launch_counts()
     saved = {n: t.clone() for n, t in arenas.items()}
     held = []
     try:
         for key in cache.keys():
             entry = cache.entry(key)
+            if not entry.calls and len(key) > 3:
+                entry.stage(_unserved_inputs(key))
             got = [o.clone() for o in (entry.replay() if on_card
                                        else entry.eager())]
             after = {n: t.clone() for n, t in arenas.items()}
             for n, t in arenas.items():
                 t.copy_(saved[n])
             want = entry.eager()
-            bad = [f"output {i}" for i, (a, b) in enumerate(zip(got, want))
+            bad = [f"output {i} ({where(a, b)})"
+                   for i, (a, b) in enumerate(zip(got, want))
                    if not _same_bytes(a, b)]
-            bad += [n for n in arenas if not _same_bytes(after[n], arenas[n])]
+            bad += [f"{n} ({where(after[n], arenas[n])})" for n in arenas
+                    if not same(n, after[n], arenas[n])]
+            if bad:             # is the eager body itself repeatable here?
+                for n, t in arenas.items():
+                    t.copy_(saved[n])
+                again = entry.eager()
+                bad.append("eager twice identical: " + str(all(
+                    _same_bytes(a, b) for a, b in zip(want, again)))
+                    + f"; calls {entry.calls}")
             for n, t in arenas.items():
                 t.copy_(saved[n])
             del after
@@ -1636,9 +1691,26 @@ def graph_check(exe, arenas, label):
         if on_card:
             torch.cuda.empty_cache()
     log(f"[{label}] graphs replayed against their eager bodies on the same "
-        f"inputs, logits, density or mass and every arena byte: identical "
-        f"for {held}")
+        f"inputs, logits, density, mass or hidden rows, every arena byte "
+        f"and every slot-cache byte but the pad position's: identical for "
+        f"{held}")
     return dict(stats, held=held)
+
+
+def _unserved_inputs(key):
+    """Host inputs of a call of the slot entry ``key`` = (name, n, quant,
+    slot): for an extend or extend_nod n tokens 1 .. n at positions 0 ..
+    n - 1 (``seq_len`` n, no pad row); for a decode token 1 at the slot's
+    position."""
+    import numpy as np
+    name, n = key[:2]
+    if name == "decode":
+        return {"toks": np.ones((1, 1), np.int64)}
+    host = {"toks": np.arange(1, n + 1)[None], "pos": np.arange(n),
+            "seq_len": np.int32(n)}
+    if name == "extend":
+        host["last"] = np.int64([n - 1])
+    return host
 
 
 def serve_phase(model, params, seed, swap_root, label,
@@ -2377,11 +2449,21 @@ def _read_launches():
     return launch_counts()
 
 
+def _capturing() -> bool:
+    """A CUDA graph capture is under way on this thread's stream."""
+    import torch
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
 class _KernelCalls:
     """While installed, keeps the first ``attn_density`` and
     ``decode_mqattn`` call of each shape and setting that the main path
     makes (inputs and results, cloned); ``check`` holds each against its
-    plain version on its own inputs.  ``close`` takes the hooks off."""
+    plain version on its own inputs.  A graph replay runs no Python: the
+    slot engines' calls are kept where ``graph_check`` runs each graph's
+    eager body on its last staged inputs after the run (a capture's own
+    calls are not kept).  ``close`` takes the hooks off."""
 
     def __init__(self, name):
         from repro_torch.kernels import ops
@@ -2391,6 +2473,9 @@ class _KernelCalls:
 
         def kept_attn(q, k, v, q_pos, seq_len, window=0, n_sinks=0,
                       want_density=True, form="served"):
+            if _capturing():
+                return attn(q, k, v, q_pos, seq_len, window, n_sinks,
+                            want_density, form)
             args = (q, k, v, q_pos, int(seq_len), int(window), int(n_sinks),
                     bool(want_density), form)
             out = attn(*args)
@@ -2403,7 +2488,8 @@ class _KernelCalls:
             args = (q, k, v, k_q, v_q, k_scale, v_scale, quant_mask,
                     n_valid, window, n_sinks, want_mass, select)
             out = mq(*args)
-            self._keep("decode_mqattn", args, out)
+            if not _capturing():
+                self._keep("decode_mqattn", args, out)
             return out
 
         ops.attn_density, ops.decode_mqattn = kept_attn, kept_mq
@@ -2462,11 +2548,12 @@ class _SlotHooks:
     splits (chunks recomputed, read), each whole-state restore
     (resident, read or recompute), each pipelined restore's wall and
     fetch wait, the bytes read, and every greedy pick's logits row (on
-    the CPU).  Over the run: the recomputes, the steps named in
-    ``profile`` ("restore", "decode token", "recompute") each run once
-    under the profiler after call ``profile_from``, and the kernel calls
-    that ``kernels`` (``_KernelCalls``) keeps and checks.  ``close``
-    takes the hooks off."""
+    the CPU).  Over the run: the recomputes (each ``extend``,
+    ``extend_nod`` and ``lmk`` whole recompute), the steps named in
+    ``profile`` ("restore", "decode token", "recompute": an extend) each
+    run once under the profiler after call ``profile_from``, and the
+    kernel calls that ``kernels`` (``_KernelCalls``) keeps and checks.
+    ``close`` takes the hooks off."""
 
     def __init__(self, svc, name, on_card, profile=(), profile_from=0,
                  top=0):
@@ -2476,14 +2563,17 @@ class _SlotHooks:
         self.name, self.on_card = name, on_card
         self.now = {"split": [], "pipelined": [], "whole": [], "rows": []}
         self.records, self.picks, self.prof = [], [], {}
-        self.calls = self.n_recompute = self.read0 = 0
+        self.calls = self.n_recompute = self.read0 = self.late0 = 0
+        self.graphs = exe.graphs
         plan, pipe = res._plan_restore, exe.run_pipelined
         whole = res._restore_whole_timed
-        extend, decode, recompute = exe.extend, exe.decode, exe.recompute
+        extend, decode = exe.extend, exe.decode
+        nod, rewhole = exe.extend_nod, exe.recompute_whole
         self._undo = [(res, "_plan_restore", plan),
                       (res, "_restore_whole_timed", whole),
                       (exe, "run_pipelined", pipe), (exe, "extend", extend),
-                      (exe, "decode", decode), (exe, "recompute", recompute)]
+                      (exe, "decode", decode), (exe, "extend_nod", nod),
+                      (exe, "recompute_whole", rewhole)]
         now = self.now
 
         def profiled(kind, fn):
@@ -2514,6 +2604,8 @@ class _SlotHooks:
 
         def kept(fn, kind):
             def run(*a, **k):
+                if kind == "recompute":
+                    self.n_recompute += 1
                 out = profiled(kind, lambda: fn(*a, **k))
                 row = torch.as_tensor(np.asarray(out[1], np.float32)
                                       ).reshape(-1)
@@ -2523,16 +2615,19 @@ class _SlotHooks:
                 return out
             return run
 
-        def counted_recompute(*a, **k):
-            self.n_recompute += 1
-            return profiled("recompute", lambda: recompute(*a, **k))
+        def counted(fn):
+            def run(*a, **k):
+                self.n_recompute += 1
+                return profiled("recompute", lambda: fn(*a, **k))
+            return run
 
         res._plan_restore, exe.run_pipelined = logged_plan, logged_pipe
         if not svc.cfg.chunked or not exe.chunked_cache:
             res._restore_whole_timed = logged_whole
-        exe.extend = kept(extend, None)
+        exe.extend = kept(extend, "recompute")
         exe.decode = kept(decode, "decode token")
-        exe.recompute = counted_recompute
+        exe.extend_nod = counted(nod)
+        exe.recompute_whole = counted(rewhole)
         self.kernels = _KernelCalls(name)
 
     def begin(self):
@@ -2541,6 +2636,7 @@ class _SlotHooks:
             v.clear()
         self.calls += 1
         self.read0 = restore.io_counters()["read"]
+        self.late0 = self.graphs.late_captures
 
     def record(self, context, toks, **extra):
         """The call that just ended on the service's ``context``."""
@@ -2557,7 +2653,8 @@ class _SlotHooks:
                "restored_bytes": restore.io_counters()["read"] - self.read0,
                "split": list(now["split"]),
                "pipelined": list(now["pipelined"]),
-               "whole": list(now["whole"])}
+               "whole": list(now["whole"]),
+               "late_captures": self.graphs.late_captures - self.late0}
         rec["disk_restore"] = bool(rec["restored_bytes"] > 0 or any(
             w in ("read", "recompute") for w in rec["whole"]))
         self.records.append(rec)
@@ -2651,6 +2748,9 @@ def slot_phase(model, params, seed, swap_root, label, policy="llms",
     cfg, device = model.cfg, model.device
     on_card = device.type == "cuda"
     name = f"[slot:{label}]"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
     sc = LLMSConfig(policy=policy, paged_pool=False, decode_batch=1,
                     max_ctx_len=SLOT["max_ctx"], chunk_tokens=16,
                     memory_budget=budget_chunks * _raw_chunk_bytes(model),
@@ -2666,8 +2766,12 @@ def slot_phase(model, params, seed, swap_root, label, policy="llms",
         elif split == "profiled":
             svc.profile_pipeline()
     used_profile = dataclasses.asdict(res.profile) if res.profiled else None
-    hooks = _SlotHooks(svc, name, on_card,
-                       profile=("restore",) if profile_restore else ())
+    # a decode token of the llms and quant runs (a replay of the slot's
+    # decode graph) and the forced run's first pipelined restore
+    kinds = (("restore",) if profile_restore else ()) + (
+        ("decode token",) if label in ("llms", "quant") else ())
+    hooks = _SlotHooks(svc, name, on_card, profile=kinds, top=8,
+                       profile_from=0 if profile_restore else 4)
     trace = _trace(cfg.vocab, seed)
     with svc:
         stubs = [svc.newLLMCtx() for _ in range(4)]
@@ -2699,7 +2803,10 @@ def slot_phase(model, params, seed, swap_root, label, policy="llms",
         run_s = time.perf_counter() - t_run
         launches = _read_launches()
         stats = svc.stats()
+        peak = _peak_memory() if on_card else None
+        graphs = graph_check(svc.exe, None, f"slot:{label}")
     hooks.close()
+    log(f"{name} peak memory {peak}")
     log(f"{name} {cfg.name} policy {policy}, quant_resident "
         f"{quant_resident}, split {split if profile is None else 'given'}")
     disk, splits, pipes, checked = hooks.summary(launches, run_s,
@@ -2718,6 +2825,7 @@ def slot_phase(model, params, seed, swap_root, label, policy="llms",
         raise AssertionError(f"{name} no pipelined restore ran")
     out = {"records": hooks.records, "launches": launches, "stats": stats,
            "run_s": run_s, "profile": used_profile, "picks": hooks.picks,
+           "graphs": graphs, "peak_bytes": peak, "prof": hooks.prof,
            "restore_profile": hooks.prof.get("restore"),
            "disk_switch_ms": disk, "pipelined": pipes, "splits": splits,
            "attn_checked": checked}
@@ -2996,6 +3104,8 @@ def _logged_replay(model, params, args, name, seed, hooks_kw,
                          **(record_extra(ctx) if record_extra else {}))
 
         svc.begin_call, router.on_complete = begun, done
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
         _zero_launches()
         run["t0"] = time.perf_counter()
 
@@ -3006,6 +3116,8 @@ def _logged_replay(model, params, args, name, seed, hooks_kw,
         run["launches"] = _read_launches()
         run["paged"] = svc.paged
         run["stats"] = svc.stats()
+        run["peak_bytes"] = _peak_memory() if on_card else None
+        run["graphs"] = graph_check(svc.exe, None, name.strip("[]"))
         run["hooks"].close()
         for rec, c in zip(run["hooks"].records, router.call_records):
             rec["switch_s"], rec["wall_s"] = c["switch_s"], c["service_s"]
@@ -3131,7 +3243,8 @@ def family_phase(model, params, seed, swap_root, label, fam=MLA,
            "run_s": run["run_s"], "profile": run["profile"],
            "picks": hooks.picks, "prof": hooks.prof, "disk_switch_ms": disk,
            "splits": splits, "n_recompute": hooks.n_recompute,
-           "wall_ms": walls, "attn_checked": checked}
+           "wall_ms": walls, "attn_checked": checked,
+           "graphs": run["graphs"], "peak_bytes": run["peak_bytes"]}
     del hooks
     gc.collect()
     if on_card:
@@ -3243,19 +3356,28 @@ def rwkv_phase(model, params, seed, swap_root, label, policy="llms",
         return {"snapshot": {k: str(v.dtype)
                              for k, v in (ctx.whole or {}).items()}}
 
-    stats, run, hooks = _logged_replay(model, params, args, name, seed, {},
-                                       prepare, snapshot)
+    hooks_kw = (dict(top=8, profile_from=4, profile=("decode token",))
+                if label == "llms" else {})
+    stats, run, hooks = _logged_replay(model, params, args, name, seed,
+                                       hooks_kw, prepare, snapshot)
     launches, records, trace = run["launches"], hooks.records, run["trace"]
     for i, r in enumerate(records):
         log(f"{name} call {i:2d} ctx {r['ctx']} prompt {len(trace[i][1])} -> "
             f"{len(r['tokens'])} tokens | switch {r['switch_s'] * 1e3:.3f} "
             f"ms | read {r['restored_bytes']} B | whole {r['whole'] or '-'} "
             f"| snapshot {r['snapshot'] or '-'} | wall "
-            f"{r['wall_s'] * 1e3:.1f} ms")
+            f"{r['wall_s'] * 1e3:.1f} ms | graphs captured at first use "
+            f"{r['late_captures']}")
     walls = sorted(r["wall_s"] * 1e3 for r in records)
+    warm = sorted(r["wall_s"] * 1e3 for r in records
+                  if not r["late_captures"])
     log(f"{name} {cfg.name} policy {policy}, {run['codec']}, budget "
         f"{budget_snapshots} snapshots of {snap} B: per-call wall median "
-        f"{walls[len(walls) // 2]:.1f} ms (max {walls[-1]:.1f})")
+        f"{walls[len(walls) // 2]:.1f} ms (max {walls[-1]:.1f}); the "
+        f"{len(warm)} calls that captured no graph: median "
+        f"{warm[len(warm) // 2] if warm else None} ms; "
+        f"{len(walls) - len(warm)} calls with a capture at a new length: "
+        f"{sorted(set(walls) - set(warm))} ms")
     disk, _, _, _ = hooks.summary(launches, run["run_s"], None)
     log(f"{name} stats {json.dumps(run['stats'], default=str)}")
 
@@ -3279,7 +3401,9 @@ def rwkv_phase(model, params, seed, swap_root, label, policy="llms",
                              "under lmk, recomputes), not >= 2")
     out = {"records": records, "launches": launches, "stats": run["stats"],
            "run_s": run["run_s"], "picks": hooks.picks,
-           "disk_switch_ms": disk, "n_disk": n_disk, "wall_ms": walls}
+           "disk_switch_ms": disk, "n_disk": n_disk, "wall_ms": walls,
+           "prof": hooks.prof, "graphs": run["graphs"],
+           "peak_bytes": run["peak_bytes"]}
     del hooks
     gc.collect()
     if on_card:
@@ -3446,6 +3570,9 @@ def zoo_phase(spec, members, events, vocab, label, fams=None,
     name = f"[zoo:{label}]"
     fams = list(fams or members)
     device = members[fams[0]][0].device
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
     zoo = build_zoo_service(spec, {f: members[f] for f in fams},
                             device=device)
     hooks = _ZooHooks(zoo, name)
@@ -3463,6 +3590,9 @@ def zoo_phase(spec, members, events, vocab, label, fams=None,
         run_s = time.perf_counter() - t0
         launches = _read_launches()
         stats = zoo.stats()
+        peak = _peak_memory() if device.type == "cuda" else None
+        graphs = {fam: graph_check(svc.exe, None, f"zoo:{label}:{fam}")
+                  for fam, svc in zoo.members.items()}
     hooks.close()
     shutil.rmtree(zoo.store.root, ignore_errors=True)
     checked = hooks.kernels.check()
@@ -3496,7 +3626,7 @@ def zoo_phase(spec, members, events, vocab, label, fams=None,
         raise AssertionError(f"{name} a kernel ran for RWKV6: {launches}")
     return {"rep": rep, "stats": stats, "launches": launches,
             "run_s": run_s, "per_family": per_fam, "crossing": crossing,
-            "checked": checked}
+            "checked": checked, "graphs": graphs, "peak_bytes": peak}
 
 
 def zoo_runs(members):
@@ -4576,6 +4706,8 @@ def _batch_run(model, params, seed, swap_root, fam, B):
         torch.cuda.synchronize()
         run["run_s"] = time.perf_counter() - run.pop("t0")
         run["launches"] = _read_launches()
+        run["graphs"] = graph_check(svc.exe, None,
+                                    f"{fam['tag']}:batch{B}")
 
     stats = serve(model, params, args, threaded=False, on_start=on_start,
                   on_end=on_end, verbose=False, events=events)
@@ -5987,6 +6119,48 @@ def _new_family_launches(encdec, rglru, key):
                 for S, run in rglru.items()}}
 
 
+def _slot_graph_summary(slots, mla, rwkv, moe, zoo):
+    """Log, for the slot engines' phases, the graphs captured ahead and
+    at a key's first call, their seconds and the pool's bytes, summed
+    over each phase's services; and the figures the slot graphs should
+    move: each run's per-call wall median and the profiled decode
+    token's wall, busy and idle share."""
+    out = {}
+    for tag, phase in (("slot", slots), ("mla", mla), ("rwkv", rwkv),
+                       ("moe", moe)):
+        gs = [v["graphs"] for v in phase.values()]
+        out[tag] = {
+            "services": len(gs),
+            "captures": sum(sum(g["captures"].values()) for g in gs),
+            "late_captures": sum(g["late_captures"] for g in gs),
+            "capture_s": sum(g["capture_s"] for g in gs),
+            "late_capture_s": sum(g["late_capture_s"] for g in gs),
+            "pool_bytes_max": max(g["pool_bytes"] for g in gs),
+            "peak_reserved_max": max((v["peak_bytes"] or {}).get(
+                "reserved", 0) for v in phase.values()),
+            "call_ms_median": {k: _median_of(v) for k, v in phase.items()},
+            "decode_token": {k: {m: v["prof"]["decode token"].get(m)
+                                 for m in ("wall_ms", "device_ms",
+                                           "idle_share", "kernels")}
+                             for k, v in phase.items()
+                             if v.get("prof", {}).get("decode token")}}
+    gs = [g for v in zoo.values() for g in v["graphs"].values()]
+    out["zoo"] = {"services": len(gs),
+                  "captures": sum(sum(g["captures"].values()) for g in gs),
+                  "late_captures": sum(g["late_captures"] for g in gs),
+                  "capture_s": sum(g["capture_s"] for g in gs),
+                  "pool_bytes_max": max(g["pool_bytes"] for g in gs)}
+    log("[graphs] slot engines " + json.dumps(out))
+
+
+def _median_of(run):
+    """A run's per-call wall median in ms (its records' ``wall_s``, else
+    its ``wall_ms``)."""
+    walls = sorted(r["wall_s"] * 1e3 for r in run.get("records", [])
+                   if "wall_s" in r) or sorted(run.get("wall_ms") or [])
+    return walls[len(walls) // 2] if walls else None
+
+
 def main() -> int:
     try:
         import torch
@@ -6130,7 +6304,14 @@ def main() -> int:
         {f"serve:{k}": dict(v["graphs"], peak_bytes=v["peak_bytes"])
          for k, v in runs.items()}
         | {f"router:{k}": dict(v["graphs"], peak_bytes=v["peak_bytes"])
-           for k, v in routed.items()}))
+           for k, v in routed.items()}
+        | {f"{tag}:{k}": dict(v["graphs"], peak_bytes=v["peak_bytes"])
+           for tag, phase in (("slot", slots), ("mla", mla), ("rwkv", rwkv),
+                              ("moe", moe))
+           for k, v in phase.items()}
+        | {f"zoo:{k}:{fam}": dict(g, peak_bytes=v["peak_bytes"])
+           for k, v in zoo.items() for fam, g in v["graphs"].items()}))
+    _slot_graph_summary(slots, mla, rwkv, moe, zoo)
     for a_name, b_name in (("run1", "rerun"), ("quant1", "quant-rerun")):
         for a, b in zip(runs[a_name]["records"], runs[b_name]["records"]):
             if (a["tokens"], a["bits"]) != (b["tokens"], b["bits"]):

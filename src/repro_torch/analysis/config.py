@@ -74,9 +74,9 @@ BLOCKING_CALLS = [
     {"attr": entry, "recv": ("exe",),
      "why": "ModelExecutor runs the model on (or waits for) the card "
             "under a lock"}
-    for entry in ("recompute", "extend_nod", "extend", "decode",
-                  "run_pipelined", "paged_extend", "paged_decode", "sync",
-                  "logits")
+    for entry in ("recompute", "recompute_whole", "extend_nod", "extend",
+                  "decode", "run_pipelined", "paged_extend", "paged_decode",
+                  "sync", "logits")
 ]
 
 # Subset that is ALSO forbidden inside worker-pool job bodies and
@@ -187,6 +187,17 @@ SHARED_STATE_ALLOWLIST = {
         "filled once, on the serialized surface only: every caller "
         "of fresh_cache is @requires_serialized (under _svc_lock or "
         "an inline driver's only thread)",
+    # made once by `init_slots`, whose callers are
+    # `ResidencyEngine.__init__` (before any service or router thread
+    # exists) and `fresh_cache` (the serialized surface, as above)
+    ("ModelExecutor", "_slots"):
+        "made once, before the service's threads start or on the "
+        "serialized surface: init_slots is called by "
+        "ResidencyEngine.__init__ and fresh_cache only",
+    ("ModelExecutor", "eager_calls"):
+        "a counter of the entries run on private caches; the model "
+        "entries run on the serialized surface only (the router "
+        "serializes every service call)",
 }
 
 # --------------------------------------------------------------------- #

@@ -4,29 +4,36 @@ Mirror of the JAX package's core/executor.py: the power-of-two
 token/batch/I-O buckets, and two engines over the same model entries.
 
 * **Slot caches** (``paged_pool=False``, every non-chunked policy and
-  every family without a paged pool): ``fresh_cache`` gives one
-  context's working cache — the window layout, or the mixed layout
-  (bf16 window + int8 segments) with ``quant_resident``, or a state
-  family's constant-size state — and ``extend`` / ``decode`` /
-  ``recompute`` / ``extend_nod`` run the model's ``recompute`` and
-  ``decode_step`` on it.  ``run_pipelined`` runs the paper's Fig.-8
-  restore (``DenseModel.recompute_pipelined``): a Python layer loop that takes
-  layer l of the disk chunks from a ``restore.LayerFeed`` while the
-  feed's I/O thread reads layer l + 1.
+  every family without a paged pool): ``decode_slots`` static slot
+  caches and one scratch slot for the engine's transient caches
+  (``init_slots``) — the window layout, or the mixed layout (bf16
+  window + int8 segments) with ``quant_resident``, or a state family's
+  constant-size state.  ``fresh_cache(n, slot=i)`` zeroes slot i's
+  cache in place; ``extend`` / ``extend_nod`` / ``decode`` run the
+  model's ``recompute`` and ``decode_step`` on it and copy the leaves
+  the model returns anew (``pos``, ``quant_mask``) back into the
+  slot's, so a slot keeps its addresses.  ``run_pipelined`` runs the
+  paper's Fig.-8 restore (``DenseModel.recompute_pipelined``) into a
+  slot in place: a Python layer loop that takes layer l of the disk
+  chunks from a ``restore.LayerFeed`` while the feed's I/O thread reads
+  layer l + 1.
 * **The paged pool**: ``paged_extend`` / ``paged_decode`` over the
-  global page arenas, and the page admit/read/zero helpers.  Each
-  paged entry runs per bucket through ``core/graphs.py``, the
-  counterpart of the reference's jitted entries in its ``_JIT_CACHE``:
-  on the card every call is one replay of a CUDA graph captured for its
-  bucket (the head product and ``seq_len`` on the device inside it), on
-  the CPU the same body runs eagerly on the same buffers.  The
-  executor owns its graphs (they bake in its params' and arenas'
-  addresses), so no cache is shared across executors.  admit / read /
-  zero stay eager: each is one copy.
+  global page arenas, and the page admit/read/zero helpers.
 
-The slot engine runs eagerly (its slot caches are cloned per context,
-and ``ring_update`` reads a 0-d position on the host), and the
-pipelined restore needs no ``io_callback`` and no ``_ACTIVE_FEED``
+Both engines' entries run through ``core/graphs.py``, the counterpart
+of the reference's jitted entries in its ``_JIT_CACHE``: on the card
+every call is one replay of a CUDA graph captured for its bucket (or,
+for a family that is not ``pad_safe``, its exact length) and its
+buffers — the arenas, or one slot's cache — with the head product and
+``seq_len`` on the device inside it; on the CPU the same body runs
+eagerly on the same buffers.  A cache that is no slot's (``fresh_cache``
+without a slot: a private clone, for tests and tools) runs the same
+bodies eagerly, counted in ``eager_calls``.  The executor owns its
+graphs (they bake in its params', arenas' and slots' addresses), so no
+cache is shared across executors.  admit / read / zero, the codec's
+scatters and the pipelined restore stay eager.
+
+The pipelined restore needs no ``io_callback`` and no ``_ACTIVE_FEED``
 global: the feed is an argument.  The buckets stay all the same:
 prefill positions are padded to ``pad_slot``, those padded query rows
 attend every valid key and enter the Eq.-1 density, and the density
@@ -36,14 +43,14 @@ token would fold into the carried state) extends at exact length, and
 a family whose cache is not chunkable takes ``WholeStateCodec``.
 
 Caches and arenas are updated IN PLACE (each entry returns the same
-dict the caller passed, with ``pos`` replaced where it moves) instead
+dict the caller passed, its tensors written, ``pos`` included) instead
 of being rebuilt functionally as in JAX.
 """
 from __future__ import annotations
 
 import math
 import time
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +58,16 @@ import torch
 from repro_torch.core.chunks import ChunkCodec, WholeStateCodec
 from repro_torch.core.graphs import GraphCache, capturable
 from repro_torch.models.kvspec import LAYOUT_MIXED, LAYOUT_WINDOW
+
+
+def _write_back(cache, new) -> None:
+    """A model entry's resulting cache ``new`` into the slot cache
+    ``cache``: the leaves it made anew (``pos``, ``quant_mask``) copied
+    into the slot's own, so that the slot keeps its addresses (the
+    entries wrote the others in place)."""
+    for n, t in new.items():
+        if t is not cache[n]:
+            cache[n].copy_(t)
 
 
 def _pow2_buckets(lo: int, hi: int) -> List[int]:
@@ -102,6 +119,10 @@ class ModelExecutor:
         self.n_layers = mc.n_layers
         self.leaf_dims = dict(spec.leaf_dims)
         self._zero_cache = None
+        # slot -> static slot cache (init_slots)
+        self._slots: Optional[Dict[int, dict]] = None
+        # slot-engine entries run eagerly on a cache that is no slot's
+        self.eager_calls = 0
         if spec.chunkable:
             self.leaf_shapes = {
                 n: (mc.n_layers, 1, self.s_work, *self.leaf_dims[n])
@@ -135,7 +156,7 @@ class ModelExecutor:
                 int(getattr(cfg, "pool_pages_8", 0) or 16 * C + 1)
                 if self.quant_resident else 1)
         self._cw = dict(window=cfg.window, n_sinks=cfg.n_sinks)
-        # the paged entries' graphs (core/graphs.py), this executor's own
+        # both engines' graphs (core/graphs.py), this executor's own
         self.graphs = GraphCache(self.device)
 
     @property
@@ -180,34 +201,132 @@ class ModelExecutor:
                 layout=LAYOUT_MIXED if self.quant_resident else LAYOUT_WINDOW)
         return self._zero_cache
 
-    def fresh_cache(self, n_tokens: int):
-        """A zero working cache with ``pos = n_tokens``.  Every caller
-        gets its own clone (the slot engine writes caches in place, so
-        no two slots may share one)."""
-        cache = {k: v.clone() for k, v in self._zero().items()}
+    @property
+    def scratch_slot(self) -> int:
+        """The slot of the engine's transient caches (``profile_pipeline``
+        and its payload probe, ``LLMService._condense``): the one after
+        the decode slots."""
+        return self.decode_slots
+
+    def init_slots(self) -> Dict[int, dict]:
+        """The static slot caches, made once: the decode slots 0 ..
+        decode_slots - 1 and the scratch slot (a paged executor's
+        contexts live in the pool: it makes the scratch slot only).  On
+        the card every slot's graphs (``_slot_ahead``) are captured over
+        them now, and each slot is zeroed after the warm-ups wrote into
+        it.  -> {slot: cache}."""
+        if self._slots is None:
+            layout = LAYOUT_MIXED if self.quant_resident else LAYOUT_WINDOW
+            ids = ([self.scratch_slot] if self.paged
+                   else range(self.decode_slots + 1))
+            slots = {i: self.model.init_cache(1, self.s_work, layout=layout)
+                     for i in ids}
+            if self.device.type == "cuda":
+                for i, cache in slots.items():
+                    for name, n in self._slot_ahead(i):
+                        self.graphs.prepare(
+                            cache, *self._slot_entry(name, n, i, cache))
+                    for t in cache.values():
+                        t.zero_()
+            self._slots = slots
+        return self._slots
+
+    @property
+    def slot_caches(self) -> Dict[int, dict]:
+        """The static slot caches made so far, by slot."""
+        return dict(self._slots or {})
+
+    def _slot_ahead(self, slot: int) -> List[Tuple[str, int]]:
+        """The entries captured ahead over a slot: ``decode`` (not on the
+        scratch slot, which never decodes) and, where the family pads,
+        ``extend`` at every token bucket, and ``extend_nod`` at every one
+        where restores recompute (``recomputable`` chunked caches).  A
+        family that is not ``pad_safe`` extends at exact lengths: those
+        graphs are captured at their first call."""
+        out = [] if slot == self.scratch_slot else [("decode", 1)]
+        if self.pad_safe:
+            out += [("extend", b) for b in self.tok_buckets]
+            if self.recomputable and self.chunked_cache:
+                out += [("extend_nod", b) for b in self.tok_buckets]
+        return out
+
+    def slot_of(self, cache) -> Optional[int]:
+        """The slot whose static cache ``cache`` is (the same dict), or
+        None for a private cache."""
+        for i, c in (self._slots or {}).items():
+            if c is cache:
+                return i
+        return None
+
+    def fresh_cache(self, n_tokens: int, slot: Optional[int] = None):
+        """A zero working cache with ``pos = n_tokens``: slot ``slot``'s
+        static cache zeroed in place (the slot engine's), or without a
+        slot a private clone of the zero cache, whose entries run
+        eagerly (``eager_calls``)."""
+        if slot is None:
+            cache = {k: v.clone() for k, v in self._zero().items()}
+        else:
+            cache = self.init_slots()[slot]
+            for t in cache.values():
+                t.zero_()
         return self.set_pos(cache, n_tokens)
 
     def set_pos(self, cache, n_tokens: int):
         """The reference's ``setpos``: the cache's decode position (a
-        state family's recurrence ignores it)."""
-        cache["pos"] = torch.tensor(n_tokens, dtype=torch.int64,
-                                    device=self.device)
+        state family's recurrence ignores it), written into its ``pos``
+        tensor in place."""
+        cache["pos"].fill_(n_tokens)
         return cache
 
-    def recompute(self, toks_b: np.ndarray, pos_b: np.ndarray, cache,
-                  seq_len: int, want_density: bool):
-        """The model's ``recompute`` of the tokens ``toks_b`` at positions
-        ``pos_b`` (both bucket-padded by the caller) over a slot cache,
-        in place.  -> (cache, hidden (1, M, d), density (1, S) | None)."""
-        return self.model.recompute(
-            self.params, self._t(toks_b)[None], self._t(pos_b), cache,
-            int(seq_len), want_density=want_density, **self._cw)
+    def _slot_entry(self, name: str, n: int, slot: Optional[int], cache):
+        """A slot entry at ``n`` tokens over ``cache`` (slot ``slot``):
+        its cache key, its static inputs {name: (shape, dtype)} and the
+        maker of its body.  ``extend`` and ``extend_nod`` take tokens,
+        positions and ``seq_len``, ``extend`` also its last real row;
+        ``decode`` one token at the cache's ``pos``."""
+        i64 = torch.int64
+        if name == "decode":
+            spec = {"toks": ((1, 1), i64)}
+            make = lambda: self._decode_body(cache, slot=True)   # noqa: E731
+        else:
+            spec = {"toks": ((1, n), i64), "pos": ((n,), i64),
+                    "seq_len": ((), torch.int32)}
+            if name == "extend":
+                spec["last"] = ((1,), i64)
+            make = lambda: self._extend_body(                    # noqa: E731
+                cache, slot=True, density=name == "extend")
+        return (name, n, self.quant_resident, slot), spec, make
+
+    def _slot_call(self, cache, name: str, n: int, host, to_host=True):
+        """Entry ``name`` at ``n`` tokens over ``cache``: a slot's graph
+        (``core/graphs.py``: replayed on the card, its body run on the
+        CPU), or on a private cache the same body run eagerly.  -> its
+        outputs (on the host where ``to_host``)."""
+        slot = self.slot_of(cache)
+        key, spec, make = self._slot_entry(name, n, slot, cache)
+        if slot is not None:
+            return self.graphs.run(cache, key, spec, make, host,
+                                   keep=tuple(cache.values()),
+                                   to_host=to_host)
+        self.eager_calls += 1
+        inp = {k: torch.as_tensor(np.asarray(host[k])).to(
+                   device=self.device, dtype=dt).reshape(shape)
+               for k, (shape, dt) in spec.items()}
+        outs = make()(inp)
+        return [o.cpu().numpy() for o in outs] if to_host else list(outs)
 
     def extend_nod(self, toks_b: np.ndarray, pos_b: np.ndarray, cache,
                    seq_len: int):
-        """``recompute`` without density: the second phase of a restore
-        and the recompute cost ``profile_pipeline`` fits."""
-        return self.recompute(toks_b, pos_b, cache, seq_len, False)
+        """The model's ``recompute`` of the tokens ``toks_b`` at positions
+        ``pos_b`` (both bucket-padded by the caller, or at exact length)
+        without density, in place: the second phase of a restore.  On a
+        slot cache its graph at ``len(toks_b)`` tokens.  -> (cache,
+        hidden (1, M, d) on the device, None)."""
+        (hidden,) = self._slot_call(
+            cache, "extend_nod", len(toks_b),
+            {"toks": np.asarray(toks_b)[None], "pos": pos_b,
+             "seq_len": np.int32(seq_len)}, to_host=False)
+        return cache, hidden, None
 
     def exact_or_padded(self, pos: np.ndarray, toks: np.ndarray):
         """Positions and tokens of an extend: bucket-padded where the
@@ -219,25 +338,35 @@ class ModelExecutor:
         return self.bucket_pad(pos, self.pad_slot), self.bucket_pad(toks, 0)
 
     def extend(self, cache, prompt: np.ndarray, n0: int):
-        """Append ``prompt`` at positions [n0, n0+M) of a slot cache ->
-        (cache, last-token logits, per-position density mass)."""
+        """Append ``prompt`` at positions [n0, n0+M) of a slot cache, in
+        its graph at the token bucket (a family that is not
+        ``pad_safe``: at M) -> (cache with pos = n0 + M, last-token
+        logits, per-position density mass)."""
+        return self._extend(cache, prompt, n0)
+
+    def recompute_whole(self, cache, toks: np.ndarray):
+        """``lmk``'s whole recompute: the text ``toks`` at [0, n) into a
+        slot cache through the extend entry, its logits unused.
+        -> (cache with pos = n, per-position density mass)."""
+        cache, _, dens = self._extend(cache, toks, 0)
+        return cache, dens
+
+    def _extend(self, cache, prompt: np.ndarray, n0: int):
         M = len(prompt)
         pos = np.arange(n0, n0 + M, dtype=np.int32)
         pos_b, toks_b = self.exact_or_padded(pos, prompt)
-        cache, hidden, dens = self.recompute(toks_b, pos_b, cache, n0 + M,
-                                             True)
-        logits = self.logits(hidden[:, M - 1])[0]
-        self.set_pos(cache, n0 + M)
-        return cache, logits, dens[0].cpu().numpy().astype(np.float64)
+        logits, dens = self._slot_call(
+            cache, "extend", len(toks_b),
+            {"toks": toks_b[None], "pos": pos_b,
+             "seq_len": np.int32(n0 + M), "last": np.int64([M - 1])})
+        return cache, logits[0], dens[0].astype(np.float64)
 
     def decode(self, cache, tok: int):
-        """One token on a slot cache at its ``pos`` -> (cache, logits,
-        per-key mass)."""
-        out, mass = self.model.decode_step(
-            self.params, self._t([[tok]]), cache, want_density=True,
-            **self._cw)
-        return (out.cache, out.logits[0].cpu().numpy(),
-                mass[0].cpu().numpy().astype(np.float64))
+        """One token on a slot cache at its ``pos``, in its graph ->
+        (cache with pos + 1, logits, per-key mass)."""
+        logits, mass = self._slot_call(cache, "decode", 1,
+                                       {"toks": np.int64([[tok]])})
+        return cache, logits[0], mass[0].astype(np.float64)
 
     def host_alloc(self, shape: Tuple[int, ...]) -> np.ndarray:
         """A zeroed fp32 host buffer for ``LayerFeed`` to fill: page-
@@ -256,10 +385,12 @@ class ModelExecutor:
         ``feed.fetch``; each layer's arrays go to the device from the
         feed's (page-locked, ``host_alloc``) buffers without blocking,
         and those buffers stay alive until the restore has synchronized.
-        Not re-entrant.  On failure the feed is closed (its I/O error
-        swallowed: the caller sees the failure that stopped the loop)
-        and the exception propagates; layers before the failing one are
-        already written.  Records wall and fetch-wait seconds in
+        Not re-entrant.  The leaves the model makes anew (a mixed
+        cache's ``quant_mask``) are copied into the cache's own tensors,
+        so a slot keeps its graphs' addresses.  On failure the feed is
+        closed (its I/O error swallowed: the caller sees the failure
+        that stopped the loop) and the exception propagates; layers
+        before the failing one are already written.  Records wall and fetch-wait seconds in
         ``last_pipelined``.  -> (cache, hidden (1, M, d) of the
         recomputed rows)."""
         if self._pipelining:
@@ -279,10 +410,11 @@ class ModelExecutor:
 
         t0 = time.perf_counter()
         try:
-            cache, hidden, _ = self.model.recompute_pipelined(
+            new, hidden, _ = self.model.recompute_pipelined(
                 self.params, self._t(toks_b)[None], self._t(miss_b),
-                self._t(io_pos_b), cache, int(n_total), fetch,
+                self._t(io_pos_b), dict(cache), int(n_total), fetch,
                 want_density=False, **self._cw)
+            _write_back(cache, new)       # a slot keeps its tensors
         except BaseException:
             feed.close(raise_errors=False)
             raise
@@ -307,7 +439,7 @@ class ModelExecutor:
         graphs captured over earlier arenas are dropped; on the card
         every bucket of both paged entries is captured over the new ones
         (``core/graphs.py``)."""
-        self.graphs.clear()
+        self.graphs.drop()
         arenas = {}
         L, cs, dev = self.n_layers, self.cs, self.device
         for n in self.codec.leaves:
@@ -385,32 +517,53 @@ class ModelExecutor:
             make = lambda: self._decode_body(arenas)     # noqa: E731
         return (name, bucket, quant), spec, make
 
-    def _extend_body(self, arenas):
-        """``paged_extend``'s body over the static inputs: the model's
-        ``extend_paged`` and the head product of the last real row (a
+    def _extend_body(self, bufs, slot: bool = False, density: bool = True):
+        """An extend's body over the static inputs: ``paged_extend``'s
+        (the model's ``extend_paged`` over the arenas ``bufs``), or with
+        ``slot`` the slot engine's (the model's ``recompute`` over the
+        slot cache ``bufs``, its new leaves written back, ``pos`` set to
+        ``seq_len``), then the head product of the last real row (a
         device index: it moves within the bucket).  -> (logits (1, V)
-        fp32, density (1, S))."""
+        fp32, density (1, S)); a slot's ``extend_nod`` (no ``density``)
+        -> (hidden (1, M, d),)."""
         model, params, cw = self.model, self.params, self._cw
         head = model.head_weight(params)
 
         def body(inp):
-            _, hidden, dens = model.extend_paged(
-                params, inp["toks"], inp["pos"], arenas, inp["pt16"],
-                inp["seq_len"], want_density=True, pt8=inp.get("pt8"),
-                quant_chunks=inp.get("qmask"), **cw)
+            if slot:
+                new, hidden, dens = model.recompute(
+                    params, inp["toks"], inp["pos"], dict(bufs),
+                    inp["seq_len"], want_density=density, **cw)
+                _write_back(bufs, new)
+                if not density:
+                    return (hidden,)
+                bufs["pos"].copy_(inp["seq_len"])
+            else:
+                _, hidden, dens = model.extend_paged(
+                    params, inp["toks"], inp["pos"], bufs, inp["pt16"],
+                    inp["seq_len"], want_density=True, pt8=inp.get("pt8"),
+                    quant_chunks=inp.get("qmask"), **cw)
             last = hidden.index_select(1, inp["last"])[:, 0]
             return (last @ head).to(torch.float32), dens
         return capturable(body)
 
-    def _decode_body(self, arenas):
-        """``paged_decode``'s body over the static inputs: the model's
-        ``decode_paged`` (its head product included).  -> (logits
-        (nb, V) fp32, mass (nb, S))."""
+    def _decode_body(self, bufs, slot: bool = False):
+        """A decode's body over the static inputs: ``paged_decode``'s
+        (the model's ``decode_paged`` over the arenas ``bufs``), or with
+        ``slot`` the slot engine's (the model's ``decode_step`` at the
+        slot cache's ``pos``, its new leaves written back); the head
+        product included.  -> (logits (nb, V) fp32, mass (nb, S))."""
         model, params, cw = self.model, self.params, self._cw
 
         def body(inp):
+            if slot:
+                out, mass = model.decode_step(
+                    params, inp["toks"], dict(bufs), want_density=True,
+                    **cw)
+                _write_back(bufs, out.cache)
+                return out.logits, mass
             _, logits, mass = model.decode_paged(
-                params, inp["toks"], arenas, inp["pt16"], inp["pos"],
+                params, inp["toks"], bufs, inp["pt16"], inp["pos"],
                 want_density=True, pt8=inp.get("pt8"),
                 quant_chunks=inp.get("qmask"), **cw)
             return logits, mass

@@ -1,21 +1,30 @@
-"""The executor's compile layer for the paged pool: one captured CUDA
-graph per entry and bucket.
+"""The executor's compile layer: one captured CUDA graph per entry,
+bucket and set of buffers, for the paged pool and for the slot engine.
 
 Counterpart of the JAX package's ``_JIT_CACHE`` (``core/executor.py``):
 the reference compiles ``paged_extend`` once per token bucket and
-``paged_decode`` once per batch bucket, and each call runs one compiled
-program in which ``seq_len`` is a traced device scalar and the head
-product is the jitted ``logits_fn``.  Here a ``GraphEntry`` per (entry
-name, bucket, quant-resident) holds
+``paged_decode`` once per batch bucket, and the slot engine's
+``extend`` / ``extend_nod`` once per token bucket (a family that is
+not ``pad_safe`` once per exact length) and ``decode`` once; each call
+runs one compiled program in which ``seq_len`` is a traced device
+scalar and the head product is the jitted ``logits_fn``.  Here a
+``GraphEntry`` per key holds
 
 * static input buffers (tokens, positions, the page-table rows ``pt16``
   / ``pt8``, ``qmask``, and the ``seq_len`` and last-row scalars), which
   every call fills from its host arrays;
 * the body, a plain function of those buffers, the params and the
-  arenas (the model's entry and its head product), marked by
-  ``capturable``;
+  buffers the graph reads and writes in place (the paged pool's
+  arenas, or one static slot cache), marked by ``capturable``;
 * on the card, the ``torch.cuda.CUDAGraph`` captured from the body;
-* the static outputs (logits and density or mass).
+* the static outputs (logits and density or mass; an ``extend_nod``'s
+  hidden rows).
+
+A key is (entry name, bucket or length, quant-resident) for the paged
+entries and (entry name, bucket or length, quant-resident, slot) for a
+slot cache's: the fields after the third name the buffers the graph
+was captured over (``binding``: () the arenas, (slot,) that slot's
+cache), since a graph bakes in their addresses.
 
 On the card a call copies its host arrays into page-locked staging
 buffers, from those into the static inputs without blocking, replays
@@ -24,20 +33,26 @@ eagerly on the same buffers: that is the device the caller asked for,
 not a fallback.
 
 Capture.  The executor captures every bucket of its entries when it
-builds its arenas (``ModelExecutor.init_arenas``, ``prepare``): that is
-before the service's threads start, and outside every call's latency
-(captured at a bucket's first call instead, a capture put 0.1-0.2 s into
-that call's time to first token).  A graph is captured on its static
-inputs as made, all zero: every page-table row then points at the
-scratch page 0, the only page the warm-up writes.  The body runs once
+builds its arenas or its slot caches (``ModelExecutor.init_arenas`` /
+``init_slots``, ``prepare``): that is before the service's threads
+start, and outside every call's latency (captured at a bucket's first
+call instead, a capture put 0.1-0.2 s into that call's time to first
+token).  A graph is captured on its static inputs as made, all zero:
+every page-table row then points at the scratch page 0, the only page
+the warm-up writes; a slot's warm-ups write into its cache, which the
+executor zeroes after them.  Entries captured ahead are pinned: no
+LRU eviction puts their recapture into a call.  The body runs once
 on a side stream (kernels build and load there, ``cudaFuncSetAttribute``
 runs, cuBLAS takes its workspace), then ``torch.cuda.graph`` captures it
 on the same stream into the one memory pool that the executor's graphs
 share, with ``capture_error_mode="thread_local"``.  A key not captured
-then is captured at its first call, the same way, under the cache's
-lock.  Only the thread that holds the service (the router serializes
-every service call) runs the model on the card; the swapper's workers
-and the restore feed's thread touch host arrays only.  Nothing falls
+then (an exact-length extend) is captured at its first call, the same
+way, under the cache's lock, with the buffers the caller names
+(``keep``: a live slot's cache) put back after the warm-up; these
+captures are counted apart (``late_captures``, ``late_capture_s``).
+Only the thread that holds the service (the router serializes every
+service call) runs the model on the card; the swapper's workers and
+the restore feed's thread touch host arrays only.  Nothing falls
 back to the eager body on the card: a body that syncs with the host
 (``.item()``, ``int()`` of a tensor, ``.cpu()``) makes the capture
 raise, and the error propagates.
@@ -51,23 +66,32 @@ eager warm-up raises.
 
 Memory.  The graphs share one pool, so a replay may overwrite the
 static outputs of another bucket's graph: every call copies its outputs
-to the host before it returns, before any other replay.  The pool is
+out (to the host, or into device tensors of its own) before it
+returns, before any other replay.  The pool is
 device memory outside the LLMS budget (``pool_bytes``: the segments the
 captures reserved; the graphs' temporaries are reserved, not allocated,
 between replays).
 
 The cache is the executor's, not the process's.  A graph bakes in the
-device addresses of this executor's params and arenas, so the
-reference's sharing of compiled entries across models of one
+device addresses of this executor's params, arenas and slot caches, so
+the reference's sharing of compiled entries across models of one
 fingerprint has no sound counterpart: a new executor never sees
 another's graphs.  Keys are stable values (entry name, bucket,
-quant-resident), never ``id()`` or ``data_ptr()``; the cache is
-LRU-bounded as the reference's (``GRAPH_CACHE_MAX``).  A call with
-arenas other than the bound ones (``init_arenas`` rebuilt them) drops
-every graph first.
+quant-resident, and a slot index from ``SlotAllocator``), never
+``id()`` or ``data_ptr()``.  The entries captured ahead are pinned:
+their number is fixed by the executor's buckets and slots (a decode
+slot's decode and two entries a token bucket, the scratch slot's two
+a bucket: 21 at ``max_ctx_len`` 256 and ``decode_batch`` 1, 65 at
+``decode_batch`` 5), and an eviction would put a recapture of 0.1-1 s
+into some call.  The entries made at first use (an exact-length
+family's extends; on the CPU every entry) are LRU-bounded as the
+reference's cache (``GRAPH_CACHE_MAX``).  A call with buffers other
+than the ones its binding holds (``init_arenas`` rebuilt the arenas)
+drops that binding's graphs first.
 """
 from __future__ import annotations
 
+import gc
 import threading
 import time
 from collections import OrderedDict
@@ -81,7 +105,8 @@ from repro_torch import kernels
 # as the reference's _JIT_CACHE_MAX
 GRAPH_CACHE_MAX = 64
 
-Key = Tuple[str, int, bool]
+# (entry name, bucket or length, quant-resident[, slot])
+Key = Tuple
 # name -> (shape, dtype) of a static input
 InputSpec = Mapping[str, Tuple[Tuple[int, ...], torch.dtype]]
 
@@ -117,15 +142,22 @@ class GraphEntry:
         self._staging = {n: torch.zeros(shape, dtype=dt, pin_memory=True)
                          for n, (shape, dt) in spec.items()} \
             if on_card else None
+        # the last staging copies: the pinned buffers are not refilled
+        # before they ran (a call whose outputs stay on the card does
+        # not wait for its replay)
+        self._staged: Optional[torch.cuda.Event] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Optional[Tuple[torch.Tensor, ...]] = None
         self.launches: Dict[str, int] = {}
         self.capture_s = 0.0
         self.pool_bytes = 0
+        self.calls = 0                  # calls staged into this entry
 
     def stage(self, host: Mapping[str, np.ndarray]) -> None:
         """The host arrays (one per static input, of its shape) into the
         static inputs."""
+        if self._staged is not None:
+            self._staged.synchronize()
         for n, t in self.inputs.items():
             if self._staging is None:
                 np.copyto(t.numpy(), host[n], casting="unsafe")
@@ -133,17 +165,24 @@ class GraphEntry:
                 np.copyto(self._staging[n].numpy(), host[n],
                           casting="unsafe")
                 t.copy_(self._staging[n], non_blocking=True)
+        if self._staging is not None:
+            self._staged = torch.cuda.Event()
+            self._staged.record()
 
     def eager(self) -> Tuple[torch.Tensor, ...]:
         """The body on the static inputs, eagerly."""
         return tuple(self.body(self.inputs))
 
-    def capture(self, stream: torch.cuda.Stream, pool) -> None:
+    def capture(self, stream: torch.cuda.Stream, pool,
+                keep: Sequence[torch.Tensor] = ()) -> None:
         """Warm the body up on ``stream``, then capture it there into
         ``pool``; the launches of both are not counted, and the graph
-        keeps the capture's."""
+        keeps the capture's.  The tensors of ``keep`` (a live slot's
+        cache) hold their bytes again afterwards: the warm-up writes
+        into the buffers the body updates."""
         before = kernels.launch_counts()
         cur = torch.cuda.current_stream(self.device)
+        saved = [t.clone() for t in keep]
         stream.wait_stream(cur)
         t0 = time.perf_counter()
         try:
@@ -156,13 +195,27 @@ class GraphEntry:
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(self.device)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool, stream=stream,
-                                  capture_error_mode="thread_local"):
-                outputs = self.eager()
+            # no cyclic collection inside the capture: it would destroy
+            # unreachable graphs (a dropped service's) there, which the
+            # capture refuses and is invalidated by
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    outputs = self.eager()
+            finally:
+                if collecting:
+                    gc.enable()
             cur.wait_stream(stream)
             after = kernels.launch_counts()
         finally:
             kernels.set_launch_counts(before)
+            if keep:
+                cur.wait_stream(stream)
+                for t, s in zip(keep, saved):
+                    t.copy_(s)
+            del saved
         eager_n = {k: warm[k] - before[k] for k in before}
         captured = {k: after[k] - warm[k] for k in before}
         if captured != eager_n:
@@ -183,14 +236,21 @@ class GraphEntry:
         return self.outputs
 
 
+def binding(key: Key) -> Tuple:
+    """The buffers a key's graph was captured over: () the paged pool's
+    arenas, (slot,) that slot's cache."""
+    return tuple(key[3:])
+
+
 class GraphCache:
-    """The executor's entries by (entry name, bucket, quant-resident),
-    LRU-bounded, bound to one set of arenas."""
+    """The executor's entries by key; those captured ahead pinned, the
+    others LRU-bounded; each binding tied to one set of buffers."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self._entries: "OrderedDict[Key, GraphEntry]" = OrderedDict()
-        self._arenas: Optional[Dict[str, torch.Tensor]] = None
+        self._pinned: set = set()
+        self._bound: Dict[Tuple, Dict[str, torch.Tensor]] = {}
         self._lock = threading.Lock()
         self._stream = None
         self._pool = None
@@ -201,6 +261,9 @@ class GraphCache:
         self.capture_s = 0.0
         self.pool_bytes = 0
         self.drops = 0
+        # captures at a key's first call rather than ahead
+        self.late_captures = 0
+        self.late_capture_s = 0.0
 
     @property
     def on_card(self) -> bool:
@@ -215,21 +278,25 @@ class GraphCache:
     def entry(self, key: Key) -> Optional[GraphEntry]:
         return self._entries.get(key)
 
-    def clear(self) -> None:
-        """Drop every entry (and the pool their graphs share)."""
-        if self._entries:
+    def drop(self, bound: Tuple = ()) -> None:
+        """Drop the entries of one binding (() the arenas, (slot,) a slot
+        cache)."""
+        gone = [k for k in self._entries if binding(k) == bound]
+        for k in gone:
+            del self._entries[k]
+        self._pinned.difference_update(gone)
+        if gone:
             self.drops += 1
-        self._entries.clear()
-        self._pool = None
 
-    def bind(self, arenas: Mapping[str, torch.Tensor]) -> None:
-        """Bind the cache to ``arenas``; graphs captured over other
-        arenas are dropped."""
-        bound = self._arenas
-        if bound is None or bound.keys() != arenas.keys() or any(
-                bound[n] is not arenas[n] for n in arenas):
-            self.clear()
-            self._arenas = dict(arenas)
+    def bind(self, buffers: Mapping[str, torch.Tensor],
+             bound: Tuple = ()) -> None:
+        """Tie binding ``bound`` to ``buffers``; its graphs captured over
+        other buffers are dropped."""
+        held = self._bound.get(bound)
+        if held is None or held.keys() != buffers.keys() or any(
+                held[n] is not buffers[n] for n in buffers):
+            self.drop(bound)
+            self._bound[bound] = dict(buffers)
 
     def _get(self, key: Key) -> Optional[GraphEntry]:
         got = self._entries.get(key)
@@ -240,13 +307,17 @@ class GraphCache:
     def _put(self, key: Key, entry: GraphEntry) -> None:
         self._entries[key] = entry
         self._entries.move_to_end(key)
-        while len(self._entries) > GRAPH_CACHE_MAX:
-            self._entries.popitem(last=False)
+        lru = [k for k in self._entries if k not in self._pinned]
+        for k in lru[:max(0, len(lru) - GRAPH_CACHE_MAX)]:
+            del self._entries[k]
 
     def _ready(self, key: Key, spec: InputSpec,
-               make_body: Callable[[], Callable]) -> GraphEntry:
+               make_body: Callable[[], Callable],
+               keep: Sequence[torch.Tensor] = (),
+               ahead: bool = False) -> GraphEntry:
         """Entry ``key``, made (``make_body()`` builds its body) and, on
-        the card, captured where it is not yet."""
+        the card, captured where it is not yet (``keep``: as
+        ``GraphEntry.capture``); ``ahead`` pins it."""
         entry = self._get(key)
         if entry is None:
             entry = GraphEntry(key, spec, make_body(), self.device)
@@ -254,46 +325,62 @@ class GraphCache:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
                 self._stream = torch.cuda.Stream(self.device)
-            entry.capture(self._stream, self._pool)
+            entry.capture(self._stream, self._pool, keep)
             self.captures[key] = self.captures.get(key, 0) + 1
             self.capture_s += entry.capture_s
             self.pool_bytes += entry.pool_bytes
+            if not ahead:
+                self.late_captures += 1
+                self.late_capture_s += entry.capture_s
+        if ahead:
+            self._pinned.add(key)
         self._put(key, entry)
         return entry
 
-    def prepare(self, arenas, key: Key, spec: InputSpec,
+    def prepare(self, buffers, key: Key, spec: InputSpec,
                 make_body: Callable[[], Callable]) -> None:
-        """Make and capture entry ``key`` over ``arenas`` now, ahead of
-        its first call."""
+        """Make and capture entry ``key`` over ``buffers`` now, ahead of
+        its first call, and pin it."""
         with self._lock:
-            self.bind(arenas)
-            self._ready(key, spec, make_body)
+            self.bind(buffers, binding(key))
+            self._ready(key, spec, make_body, ahead=True)
 
-    def run(self, arenas, key: Key, spec: InputSpec,
+    def run(self, buffers, key: Key, spec: InputSpec,
             make_body: Callable[[], Callable],
-            host: Mapping[str, np.ndarray]) -> Sequence[np.ndarray]:
-        """One call of entry ``key`` over ``arenas``: the host arrays
+            host: Mapping[str, np.ndarray],
+            keep: Sequence[torch.Tensor] = (),
+            to_host: bool = True) -> Sequence:
+        """One call of entry ``key`` over ``buffers``: the host arrays
         staged into its static inputs, then on the card its graph
         replayed, on the CPU its body run.  -> the outputs, copied to
-        the host."""
+        the host (``to_host``), else tensors on the device that no
+        later replay overwrites."""
         with self._lock:
-            self.bind(arenas)
-            entry = self._ready(key, spec, make_body)
+            self.bind(buffers, binding(key))
+            entry = self._ready(key, spec, make_body, keep)
             entry.stage(host)
+            entry.calls += 1
             if self.on_card:
                 outs = entry.replay()
                 self.replays += 1
             else:
                 outs = entry.eager()
             self.calls += 1
-            return [o.cpu().numpy() for o in outs]
+            if to_host:
+                return [o.cpu().numpy() for o in outs]
+            return [o.clone() if self.on_card else o for o in outs]
 
     def stats(self) -> Dict:
         """Calls, replays, captures by key (counted over the cache's
-        life), capture seconds, the pool bytes the captures reserved,
-        the entries held and the drops."""
+        life), capture seconds, those at a key's first call, the pool
+        bytes the captures reserved, the entries held (pinned) and the
+        drops."""
         return {"calls": self.calls, "replays": self.replays,
                 "captures": {"/".join(map(str, k)): n
                              for k, n in sorted(self.captures.items())},
-                "capture_s": self.capture_s, "pool_bytes": self.pool_bytes,
-                "entries": len(self._entries), "drops": self.drops}
+                "capture_s": self.capture_s,
+                "late_captures": self.late_captures,
+                "late_capture_s": self.late_capture_s,
+                "pool_bytes": self.pool_bytes,
+                "entries": len(self._entries), "pinned": len(self._pinned),
+                "drops": self.drops}

@@ -118,6 +118,10 @@ class ResidencyEngine:
         # Without it each context is assembled into a slot cache.
         self.pool: Optional[PagePool] = (
             PagePool(exe, ctxs) if exe.paged else None)
+        if self.pool is None:
+            # the static slot caches (and, on the card, their graphs),
+            # before any service thread starts
+            exe.init_slots()
         self.profile = PipelineProfile()
         self.profiled = False
         self.epoch = 0                      # bumped on any eviction
@@ -234,15 +238,17 @@ class ResidencyEngine:
     # switch-in: restore every chunk to memory (Load primitive)
     # ------------------------------------------------------------------ #
     @requires_serialized
-    def switch_in(self, ctx: Context):
+    def switch_in(self, ctx: Context, slot: Optional[int] = None):
         """-> (cache, switch_seconds).  Missing-chunk restore (reclaim +
         I/O + recompute) is the timed QoS path; resident-chunk assembly
-        into the slot cache is not (see LLMService.callLLM).  With the
+        into the slot cache is not (see LLMService.callLLM).  The cache
+        is decode slot ``slot``'s static cache, zeroed first (the slot
+        the service acquired; without one a private cache).  With the
         paged pool the cache is None (``_switch_in_paged``)."""
         exe = self.exe
         if self.pool is not None:
             return self._switch_in_paged(ctx)
-        cache = exe.fresh_cache(ctx.n_tokens)
+        cache = exe.fresh_cache(ctx.n_tokens, slot)
         if ctx.n_tokens == 0:
             return cache, 0.0
         if not self.cfg.chunked or not exe.chunked_cache:
@@ -771,16 +777,10 @@ class ResidencyEngine:
             # LMK: killed — recompute the whole context from its text
             t0 = time.perf_counter()
             self.mem.reclaim(0, self.evict, locked={ctx.cid})
-            pos_b, toks_b = exe.exact_or_padded(
-                np.arange(ctx.n_tokens, dtype=np.int32),
-                ctx.tokens[:ctx.n_tokens])
-            cache, _, dens = exe.recompute(toks_b, pos_b,
-                                           exe.set_pos(cache, 0),
-                                           ctx.n_tokens, True)
-            exe.sync()
+            cache, dens = exe.recompute_whole(cache,
+                                              ctx.tokens[:ctx.n_tokens])
             t_switch = time.perf_counter() - t0
-            self.ctxs.acc_density(
-                ctx, dens[0].cpu().numpy().astype(np.float64), ctx.n_tokens)
+            self.ctxs.acc_density(ctx, dens, ctx.n_tokens)
             ctx.whole = self._extract_whole(cache, ctx.n_tokens)
             ctx.whole_tokens = ctx.n_tokens
             ctx.alive = True
@@ -1114,11 +1114,13 @@ class ResidencyEngine:
     @requires_serialized
     def profile_pipeline(self, n_points: Tuple[int, ...] = (1, 2, 4)):
         """Paper §3.3.i: one-shot installation-time profiling of T_re
-        (recompute of x chunks) and T_IO (chunk-file reads)."""
+        (recompute of x chunks into the scratch slot, as a restore runs
+        it: ``_recompute_as_restored``) and T_IO (chunk-file reads)."""
         exe = self.exe
         if not (exe.recomputable and exe.chunked_cache):
             return
         on_card = exe.device.type == "cuda"
+        scratch = exe.scratch_slot
         toks = np.ones(exe.n_slots, np.int32)
         xs, ts = [], []
         for x in n_points:
@@ -1126,19 +1128,20 @@ class ResidencyEngine:
             pos_b = exe.bucket_pad(np.arange(M, dtype=np.int32),
                                    exe.pad_slot)
             toks_b = exe.bucket_pad(toks[:M], 0)
-            exe.extend_nod(toks_b, pos_b, exe.fresh_cache(0), M)   # warm-up
-            cache = exe.fresh_cache(0)
+            warm = exe.fresh_cache(0, scratch)
+            self._recompute_as_restored(toks_b, pos_b, warm, M)   # warm-up
+            cache = exe.fresh_cache(0, scratch)
             if on_card:
                 torch.cuda.synchronize(exe.device)
             t0 = time.perf_counter()
-            exe.extend_nod(toks_b, pos_b, cache, M)
+            self._recompute_as_restored(toks_b, pos_b, cache, M)
             if on_card:
                 torch.cuda.synchronize(exe.device)
             ts.append(time.perf_counter() - t0)
             xs.append(x)
         self.profile.re_base, self.profile.re_per_chunk = fit_linear(xs, ts)
 
-        cc = self._make_payload(exe.fresh_cache(0), 0, 8)
+        cc = self._make_payload(exe.fresh_cache(0, scratch), 0, 8)
         ios_x, ios_t = [], []
         for n in (1, 2, 4):
             paths = [self.store._path((-2, f"probe{j}")) for j in range(n)]
@@ -1154,3 +1157,21 @@ class ResidencyEngine:
         self.profile.io_base, self.profile.io_per_byte = \
             fit_linear(ios_x, ios_t)
         self.profiled = True
+
+    def _recompute_as_restored(self, toks_b, pos_b, cache, n: int):
+        """Recompute ``toks_b`` at ``pos_b`` into ``cache`` on the path a
+        restore's recompute set takes: the Fig.-8 layer loop
+        (``run_pipelined``, eager; fed one pad I/O chunk, no file) where
+        the policy and the family pipeline restores, else the
+        ``extend_nod`` graph.  Timed by ``profile_pipeline``, so that the
+        Eq.-4 split prices the recompute that will run."""
+        exe = self.exe
+        if not (self.cfg.use_pipeline and exe.spec.pipelined_restore):
+            exe.extend_nod(toks_b, pos_b, cache, n)
+            return
+        feed = LayerFeed([], exe.codec.leaves, exe.n_layers, exe.cs,
+                         exe.leaf_dims, pad_chunks=1,
+                         pool=self.swapper.pool, alloc=exe.host_alloc)
+        exe.run_pipelined(feed, toks_b, pos_b,
+                          np.full(exe.cs, exe.pad_slot, np.int32), cache, n)
+        feed.close()

@@ -445,12 +445,15 @@ class LLMService:
         entry = self._reuse.pop(ctx.cid, None)
         st.slot = self.res.slots.acquire(ctx.cid, self._drop_reuse)
         if (not self.paged and entry is not None
-                and entry[1] == self.res.epoch):
+                and entry[1] == self.res.epoch
+                and self.exe.slot_of(entry[0]) == st.slot):
             st.cache = entry[0]
             st.t_switch += time.perf_counter() - t0
             return
         try:
-            cache, t_sw = self.res.switch_in(ctx)
+            # the slot's static cache, zeroed in place: nothing of the
+            # context it held before survives
+            cache, t_sw = self.res.switch_in(ctx, st.slot)
         except BaseException:
             self.res.slots.release(ctx.cid)
             st.slot = None
@@ -499,8 +502,8 @@ class LLMService:
             pool.arenas, _, dens = self.exe.paged_extend(
                 pool.arenas, tail, 0, pt16, pt8, qmask)
         else:
-            cache, _, dens = self.exe.extend(self.exe.fresh_cache(0), tail,
-                                             0)
+            cache, _, dens = self.exe.extend(
+                self.exe.fresh_cache(0, self.exe.scratch_slot), tail, 0)
         self.ctxs.acc_density(ctx, dens, len(tail))
         ctx.n_tokens = len(tail)
         self.res.compress_and_swap_out(ctx, cache)

@@ -599,15 +599,17 @@ def ring_update(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
     working cache) or a (B,) tensor of per-row positions (batched
     decode: row b writes at its own offset).  With ring=True the index
     wraps (sliding-window cache).  A float ``new`` goes into an int8
-    cache as the reference converts it (``cast_to``)."""
+    cache as the reference converts it (``cast_to``).  The index stays
+    on the device (a 0-d one as a one-element index of ``index_copy_``),
+    so no host read of pos keeps a decode out of a CUDA graph."""
     S = cache.shape[1]
     idx = pos % S if ring else pos
     if pos.dim():
         rows = torch.arange(cache.shape[0], device=cache.device)
         cache[rows, idx] = cast_to(new[:, 0], cache.dtype)
     else:
-        i = int(idx)
-        cache[:, i:i + 1] = cast_to(new, cache.dtype)
+        cache.index_copy_(1, idx.reshape(1).to(torch.int64),
+                          cast_to(new, cache.dtype))
     return cache
 
 

@@ -1478,3 +1478,142 @@ def test_cuda_capture_of_a_host_sync_raises(card):
     entry = cache.entry(("extend", 16, False))
     assert entry is None or entry.graph is None
     torch.cuda.synchronize()
+
+
+# --------------------------------------------------------------------- #
+# the slot engine's CUDA graphs (core/graphs.py over the slot caches)
+# --------------------------------------------------------------------- #
+def _slot_executor(name, quant=False, device="cuda"):
+    """The reduced ``name``'s slot-engine executor on the card (seeded
+    weights), ``decode_batch`` 2: its slot caches and, on the card,
+    every slot's graphs made by ``init_slots``.  -> exe."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.executor import ModelExecutor
+    from repro_torch.core.service import LLMSConfig
+    from repro_torch.models.registry import build_model
+    cfg = reduced(get_config(name))
+    model = build_model(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    sc = LLMSConfig(paged_pool=False, max_ctx_len=64, decode_batch=2,
+                    quant_resident=quant)
+    exe = ModelExecutor(model, params, sc, device)
+    exe.init_slots()
+    return exe
+
+
+def _slot_calls(exe):
+    """On each decode slot: an extend (a bucket, or for a family that is
+    not pad_safe an exact length), two decode tokens; on the scratch
+    slot the extend_nod of a restore where the family recomputes, and
+    an extend.  -> the number of calls."""
+    rng = np.random.default_rng(3)
+    n = 0
+    for slot in range(exe.decode_slots):
+        cache = exe.fresh_cache(0, slot)
+        exe.extend(cache, rng.integers(1, 512, 13 + 11 * slot), 0)
+        for tok in rng.integers(1, 512, 2):
+            exe.decode(cache, int(tok))
+        n += 3
+    scratch = exe.fresh_cache(40, exe.scratch_slot)
+    if exe.recomputable and exe.chunked_cache:
+        pos = exe.bucket_pad(np.arange(16, 32, dtype=np.int32),
+                             exe.pad_slot)
+        exe.extend_nod(rng.integers(1, 512, len(pos)), pos, scratch, 40)
+        n += 1
+    exe.extend(scratch, rng.integers(1, 512, 9), 40)
+    return n + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,quant", [("llama2-7b", False),
+                                        ("llama2-7b", True),
+                                        ("deepseek-v2-lite-16b", False),
+                                        ("rwkv6-1.6b", False)])
+def test_cuda_slot_graph_replay_equals_eager_body(card, name, quant):
+    """Every slot's graphs are captured when the slots are made (a
+    family that is not pad_safe: its decode; its extends at their first
+    length); every slot call on the card is a replay, none runs eagerly,
+    and each graph replayed on its last staged inputs gives its eager
+    body's outputs and every slot-cache byte, bit for bit
+    (``chip_smoke.graph_check``)."""
+    exe = _slot_executor(name, quant)
+    ahead = {f"{e}/{b}/{quant}/{s}" for s in exe.slot_caches
+             for e, b in exe._slot_ahead(s)}
+    assert set(exe.graphs.stats()["captures"]) == ahead
+    n = _slot_calls(exe)
+    before = {s: {k: t.clone() for k, t in c.items()}
+              for s, c in exe.slot_caches.items()}
+    stats = _smoke().graph_check(exe, None, "test")
+    assert stats["calls"] == stats["replays"] == n
+    assert stats["eager_calls"] == 0
+    assert stats["late_captures"] == (0 if exe.pad_safe else 3)
+    for s, c in exe.slot_caches.items():       # the slots put back
+        for k, t in c.items():
+            assert torch.equal(t, before[s][k]), (s, k)
+
+
+@pytest.mark.cuda
+def test_cuda_slot_graph_replays_credit_launch_counts(card):
+    """A slot replay counts what its eager body counts: attn_density once
+    a layer an extend or extend_nod, decode_mqattn once a layer a decode
+    over the mixed cache; capture and warm-up count nothing."""
+    from repro_torch import kernels
+    exe = _slot_executor("llama2-7b", quant=True)
+    L = exe.n_layers
+    kernels.reset_launch_counts()
+    _slot_calls(exe)                   # 3 extends, 1 extend_nod, 4 tokens
+    got = kernels.launch_counts()
+    assert got["attn_density"] == 4 * L
+    assert got["attn_density_with_density"] == 3 * L
+    assert got["decode_mqattn"] == 4 * L
+    for key in exe.graphs.keys():
+        kernels.reset_launch_counts()
+        exe.graphs.entry(key).eager()
+        eager = {k: n for k, n in kernels.launch_counts().items() if n}
+        assert eager == exe.graphs.entry(key).launches, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["llama2-7b", "deepseek-v2-lite-16b",
+                                  "rwkv6-1.6b"])
+def test_cuda_slot_decode_replays_without_a_host_sync(card, name):
+    """A slot decode's replay (its inputs staged) does not synchronize
+    with the host: ``ring_update`` writes at the position on the
+    device."""
+    exe = _slot_executor(name)
+    cache = exe.fresh_cache(5, 0)
+    exe.decode(cache, 7)
+    entry = exe.graphs.entry(("decode", 1, False, 0))
+    entry.stage({"toks": np.int64([[9]])})
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        entry.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert int(cache["pos"]) == 7
+
+
+@pytest.mark.cuda
+def test_cuda_capture_is_not_broken_by_dropped_graphs(card):
+    """Graphs of a dropped executor that only the cyclic collector can
+    free are not collected inside another executor's capture (destroying
+    a graph while the stream captures invalidates the capture), however
+    often the collector runs."""
+    import gc
+    old = _slot_executor("llama2-7b")
+    old.cycle = old                # unreachable only through the collector
+    del old
+    threshold = gc.get_threshold()
+    gc.set_threshold(50, 1, 1)     # a full collection every 50 allocations
+    try:
+        exe = _slot_executor("llama2-7b")
+    finally:
+        gc.set_threshold(*threshold)
+    gc.collect()
+    assert sum(exe.graphs.stats()["captures"].values()) == sum(
+        len(exe._slot_ahead(s)) for s in exe.slot_caches)
+    cache = exe.fresh_cache(0, 0)
+    exe.extend(cache, np.arange(1, 14), 0)
+    assert exe.graphs.replays == 1

@@ -415,7 +415,9 @@ def test_slot_quant_resident_tokens_equal_force_dequant():
 def test_parked_slot_caches_are_never_shared():
     """decode_batch=2 on slot caches: each parked context keeps its own
     cache tensors, the exact-reuse switch-in hands back that same cache,
-    and an eviction (epoch change) makes the next switch-in rebuild."""
+    and an eviction (epoch change) makes the next switch-in rebuild,
+    into the context's own static slot cache (zeroed in place, so its
+    graphs' addresses hold)."""
     _, ts, cfg = services(policy="llms", paged_pool=False, decode_batch=2,
                           port_only=True)
     with ts:
@@ -431,9 +433,18 @@ def test_parked_slot_caches_are_never_shared():
             pass
         ts.finish_call(st)
         ts.res.epoch += 1
+        rebuilt, switch_in = [], ts.res.switch_in
+
+        def logged(ctx, slot=None):
+            rebuilt.append((ctx.cid, slot))
+            return switch_in(ctx, slot)
+
+        ts.res.switch_in = logged
         st = ts.begin_call(b, GenerationRequest(prompt=[4], max_new_tokens=1))
-        assert st.cache is not cb and st.cache["k"].data_ptr() != \
-            cb["k"].data_ptr()
+        assert rebuilt == [(b.ctx_id, st.slot)]
+        assert st.cache is cb and ts.exe.slot_of(cb) == st.slot
+        assert all(st.cache[n].data_ptr() != ca[n].data_ptr()
+                   for n in ("k", "v"))
         ts.finish_call(st)
 
 
