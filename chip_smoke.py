@@ -115,14 +115,23 @@ result line):
              cache); each run's tokens held against a no-pressure run
              call by call (first divergence and top-2 gap reported),
              switch_s over disk restores, the splits and each pipelined
-             restore's wall time and wait in LayerFeed.fetch reported.
+             restore's wall time and its gates' wait for the feed
+             reported; each pipelined restore is one replay of the
+             slot's graph (one per token bucket and I/O bucket, captured
+             when the service builds its slots), its gates launched once
+             a layer.
              Kernel launch counts are zeroed just before each run and
              read just after.  The first attn_density call of each shape
              and mask in a run is kept (inputs and result) and held
              against the plain version after the run (_SlotHooks, which
-             the MLA phase shares).  Then one full-width restore two ways
-             (pipelined against whole-file inserts + extend_nod), which
-             must agree bit for bit, window and mixed cache;
+             the MLA phase shares).  Then one full-width restore into a
+             slot through its graph, against whole-file inserts +
+             extend_nod and against the same body run eagerly on a
+             private clone, which must agree bit for bit, window and
+             mixed cache, with no implicit sync (pipelined_check); the
+             gate kernel (csrc/feed_gate.cu) is held against its plain
+             version for a published, a failed and a missing word and a
+             word published while it waits (gate_phase);
 3d. mla   — the earlier models freed, deepseek-v2-lite-16b at full
              width (27 layers, d 2048, 16 heads, rank 512 + rope 64, 64
              experts top-6 + 2 shared, vocab 102,400; random bf16
@@ -705,7 +714,8 @@ def _train_category(name: str) -> str:
 
 def _serve_category(name: str) -> str:
     """A kernel's category in a profiled serving step."""
-    return ("decode_mqattn" if any(t in name for t in MQ_KERNELS)
+    return ("feed_gate (waiting for the feed)" if "feed_gate" in name
+            else "decode_mqattn" if any(t in name for t in MQ_KERNELS)
             else "decode_qattn" if any(t in name for t in DQ_KERNELS)
             else "attn_density" if any(t in name for t in AD_KERNELS)
             else "indexing (page gather, scatter)" if "index" in name
@@ -1415,6 +1425,116 @@ def _dq_bound_ms(args, want_mass):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
+GATE = dict(layers=32, deadline_ms=20, publish_after_ms=50, iters=200)
+
+
+def gate_phase():
+    """The pipelined restore's gate (``csrc/feed_gate.cu``) against its
+    plain version (``kernels/ref.py::feed_gate_plain``) on the same
+    page-locked words (GATE["layers"] of them, llama2-7b's depth), each
+    published through the library's release store: a word at the gate's
+    generation (status 0), at its negative (1), at an older generation
+    past a GATE["deadline_ms"] deadline (2, the wait at least the
+    deadline), generation 0 on a zero word (a capture's warm-up: 0), a
+    status already set (the gate passes without waiting), and a word
+    published by another thread GATE["publish_after_ms"] after the gate
+    began to wait while this thread waits for the card (0, the wait
+    about that long: the card read the host's store, and the wait for
+    the card released the GIL).  Both must give the same status in
+    every case.  Times a gate on a published word by CUDA events over
+    GATE["iters"] launches beside the plain version's call.  -> the
+    cases and times."""
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.kernels import feed_gate as kfg
+    from repro_torch.kernels.ref import feed_gate_plain
+    L, gen = GATE["layers"], 7
+    flags = torch.zeros((L,), dtype=torch.int32, pin_memory=True)
+    publish = kfg.publisher(flags)
+
+    def gate(on_card, layer, g, deadline_ms, status0=0, later=None):
+        dev = "cuda" if on_card else "cpu"
+        status = torch.full((1,), status0, dtype=torch.int32, device=dev)
+        wait = torch.zeros((L,), dtype=torch.int64, device=dev)
+        args = (torch.tensor(g, dtype=torch.int32, device=dev),
+                torch.tensor(int(deadline_ms * 1e6), dtype=torch.int64,
+                             device=dev), status, wait)
+        torch.cuda.synchronize()
+        if later is not None:
+            t = threading.Timer(GATE["publish_after_ms"] / 1e3,
+                                publish, later)
+        t0 = time.perf_counter()
+        if later is not None:
+            t.start()
+        (kfg.feed_gate if on_card else feed_gate_plain)(flags, layer,
+                                                         *args)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        if later is not None:
+            t.join()
+        return {"status": int(status[0]), "wait_ms": int(wait[layer]) / 1e6,
+                "wall_ms": wall}
+
+    cases = {}
+    for name, layer, word, g, deadline, status0 in (
+            ("published", 3, gen, gen, 5000, 0),
+            ("failed", 4, -gen, gen, 5000, 0),
+            ("missing (an older generation)", 5, gen - 1, gen,
+             GATE["deadline_ms"], 0),
+            ("warm-up (generation 0)", 6, 0, 0, 0, 0),
+            ("status already set", 7, gen - 1, gen, 5000, 1)):
+        publish(layer, word)
+        cases[name] = {"kernel": gate(True, layer, g, deadline, status0),
+                       "plain": gate(False, layer, g, deadline, status0)}
+    for on_card in (True, False):
+        publish(8, gen - 1)
+        cases.setdefault("published while it waits", {})[
+            "kernel" if on_card else "plain"] = gate(
+                on_card, 8, gen, 5000, later=(8, gen))
+    want = {"published": 0, "failed": 1,
+            "missing (an older generation)": 2,
+            "warm-up (generation 0)": 0, "status already set": 1,
+            "published while it waits": 0}
+    for name, got in cases.items():
+        if not got["kernel"]["status"] == got["plain"]["status"] == \
+                want[name]:
+            raise AssertionError(f"[gate] {name}: status {got}, not "
+                                 f"{want[name]}")
+    late = cases["published while it waits"]["kernel"]["wait_ms"]
+    if not 0.5 * GATE["publish_after_ms"] <= late < 20 * \
+            GATE["publish_after_ms"]:
+        raise AssertionError(f"[gate] the word published while the kernel "
+                             f"waited: waited {late} ms")
+    if cases["missing (an older generation)"]["kernel"]["wait_ms"] < \
+            GATE["deadline_ms"]:
+        raise AssertionError("[gate] the missing word timed out early")
+    # a gate on a published word, launch after launch (CUDA events)
+    dev = torch.device("cuda")
+    status = torch.zeros((1,), dtype=torch.int32, device=dev)
+    wait = torch.zeros((L,), dtype=torch.int64, device=dev)
+    g = torch.tensor(gen, dtype=torch.int32, device=dev)
+    d = torch.tensor(5 * 10**9, dtype=torch.int64, device=dev)
+    kfg.feed_gate(flags, 3, g, d, status, wait)
+    ms = _event_ms(lambda: kfg.feed_gate(flags, 3, g, d, status, wait),
+                   GATE["iters"])
+    sc, wc = status.cpu(), wait.cpu()
+    t0 = time.perf_counter()
+    for _ in range(GATE["iters"]):
+        feed_gate_plain(flags, 3, gen, 5 * 10**9, sc, wc)
+    plain_ms = (time.perf_counter() - t0) * 1e3 / GATE["iters"]
+    out = {"cases": cases, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": 12 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "launches_made_here": kfg.feed_gate.launches}
+    log(f"[gate] csrc/feed_gate.cu against feed_gate_plain on the same "
+        f"page-locked words, statuses equal in every case: "
+        f"{json.dumps(cases)}; a gate on a published word {ms * 1e3:.2f} "
+        f"us a launch (CUDA events over {GATE['iters']}), the plain "
+        f"version {plain_ms * 1e3:.2f} us a call; bound (4 B read, 8 B "
+        f"written) {out['bound_ms'] * 1e3:.6f} us")
+    return out
+
+
 def qattn_phase():
     """decode_qattn against its plain version on the card, both forms,
     with and without the mass; identical reruns; timings."""
@@ -1658,17 +1778,31 @@ def graph_check(exe, arenas, label):
     try:
         for key in cache.keys():
             entry = cache.entry(key)
+            pipelined = key[0] == "pipelined"
             if not entry.calls and len(key) > 3:
-                entry.stage(_unserved_inputs(key))
+                entry.stage(_unserved_inputs(
+                    key, pipelined and entry.inputs["io_pos"].shape[0]))
+            if pipelined:
+                # every layer published at a new generation: the gates
+                # pass, and both runs read the rows the sink holds
+                sink = exe.feed_sink()
+                for layer in range(exe.n_layers):
+                    sink.publish(layer, sink.gen)
+                entry.inputs["gen"].fill_(sink.gen)
             got = [o.clone() for o in (entry.replay() if on_card
                                        else entry.eager())]
             after = {n: t.clone() for n, t in arenas.items()}
             for n, t in arenas.items():
                 t.copy_(saved[n])
             want = entry.eager()
+            # a pipelined restore's third output is its gates' waits
+            n_out = 2 if pipelined else len(want)
             bad = [f"output {i} ({where(a, b)})"
-                   for i, (a, b) in enumerate(zip(got, want))
+                   for i, (a, b) in enumerate(zip(got[:n_out],
+                                                  want[:n_out]))
                    if not _same_bytes(a, b)]
+            if pipelined and int(got[1][0]):
+                bad.append(f"gate status {int(got[1][0])}")
             bad += [f"{n} ({where(after[n], arenas[n])})" for n in arenas
                     if not same(n, after[n], arenas[n])]
             if bad:             # is the eager body itself repeatable here?
@@ -1697,15 +1831,24 @@ def graph_check(exe, arenas, label):
     return dict(stats, held=held)
 
 
-def _unserved_inputs(key):
+def _unserved_inputs(key, io_rows=0):
     """Host inputs of a call of the slot entry ``key`` = (name, n, quant,
     slot): for an extend or extend_nod n tokens 1 .. n at positions 0 ..
     n - 1 (``seq_len`` n, no pad row); for a decode token 1 at the slot's
-    position."""
+    position; for a pipelined restore at n = (m, I/O bucket) m tokens at
+    0 .. m - 1 and its ``io_rows`` fed rows after them (``seq_len`` m +
+    io_rows), the generation 0 (the caller sets it) and a 10 s gate
+    deadline."""
     import numpy as np
     name, n = key[:2]
     if name == "decode":
         return {"toks": np.ones((1, 1), np.int64)}
+    if name == "pipelined":
+        m = n[0]
+        return {"toks": np.arange(1, m + 1)[None], "miss": np.arange(m),
+                "io_pos": np.arange(m, m + io_rows),
+                "seq_len": np.int32(m + io_rows), "gen": np.int32(0),
+                "deadline_ns": np.int64(10 * 10**9)}
     host = {"toks": np.arange(1, n + 1)[None], "pos": np.arange(n),
             "seq_len": np.int32(n)}
     if name == "extend":
@@ -2546,9 +2689,11 @@ class _SlotHooks:
     """Hooks on one slot-engine ``LLMService`` that the slot and MLA
     phases share.  Per call (``begin``, then ``record``): the restore
     splits (chunks recomputed, read), each whole-state restore
-    (resident, read or recompute), each pipelined restore's wall and
-    fetch wait, the bytes read, and every greedy pick's logits row (on
-    the CPU).  Over the run: the recomputes (each ``extend``,
+    (resident, read or recompute), each pipelined restore's wall, its
+    gates' wait for the feed (that of layer 0 apart) and the swapper
+    jobs still pending when it started (an ahead-of-time write queued
+    before its feed delays the first layer), the bytes read, and every
+    greedy pick's logits row (on the CPU).  Over the run: the recomputes (each ``extend``,
     ``extend_nod`` and ``lmk`` whole recompute), the steps named in
     ``profile`` ("restore", "decode token", "recompute": an extend) each
     run once under the profiler after call ``profile_from``, and the
@@ -2591,8 +2736,11 @@ class _SlotHooks:
             return re_idx, io_idx
 
         def logged_pipe(*a, **k):
+            ahead = sum(not f.done() for f in
+                        list(res.swapper._pending.values()))
             out = profiled("restore", lambda: pipe(*a, **k))
-            now["pipelined"].append(dict(exe.last_pipelined))
+            now["pipelined"].append(dict(exe.last_pipelined,
+                                         jobs_ahead=ahead))
             return out
 
         def logged_whole(ctx, cache):
@@ -2655,8 +2803,12 @@ class _SlotHooks:
                "pipelined": list(now["pipelined"]),
                "whole": list(now["whole"]),
                "late_captures": self.graphs.late_captures - self.late0}
+        # a switch-in that brought swapped-out chunks back: read from disk
+        # or, where the Eq.-4 split chose it, recomputed (the split is
+        # made only for missing chunks), or a whole-state restore
         rec["disk_restore"] = bool(rec["restored_bytes"] > 0 or any(
-            w in ("read", "recompute") for w in rec["whole"]))
+            w in ("read", "recompute") for w in rec["whole"])
+            or rec["split"])
         self.records.append(rec)
         return rec
 
@@ -2685,11 +2837,16 @@ class _SlotHooks:
                 f"{[(len(a), len(b)) for a, b in splits]}")
         if pipes:
             walls = sorted(p["wall_s"] * 1e3 for p in pipes)
-            waits = sorted(p["fetch_wait_s"] * 1e3 for p in pipes)
+            waits = sorted(p["feed_wait_s"] * 1e3 for p in pipes)
+            first = sorted(p["first_wait_s"] * 1e3 for p in pipes)
             log(f"{name} {len(pipes)} pipelined restores: wall median "
                 f"{walls[len(walls) // 2]:.2f} ms (max {walls[-1]:.2f}), "
-                f"host blocked in fetch median {waits[len(waits) // 2]:.2f} "
-                f"ms (max {waits[-1]:.2f})")
+                f"the gates' wait for the feed median "
+                f"{waits[len(waits) // 2]:.2f} ms (max {waits[-1]:.2f}), "
+                f"layer 0's median {first[len(first) // 2]:.2f} ms (max "
+                f"{first[-1]:.2f}); {sum(p['jobs_ahead'] > 0 for p in pipes)}"
+                f" started with swapper jobs pending "
+                f"({[p['jobs_ahead'] for p in pipes]})")
         for kind, p in self.prof.items():
             log(f"{name} one {kind} under the profiler: {json.dumps(p)}")
         checked = self.kernels.check()
@@ -2701,8 +2858,10 @@ class _SlotHooks:
 
 def _slot_gates(name, hooks, launches, on_card, full_budget, codec):
     """The gates the slot and MLA phases share: every call gave its 8
-    tokens; at the phase's own budget at least two restores read the
-    disk (or, under lmk, recomputed a killed context); attn_density ran,
+    tokens; at the phase's own budget at least two restores brought
+    swapped-out chunks back (read from disk, or recomputed where the
+    Eq.-4 split chose it; under lmk, recomputed a killed context);
+    attn_density ran,
     and each shape it ran at was checked; where ``codec``, both codec
     kernels ran; decode_qattn never ran (a slot cache holds no all-int8
     layout)."""
@@ -2710,9 +2869,9 @@ def _slot_gates(name, hooks, launches, on_card, full_budget, codec):
         raise AssertionError(f"{name} a call did not complete")
     n_disk = sum(r["disk_restore"] for r in hooks.records)
     if full_budget and n_disk < 2:
-        raise AssertionError(f"{name} {n_disk} restores from disk (or, "
-                             f"under lmk, recomputes of a killed context), "
-                             f"not >= 2")
+        raise AssertionError(f"{name} {n_disk} restores of swapped-out "
+                             f"chunks (or, under lmk, recomputes of a "
+                             f"killed context), not >= 2")
     if on_card and not (launches["attn_density"]
                         and hooks.kernels.ran("attn_density")):
         raise AssertionError(f"{name} attn_density never ran")
@@ -2789,8 +2948,8 @@ def slot_phase(model, params, seed, swap_root, label, policy="llms",
                 switch_s=svc.records[-1]["switch_s"], wall_s=wall,
                 attn_density_launches=kad.attn_density.launches - ad0,
                 mqattn_launches=kmq.decode_mqattn.launches - mq0)
-            pl = ", ".join(f"{p['wall_s'] * 1e3:.1f} ms (fetch wait "
-                           f"{p['fetch_wait_s'] * 1e3:.1f} ms)"
+            pl = ", ".join(f"{p['wall_s'] * 1e3:.1f} ms (gates waited "
+                           f"{p['feed_wait_s'] * 1e3:.1f} ms)"
                            for p in rec["pipelined"])
             log(f"{name} call {i:2d} ctx {c} prompt {len(prompt)} -> "
                 f"{len(toks)} tokens | switch {rec['switch_s'] * 1e3:.3f} ms "
@@ -2823,6 +2982,12 @@ def slot_phase(model, params, seed, swap_root, label, policy="llms",
     if split == "forced" and sc.use_pipeline and budget_chunks == \
             SLOT["budget_chunks"] and not pipes:
         raise AssertionError(f"{name} no pipelined restore ran")
+    # each pipelined restore replayed its graph, whose gates count once
+    # a layer (graph_check: replays = calls, no eager slot call)
+    if on_card and launches["feed_gate"] != cfg.n_layers * len(pipes):
+        raise AssertionError(f"{name} {launches['feed_gate']} feed_gate "
+                             f"launches for {len(pipes)} pipelined "
+                             f"restores of {cfg.n_layers} layers")
     out = {"records": hooks.records, "launches": launches, "stats": stats,
            "run_s": run_s, "profile": used_profile, "picks": hooks.picks,
            "graphs": graphs, "peak_bytes": peak, "prof": hooks.prof,
@@ -2897,21 +3062,27 @@ def _slot_divergence(run, base):
 
 
 def pipelined_check(model, params, swap_root, quant_resident=False):
-    """One restore at full width, two ways, from the same prefilled
+    """One restore at full width, three ways, from the same prefilled
     cache (128 tokens; chunk 7 resident, as int8 segments in the mixed
     cache): chunks SLOT["io"] from chunk files (at SLOT["io_bits"]) and
-    SLOT["recompute"] recomputed.  The layer-pipelined restore
-    (``run_pipelined`` over a ``LayerFeed``) must equal the whole-file
-    inserts followed by ``extend_nod`` bit for bit over every context
-    position, the quant mask and the recomputed rows' hidden state too.  Then the pipelined restore once
-    more under the profiler.  -> its wall time, host wait in fetch,
-    attn_density launches and the profile."""
+    SLOT["recompute"] recomputed.  The layer-pipelined restore into slot
+    0 (``run_pipelined`` over the executor's ``layer_feed``: on the card
+    one replay of the slot's graph, its gates waiting on the device for
+    the feed) must equal the whole-file inserts followed by the
+    ``extend_nod`` graph on the scratch slot, and the same pipelined
+    body run eagerly on a private clone, bit for bit over every context
+    position, the quant mask and the recomputed rows' hidden state too,
+    with no implicit sync inside the graphed restore, one replay, L
+    attn_density and L feed_gate launches.  Then the graphed restore
+    once more under the profiler.  -> its wall time (from the feed's
+    start too), the gates' wait, each side alone, the launches and the
+    profile."""
     import numpy as np
     import torch
-    from repro_torch.core.restore import (LayerFeed, read_chunk_file,
-                                          write_chunk_file)
+    from repro_torch.core.restore import read_chunk_file, write_chunk_file
     from repro_torch.core.service import LLMService, LLMSConfig
     from repro_torch.kernels import attn_density as kad
+    from repro_torch.kernels import feed_gate as kfg
     cfg, device = model.cfg, model.device
     on_card = device.type == "cuda"
     what = f"[slot] pipelined restore{' (mixed cache)' if quant_resident else ''}"
@@ -2946,56 +3117,75 @@ def pipelined_check(model, params, swap_root, quant_resident=False):
         miss_b = exe.bucket_pad(exe.chunk_positions(re_idx), exe.pad_slot)
         toks_b = exe.bucket_pad(toks[exe.chunk_positions(re_idx)], 0)
         nio_b = next(x for x in exe.io_buckets if x >= len(io_idx))
+        pad = nio_b - len(io_idx)
         io_pos_b = np.concatenate(
             [exe.chunk_positions(io_idx),
-             np.full((nio_b - len(io_idx)) * cs, exe.pad_slot, np.int32)])
+             np.full(pad * cs, exe.pad_slot, np.int32)])
+        key = ("pipelined", (len(toks_b), nio_b), quant_resident, 0)
 
-        def holes():
+        def holes(slot=None):
             c = {k: v.clone() for k, v in full.items()}
             for k in exe.codec.leaves:
                 c[k][:, :, restored] = 0
-            return c
+            if slot is None:
+                return c
+            cache = exe.fresh_cache(0, slot)
+            for k, t in cache.items():
+                t.copy_(c[k])
+            return cache
 
         def pipelined(cache):
-            feed = LayerFeed(paths, exe.codec.leaves, exe.n_layers, cs,
-                             exe.leaf_dims, pad_chunks=nio_b - len(io_idx),
-                             alloc=exe.host_alloc)
+            t0 = time.perf_counter()
+            feed = exe.layer_feed(paths, pad)
             _, hidden = exe.run_pipelined(feed, toks_b, miss_b, io_pos_b,
                                           cache, n)
             feed.close()
+            out["restore_s"] = time.perf_counter() - t0
             return cache, hidden
 
-        kad.reset_launches()
-        a = holes()
+        a = holes(0)
         exe.sync()
+        _zero_launches()
+        g0, e0 = dict(exe.graphs.stats()), exe.eager_calls
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            if on_card:             # report implicit syncs of the loop
+            if on_card:             # report implicit syncs of the restore
                 torch.cuda.set_sync_debug_mode("warn")
             try:
                 _, h_a = pipelined(a)
             finally:
                 if on_card:
                     torch.cuda.set_sync_debug_mode("default")
-        # each implicit sync the loop made, where (file:line) and how often
+        g1 = exe.graphs.stats()
+        # each implicit sync the restore made, where (file:line), how often
+        # (setting the mode warns once that it is a prototype: not a sync)
         out["sync_warnings"] = {}
         for w in caught:
-            key = (f"{os.path.basename(w.filename)}:{w.lineno}: "
-                   f"{str(w.message).splitlines()[0][:60]}")
-            out["sync_warnings"][key] = out["sync_warnings"].get(key, 0) + 1
+            if "prototype feature" in str(w.message):
+                continue
+            wkey = (f"{os.path.basename(w.filename)}:{w.lineno}: "
+                    f"{str(w.message).splitlines()[0][:60]}")
+            out["sync_warnings"][wkey] = out["sync_warnings"].get(wkey, 0) + 1
         out["attn_density_launches"] = kad.attn_density.launches
+        out["feed_gate_launches"] = kfg.feed_gate.launches
+        out["graph"] = {"key": "/".join(map(str, key)),
+                        "calls": g1["calls"] - g0["calls"],
+                        "replays": g1["replays"] - g0["replays"],
+                        "eager_calls": exe.eager_calls - e0,
+                        "captured": "/".join(map(str, key))
+                        in g1["captures"],
+                        "pipelined_captures_ahead": g1["by_entry"].get(
+                            "pipelined", {})}
         out.update(exe.last_pipelined)
         # each side alone: the feed with no compute, then the inserts and
-        # the recompute with no feed (the I/O-then-recompute restore)
+        # the recompute (the scratch slot's extend_nod graph) with no feed
         t0 = time.perf_counter()
-        feed = LayerFeed(paths, exe.codec.leaves, exe.n_layers, cs,
-                         exe.leaf_dims, pad_chunks=nio_b - len(io_idx),
-                         alloc=exe.host_alloc)
+        feed = exe.layer_feed(paths, pad)
         for layer in range(exe.n_layers):
             feed.fetch(layer)
         feed.close()
         out["feed_alone_s"] = time.perf_counter() - t0
-        b = holes()
+        b = holes(exe.scratch_slot)
         exe.sync()
         t0 = time.perf_counter()
         for i, p in zip(io_idx, paths):
@@ -3007,45 +3197,147 @@ def pipelined_check(model, params, swap_root, quant_resident=False):
         _, h_b, _ = exe.extend_nod(toks_b, miss_b, b, n)
         exe.sync()
         out["recompute_alone_s"] = time.perf_counter() - t0
-        if not torch.equal(h_a, h_b):
-            raise AssertionError(f"{what}: the recomputed rows' hidden "
-                                 f"state differs from the I/O-then-"
-                                 f"recompute restore's")
-        for k in exe.codec.leaves:
-            if not torch.equal(a[k][:, :, :n], b[k][:, :, :n]):
-                d = float((a[k][:, :, :n].float()
-                           - b[k][:, :, :n].float()).abs().max())
-                raise AssertionError(f"{what}: leaf {k} differs from the "
-                                     f"I/O-then-recompute restore (max "
-                                     f"|diff| {d})")
-        if quant_resident and not torch.equal(a["quant_mask"],
-                                              b["quant_mask"]):
-            raise AssertionError(f"{what}: the quant masks differ")
+        # the same body eagerly on a private clone (the gates on the card
+        # too, while the host queues the rest of the restore)
+        c = holes()
+        e1 = exe.eager_calls
+        feed = exe.layer_feed(paths, pad)
+        _, h_c = exe.run_pipelined(feed, toks_b, miss_b, io_pos_b, c, n)
+        feed.close()
+        out["eager_wall_s"] = exe.last_pipelined["wall_s"]
+        out["eager_feed_wait_s"] = exe.last_pipelined["feed_wait_s"]
+        if exe.eager_calls != e1 + 1:
+            raise AssertionError(f"{what}: the private clone's restore did "
+                                 f"not run eagerly")
+        for other, h, label in ((b, h_b, "the I/O-then-recompute restore"),
+                                (c, h_c, "the eager body on a private "
+                                         "clone")):
+            if not torch.equal(h_a, h):
+                raise AssertionError(f"{what}: the recomputed rows' hidden "
+                                     f"state differs from {label}'s")
+            for k in exe.codec.leaves:
+                if not torch.equal(a[k][:, :, :n], other[k][:, :, :n]):
+                    d = float((a[k][:, :, :n].float()
+                               - other[k][:, :, :n].float()).abs().max())
+                    raise AssertionError(f"{what}: leaf {k} differs from "
+                                         f"{label} (max |diff| {d})")
+            if quant_resident and not torch.equal(a["quant_mask"],
+                                                  other["quant_mask"]):
+                raise AssertionError(f"{what}: the quant masks differ from "
+                                     f"{label}'s")
         if on_card:
-            c = holes()
-            (c, _), out["profile"] = _profile_round(lambda: pipelined(c))
+            snap = {k: t.clone() for k, t in a.items()}
+            holes(0)
+            first_s = out["restore_s"]
+            (_, _), out["profile"] = _profile_round(
+                lambda: pipelined(exe.slot_caches[0]), top=8)
+            out["restore_s"] = first_s
+            prof = out["profile"]
+            out["profile"]["device_ms_without_gates"] = prof["device_ms"] - \
+                prof["by_category_ms"].get("feed_gate (waiting for the feed)",
+                                           0.0)
             out["profiled_wall_s"] = exe.last_pipelined["wall_s"]
-            if not all(torch.equal(c[k], a[k]) for k in exe.codec.leaves):
+            if not all(torch.equal(exe.slot_caches[0][k], snap[k])
+                       for k in exe.codec.leaves):
                 raise AssertionError(f"{what}: the profiled rerun differs")
-        if on_card and out["attn_density_launches"] != cfg.n_layers:
-            raise AssertionError(f"{what}: {out['attn_density_launches']} "
-                                 f"attn_density launches, not "
-                                 f"{cfg.n_layers}")
+            g = out["graph"]
+            if not (g["calls"] == g["replays"] == 1 and g["captured"]
+                    and not g["eager_calls"]):
+                raise AssertionError(f"{what}: not one replay of a graph "
+                                     f"captured ahead: {g}")
+            if out["sync_warnings"]:
+                raise AssertionError(f"{what}: implicit syncs in the graphed "
+                                     f"restore: {out['sync_warnings']}")
+            if out["attn_density_launches"] != cfg.n_layers or \
+                    out["feed_gate_launches"] != cfg.n_layers:
+                raise AssertionError(
+                    f"{what}: {out['attn_density_launches']} attn_density "
+                    f"and {out['feed_gate_launches']} feed_gate launches, "
+                    f"not {cfg.n_layers} each")
     log(f"{what}: chunks {io_idx} read at {SLOT['io_bits']} bits, "
         f"{re_idx} recomputed ({len(miss_b)} query rows incl. pads at "
-        f"{exe.pad_slot}), over S = {exe.s_work}: equal to the "
-        f"I/O-then-recompute restore bit for bit; wall "
-        f"{out['wall_s'] * 1e3:.2f} ms, host blocked in fetch "
-        f"{out['fetch_wait_s'] * 1e3:.2f} ms; alone: the feed "
+        f"{exe.pad_slot}), over S = {exe.s_work}, into slot 0 through "
+        f"graph {out['graph']}: equal to the I/O-then-recompute restore "
+        f"and to the eager body on a private clone bit for bit; wall "
+        f"{out['wall_s'] * 1e3:.2f} ms ({out['restore_s'] * 1e3:.2f} ms "
+        f"from the feed's start), the gates waited for the feed "
+        f"{out['feed_wait_s'] * 1e3:.2f} ms (layer 0 "
+        f"{out['first_wait_s'] * 1e3:.2f} ms); alone: the feed "
         f"{out['feed_alone_s'] * 1e3:.2f} ms, the whole-file inserts "
-        f"{out['inserts_s'] * 1e3:.2f} ms, the recompute "
-        f"{out['recompute_alone_s'] * 1e3:.2f} ms; implicit syncs in the "
+        f"{out['inserts_s'] * 1e3:.2f} ms, the recompute (graph) "
+        f"{out['recompute_alone_s'] * 1e3:.2f} ms; the eager body on a "
+        f"private clone {out['eager_wall_s'] * 1e3:.2f} ms (gates waited "
+        f"{out['eager_feed_wait_s'] * 1e3:.2f} ms); implicit syncs in the "
         f"restore {out['sync_warnings'] or 'none'}; attn_density launches "
-        f"{out['attn_density_launches']}; under the profiler "
+        f"{out['attn_density_launches']}, feed_gate "
+        f"{out['feed_gate_launches']}; under the profiler "
         f"{json.dumps(out.get('profile'))}")
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
+    return out
+
+
+def eager_entries_check(model, params, swap_root):
+    """The reference's jitted entries that stay eager in the port, each
+    once under the profiler at full width (llama2-7b, quant-resident;
+    a warm call first): the codec's ``insert`` / ``scatter`` /
+    ``scatter_quant`` and ``set_pos`` (the reference's ``setpos``) on a
+    slot cache, and the paged pool's ``admit16`` / ``admit8`` /
+    ``read16`` / ``zero16`` on one page.  -> {entry: its kernels, device
+    and wall ms}."""
+    import numpy as np
+    import torch
+    from repro_torch.core.service import LLMService, LLMSConfig
+    device = model.device
+    out = {}
+
+    def profiled(name, fn):
+        fn()
+        _, prof = _profile_round(fn)
+        out[name] = {k: prof[k] for k in ("kernels", "device_ms",
+                                          "wall_ms")}
+
+    kw = dict(policy="llms", max_ctx_len=SLOT["max_ctx"],
+              memory_budget=1 << 40, quant_resident=True)
+    with LLMService(model, params, LLMSConfig(
+            paged_pool=False, swap_dir=tempfile.mkdtemp(dir=swap_root),
+            **kw), device=device) as svc:
+        exe = svc.exe
+        cs, hd = exe.cs, exe.leaf_dims["k"][-1]
+        cache = exe.fresh_cache(0, 0)
+        blocks = exe.codec.extract(cache, 0, cs)
+        pos = exe._t(exe.chunk_positions([1]))
+        F = blocks["k"].shape[1]
+        codes = {n: torch.zeros((cs, F), dtype=torch.int8, device=device)
+                 for n in exe.codec.leaves}
+        scales = {n: torch.ones((cs, F // hd), dtype=torch.float32,
+                                device=device) for n in exe.codec.leaves}
+        profiled("insert", lambda: exe.codec.insert(cache, cs, blocks))
+        profiled("scatter", lambda: exe.codec.scatter(cache, pos, blocks))
+        profiled("scatter_quant", lambda: exe.codec.scatter_quant(
+            cache, pos, codes, scales))
+        profiled("setpos", lambda: exe.set_pos(cache, 5))
+    with LLMService(model, params, LLMSConfig(
+            paged_pool=True, pool_pages_16=8, pool_pages_8=8,
+            swap_dir=tempfile.mkdtemp(dir=swap_root), **kw),
+            device=device) as svc:
+        exe, pool = svc.exe, svc.res.pool
+        host = {n: (np.zeros((cs, F), np.int8),
+                    np.ones((cs, F // hd), np.float32))
+                for n in exe.codec.leaves}
+        rows = exe.read16(pool.arenas, 1)
+        profiled("admit16", lambda: exe.admit16(pool.arenas, 1, rows))
+        profiled("admit8", lambda: exe.admit8(
+            pool.arenas, 1, {n: c for n, (c, _) in host.items()},
+            {n: s for n, (_, s) in host.items()}))
+        profiled("read16", lambda: exe.read16(pool.arenas, 1))
+        profiled("zero16", lambda: exe.zero16(pool.arenas, 1))
+    log(f"[eager] the reference's jitted entries the port runs eagerly, "
+        f"one call each under the profiler (kernels, device ms, wall ms): "
+        f"{json.dumps(out)}")
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -6121,10 +6413,11 @@ def _new_family_launches(encdec, rglru, key):
 
 def _slot_graph_summary(slots, mla, rwkv, moe, zoo):
     """Log, for the slot engines' phases, the graphs captured ahead and
-    at a key's first call, their seconds and the pool's bytes, summed
-    over each phase's services; and the figures the slot graphs should
-    move: each run's per-call wall median and the profiled decode
-    token's wall, busy and idle share."""
+    at a key's first call, their seconds (also by entry: the pipelined
+    restores' apart) and the pool's bytes, summed over each phase's
+    services; and the figures the slot graphs should move: each run's
+    per-call wall median and the profiled decode token's wall, busy and
+    idle share."""
     out = {}
     for tag, phase in (("slot", slots), ("mla", mla), ("rwkv", rwkv),
                        ("moe", moe)):
@@ -6138,6 +6431,12 @@ def _slot_graph_summary(slots, mla, rwkv, moe, zoo):
             "pool_bytes_max": max(g["pool_bytes"] for g in gs),
             "peak_reserved_max": max((v["peak_bytes"] or {}).get(
                 "reserved", 0) for v in phase.values()),
+            "by_entry": {e: {k: sum(g["by_entry"].get(e, {}).get(k, 0)
+                                    for g in gs)
+                             for k in ("captures", "capture_s",
+                                       "late_captures")}
+                         for e in sorted({e for g in gs
+                                          for e in g["by_entry"]})},
             "call_ms_median": {k: _median_of(v) for k, v in phase.items()},
             "decode_token": {k: {m: v["prof"]["decode token"].get(m)
                                  for m in ("wall_ms", "device_ms",
@@ -6187,6 +6486,7 @@ def main() -> int:
     ad_err, ad_times = attn_phase()
     st_err, st_row = stats_phase()
     dq_err, dq_times = qattn_phase()
+    gate_phase()
     from repro_torch.configs import get_config
     model, params = build_weights(get_config("llama2-7b"), SEED)
     runs = {}
@@ -6230,6 +6530,7 @@ def main() -> int:
                                     quant_resident=True, split="forced")
         checks = [pipelined_check(model, params, root, quant_resident=q)
                   for q in (False, True)]
+        eager_entries_check(model, params, root)
     _same_slot_run(slots["llms"], slots["llms-rerun"],
                    "llms (the card's profile)")
     for label, run in slots.items():
@@ -6433,9 +6734,11 @@ def main() -> int:
             "launches": launches, "max_abs_err": err,
             "pipelined_restore_full_width": {
                 k: [c.get(k) for c in checks] for k in (
-                    "wall_s", "fetch_wait_s", "feed_alone_s",
-                    "inserts_s", "recompute_alone_s", "sync_warnings",
-                    "attn_density_launches", "profile")},
+                    "wall_s", "restore_s", "feed_wait_s", "first_wait_s",
+                    "feed_alone_s", "inserts_s", "recompute_alone_s",
+                    "eager_wall_s", "sync_warnings", "graph",
+                    "attn_density_launches", "feed_gate_launches",
+                    "profile")},
             "ms": _device_or_call(row, ""),
             "plain_ms": _device_or_call(row, "plain_"),
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -14,9 +14,11 @@ token/batch/I-O buckets, and two engines over the same model entries.
   the model returns anew (``pos``, ``quant_mask``) back into the
   slot's, so a slot keeps its addresses.  ``run_pipelined`` runs the
   paper's Fig.-8 restore (``DenseModel.recompute_pipelined``) into a
-  slot in place: a Python layer loop that takes layer l of the disk
-  chunks from a ``restore.LayerFeed`` while the feed's I/O thread reads
-  layer l + 1.
+  slot in place: one replay whose layer l waits on the device
+  (``kernels/feed_gate.py``) until the ``restore.LayerFeed``'s I/O
+  thread has published layer l of the disk chunks in the executor's
+  page-locked sink (``feed_sink``), then copies those rows in, while
+  the thread reads layer l + 1.
 * **The paged pool**: ``paged_extend`` / ``paged_decode`` over the
   global page arenas, and the page admit/read/zero helpers.
 
@@ -30,11 +32,14 @@ eagerly on the same buffers.  A cache that is no slot's (``fresh_cache``
 without a slot: a private clone, for tests and tools) runs the same
 bodies eagerly, counted in ``eager_calls``.  The executor owns its
 graphs (they bake in its params', arenas' and slots' addresses), so no
-cache is shared across executors.  admit / read / zero, the codec's
-scatters and the pipelined restore stay eager.
+cache is shared across executors.  admit / read / zero and the codec's
+scatters stay eager.
 
 The pipelined restore needs no ``io_callback`` and no ``_ACTIVE_FEED``
-global: the feed is an argument.  The buckets stay all the same:
+global: the feed is an argument, and its rows reach the graph through
+static host buffers and one flag word a layer.  Its graphs are keyed
+by (``"pipelined"``, (token bucket, I/O chunk bucket), quant-resident,
+slot).  The buckets stay all the same:
 prefill positions are padded to ``pad_slot``, those padded query rows
 attend every valid key and enter the Eq.-1 density, and the density
 drives the Eq.-3 bit plan — so the port pads exactly as the reference
@@ -56,8 +61,20 @@ import numpy as np
 import torch
 
 from repro_torch.core.chunks import ChunkCodec, WholeStateCodec
+from repro_torch.core.faults import SwapTimeoutError
 from repro_torch.core.graphs import GraphCache, capturable
+from repro_torch.core.restore import FeedSink, LayerFeed, publish_plain
+from repro_torch.kernels import ops
 from repro_torch.models.kvspec import LAYOUT_MIXED, LAYOUT_WINDOW
+
+# The longest a pipelined restore's gate waits for its layer's rows
+# where the service sets no ``swap_deadline_s``: far above a layer's
+# read (milliseconds at full width), and it bounds how long the card
+# can wait for a feed thread that never publishes.
+PIPELINED_DEADLINE_S = 30.0
+# the chunk counts ``ResidencyEngine.profile_pipeline`` times a
+# recompute at (on the scratch slot, fed one pad I/O chunk)
+PROFILE_CHUNKS = (1, 2, 4)
 
 
 def _write_back(cache, new) -> None:
@@ -133,9 +150,17 @@ class ModelExecutor:
             self.leaf_shapes = {n: tuple(self._zero()[n].shape)
                                 for n in self.codec.leaves}
         self._pipelining = False
-        # the last pipelined restore: its wall time and the host time it
-        # spent blocked in LayerFeed.fetch
-        self.last_pipelined = {"wall_s": 0.0, "fetch_wait_s": 0.0}
+        # the pipelined restores' page-locked sink (_sink), the last
+        # generation handed out, and a timed-out restore's feed that may
+        # still write the sink
+        self._sink_state = None
+        self._gen = 0
+        self._stale_feed: Optional[LayerFeed] = None
+        # the last pipelined restore: its wall time, the time its gates
+        # waited for the feed (the device's wait for I/O) and layer 0's
+        # share of it
+        self.last_pipelined = {"wall_s": 0.0, "feed_wait_s": 0.0,
+                               "first_wait_s": 0.0}
 
         self.paged = (
             bool(getattr(cfg, "paged_pool", False))
@@ -236,19 +261,50 @@ class ModelExecutor:
         """The static slot caches made so far, by slot."""
         return dict(self._slots or {})
 
-    def _slot_ahead(self, slot: int) -> List[Tuple[str, int]]:
+    def _slot_ahead(self, slot: int) -> List[Tuple[str, object]]:
         """The entries captured ahead over a slot: ``decode`` (not on the
         scratch slot, which never decodes) and, where the family pads,
         ``extend`` at every token bucket, and ``extend_nod`` at every one
-        where restores recompute (``recomputable`` chunked caches).  A
-        family that is not ``pad_safe`` extends at exact lengths: those
-        graphs are captured at their first call."""
+        where restores recompute (``recomputable`` chunked caches); where
+        the policy and the family pipeline restores, ``pipelined`` at
+        every (token bucket, I/O bucket) pair a restore can take
+        (``_pipelined_pairs``), on the scratch slot at those that
+        ``profile_pipeline`` times.  A family that is not ``pad_safe``
+        extends at exact lengths: those graphs are captured at their
+        first call."""
         out = [] if slot == self.scratch_slot else [("decode", 1)]
         if self.pad_safe:
             out += [("extend", b) for b in self.tok_buckets]
             if self.recomputable and self.chunked_cache:
                 out += [("extend_nod", b) for b in self.tok_buckets]
+        if self.pipelines:
+            out += [("pipelined", p) for p in self._pipelined_pairs(slot)]
         return out
+
+    @property
+    def pipelines(self) -> bool:
+        """Restores run the Fig.-8 pipelined restore: the policy's
+        ``use_pipeline`` and the family's ``pipelined_restore``."""
+        return bool(getattr(self.cfg, "use_pipeline", False)
+                    and self.spec.pipelined_restore)
+
+    def _pipelined_pairs(self, slot: int) -> List[Tuple[int, int]]:
+        """The (token bucket, I/O chunk bucket) pairs of the pipelined
+        restores a slot takes.  A decode slot: every pair whose fewest
+        chunks fit the context (a token bucket b > 16 needs more than
+        the bucket below it in chunks; an I/O bucket n > 1 more than the
+        one below, 1 none: its pad chunk), which at ``max_ctx_len`` 256
+        leaves out (256, 16) only: 24 pairs.  The scratch slot: the
+        pairs ``profile_pipeline`` times, ``PROFILE_CHUNKS`` recomputed
+        chunks fed one pad I/O chunk."""
+        cs, n_chunks = self.cs, self.n_slots // self.cs
+        if slot == self.scratch_slot:
+            return sorted({(self.bucket_len(x * cs), 1)
+                           for x in PROFILE_CHUNKS if x * cs <= self.n_slots})
+        tb, ib = self.tok_buckets, self.io_buckets
+        return [(t, n) for i, t in enumerate(tb) for j, n in enumerate(ib)
+                if (tb[i - 1] // cs + 1 if i else 1)
+                + (ib[j - 1] + 1 if j else 0) <= n_chunks]
 
     def slot_of(self, cache) -> Optional[int]:
         """The slot whose static cache ``cache`` is (the same dict), or
@@ -283,11 +339,21 @@ class ModelExecutor:
         its cache key, its static inputs {name: (shape, dtype)} and the
         maker of its body.  ``extend`` and ``extend_nod`` take tokens,
         positions and ``seq_len``, ``extend`` also its last real row;
-        ``decode`` one token at the cache's ``pos``."""
+        ``decode`` one token at the cache's ``pos``; ``pipelined``, at
+        ``n`` = (token bucket, I/O chunk bucket), tokens, their
+        positions, the I/O rows' positions, ``seq_len``, the restore's
+        generation and the gates' deadline."""
         i64 = torch.int64
         if name == "decode":
             spec = {"toks": ((1, 1), i64)}
             make = lambda: self._decode_body(cache, slot=True)   # noqa: E731
+        elif name == "pipelined":
+            m, nio = n
+            spec = {"toks": ((1, m), i64), "miss": ((m,), i64),
+                    "io_pos": ((nio * self.cs,), i64),
+                    "seq_len": ((), torch.int32), "gen": ((), torch.int32),
+                    "deadline_ns": ((), i64)}
+            make = lambda: self._pipelined_body(cache, nio)      # noqa: E731
         else:
             spec = {"toks": ((1, n), i64), "pos": ((n,), i64),
                     "seq_len": ((), torch.int32)}
@@ -369,62 +435,171 @@ class ModelExecutor:
         return cache, logits[0], mass[0].astype(np.float64)
 
     def host_alloc(self, shape: Tuple[int, ...]) -> np.ndarray:
-        """A zeroed fp32 host buffer for ``LayerFeed`` to fill: page-
-        locked on the card, so that each layer's copy to the device is
-        asynchronous.  The array keeps its tensor alive (its base)."""
-        if self.device.type != "cuda":
-            return np.zeros(shape, np.float32)
-        return torch.zeros(shape, dtype=torch.float32,
-                           pin_memory=True).numpy()
+        """A zeroed fp32 host buffer for a sink-less ``LayerFeed`` to
+        fill.  Plain memory: ``run_pipelined`` relays such a feed's rows
+        into its page-locked sink, and a feed's thread makes no CUDA
+        call (the card may be waiting for it)."""
+        return np.zeros(shape, np.float32)
+
+    def _sink(self):
+        """The pipelined restores' static host side, made at first use:
+        per leaf an (L, largest I/O bucket x cs, *dims) fp32 buffer and
+        (L,) int32 flag words, page-locked on the card (the flags mapped
+        for it: checked here, outside any capture), with the feed's
+        ``publish`` and, on the card, page-locked buffers that take a
+        restore's status and waits back without a sync of their own."""
+        if self._sink_state is None:
+            on_card = self.device.type == "cuda"
+            L, rows = self.n_layers, self.io_buckets[-1] * self.cs
+            bufs = {n: torch.zeros((L, rows, *self.leaf_dims[n]),
+                                   dtype=torch.float32, pin_memory=on_card)
+                    for n in self.codec.leaves}
+            flags = torch.zeros((L,), dtype=torch.int32, pin_memory=on_card)
+            readback = None
+            if on_card:
+                from repro_torch.kernels import feed_gate as kfg
+                kfg.device_pointer(flags)
+                publish = kfg.publisher(flags)
+                readback = (torch.zeros((1,), dtype=torch.int32,
+                                        pin_memory=True),
+                            torch.zeros((L,), dtype=torch.int64,
+                                        pin_memory=True))
+            else:
+                publish = publish_plain(flags.numpy())
+            self._sink_state = {
+                "bufs": bufs, "flags": flags, "publish": publish,
+                "arrays": {n: t.numpy() for n, t in bufs.items()},
+                "readback": readback}
+        return self._sink_state
+
+    @property
+    def _deadline_s(self) -> float:
+        return float(getattr(self.cfg, "swap_deadline_s", None)
+                     or PIPELINED_DEADLINE_S)
+
+    def feed_sink(self) -> FeedSink:
+        """The sink of the next pipelined restore: the executor's static
+        buffers and flags with a new generation (the warm-ups before a
+        capture run at generation 0, which the flags hold as made).  A
+        timed-out restore's feed that may still write the buffers is
+        waited for first, up to the deadline (``SwapTimeoutError``)."""
+        stale = self._stale_feed
+        if stale is not None:
+            if not stale.wait(self._deadline_s):
+                raise SwapTimeoutError(
+                    "a timed-out pipelined restore's feed still writes the "
+                    f"executor's sink after {self._deadline_s}s")
+            self._stale_feed = None
+        st = self._sink()
+        self._gen += 1
+        return FeedSink(st["arrays"], st["flags"].numpy(), self._gen,
+                        st["publish"])
+
+    def layer_feed(self, paths: Sequence[str], pad_chunks: int = 0,
+                   pool=None) -> LayerFeed:
+        """A ``LayerFeed`` of the chunk files ``paths`` (+ ``pad_chunks``
+        zero chunks) that writes into this executor's sink
+        (``feed_sink``), for ``run_pipelined``."""
+        return LayerFeed(paths, self.codec.leaves, self.n_layers, self.cs,
+                         self.leaf_dims, pad_chunks=pad_chunks, pool=pool,
+                         sink=self.feed_sink())
 
     def run_pipelined(self, feed, toks_b, miss_b, io_pos_b, cache,
                       n_total: int):
         """The Fig.-8 layer-pipelined restore into ``cache`` (in place):
         recompute ``toks_b`` at ``miss_b`` while ``feed`` streams the
-        disk chunks' layers for ``io_pos_b``.  The host blocks only in
-        ``feed.fetch``; each layer's arrays go to the device from the
-        feed's (page-locked, ``host_alloc``) buffers without blocking,
-        and those buffers stay alive until the restore has synchronized.
-        Not re-entrant.  The leaves the model makes anew (a mixed
-        cache's ``quant_mask``) are copied into the cache's own tensors,
-        so a slot keeps its graphs' addresses.  On failure the feed is
-        closed (its I/O error swallowed: the caller sees the failure
-        that stopped the loop) and the exception propagates; layers
-        before the failing one are already written.  Records wall and fetch-wait seconds in
-        ``last_pipelined``.  -> (cache, hidden (1, M, d) of the
-        recomputed rows)."""
+        disk chunks' layers for ``io_pos_b``.  On a slot's cache it is
+        one replay of the slot's graph at (token bucket, I/O bucket);
+        each layer's gate waits on the device for the feed's rows in the
+        executor's sink (a feed made by ``layer_feed``; another feed is
+        relayed into the sink, ``LayerFeed.attach``), so the host waits
+        only once, in the sync after the replay, which releases the GIL
+        for the feed's thread.  On the CPU, or on a private cache, the
+        same body runs eagerly (``eager_calls`` for the latter).  Not
+        re-entrant.  A feed that failed (status 1) is closed and raises
+        ``RuntimeError("LayerFeed I/O failed")`` from its error; one that
+        published nothing within the deadline (``swap_deadline_s``, else
+        ``PIPELINED_DEADLINE_S``, a layer; status 2) is cancelled and
+        raises ``SwapTimeoutError``.  Either way every layer ran with the
+        rows the sink held, so the caller rewrites every position the
+        restore touched, and a mixed cache's quant mask is left as it
+        was.  Any other failure closes the feed (its I/O error
+        swallowed) and propagates.  Records the wall time, the gates'
+        summed wait and layer 0's in ``last_pipelined``.  -> (cache, hidden (1, M, d)
+        of the recomputed rows)."""
         if self._pipelining:
             raise RuntimeError("re-entrant pipelined restore")
         self._pipelining = True
-        dev = self.device
-        wait = [0.0]
-        held = []                     # each layer's buffers, until sync
-
-        def fetch(layer: int):
-            t0 = time.perf_counter()
-            got = feed.fetch(layer)
-            wait[0] += time.perf_counter() - t0
-            held.append(got)
-            return {n: torch.from_numpy(a).to(dev, non_blocking=True)
-                    for n, a in got.items()}
-
-        t0 = time.perf_counter()
         try:
-            new, hidden, _ = self.model.recompute_pipelined(
-                self.params, self._t(toks_b)[None], self._t(miss_b),
-                self._t(io_pos_b), dict(cache), int(n_total), fetch,
-                want_density=False, **self._cw)
-            _write_back(cache, new)       # a slot keeps its tensors
+            st = self._sink()
+            if feed.sink is None:
+                feed.attach(self.feed_sink())
+            elif feed.sink.bufs is not st["arrays"]:
+                raise ValueError("run_pipelined: the feed writes into "
+                                 "another executor's sink")
+            host = {"toks": np.asarray(toks_b)[None], "miss": miss_b,
+                    "io_pos": io_pos_b, "seq_len": np.int32(n_total),
+                    "gen": np.int32(feed.sink.gen),
+                    "deadline_ns": np.int64(self._deadline_s * 1e9)}
+            n = (len(toks_b), len(io_pos_b) // self.cs)
+            t0 = time.perf_counter()
+            hidden, status, wait = self._slot_call(
+                cache, "pipelined", n, host, to_host=False)
+            if st["readback"] is not None:    # no sync of their own
+                st["readback"][0].copy_(status, non_blocking=True)
+                st["readback"][1].copy_(wait, non_blocking=True)
+                status, wait = st["readback"]
+            self.sync()
+            wall = time.perf_counter() - t0
+            code, waited, first = (int(status[0]), int(wait.sum()),
+                                   int(wait[0]))
         except BaseException:
             feed.close(raise_errors=False)
             raise
         finally:
-            self.sync()               # no copy may outlive its buffer
-            held.clear()
             self._pipelining = False
-        self.last_pipelined = {"wall_s": time.perf_counter() - t0,
-                               "fetch_wait_s": wait[0]}
+        if code == 2:
+            feed.cancel()
+            self._stale_feed = feed
+            raise SwapTimeoutError(
+                f"pipelined restore: a layer's rows were not published "
+                f"within {self._deadline_s}s")
+        if code:
+            feed.close(raise_errors=False)
+            raise RuntimeError("LayerFeed I/O failed") from feed.error
+        self.last_pipelined = {"wall_s": wall, "feed_wait_s": waited * 1e-9,
+                               "first_wait_s": first * 1e-9}
         return cache, hidden
+
+    def _pipelined_body(self, cache, nio: int):
+        """The pipelined restore's body over the slot cache ``cache`` at
+        ``nio`` I/O chunks: the model's ``recompute_pipelined`` whose
+        ``fetch(l)`` is layer l's gate (``ops.feed_gate``: on the card a
+        kernel that waits for the feed, on the CPU the plain gate),
+        then the copies of the sink's layer-l rows to the device,
+        without blocking; its new leaves written back.  -> (hidden (1,
+        M, d), status (1,) int32, wait_ns (L,) int64)."""
+        model, params, cw = self.model, self.params, self._cw
+        dev, L, rows = self.device, self.n_layers, nio * self.cs
+        st = self._sink()
+        bufs, flags = st["bufs"], st["flags"]
+
+        def body(inp):
+            status = torch.zeros((1,), dtype=torch.int32, device=dev)
+            wait = torch.zeros((L,), dtype=torch.int64, device=dev)
+
+            def fetch(layer):
+                ops.feed_gate(flags, layer, inp["gen"], inp["deadline_ns"],
+                              status, wait)
+                return {n: b[layer, :rows].to(dev, non_blocking=True)
+                        for n, b in bufs.items()}
+            new, hidden, _ = model.recompute_pipelined(
+                params, inp["toks"], inp["miss"], inp["io_pos"],
+                dict(cache), inp["seq_len"], fetch, want_density=False,
+                feed_status=status, **cw)
+            _write_back(cache, new)
+            return hidden, status, wait
+        return capturable(body)
 
     def logits(self, hidden: torch.Tensor) -> np.ndarray:
         return (hidden @ self.model.head_weight(self.params)

@@ -5,24 +5,29 @@ Counterpart of the JAX package's ``_JIT_CACHE`` (``core/executor.py``):
 the reference compiles ``paged_extend`` once per token bucket and
 ``paged_decode`` once per batch bucket, and the slot engine's
 ``extend`` / ``extend_nod`` once per token bucket (a family that is
-not ``pad_safe`` once per exact length) and ``decode`` once; each call
+not ``pad_safe`` once per exact length) and ``decode`` once, and the
+Fig.-8 restore (``recompute_pipelined``, whose layers take the disk
+rows through an ordered ``io_callback``) once per shape; each call
 runs one compiled program in which ``seq_len`` is a traced device
 scalar and the head product is the jitted ``logits_fn``.  Here a
 ``GraphEntry`` per key holds
 
 * static input buffers (tokens, positions, the page-table rows ``pt16``
-  / ``pt8``, ``qmask``, and the ``seq_len`` and last-row scalars), which
-  every call fills from its host arrays;
+  / ``pt8``, ``qmask``, and the ``seq_len`` and last-row scalars; a
+  pipelined restore's I/O positions, generation and gate deadline),
+  which every call fills from its host arrays;
 * the body, a plain function of those buffers, the params and the
   buffers the graph reads and writes in place (the paged pool's
   arenas, or one static slot cache), marked by ``capturable``;
 * on the card, the ``torch.cuda.CUDAGraph`` captured from the body;
 * the static outputs (logits and density or mass; an ``extend_nod``'s
-  hidden rows).
+  hidden rows; a pipelined restore's hidden rows and its gates' status
+  and waits).
 
 A key is (entry name, bucket or length, quant-resident) for the paged
 entries and (entry name, bucket or length, quant-resident, slot) for a
-slot cache's: the fields after the third name the buffers the graph
+slot cache's, a pipelined restore's bucket being (token bucket, I/O
+chunk bucket): the fields after the third name the buffers the graph
 was captured over (``binding``: () the arenas, (slot,) that slot's
 cache), since a graph bakes in their addresses.
 
@@ -82,7 +87,8 @@ quant-resident, and a slot index from ``SlotAllocator``), never
 their number is fixed by the executor's buckets and slots (a decode
 slot's decode and two entries a token bucket, the scratch slot's two
 a bucket: 21 at ``max_ctx_len`` 256 and ``decode_batch`` 1, 65 at
-``decode_batch`` 5), and an eviction would put a recapture of 0.1-1 s
+``decode_batch`` 5; where restores pipeline, 24 pipelined restores a
+decode slot and 3 on the scratch slot more: 48 and 188), and an eviction would put a recapture of 0.1-1 s
 into some call.  The entries made at first use (an exact-length
 family's extends; on the CPU every entry) are LRU-bounded as the
 reference's cache (``GRAPH_CACHE_MAX``).  A call with buffers other
@@ -264,6 +270,8 @@ class GraphCache:
         # captures at a key's first call rather than ahead
         self.late_captures = 0
         self.late_capture_s = 0.0
+        # entry name -> [captures, capture seconds, those at first call]
+        self._by_entry: Dict[str, list] = {}
 
     @property
     def on_card(self) -> bool:
@@ -329,9 +337,13 @@ class GraphCache:
             self.captures[key] = self.captures.get(key, 0) + 1
             self.capture_s += entry.capture_s
             self.pool_bytes += entry.pool_bytes
+            by = self._by_entry.setdefault(key[0], [0, 0.0, 0])
+            by[0] += 1
+            by[1] += entry.capture_s
             if not ahead:
                 self.late_captures += 1
                 self.late_capture_s += entry.capture_s
+                by[2] += 1
         if ahead:
             self._pinned.add(key)
         self._put(key, entry)
@@ -372,15 +384,19 @@ class GraphCache:
 
     def stats(self) -> Dict:
         """Calls, replays, captures by key (counted over the cache's
-        life), capture seconds, those at a key's first call, the pool
-        bytes the captures reserved, the entries held (pinned) and the
-        drops."""
+        life), capture seconds, those at a key's first call, the same
+        three by entry name, the pool bytes the captures reserved, the
+        entries held (pinned) and the drops."""
         return {"calls": self.calls, "replays": self.replays,
                 "captures": {"/".join(map(str, k)): n
                              for k, n in sorted(self.captures.items())},
                 "capture_s": self.capture_s,
                 "late_captures": self.late_captures,
                 "late_capture_s": self.late_capture_s,
+                "by_entry": {n: {"captures": c, "capture_s": t,
+                                 "late_captures": late}
+                             for n, (c, t, late) in
+                             sorted(self._by_entry.items())},
                 "pool_bytes": self.pool_bytes,
                 "entries": len(self._entries), "pinned": len(self._pinned),
                 "drops": self.drops}

@@ -46,13 +46,13 @@ from repro_torch.core import compression as comp
 from repro_torch.core.chunks import (ChunkMeta, CompressedChunk,
                                      QuantResidentChunk, block_shapes)
 from repro_torch.core.context_store import Context, ContextStore
-from repro_torch.core.executor import ModelExecutor
+from repro_torch.core.executor import PROFILE_CHUNKS, ModelExecutor
 from repro_torch.core.faults import (FAULTS, ChunkCorruptError, DiskFullError,
                                      SwapTimeoutError, with_retries)
 from repro_torch.core.lifecycle import LCTRUQueue, MemoryManager
 from repro_torch.core.pagepool import BF16, QUANT, PagePool
 from repro_torch.core.pipeline import PipelineProfile, fit_linear, plan_split
-from repro_torch.core.restore import (LayerFeed, read_chunk_file,
+from repro_torch.core.restore import (read_chunk_file,
                                       verify_chunk_file, write_chunk_file)
 from repro_torch.core.swap import AsyncSwapper, DiskStore
 
@@ -677,9 +677,11 @@ class ResidencyEngine:
     def _restore_pipelined(self, ctx: Context, cache, re_idx: List[int],
                            io_idx: List[int]):
         """The Fig. 8 layer-pipelined restore over a validated I/O set:
-        the feed's thread reads layer l + 1 of every I/O chunk (into
-        ``exe.host_alloc`` buffers) while layer l recomputes
-        ``re_idx``."""
+        the feed's thread (on the swapper's pool) writes layer l + 1 of
+        every I/O chunk into the executor's page-locked sink
+        (``exe.layer_feed``) while the card recomputes ``re_idx`` at
+        layer l, each layer's gate waiting on the device for its rows
+        (``exe.run_pipelined``: one graph replay on a slot's cache)."""
         exe = self.exe
         nio_b = next(x for x in exe.io_buckets
                      if x >= max(len(io_idx), 1))
@@ -691,9 +693,7 @@ class ResidencyEngine:
         miss_pos = self._feed_positions(ctx, re_idx)
         miss_b = exe.bucket_pad(miss_pos, exe.pad_slot)
         toks_b = exe.bucket_pad(ctx.tokens[miss_pos], 0)
-        feed = LayerFeed(paths, exe.codec.leaves, exe.n_layers,
-                         exe.cs, exe.leaf_dims, pad_chunks=pad_chunks,
-                         pool=self.swapper.pool, alloc=exe.host_alloc)
+        feed = exe.layer_feed(paths, pad_chunks, pool=self.swapper.pool)
         out, _ = exe.run_pipelined(feed, toks_b, miss_b, io_pos_b, cache,
                                    ctx.n_tokens)  # closes feed on failure
         feed.close()
@@ -1112,7 +1112,7 @@ class ResidencyEngine:
 
     # ------------------------------------------------------------------ #
     @requires_serialized
-    def profile_pipeline(self, n_points: Tuple[int, ...] = (1, 2, 4)):
+    def profile_pipeline(self, n_points: Tuple[int, ...] = PROFILE_CHUNKS):
         """Paper §3.3.i: one-shot installation-time profiling of T_re
         (recompute of x chunks into the scratch slot, as a restore runs
         it: ``_recompute_as_restored``) and T_IO (chunk-file reads)."""
@@ -1160,18 +1160,17 @@ class ResidencyEngine:
 
     def _recompute_as_restored(self, toks_b, pos_b, cache, n: int):
         """Recompute ``toks_b`` at ``pos_b`` into ``cache`` on the path a
-        restore's recompute set takes: the Fig.-8 layer loop
-        (``run_pipelined``, eager; fed one pad I/O chunk, no file) where
-        the policy and the family pipeline restores, else the
+        restore's recompute set takes: the Fig.-8 restore
+        (``run_pipelined``: on the scratch slot's cache, the graph
+        captured for this token bucket; fed one pad I/O chunk, no file)
+        where the policy and the family pipeline restores, else the
         ``extend_nod`` graph.  Timed by ``profile_pipeline``, so that the
         Eq.-4 split prices the recompute that will run."""
         exe = self.exe
-        if not (self.cfg.use_pipeline and exe.spec.pipelined_restore):
+        if not exe.pipelines:
             exe.extend_nod(toks_b, pos_b, cache, n)
             return
-        feed = LayerFeed([], exe.codec.leaves, exe.n_layers, exe.cs,
-                         exe.leaf_dims, pad_chunks=1,
-                         pool=self.swapper.pool, alloc=exe.host_alloc)
+        feed = exe.layer_feed([], pad_chunks=1, pool=self.swapper.pool)
         exe.run_pipelined(feed, toks_b, pos_b,
                           np.full(exe.cs, exe.pad_slot, np.int32), cache, n)
         feed.close()

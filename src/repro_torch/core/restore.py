@@ -7,8 +7,11 @@ whole-chunk-then-compute), chunk files are written in a **layer-major
 segmented format**: a pickled header + per-layer raw segments, so the
 I/O thread can stream layer l of every swapped chunk, dequantize it in
 numpy, and publish it while layer l-1 is still being recomputed.  The
-recompute's layer loop (``DenseModel.recompute_pipelined``) takes layer
-l's I/O data from ``LayerFeed.fetch``.
+executor's restore hands the feed a ``FeedSink``: the thread writes
+layer l's rows into the executor's static host buffers and publishes
+the restore's generation in a host word, on which the captured graph's
+gate for layer l waits on the device (``kernels/feed_gate.py``); the
+model-level API takes the rows from ``LayerFeed.fetch`` instead.
 
 Layout per chunk file:
     [preamble][u64 header_len][pickle header][layer 0 segment]...
@@ -29,6 +32,8 @@ import struct
 import threading
 import zlib
 from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import TimeoutError as _FutTimeout
+from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -315,14 +320,47 @@ def read_chunk_file(path: str):
 # --------------------------------------------------------------------- #
 # LayerFeed: the I/O thread publishing per-layer KV for the scan
 # --------------------------------------------------------------------- #
+def publish_plain(flags: np.ndarray) -> Callable[[int, int], None]:
+    """A sink's ``publish`` over host words that only the host reads
+    (the CPU): a plain store, ordered after the rows by the GIL."""
+    def publish(layer: int, word: int) -> None:
+        flags[layer] = word
+    return publish
+
+
+@dataclass(frozen=True)
+class FeedSink:
+    """Where a ``LayerFeed`` puts every layer's rows for a consumer that
+    cannot call it back (a captured CUDA graph): ``bufs`` leaf -> (L,
+    rows, *dims) fp32 host arrays (page-locked on the card), static
+    across restores; ``flags`` (L,) int32 host words; ``gen`` this
+    restore's generation.  After layer l's rows are written the feed
+    calls ``publish(l, gen)``, and ``publish(l, -gen)`` for every layer
+    it will not write.  A word of another generation means neither, so
+    no word is ever reset."""
+    bufs: Dict[str, np.ndarray]
+    flags: np.ndarray
+    gen: int
+    publish: Callable[[int, int], None]
+
+    @property
+    def rows(self) -> int:
+        return next(iter(self.bufs.values())).shape[1]
+
+
 class LayerFeed:
     """Streams layer-l KV of every I/O chunk, one layer ahead of compute.
 
     paths: chunk files in POSITION order; pad_chunks: extra zero chunks
-    appended so the assembled arrays match the I/O bucket size; alloc:
-    ``shape -> zeroed fp32 array`` for each layer's assembled arrays
-    (default ``np.zeros``; the executor passes page-locked buffers on
-    the card so that each layer's copy to the device is asynchronous).
+    appended so the assembled arrays match the I/O bucket size.  With a
+    ``sink`` (``ModelExecutor.layer_feed``) the thread writes layer l's
+    rows straight into ``sink.bufs[leaf][l]`` and publishes it there;
+    it then calls nothing of torch or CUDA (the card may be waiting for
+    it: a page-locked allocation could wait for the card in turn).
+    Without one, each layer's arrays come from ``alloc`` (``shape ->
+    zeroed fp32 array``, default ``np.zeros``), and ``attach`` can relay
+    them into a sink later.  ``fetch`` serves every layer to the host
+    either way.
     """
 
     def __init__(self, paths: Sequence[str], leaves: Sequence[str],
@@ -331,24 +369,41 @@ class LayerFeed:
                  pad_chunks: int = 0,
                  pool: Optional[ThreadPoolExecutor] = None,
                  alloc: Optional[Callable[[Tuple[int, ...]],
-                                          np.ndarray]] = None):
+                                          np.ndarray]] = None,
+                 sink: Optional[FeedSink] = None):
         self.paths = list(paths)
         self.leaves = list(leaves)
         self.n_layers = n_layers
         self.cs = chunk_tokens
         self.leaf_dims = leaf_dims          # leaf -> per-token dims e.g. (KV, hd)
         self.pad = pad_chunks
+        self.n_tok = (len(self.paths) + pad_chunks) * chunk_tokens
+        if sink is not None and self.n_tok > sink.rows:
+            raise ValueError(f"LayerFeed: {self.n_tok} rows a layer do not "
+                             f"fit the sink's {sink.rows}")
+        self.sink = sink
         self._alloc = alloc or (lambda shape: np.zeros(shape, np.float32))
         self._ready: List[Optional[Dict[str, np.ndarray]]] = \
             [None] * n_layers
         self._events = [threading.Event() for _ in range(n_layers)]
+        self._cancel = threading.Event()
         self._error: Optional[BaseException] = None
+        self._relay: Optional[threading.Thread] = None
         self._pool = pool or ThreadPoolExecutor(max_workers=1)
         self._own_pool = pool is None
         self._fut = self._pool.submit(self._run)
 
+    @property
+    def error(self) -> Optional[BaseException]:
+        """What stopped the feed (read after its layers' events)."""
+        return self._error
+
+    def _shape(self, name: str) -> Tuple[int, ...]:
+        return tuple(np.atleast_1d(self.leaf_dims[name]))
+
     def _run(self):
         files, headers, bases = [], [], []
+        sink, published = self.sink, 0
         try:
             for p in self.paths:
                 FAULTS.check("disk.read", p)
@@ -357,21 +412,28 @@ class LayerFeed:
                 files.append(f)
                 headers.append(h)
                 bases.append(b)
-            n_tok = (len(self.paths) + self.pad) * self.cs
+            n_real = len(self.paths) * self.cs
             for l in range(self.n_layers):
-                assembled = {
-                    name: self._alloc((n_tok,) + tuple(np.atleast_1d(
-                        self.leaf_dims[name])))
-                    for name in self.leaves}
+                if self._cancel.is_set():
+                    raise RuntimeError("LayerFeed cancelled")
+                if sink is None:
+                    assembled = {name: self._alloc((self.n_tok,)
+                                                   + self._shape(name))
+                                 for name in self.leaves}
+                else:
+                    assembled = {name: sink.bufs[name][l, :self.n_tok]
+                                 for name in self.leaves}
+                    for a in assembled.values():
+                        a[n_real:] = 0.0             # the pad chunks
                 for ci, (f, h, b) in enumerate(zip(files, headers, bases)):
                     got = read_chunk_layer(f, h, b, l)
                     for name in self.leaves:
                         blk = got[name]          # (T, Fl) layer-major slice
-                        shaped = blk.reshape(
-                            (self.cs,) + tuple(np.atleast_1d(
-                                self.leaf_dims[name])))
                         assembled[name][ci * self.cs:(ci + 1) * self.cs] = \
-                            shaped
+                            blk.reshape((self.cs,) + self._shape(name))
+                if sink is not None:
+                    sink.publish(l, sink.gen)
+                    published = l + 1
                 self._ready[l] = assembled
                 self._events[l].set()
         except BaseException as err:
@@ -380,6 +442,9 @@ class LayerFeed:
         finally:
             for f in files:
                 f.close()
+            if sink is not None:             # the gates stop waiting
+                for l in range(published, self.n_layers):
+                    sink.publish(l, -sink.gen)
             for e in self._events:           # unblock on failure
                 if not e.is_set():
                     e.set()
@@ -393,6 +458,58 @@ class LayerFeed:
         self._ready[l] = None                # free as consumed
         return out
 
+    def attach(self, sink: FeedSink) -> None:
+        """Relay a sink-less feed into ``sink``: a thread of its own
+        fetches each layer, copies its rows into ``sink.bufs[leaf][l]``
+        and publishes it (``-gen`` from the first layer it cannot
+        fetch).  Like the feed's, the relay's thread calls nothing of
+        torch or CUDA."""
+        if self.sink is not None:
+            raise ValueError("LayerFeed: already writes into a sink")
+        if self.n_tok > sink.rows:
+            raise ValueError(f"LayerFeed: {self.n_tok} rows a layer do not "
+                             f"fit the sink's {sink.rows}")
+        self.sink = sink
+        self._relay = threading.Thread(target=self._run_relay,
+                                       name="llms-feed-relay", daemon=True)
+        self._relay.start()
+
+    def _run_relay(self):
+        sink, published = self.sink, 0
+        try:
+            for l in range(self.n_layers):
+                got = self.fetch(l)
+                for name in self.leaves:
+                    sink.bufs[name][l, :self.n_tok] = got[name]
+                sink.publish(l, sink.gen)
+                published = l + 1
+        except BaseException as err:
+            if self._error is None:          # else fetch() chained it
+                self._error = err
+        finally:
+            for l in range(published, self.n_layers):
+                sink.publish(l, -sink.gen)
+
+    def cancel(self) -> None:
+        """Stop at the next layer without waiting (a restore that timed
+        out); the layers not yet published are published as failed."""
+        self._cancel.set()
+
+    def done(self) -> bool:
+        """Whether the feed's thread (and its relay) have ended."""
+        return self._fut.done() and (self._relay is None
+                                     or not self._relay.is_alive())
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        """Wait up to ``timeout`` seconds for ``done``.  -> done."""
+        try:
+            self._fut.exception(timeout)
+        except _FutTimeout:
+            return False
+        if self._relay is not None:
+            self._relay.join(timeout)
+        return self.done()
+
     def close(self, raise_errors: bool = True):
         try:
             self._fut.result()
@@ -400,5 +517,7 @@ class LayerFeed:
             if raise_errors:
                 raise
         finally:
+            if self._relay is not None:
+                self._relay.join()
             if self._own_pool:
                 self._pool.shutdown(wait=False)

@@ -14,13 +14,14 @@ def _wrappers():
     from repro_torch.kernels import chunk_quant
     from repro_torch.kernels import decode_mqattn as kmq
     from repro_torch.kernels import decode_qattn as kdq
-    return chunk_quant, kmq, kad, kdq
+    from repro_torch.kernels import feed_gate as kfg
+    return chunk_quant, kmq, kad, kdq, kfg
 
 
 def _counters():
     """name -> (the wrapper function that holds the count, its
     attribute)."""
-    chunk_quant, kmq, kad, kdq = _wrappers()
+    chunk_quant, kmq, kad, kdq, kfg = _wrappers()
     ad = kad.attn_density
     return {"quantize": (chunk_quant.quantize, "launches"),
             "dequantize": (chunk_quant.dequantize, "launches"),
@@ -30,14 +31,16 @@ def _counters():
             "attn_density_stats": (ad, "stats_launches"),
             "attn_flash": (ad, "flash_launches"),
             "attn_flash_with_density": (ad, "flash_density_launches"),
-            "decode_qattn": (kdq.decode_qattn, "launches")}
+            "decode_qattn": (kdq.decode_qattn, "launches"),
+            "feed_gate": (kfg.feed_gate, "launches")}
 
 
 def launch_counts() -> Dict[str, int]:
     """Each kernel's launches since its count was last reset (the
     attn_density launches with the density, with the row stats and
     through csrc/attn_flash.cu are counted among its launches and
-    apart)."""
+    apart; ``feed_gate`` is the pipelined restore's gate, no TPU
+    kernel's port)."""
     return {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
 
 

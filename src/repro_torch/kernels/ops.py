@@ -2,7 +2,8 @@
 
 Each op sends a CUDA tensor to its hand-written kernel
 (``kernels/chunk_quant.py``, ``kernels/attn_density.py``,
-``kernels/decode_mqattn.py``, ``kernels/decode_qattn.py``) and a CPU
+``kernels/decode_mqattn.py``, ``kernels/decode_qattn.py``,
+``kernels/feed_gate.py``) and a CPU
 tensor to the plain PyTorch version (``kernels/ref.py``).  There is no fallback: a CUDA call the
 kernel refuses raises, and any other device raises.
 """
@@ -123,3 +124,17 @@ def attn_density(q, k, v, q_pos, seq_len, window: int = 0, n_sinks: int = 0,
     return kad.attn_density(*c, q_pos.to(torch.int32).contiguous(),
                             seq_len, window, n_sinks, want_density,
                             form, return_stats)
+
+
+def feed_gate(flags, layer: int, gen, deadline_ns, status, wait_ns) -> None:
+    """The pipelined restore's gate for ``layer``: wait until the feed
+    has published ``gen`` in ``flags[layer]`` (host words), ``status``
+    1 if it published ``-gen``, 2 past ``deadline_ns``; the wait added
+    to ``wait_ns[layer]``.  On the card (``status`` a CUDA tensor) a
+    kernel waits on the device (``kernels/feed_gate.py``); on the CPU
+    ``kernels/ref.py::feed_gate_plain`` waits on the host."""
+    if _route(status) == "cpu":
+        return ref.feed_gate_plain(flags, layer, gen, deadline_ns, status,
+                                   wait_ns)
+    from repro_torch.kernels import feed_gate as kfg
+    return kfg.feed_gate(flags, layer, gen, deadline_ns, status, wait_ns)

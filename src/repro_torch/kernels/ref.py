@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's kernels (the semantics of record):
 the chunk codec, the decode-grid quantizer, extend attention with the
-Eq.-1 density (``attn_density``), and decode attention over a mixed
-(``decode_mqattn``) or an all-int8 (``decode_qattn``) cache.
+Eq.-1 density (``attn_density``), decode attention over a mixed
+(``decode_mqattn``) or an all-int8 (``decode_qattn``) cache, and the
+pipelined restore's gate (``feed_gate_plain``).
 
 The codec mirrors the JAX package's ``kernels/ref.py`` (``qmax_for``,
 ``quantize_ref``, ``dequantize_ref``) operation for operation, so the
@@ -21,15 +22,20 @@ two agree bit for bit in fp32 and bf16:
     group ``j`` of byte row ``r``.
 
 The CUDA kernels (``kernels/chunk_quant.py``, ``kernels/attn_density.py``,
-``kernels/decode_mqattn.py``, ``kernels/decode_qattn.py``) are held
+``kernels/decode_mqattn.py``, ``kernels/decode_qattn.py``,
+``kernels/feed_gate.py``) are held
 against these functions; ``kernels/ops.py`` sends CPU tensors here.
 """
 from __future__ import annotations
 
+import time
 from typing import Tuple
 
 import numpy as np
 import torch
+
+# the plain gate's pause between two reads of its word, seconds
+GATE_POLL_S = 50e-6
 
 
 def qmax_for(bits: int) -> int:
@@ -396,3 +402,35 @@ def attn_flash_plain(q, k, v, q_pos=None, seq_len=None, window: int = 0,
     for kv in range(1, KV):
         mass = mass + part[:, kv]
     return out, (mass / (H * torch.clamp_min(count, 1))).to(torch.float32)
+
+
+def feed_gate_plain(flags: torch.Tensor, layer: int, gen, deadline_ns,
+                    status: torch.Tensor, wait_ns: torch.Tensor) -> None:
+    """``csrc/feed_gate.cu``'s gate on the host: unless ``status`` is
+    already set, read ``flags[layer]`` (a word the restore's feed thread
+    writes) every ``GATE_POLL_S`` until it equals ``gen`` (its layer's
+    rows have arrived), ``-gen`` (the feed failed: ``status`` 1) or
+    ``deadline_ns`` nanoseconds have passed (``status`` 2); the time
+    waited is added to ``wait_ns[layer]``.  gen and deadline_ns are ints
+    or 0-d tensors; status (1,) int32 and wait_ns (L,) int64 are written
+    in place.  The sleeps release the GIL, which the feed thread
+    needs."""
+    if int(status[0]) != 0:
+        return
+    want, budget = int(gen), int(deadline_ns)
+    t0 = time.perf_counter_ns()
+    code = 0
+    while True:
+        word = int(flags[layer])
+        if word == want:
+            break
+        if word == -want:
+            code = 1
+            break
+        if time.perf_counter_ns() - t0 > budget:
+            code = 2
+            break
+        time.sleep(GATE_POLL_S)
+    wait_ns[layer] += time.perf_counter_ns() - t0
+    if code:
+        status[0] = code

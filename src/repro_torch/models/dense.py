@@ -397,13 +397,15 @@ class DenseModel(ModelBase):
 
     def _recompute_layers(self, params, miss_tokens, miss_pos, cache,
                           seq_len, window, n_sinks, want_density,
-                          io_pos=None, fetch=None):
+                          io_pos=None, fetch=None, feed_status=None):
         """The layer loop of ``recompute`` and ``recompute_pipelined``.
         With ``fetch``, layer l first writes ``fetch(l)``'s rows at
         ``io_pos`` into its K/V; restored positions (recomputed and, with
         ``fetch``, read) leave the quant mask of a mixed cache, which is
         replaced only after the last layer — a loop that stops early
-        leaves it as it was."""
+        leaves it as it was, and so does one whose ``feed_status`` (a
+        device word the feed's gates set) is not 0 at its end, chosen on
+        the device."""
         cfg = self.cfg
         x = params["embed"][miss_tokens].to(torch.bfloat16)      # (B, M, d)
         mixed = "k_q" in cache
@@ -446,6 +448,9 @@ class DenseModel(ModelBase):
         x = C.rms_norm(x, params["ln_f"], cfg.norm_eps)
         density = torch.stack(dens).mean(dim=0) if want_density else None
         if mixed:
+            if feed_status is not None:
+                qm = torch.where(feed_status.reshape(()) == 0, qm,
+                                 cache["quant_mask"])
             cache["quant_mask"] = qm
         return cache, x, density
 
@@ -458,17 +463,23 @@ class DenseModel(ModelBase):
     def recompute_pipelined(self, params, miss_tokens: torch.Tensor,
                             miss_pos: torch.Tensor, io_pos: torch.Tensor,
                             cache, seq_len, fetch, window: int = 0,
-                            n_sinks: int = 0, want_density: bool = False):
+                            n_sinks: int = 0, want_density: bool = False,
+                            feed_status=None):
         """``recompute`` of ``miss_*`` whose layer l first writes the rows
         of the chunks arriving from disk: ``fetch(l) -> {leaf: (Mio, KV,
         hd) fp32}`` (numpy arrays or tensors) at ``io_pos`` (Mio,), cast
         to the cache dtype, in place.  The reference pulls the same rows
         through an ordered ``io_callback`` inside its layer scan; here
-        the loop calls ``fetch`` directly, so the host blocks only
-        there.  -> (cache, hidden (B, M, d), density (B, S) | None)."""
+        the loop calls ``fetch`` directly: the executor's captured
+        restore (``ModelExecutor.run_pipelined``) passes one that waits
+        on the device (``kernels/feed_gate.py``) and copies the layer's
+        page-locked rows in, with the gates' ``feed_status`` (1,) int32:
+        a mixed cache's quant mask is replaced only where it is 0.
+        -> (cache, hidden (B, M, d), density (B, S) | None)."""
         return self._recompute_layers(params, miss_tokens, miss_pos, cache,
                                       seq_len, window, n_sinks, want_density,
-                                      io_pos=io_pos, fetch=fetch)
+                                      io_pos=io_pos, fetch=fetch,
+                                      feed_status=feed_status)
 
     # ------------------------------------------------------------------ #
     # Paged KV pool entries: decode/prefill over the page arenas.  Both

@@ -242,16 +242,22 @@ def test_graph_body_clean_passes(name):
 
 
 def test_executor_graph_bodies_are_checked():
-    """The executor's two bodies are the rule's targets in the tree, and
-    each passes: a body that read ``self`` or synced would be flagged."""
+    """The executor's three bodies (extend, decode, the pipelined
+    restore) are the rule's targets in the tree, and each passes: a body
+    that read ``self`` or synced would be flagged."""
     src = (REPO_ROOT / "src/repro_torch/core/executor.py").read_text()
     tree = ast.parse(src)
     helpers = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
                and getattr(n.func, "id", None) == "capturable"]
-    assert len(helpers) == 2
+    assert len(helpers) == 3
     assert [f for f in analyze_source(src) if f.checker == "jit"] == []
     bad = src.replace('last = hidden.index_select(1, inp["last"])[:, 0]',
                       'last = hidden[:, int(inp["last"])] * self.cs')
+    assert bad != src
+    assert rules(f for f in analyze_source(bad) if f.checker == "jit") == [
+        "jit/host-call-in-jit", "jit/self-in-traced-fn"]
+    bad = src.replace('ops.feed_gate(flags, layer, inp["gen"],',
+                      'ops.feed_gate(self.flags, layer, inp["gen"].item(),')
     assert bad != src
     assert rules(f for f in analyze_source(bad) if f.checker == "jit") == [
         "jit/host-call-in-jit", "jit/self-in-traced-fn"]

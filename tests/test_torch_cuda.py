@@ -1016,7 +1016,7 @@ def test_cuda_slot_policies_restore_on_the_card(card, policy):
         assert all(len(t) == 4 for t in toks) and not st["paged_pool"]
         if policy == "llms":
             assert pipes and all(n == cfg.n_layers for n, _ in pipes)
-            assert all(p["wall_s"] >= p["fetch_wait_s"] >= 0
+            assert all(p["wall_s"] >= p["feed_wait_s"] >= 0
                        for _, p in pipes)
         if policy != "lmk":
             assert st["disk_bytes_read"] > 0
@@ -1617,3 +1617,201 @@ def test_cuda_capture_is_not_broken_by_dropped_graphs(card):
     cache = exe.fresh_cache(0, 0)
     exe.extend(cache, np.arange(1, 14), 0)
     assert exe.graphs.replays == 1
+
+
+# --------------------------------------------------------------------- #
+# the Fig.-8 pipelined restore as captured graphs: csrc/feed_gate.cu
+# --------------------------------------------------------------------- #
+@pytest.mark.cuda
+def test_cuda_feed_gate_matches_plain_version(card):
+    """The gate kernel and ``feed_gate_plain`` on the same page-locked
+    words give the same status: 0 on the generation (also generation 0
+    on a zero word), 1 on its negative, 2 on an older generation past
+    the deadline (having waited at least that long), none where the
+    status is already set; and 0 for a word another thread publishes
+    while the kernel waits, the wait about as long as that thread's
+    delay."""
+    import threading
+    from repro_torch.kernels import feed_gate as kfg
+    from repro_torch.kernels.ref import feed_gate_plain
+    L = 8
+    flags = torch.zeros((L,), dtype=torch.int32, pin_memory=True)
+    publish = kfg.publisher(flags)
+
+    def gate(dev, layer, gen, deadline_ms, status0=0):
+        status = torch.full((1,), status0, dtype=torch.int32, device=dev)
+        wait = torch.zeros((L,), dtype=torch.int64, device=dev)
+        fn = kfg.feed_gate if dev.type == "cuda" else feed_gate_plain
+        fn(flags, layer, torch.tensor(gen, dtype=torch.int32, device=dev),
+           torch.tensor(int(deadline_ms * 1e6), dtype=torch.int64,
+                        device=dev), status, wait)
+        torch.cuda.synchronize()
+        return int(status[0]), int(wait[layer]) / 1e6
+
+    cpu = torch.device("cpu")
+    for layer, word, gen, deadline, status0, want in (
+            (0, 5, 5, 5000, 0, 0), (1, -5, 5, 5000, 0, 1),
+            (2, 4, 5, 20, 0, 2), (3, 0, 0, 0, 0, 0), (4, 4, 5, 5000, 1, 1)):
+        publish(layer, word)
+        (sk, wk), (sp, wp) = (gate(card, layer, gen, deadline, status0),
+                              gate(cpu, layer, gen, deadline, status0))
+        assert sk == sp == want, (layer, sk, sp)
+        if want == 2:
+            assert wk >= 20 and wp >= 20
+        if status0:
+            assert wk == wp == 0
+    publish(5, 4)
+    timer = threading.Timer(0.05, publish, (5, 5))
+    timer.start()
+    status, waited = gate(card, 5, 5, 5000)
+    timer.join()
+    assert status == 0 and 25 <= waited < 1000
+
+
+def _pipelined_setup(svc, tmp_path, quant):
+    """A prefilled reduced llama2-7b cache (64 tokens; chunk 1 int8 in
+    the mixed cache), chunks 0 and 3 in chunk files, chunk 2 to
+    recompute.  -> (holes(), paths, toks_b, miss_b, io_pos_b, pad)."""
+    from repro_torch.core.restore import write_chunk_file
+    exe, res = svc.exe, svc.res
+    toks = np.random.default_rng(3).integers(1, 512, 64).astype(np.int32)
+    full, _, _ = exe.extend(exe.fresh_cache(0), toks, 0)
+    if quant:
+        qc = res._make_payload(full, 1, 8, quant=True)
+        exe.codec.scatter_quant(
+            full, exe._t(exe.chunk_positions([1])),
+            {n: torch.from_numpy(qc.data[n][0]).cuda() for n in "kv"},
+            {n: torch.from_numpy(qc.data[n][1]).cuda() for n in "kv"})
+    paths = []
+    for i, bits in ((0, 8), (3, 16)):
+        paths.append(str(tmp_path / f"c{i}"))
+        write_chunk_file(paths[-1], res._make_payload(full, i, bits),
+                         exe.n_layers)
+    hole = exe._t(exe.chunk_positions([0, 2, 3]))
+    for n in "kv":
+        full[n][:, :, hole] = 0
+    miss_b = exe.bucket_pad(exe.chunk_positions([2]), exe.pad_slot)
+    toks_b = exe.bucket_pad(toks[exe.chunk_positions([2])], 0)
+    return ((lambda: {k: v.clone() for k, v in full.items()}), paths,
+            toks_b, miss_b, exe.chunk_positions([0, 3]), 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["window", "mixed"])
+def test_cuda_pipelined_graph_equals_eager_body(card, quant, tmp_path):
+    """A pipelined restore into a slot is one replay of the graph its
+    service captured ahead, with no host sync in it; it equals the same
+    body run eagerly on a private clone (its gates waiting on the card
+    while the host queues the rest) and the I/O-then-recompute restore,
+    bit for bit, the quant mask included; the replay credits what the
+    eager body counts: attn_density and feed_gate once a layer."""
+    from repro_torch import kernels
+    from repro_torch.core.restore import read_chunk_file
+    svc, cfg = _slot_service(quant_resident=quant, memory_budget=1 << 30)
+    with svc:
+        exe, L = svc.exe, cfg.n_layers
+        holes, paths, toks_b, miss_b, io_pos_b, pad = _pipelined_setup(
+            svc, tmp_path, quant)
+        key = ("pipelined", (len(toks_b), len(io_pos_b) // exe.cs), quant, 0)
+        assert "/".join(map(str, key)) in exe.graphs.stats()["captures"]
+        slot = exe.fresh_cache(0, 0)
+        for k, t in holes().items():
+            slot[k].copy_(t)
+        r0, e0 = exe.graphs.replays, exe.eager_calls
+        kernels.reset_launch_counts()
+        feed = exe.layer_feed(paths, pad)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, h_a = exe.run_pipelined(feed, toks_b, miss_b, io_pos_b, slot,
+                                       64)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        feed.close()
+        graphed = {k: n for k, n in kernels.launch_counts().items() if n}
+        assert exe.graphs.replays == r0 + 1 and exe.eager_calls == e0
+        assert graphed == {"attn_density": L, "feed_gate": L}
+        assert exe.last_pipelined["wall_s"] >= \
+            exe.last_pipelined["feed_wait_s"] >= 0
+
+        c = holes()
+        kernels.reset_launch_counts()
+        feed = exe.layer_feed(paths, pad)
+        _, h_c = exe.run_pipelined(feed, toks_b, miss_b, io_pos_b, c, 64)
+        feed.close()
+        assert exe.eager_calls == e0 + 1
+        assert {k: n for k, n in kernels.launch_counts().items()
+                if n} == graphed
+        b = holes()
+        for i, p in ((0, paths[0]), (3, paths[1])):
+            exe.codec.insert(b, i * exe.cs, svc.res._payload_blocks(
+                read_chunk_file(p)))
+        _, h_b, _ = exe.extend_nod(toks_b, miss_b, b, 64)
+        torch.cuda.synchronize()
+        assert torch.equal(h_a, h_c) and torch.equal(h_a, h_b)
+        for k in slot:
+            assert torch.equal(slot[k], c[k]), k
+        for n in "kv":
+            assert torch.equal(slot[n][:, :, :64], b[n][:, :, :64]), n
+        if quant:
+            assert torch.equal(slot["quant_mask"], b["quant_mask"])
+
+
+@pytest.mark.cuda
+def test_cuda_pipelined_restore_raises_and_never_hangs(card, tmp_path):
+    """On the card, a flipped byte in a layer's segment (status 1)
+    raises ``RuntimeError`` from the chunk's ``ChunkCorruptError`` and
+    leaves the quant mask as it was; a feed that never publishes (queued
+    behind a job holding its pool's one worker; status 2) raises
+    ``SwapTimeoutError`` within its deadline; the next restore runs."""
+    from concurrent.futures import ThreadPoolExecutor
+    import threading
+    import time
+    from repro_torch.core.faults import ChunkCorruptError, SwapTimeoutError
+    from repro_torch.core.restore import _read_header, _segment_size
+    svc, cfg = _slot_service(quant_resident=True, memory_budget=1 << 30,
+                             swap_deadline_s=0.5)
+    with svc:
+        exe = svc.exe
+        holes, paths, toks_b, miss_b, io_pos_b, pad = _pipelined_setup(
+            svc, tmp_path, True)
+        good = holes()
+        good["quant_mask"][..., :16] = True    # chunk 0: restored from disk
+        slot = exe.fresh_cache(0, 0)
+        for k, t in good.items():
+            slot[k].copy_(t)
+        mask = slot["quant_mask"].clone()
+        bad = str(tmp_path / "bad")
+        with open(paths[1], "rb") as f:
+            blob = bytearray(f.read())
+            f.seek(0)
+            header, base = _read_header(f)
+        blob[base + (cfg.n_layers // 2) * _segment_size(header)] ^= 0x40
+        with open(bad, "wb") as f:
+            f.write(bytes(blob))
+        feed = exe.layer_feed([paths[0], bad], pad)
+        with pytest.raises(RuntimeError, match="LayerFeed I/O failed") as e:
+            exe.run_pipelined(feed, toks_b, miss_b, io_pos_b, slot, 64)
+        assert isinstance(e.value.__cause__, ChunkCorruptError)
+        assert torch.equal(slot["quant_mask"], mask)
+
+        pool, held = ThreadPoolExecutor(max_workers=1), threading.Event()
+        pool.submit(held.wait)
+        try:
+            feed = exe.layer_feed(paths, pad, pool=pool)
+            t0 = time.perf_counter()
+            with pytest.raises(SwapTimeoutError):
+                exe.run_pipelined(feed, toks_b, miss_b, io_pos_b, slot, 64)
+            assert time.perf_counter() - t0 < 10
+            assert torch.equal(slot["quant_mask"], mask)
+            held.set()
+            for k, t in good.items():
+                slot[k].copy_(t)
+            feed = exe.layer_feed(paths, pad, pool=pool)
+            exe.run_pipelined(feed, toks_b, miss_b, io_pos_b, slot, 64)
+            feed.close()
+        finally:
+            held.set()
+            pool.shutdown(wait=True)
+        assert not slot["quant_mask"][..., :16].any()
+        assert torch.equal(slot["quant_mask"][..., 16:], mask[..., 16:])

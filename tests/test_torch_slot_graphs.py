@@ -420,14 +420,18 @@ def test_rwkv6_lengths_are_separate_entries():
 def test_slot_ahead_entries():
     """What the card captures ahead over each slot: decode (not on the
     scratch slot), extend at every bucket, extend_nod where restores
-    recompute; a family that is not ``pad_safe`` decode only."""
+    recompute, the pipelined restore at the slot's (token bucket, I/O
+    bucket) pairs where the policy pipelines; a family that is not
+    ``pad_safe`` decode only."""
     _, texe = _executors("llama2-7b", False)
     nb = len(texe.tok_buckets)
     assert texe.tok_buckets == list(BUCKETS)
-    assert len(texe._slot_ahead(0)) == 1 + 2 * nb
+    pairs = texe._pipelined_pairs(0)
+    assert len(texe._slot_ahead(0)) == 1 + 2 * nb + len(pairs)
     assert texe._slot_ahead(texe.scratch_slot) == (
         [("extend", b) for b in BUCKETS] + [("extend_nod", b)
-                                            for b in BUCKETS])
+                                            for b in BUCKETS]
+        + [("pipelined", (b, 1)) for b in BUCKETS])
     _, moe = _executors(MOE, False)
     assert ("extend_nod", 16) not in moe._slot_ahead(0)
     _, rwkv = _executors(RWKV, False)

@@ -13,8 +13,14 @@ phase's model at full width from ``chip_smoke.SEED`` and runs that
 tree's own phase functions.  Phases (default: the slot engines'):
 
 * ``slot``  — llama2-7b on the slot engine (``slot_phase``): ``llms``
-  under the card's restore profile, and ``quant_resident`` with every
-  restore split forced;
+  under the card's restore profile, ``llms`` with every restore split
+  forced (the heaviest half recomputed: the Fig.-8 pipelined restore
+  surely runs), and ``quant_resident`` forced likewise;
+* ``pipelined`` — llama2-7b's full-width restore of ``pipelined_check``
+  (chunks read and recomputed at once, window and mixed cache): its
+  wall, the wait for the feed (the host's in ``LayerFeed.fetch`` where
+  the tree loops eagerly, the gates' on the device where it replays a
+  graph), each side alone and one restore under the profiler;
 * ``mla``   — deepseek-v2-lite-16b (``family_phase``): ``llms``, ``lmk``;
 * ``rwkv``  — rwkv6-1.6b (``rwkv_phase``): ``llms``;
 * ``zoo``   — ``mixed_zoo`` (``zoo_phase``): the mixed run;
@@ -23,6 +29,8 @@ tree's own phase functions.  Phases (default: the slot engines'):
   quant-resident).
 
 Every slot-engine run records each call's wall (the phase's records),
+each pipelined restore's wall and wait for the feed, the restore splits
+and ``switch_s`` over disk restores,
 each ``ModelExecutor.decode`` and ``extend`` call's host wall (both
 trees return host arrays, so the call ends with the card's work), one
 decode token under the profiler (the 40th of the run: wall, busy and
@@ -43,7 +51,7 @@ import sys
 import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SLOT_PHASES = ("slot", "mla", "rwkv", "zoo", "moe")
+SLOT_PHASES = ("slot", "pipelined", "mla", "rwkv", "zoo", "moe")
 PROFILED_TOKEN = 40                 # the decode call profiled in a run
 
 
@@ -143,7 +151,11 @@ def measure(root: str, phases) -> dict:
         return dict(calls.take(), call_ms=walls, call_ms_median=_median(walls),
                     run_s=run.get("run_s"), launches=run.get("launches"),
                     peak_bytes=dict(peaks) or _peaks(torch),
-                    graphs=run.get("graphs"))
+                    graphs=run.get("graphs"),
+                    pipelined=run.get("pipelined"),
+                    splits=[[len(a), len(b)] for a, b in
+                            run.get("splits") or []],
+                    switch_ms=run.get("disk_switch_ms"))
 
     def weights(arch, **over):
         cfg = get_config(arch)
@@ -157,12 +169,29 @@ def measure(root: str, phases) -> dict:
         if "slot" in phases:
             model, params = weights("llama2-7b")
             for label, kw in (("ab-llms", {}),
+                              ("ab-llms-forced", dict(split="forced")),
                               ("ab-quant", dict(quant_resident=True,
                                                 split="forced"))):
                 start()
                 run = smoke.slot_phase(model, params, smoke.SEED, tmp, label,
                                        **kw)
                 out[f"slot_{label}"] = slot_record(run)
+            del model, params
+        if "pipelined" in phases:
+            model, params = weights("llama2-7b")
+            for label, quant in (("bf16", False), ("mixed", True)):
+                start()
+                run = smoke.pipelined_check(model, params, tmp,
+                                            quant_resident=quant)
+                wait = run.get("feed_wait_s", run.get("fetch_wait_s"))
+                out[f"pipelined_{label}"] = {
+                    "pipelined": [{"wall_s": run["wall_s"],
+                                   "wait_s": wait}],
+                    "restore_s": run.get("restore_s"),
+                    **{k: run.get(k) for k in (
+                        "feed_alone_s", "inserts_s", "recompute_alone_s",
+                        "sync_warnings", "profile", "graph")},
+                    "peak_bytes": dict(peaks) or _peaks(torch)}
             del model, params
         if "mla" in phases or "zoo" in phases:
             mla_w = weights(smoke.MLA["arch"])
@@ -275,7 +304,16 @@ def summarize(runs) -> dict:
         for k in keys:
             tok = [r[k].get("token") or r[k].get("round_profile") or {}
                    for r in mine]
+            pipes = [p for r in mine for p in r[k].get("pipelined") or []]
             out[name][k] = {
+                "pipelined_wall_ms_median": _median(
+                    [p["wall_s"] * 1e3 for p in pipes]),
+                "pipelined_wait_ms_median": _median(
+                    [p.get("feed_wait_s", p.get("fetch_wait_s",
+                                                p.get("wait_s"))) * 1e3
+                     for p in pipes]),
+                "pipelined_restores": [len(r[k].get("pipelined") or [])
+                                       for r in mine],
                 "call_ms_median": _median([x for r in mine
                                            for x in r[k].get("call_ms", [])]),
                 "decode_ms_median": _median([x for r in mine for x in
